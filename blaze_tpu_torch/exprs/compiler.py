@@ -1,0 +1,244 @@
+"""Expression compiler: IR -> torch column functions.
+
+Port of blaze_tpu/exprs/compiler.py for the expressions the main path
+needs: columns, literals, casts, arithmetic and comparisons, Kleene
+AND/OR, NOT, IS [NOT] NULL and negation. A compiled expression is
+`fn(batch: ColumnBatch) -> Column`, evaluated eagerly on the batch's
+device; null semantics are Spark's (strict nulls for most ops, Kleene
+AND/OR). Every other expression kind raises NotImplementedError naming it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, Optional
+
+import torch
+
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
+from blaze_tpu_torch.columnar.types import BOOLEAN, DataType, FLOAT64
+from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs.cast import cast_column
+
+CompiledExpr = Callable[[ColumnBatch], Column]
+
+# ---------------------------------------------------------------------------
+# common-subexpression elimination (ref cached_exprs_evaluator.rs:38-60):
+# within one cse_scope — one batch flowing through one operator — each
+# distinct expression key evaluates once.
+# ---------------------------------------------------------------------------
+
+_cse_tls = threading.local()
+
+
+@contextlib.contextmanager
+def cse_scope():
+    prev = getattr(_cse_tls, "memo", None)
+    _cse_tls.memo = {}
+    try:
+        yield
+    finally:
+        _cse_tls.memo = prev
+
+
+def compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
+    """Bind + lower an expression against an input schema (with CSE when
+    evaluated inside a cse_scope)."""
+    inner = _compile_expr(expr, schema)
+    key = ("cse", expr.key())
+
+    def run(b: ColumnBatch) -> Column:
+        memo = getattr(_cse_tls, "memo", None)
+        if memo is None:
+            return inner(b)
+        # the entry RETAINS the batch: keying by id() alone would let a
+        # freed batch's address be recycled within the scope
+        bkey = (id(b),) + key
+        hit = memo.get(bkey)
+        if hit is None:
+            hit = (b, inner(b))
+            memo[bkey] = hit
+        return hit[1]
+
+    return run
+
+
+def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
+    if isinstance(expr, ir.Col):
+        idx = schema.index_of(expr.name)
+        return lambda b: b.columns[idx]
+    if isinstance(expr, ir.BoundRef):
+        idx = expr.index
+        return lambda b: b.columns[idx]
+    if isinstance(expr, ir.Literal):
+        return _compile_literal(expr)
+    if isinstance(expr, ir.Binary):
+        return _compile_binary(expr, schema)
+    if isinstance(expr, ir.Not):
+        c = compile_expr(expr.child, schema)
+        return lambda b: _map_col(c(b), BOOLEAN, lambda d: ~d)
+    if isinstance(expr, ir.Negate):
+        c = compile_expr(expr.child, schema)
+
+        def run_neg(b):
+            col = c(b)
+            return Column(col.dtype, -col.data, col.validity)
+
+        return run_neg
+    if isinstance(expr, ir.IsNull):
+        c = compile_expr(expr.child, schema)
+        return lambda b: Column(BOOLEAN, ~c(b).valid_mask(), None)
+    if isinstance(expr, ir.IsNotNull):
+        c = compile_expr(expr.child, schema)
+        return lambda b: Column(BOOLEAN, c(b).valid_mask(), None)
+    if isinstance(expr, ir.Cast):
+        c = compile_expr(expr.child, schema)
+        dt = expr.dtype
+        return lambda b: cast_column(c(b), dt)
+    raise NotImplementedError(
+        f"expression {type(expr).__name__} (exprs/compiler.py) not yet ported")
+
+
+def _compile_literal(expr: ir.Literal) -> CompiledExpr:
+    dt, v = expr.dtype, expr.value
+    if dt.is_string_like or dt.is_nested or dt.is_decimal:
+        raise NotImplementedError(f"{dt} literals not yet ported")
+    tdt = dt.torch_dtype()
+
+    def run(b: ColumnBatch) -> Column:
+        cap, dev = b.capacity, b.device
+        if v is None:
+            return Column(dt, torch.zeros((cap,), dtype=tdt, device=dev),
+                          torch.zeros((cap,), dtype=torch.bool, device=dev))
+        return Column(dt, torch.full((cap,), v, dtype=tdt, device=dev), None)
+
+    return run
+
+
+def _map_col(col: Column, dtype: DataType, fn) -> Column:
+    return Column(dtype, fn(col.data), col.validity)
+
+
+_CMP = {ir.BinOp.EQ, ir.BinOp.NEQ, ir.BinOp.LT, ir.BinOp.LE, ir.BinOp.GT,
+        ir.BinOp.GE, ir.BinOp.EQ_NULLSAFE}
+
+
+def _compile_binary(expr: ir.Binary, schema) -> CompiledExpr:
+    lf = compile_expr(expr.left, schema)
+    rf = compile_expr(expr.right, schema)
+    op = expr.op
+
+    if op in (ir.BinOp.AND, ir.BinOp.OR):
+        return _compile_kleene(lf, rf, op)
+    if op in _CMP:
+        return lambda b: _compare(lf(b), rf(b), op)
+
+    rt = expr.result_type
+
+    def run(b: ColumnBatch) -> Column:
+        return _arith(lf(b), rf(b), op, rt)
+
+    return run
+
+
+def _compare(lc: Column, rc: Column, op: ir.BinOp) -> Column:
+    ld, rd = _promote(lc, rc)
+    if op == ir.BinOp.EQ:
+        res = ld == rd
+    elif op == ir.BinOp.NEQ:
+        res = ld != rd
+    elif op == ir.BinOp.LT:
+        res = ld < rd
+    elif op == ir.BinOp.LE:
+        res = ld <= rd
+    elif op == ir.BinOp.GT:
+        res = ld > rd
+    elif op == ir.BinOp.GE:
+        res = ld >= rd
+    else:  # EQ_NULLSAFE
+        lv, rv = lc.valid_mask(), rc.valid_mask()
+        return Column(BOOLEAN, (~lv & ~rv) | (lv & rv & (ld == rd)), None)
+    return Column(BOOLEAN, res, _strict(lc, rc))
+
+
+def _strict(*cols: Column):
+    v = None
+    for c in cols:
+        v = c.validity if v is None else (
+            v if c.validity is None else (v & c.validity))
+    return v
+
+
+def _and_valid(a, b):
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a & b
+
+
+def _promote(lc: Column, rc: Column):
+    ld, rd = lc.data, rc.data
+    if ld.dtype != rd.dtype:
+        target = torch.promote_types(ld.dtype, rd.dtype)
+        ld, rd = ld.to(target), rd.to(target)
+    return ld, rd
+
+
+def _compile_kleene(lf, rf, op) -> CompiledExpr:
+    def run(b: ColumnBatch) -> Column:
+        lc, rc = lf(b), rf(b)
+        lv, rv = lc.valid_mask(), rc.valid_mask()
+        lt = lc.data.to(torch.bool)
+        rt_ = rc.data.to(torch.bool)
+        if lc.validity is not None:
+            lt = lt & lv
+        if rc.validity is not None:
+            rt_ = rt_ & rv
+        if op == ir.BinOp.AND:
+            val = lt & rt_
+            # false & anything = false (valid); else null if either null
+            valid = (lv & rv) | (lv & ~lt) | (rv & ~rt_)
+        else:
+            val = lt | rt_
+            valid = (lv & rv) | (lv & lt) | (rv & rt_)
+        if lc.validity is None and rc.validity is None:
+            return Column(BOOLEAN, val, None)
+        return Column(BOOLEAN, val & valid, valid)
+
+    return run
+
+
+def _arith(lc: Column, rc: Column, op: ir.BinOp,
+           result_type: Optional[DataType]) -> Column:
+    if lc.dtype.is_decimal or rc.dtype.is_decimal:
+        raise NotImplementedError(
+            "decimal arithmetic (exprs/compiler.py _decimal_arith) not yet "
+            "ported")
+    validity = _strict(lc, rc)
+    ld, rd = _promote(lc, rc)
+    out_dt = result_type or (lc.dtype if lc.dtype.is_numeric else rc.dtype)
+    if op == ir.BinOp.ADD:
+        return Column(out_dt, ld + rd, validity)
+    if op == ir.BinOp.SUB:
+        return Column(out_dt, ld - rd, validity)
+    if op == ir.BinOp.MUL:
+        return Column(out_dt, ld * rd, validity)
+    if op == ir.BinOp.DIV:
+        if lc.dtype.is_integral and rc.dtype.is_integral:
+            ld = ld.to(torch.float64)
+            rd = rd.to(torch.float64)
+            out_dt = result_type or FLOAT64
+        zero = rd == 0
+        res = ld / torch.where(zero, torch.ones_like(rd), rd)
+        return Column(out_dt, torch.where(zero, torch.zeros_like(res), res),
+                      _and_valid(validity, ~zero))
+    if op == ir.BinOp.MOD:
+        zero = rd == 0
+        safe = torch.where(zero, torch.ones_like(rd), rd)
+        # spark/java remainder: sign follows dividend
+        res = torch.fmod(ld, safe)
+        return Column(out_dt, torch.where(zero, torch.zeros_like(res), res),
+                      _and_valid(validity, ~zero))
+    raise NotImplementedError(f"arith op {op} not yet ported")

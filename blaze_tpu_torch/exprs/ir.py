@@ -1,0 +1,395 @@
+"""Physical expression IR — the in-memory form of the plan contract's
+expression nodes.
+
+Ref: the ~25 expression node kinds of the plan protobuf (blaze.proto:60-115)
+and their construction in NativeConverters.scala:392-996. The IR is decoupled
+from the wire format (plan/serde.py maps proto <-> IR) so the compiler and
+tests can build expressions directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, List, Optional, Sequence, Tuple
+
+from blaze_tpu_torch.columnar.types import DataType
+
+
+class BinOp(enum.Enum):
+    ADD = "+"
+    SUB = "-"
+    MUL = "*"
+    DIV = "/"
+    MOD = "%"
+    EQ = "="
+    NEQ = "!="
+    LT = "<"
+    LE = "<="
+    GT = ">"
+    GE = ">="
+    AND = "and"          # Kleene 3VL
+    OR = "or"            # Kleene 3VL
+    EQ_NULLSAFE = "<=>"
+    BIT_AND = "&"
+    BIT_OR = "|"
+    BIT_XOR = "^"
+    SHIFT_LEFT = "<<"
+    SHIFT_RIGHT = ">>"
+
+
+COMPARISON_OPS = {BinOp.EQ, BinOp.NEQ, BinOp.LT, BinOp.LE, BinOp.GT, BinOp.GE,
+                  BinOp.EQ_NULLSAFE}
+
+
+class Expr:
+    """Base class; subclasses are frozen dataclasses."""
+
+    def children(self) -> Sequence["Expr"]:
+        return ()
+
+    # structural key for jit-cache hashing
+    def key(self) -> tuple:
+        return (type(self).__name__,) + tuple(c.key() for c in self.children())
+
+
+@dataclasses.dataclass(frozen=True)
+class Literal(Expr):
+    dtype: DataType
+    value: Any  # None = typed null; strings as bytes/str; decimal as unscaled int
+
+    def key(self):
+        return ("lit", repr(self.dtype), repr(self.value))
+
+
+@dataclasses.dataclass(frozen=True)
+class Col(Expr):
+    """Column reference by name (bound to an index against a schema at
+    compile time — the reference binds by name too, from_proto.rs Column)."""
+    name: str
+
+    def key(self):
+        return ("col", self.name)
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundRef(Expr):
+    index: int
+    dtype: Optional[DataType] = None
+
+    def key(self):
+        return ("bound", self.index)
+
+
+@dataclasses.dataclass(frozen=True)
+class Binary(Expr):
+    op: BinOp
+    left: Expr
+    right: Expr
+    # Optional plan-provided result type (Spark computes decimal result
+    # precision/scale at planning time; NativeConverters.scala:599-676).
+    result_type: Optional[DataType] = None
+
+    def children(self):
+        return (self.left, self.right)
+
+    def key(self):
+        return ("bin", self.op.value, self.left.key(), self.right.key(),
+                repr(self.result_type))
+
+
+@dataclasses.dataclass(frozen=True)
+class Not(Expr):
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class IsNull(Expr):
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class IsNotNull(Expr):
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Negate(Expr):
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cast(Expr):
+    """Spark TryCast semantics (invalid -> null), ref datafusion-ext-exprs
+    cast.rs + ext-commons cast.rs (float->int saturation etc.)."""
+    child: Expr
+    dtype: DataType
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("cast", repr(self.dtype), self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class If(Expr):
+    cond: Expr
+    then: Expr
+    otherwise: Expr
+
+    def children(self):
+        return (self.cond, self.then, self.otherwise)
+
+
+@dataclasses.dataclass(frozen=True)
+class CaseWhen(Expr):
+    branches: Tuple[Tuple[Expr, Expr], ...]  # (condition, value)
+    otherwise: Optional[Expr] = None
+
+    def children(self):
+        cs: List[Expr] = []
+        for c, v in self.branches:
+            cs += [c, v]
+        if self.otherwise is not None:
+            cs.append(self.otherwise)
+        return tuple(cs)
+
+
+@dataclasses.dataclass(frozen=True)
+class InList(Expr):
+    child: Expr
+    values: Tuple[Expr, ...]  # literals
+    negated: bool = False
+
+    def children(self):
+        return (self.child,) + self.values
+
+    def key(self):
+        return ("inlist", self.negated, self.child.key(),
+                tuple(v.key() for v in self.values))
+
+
+@dataclasses.dataclass(frozen=True)
+class StringPredicate(Expr):
+    """StartsWith / EndsWith / Contains — dedicated fast-path nodes like the
+    reference's StringStartsWithExpr etc. (datafusion-ext-exprs lib.rs:19-27).
+    """
+    op: str  # "starts_with" | "ends_with" | "contains"
+    child: Expr
+    pattern: bytes
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("strpred", self.op, self.pattern, self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class Like(Expr):
+    """SQL LIKE with % and _ wildcards (general fallback for patterns that
+    are not pure prefix/suffix/infix)."""
+    child: Expr
+    pattern: bytes
+    escape: bytes = b"\\"
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("like", self.pattern, self.escape, self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalarFn(Expr):
+    """Named scalar function from the registry (ref: 64 proto ScalarFunction
+    values + SparkExtFunctions escape hatch, blaze.proto:186-252)."""
+    name: str
+    args: Tuple[Expr, ...]
+    result_type: Optional[DataType] = None
+
+    def children(self):
+        return self.args
+
+    def key(self):
+        return ("fn", self.name, repr(self.result_type),
+                tuple(a.key() for a in self.args))
+
+
+@dataclasses.dataclass(frozen=True)
+class GetStructField(Expr):
+    child: Expr
+    index: int
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("getfield", self.index, self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class GetIndexedField(Expr):
+    """arr[i] over a list column — 0-based, null when out of bounds (spark
+    GetArrayItem; ref datafusion-ext-exprs get_indexed_field.rs)."""
+
+    child: Expr
+    index: "Literal"
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("getidx", self.index.key(), self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class GetMapValue(Expr):
+    """map[key] with a literal key — null when absent (ref
+    get_map_value.rs)."""
+
+    child: Expr
+    map_key: "Literal"
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("getmap", self.map_key.key(), self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedStruct(Expr):
+    """struct(name1, v1, ...) constructor (ref named_struct.rs)."""
+
+    names: Tuple[str, ...]
+    values: Tuple[Expr, ...]
+    result_type: DataType
+
+    def children(self):
+        return self.values
+
+    def key(self):
+        return ("namedstruct", self.names, repr(self.result_type),
+                tuple(v.key() for v in self.values))
+
+
+@dataclasses.dataclass(frozen=True)
+class MakeDecimal(Expr):
+    """long unscaled -> decimal (ref proto MakeDecimal / UnscaledValue pair)."""
+    child: Expr
+    precision: int
+    scale: int
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("make_decimal", self.precision, self.scale, self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class UnscaledValue(Expr):
+    child: Expr
+
+    def children(self):
+        return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckOverflow(Expr):
+    child: Expr
+    precision: int
+    scale: int
+
+    def children(self):
+        return (self.child,)
+
+    def key(self):
+        return ("check_overflow", self.precision, self.scale, self.child.key())
+
+
+@dataclasses.dataclass(frozen=True)
+class UdfWrapper(Expr):
+    """Serialized engine-external expression evaluated through a registered
+    callback (ref SparkUDFWrapperExpr, datafusion-ext-exprs
+    spark_udf_wrapper.rs: params computed natively, row batch shipped to the
+    JVM over FFI, result array shipped back)."""
+    resource_id: str
+    return_type: DataType
+    nullable: bool
+    params: Tuple[Expr, ...]
+
+    def children(self):
+        return self.params
+
+    def key(self):
+        return ("udf", self.resource_id, repr(self.return_type),
+                tuple(p.key() for p in self.params))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalarSubquery(Expr):
+    """Lazily-evaluated scalar subquery result fetched from a registered
+    provider (ref SparkScalarSubqueryWrapperExpr)."""
+    resource_id: str
+    return_type: DataType
+    nullable: bool = True
+
+    def key(self):
+        return ("scalar_subquery", self.resource_id, repr(self.return_type))
+
+
+# scalar functions evaluated on the host (blaze_tpu/exprs/functions.py
+# HOST_EVAL_FNS; the port keeps its own copy of the list)
+HOST_EVAL_FNS = frozenset({
+    "md5", "sha224", "sha256", "sha384", "sha512", "crc32",
+    "get_json_object", "get_parsed_json_object", "parse_json",
+})
+
+
+def contains_host_fn(expr: Expr) -> bool:
+    """True if evaluating the expression crosses to the host (digests, JSON,
+    UDF wrapper)."""
+    if isinstance(expr, UdfWrapper):
+        return True
+    if isinstance(expr, ScalarFn):
+        if expr.name.lower() in HOST_EVAL_FNS:
+            return True
+    return any(contains_host_fn(c) for c in expr.children())
+
+
+# -- convenience constructors --
+
+def lit(value: Any, dtype: Optional[DataType] = None) -> Literal:
+    from blaze_tpu_torch.columnar import types as T
+
+    if dtype is None:
+        if isinstance(value, bool):
+            dtype = T.BOOLEAN
+        elif isinstance(value, int):
+            dtype = T.INT64 if not (-(2**31) <= value < 2**31) else T.INT32
+        elif isinstance(value, float):
+            dtype = T.FLOAT64
+        elif isinstance(value, (str, bytes)):
+            dtype = T.STRING
+        else:
+            raise TypeError(f"cannot infer literal type for {value!r}")
+    return Literal(dtype, value)
+
+
+def col(name: str) -> Col:
+    return Col(name)

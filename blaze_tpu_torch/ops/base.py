@@ -1,0 +1,107 @@
+"""Operator protocol + execution context.
+
+Port of blaze_tpu/ops/base.py without the trace, history, progress and
+fault-injection hooks. Operators yield batches; consecutive map-like
+operators (filter/project/rename) expose a `batch_fn` that the executor
+composes into one per-batch function (runtime/executor.execute_fused),
+run eagerly on the batch's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, List, Optional
+
+import torch
+
+from blaze_tpu_torch.columnar.batch import ColumnBatch
+from blaze_tpu_torch.columnar.types import Schema
+from blaze_tpu_torch.runtime.metrics import MetricsSet
+
+BatchStream = Iterator[ColumnBatch]
+
+
+@dataclasses.dataclass
+class ExecContext:
+    """Per-task context (ref: TaskContext + SessionContext in exec.rs)."""
+
+    partition: int = 0
+    num_partitions: int = 1
+    batch_size: Optional[int] = None
+    # task-kill cooperation: check_running() at batch boundaries
+    is_running: Callable[[], bool] = lambda: True
+
+    def check_running(self) -> None:
+        if not self.is_running():
+            raise TaskKilledError("task killed")
+
+
+class TaskKilledError(RuntimeError):
+    pass
+
+
+class Operator:
+    """Base physical operator."""
+
+    def __init__(self, children: List["Operator"]) -> None:
+        self.children = children
+        self.metrics = MetricsSet()
+
+    @property
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        raise NotImplementedError
+
+    # plan-structure key (must be stable across tasks)
+    def plan_key(self) -> tuple:
+        return (type(self).__name__,) + tuple(c.plan_key()
+                                              for c in self.children)
+
+
+class MapLikeOp(Operator):
+    """Operator expressible as a pure per-batch transform — fusable.
+
+    Subclasses implement `make_batch_fn()` returning
+    `fn(ColumnBatch) -> ColumnBatch`; the executor fuses chains of these.
+    """
+
+    def __init__(self, child: Operator) -> None:
+        super().__init__([child])
+
+    @property
+    def child(self) -> Operator:
+        return self.children[0]
+
+    def make_batch_fn(self) -> Callable[[ColumnBatch], ColumnBatch]:
+        raise NotImplementedError
+
+    def jit_safe(self) -> bool:
+        """False when the batch fn crosses to the host (digests/JSON/UDF);
+        such chains cannot ride the whole-stage path."""
+        return True
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        from blaze_tpu_torch.runtime.executor import execute_fused
+
+        return execute_fused(self, ctx)
+
+
+def count_stream(op: Operator, stream: BatchStream) -> BatchStream:
+    """Wrap a stream updating the operator's baseline metrics. The row
+    count stays a device tensor until someone reads the metric, so the
+    stream never waits on the card."""
+    rows = []
+    try:
+        for batch in stream:
+            op.metrics.add("output_batches", 1)
+            rows.append(batch.num_rows)
+            yield batch
+    finally:
+        if rows:
+            op.metrics.add("output_rows",
+                           int(torch.stack(rows).sum()))  # one pull
+        close = getattr(stream, "close", None)
+        if close is not None:
+            close()

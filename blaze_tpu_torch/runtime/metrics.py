@@ -1,0 +1,77 @@
+"""Per-operator metrics tree.
+
+Port of blaze_tpu/runtime/metrics.py (MetricsSet, MetricNode): every
+operator owns a `MetricsSet`; `MetricNode` mirrors the plan tree and
+carries an optional value handler so an embedding layer can remap values
+into Spark's metric system.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+
+class MetricsSet:
+    def __init__(self) -> None:
+        self.values: Dict[str, int] = {
+            "output_rows": 0,
+            "output_batches": 0,
+            "elapsed_compute_ns": 0,
+        }
+        self._lock = threading.Lock()
+
+    def add(self, name: str, delta: int) -> None:
+        with self._lock:
+            self.values[name] = self.values.get(name, 0) + int(delta)
+
+    def timer(self, name: str = "elapsed_compute_ns"):
+        return _Timer(self, name)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.values)
+
+    def __getitem__(self, name: str) -> int:
+        with self._lock:
+            return self.values.get(name, 0)
+
+
+class _Timer:
+    """Host wall time around a block. Kernels launch asynchronously, so
+    on the card this measures enqueue time unless the block synchronises."""
+
+    def __init__(self, ms: MetricsSet, name: str) -> None:
+        self.ms, self.name = ms, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.ms.add(self.name, time.perf_counter_ns() - self.t0)
+        return False
+
+
+class MetricNode:
+    """Mirror of the plan tree for metric export (ref MetricNode.scala)."""
+
+    def __init__(self, metrics: MetricsSet, children: List["MetricNode"],
+                 handler: Optional[Callable[[str, int], None]] = None) -> None:
+        self.metrics = metrics
+        self.children = children
+        self.handler = handler
+
+    def push(self) -> None:
+        """Walk the tree pushing values through handlers (task finalize)."""
+        if self.handler is not None:
+            for k, v in self.metrics.snapshot().items():
+                self.handler(k, v)
+        for c in self.children:
+            c.push()
+
+    @staticmethod
+    def from_operator(op) -> "MetricNode":
+        return MetricNode(op.metrics,
+                          [MetricNode.from_operator(c) for c in op.children])

@@ -1,0 +1,442 @@
+"""Whole-stage execution of the dense grouped-aggregation pattern.
+
+Port of the agg pattern of blaze_tpu/runtime/stage_compiler.py. A stage
+`source -> (filter|project|rename)* -> Agg PARTIAL [-> Agg FINAL]` whose
+grouping keys are integral with a bounded packed range and whose
+aggregates are sum/count/avg runs as:
+
+  1. a probe pass over the stage's batches: per-key min/max over live rows,
+     a null-key check and each float aggregate's abs-max (skipped when the
+     per-plan memo `_R_MEMO` already holds the dense range and scales);
+  2. one eager pass over the batches: filters fold into a row mask, keys
+     pack into one int32 dense index, aggregate inputs digitize into
+     base-256 digit planes at the probed fixed scales, and the planes
+     accumulate per group (ops/mxu_agg.accumulate_raw — the CUDA kernel on
+     the card) into an exact int64 carry;
+  3. one recombination per stage (mxu_agg.finalize) and output assembly,
+     finalized values for a FINAL root or the partial's typed state
+     columns (`state_fields` layout) for a partial-only stage.
+
+Each pass pulls one small tensor to the host: the probe's ranges, then the
+(oob, num_rows) flags. The oob flag trips when data left the memoized
+range, a key went null or a float overflowed its fixed scale; the stage
+then re-probes once. Stages this path cannot run — min/max/first
+aggregates, null keys, a key range beyond `conf.dense_agg_range`, batches
+of different shapes — would go to the general sort-based aggregation,
+which is not ported yet: they raise NotImplementedError, never a wrong or
+partial answer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from blaze_tpu_torch.columnar import types as T
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.types import TypeKind
+from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.ops import mxu_agg
+from blaze_tpu_torch.ops.agg import (
+    STREAMING_AGG_MISSING, AggExec, AggMode, result_field, state_fields,
+)
+from blaze_tpu_torch.ops.base import ExecContext, MapLikeOp, Operator
+
+_GROUP_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
+                TypeKind.INT64, TypeKind.DATE)
+# plane fns ride digit planes; the dense min/max/first carriers of the JAX
+# package (its _MM_FNS/_FIRST_FNS) are not ported yet, so _match declines
+_PLANE_FNS = ("sum", "count", "avg")
+
+# (plan, batch shape) -> (spans, kmins, scales) of the last probe
+_R_MEMO: dict = {}
+_BIG = 2 ** 62
+
+
+def _walk_chain(node: Operator):
+    """Longest row-aligned map chain below `node` (filters fold as masks).
+    Returns (chain top-down, source below it); chain may be empty."""
+    from blaze_tpu_torch.ops.basic import (
+        FilterExec, ProjectExec, RenameColumnsExec,
+    )
+
+    chain: List[MapLikeOp] = []
+    n = node
+    while isinstance(n, MapLikeOp):
+        if not n.jit_safe() or not isinstance(
+                n, (FilterExec, ProjectExec, RenameColumnsExec)):
+            return None
+        chain.append(n)
+        n = n.child
+    return list(reversed(chain)), n
+
+
+def _build_steps(chain: List[MapLikeOp]):
+    """("mask", predicate fns) | ("map", batch fn) per chain op."""
+    from blaze_tpu_torch.ops.basic import FilterExec
+
+    steps = []
+    for op in chain:
+        if isinstance(op, FilterExec):
+            steps.append(("mask", list(op._fns)))
+        else:
+            steps.append(("map", op.make_batch_fn()))
+    return steps
+
+
+def _apply_steps(steps, b: ColumnBatch):
+    """-> (batch, mask): run the chain with filters folded as a row mask
+    over the (uncompacted) rows; one CSE scope per step."""
+    from blaze_tpu_torch.exprs.compiler import cse_scope
+
+    mask = b.row_mask()
+    for kind, fn in steps:
+        with cse_scope():
+            if kind == "map":
+                b = fn(b)
+            else:
+                for pf in fn:
+                    c = pf(b)
+                    mask = mask & c.data.to(torch.bool) & c.valid_mask()
+    return b, mask
+
+
+def _match(root: Operator):
+    """(final, partial, chain(list, top-down), source) or None."""
+    final = None
+    node = root
+    if isinstance(node, AggExec) and node.mode == AggMode.FINAL:
+        final = node
+        node = node.children[0]
+    if not (isinstance(node, AggExec) and node.mode == AggMode.PARTIAL):
+        return None
+    partial = node
+    # final=None is the shuffle-map-side shape: the stage emits the
+    # partial's typed STATE columns instead of finalized values
+    if final is not None and (
+            len(final.group_exprs) != len(partial.group_exprs)
+            or [c.fn for c in final.aggs] != [c.fn for c in partial.aggs]):
+        return None
+    if not (1 <= len(partial.group_exprs) <= 4):
+        return None  # composite keys pack into one dense range (below)
+    for call in partial.aggs:
+        if call.fn not in _PLANE_FNS or len(call.inputs) != 1:
+            return None
+        if call.dtype.wide_decimal:
+            return None
+    if not partial._work_jit:
+        return None
+    m = _walk_chain(partial.children[0])
+    if m is None:
+        return None
+    chain, n = m
+    return final, partial, chain, n
+
+
+def _fallback(reason: str):
+    raise NotImplementedError(
+        f"{STREAMING_AGG_MISSING} (needed because the whole-stage path "
+        f"declined: {reason})")
+
+
+def _meta_like(b: ColumnBatch) -> ColumnBatch:
+    """Shape-and-dtype twin of `b` on the meta device (no data)."""
+    def t(x):
+        return None if x is None else torch.empty_like(x, device="meta")
+
+    cols = [Column(c.dtype, t(c.data), t(c.validity)) for c in b.columns]
+    return ColumnBatch(b.schema, cols, t(b.num_rows), b.capacity)
+
+
+def try_run_stage(root: Operator, ctx: ExecContext) -> Optional[ColumnBatch]:
+    """Run the stage through the dense path, or None when the plan is not
+    this pattern (the caller then streams it)."""
+    if not conf.enable_stage_compiler:
+        return None
+    m = _match(root)
+    if m is None:
+        return None
+    final, partial, chain, source = m
+    gdtypes = [f.dtype for f in partial._group_fields]
+    if any(dt.kind not in _GROUP_KINDS for dt in gdtypes):
+        return None
+
+    batches = list(source.execute(ctx))
+    ctx.check_running()
+    if not batches:
+        return None
+    shape0 = batches[0].shape_key()
+    if any(b.shape_key() != shape0 for b in batches[1:]):
+        _fallback("batches of different shapes")
+
+    steps = _build_steps(chain)
+    input_fns = [fns[0] for fns in partial._input_fns]
+    # validity presence and value dtypes of each aggregate input decide the
+    # plane layout; read them off a data-free twin of the first batch
+    mb, _ = _apply_steps(steps, _meta_like(batches[0]))
+    sum_is_float, has_validity = [], []
+    for i, call in enumerate(partial.aggs):
+        col = input_fns[i](mb)
+        has_validity.append(col.validity is not None)
+        sum_is_float.append(call.fn in ("sum", "avg")
+                            and col.data.dtype.is_floating_point)
+    float_calls = [i for i, f in enumerate(sum_is_float) if f]
+
+    memo_key = (root.plan_key(), shape0)
+    out = None
+    nrows = 0
+    for _attempt in (0, 1):
+        memo = _R_MEMO.get(memo_key)
+        if memo is None:
+            memo = _probe(batches, steps, partial, input_fns, float_calls)
+            if memo is None:
+                _fallback("null grouping keys or a key range beyond "
+                          f"dense_agg_range={int(conf.dense_agg_range)}")
+            _R_MEMO[memo_key] = memo
+        out, flags = _run_dense(batches, steps, final, partial, input_fns,
+                                gdtypes, sum_is_float, has_validity, *memo)
+        flags = flags.cpu()  # the stage's one result-side host pull
+        nrows = int(flags[1])
+        if not bool(flags[0]):
+            break
+        # data drifted past the memoized range: re-probe once
+        _R_MEMO.pop(memo_key, None)
+        out = None
+    if out is None:
+        _fallback("keys or float magnitudes drifted past the probed range")
+    for op in filter(None, (final, partial, *chain)):
+        op.metrics.add("output_batches", 1)
+    root.metrics.add("output_rows", nrows)
+    root.metrics.add("stage_compiled", 1)
+    return out
+
+
+def _probe(batches, steps, partial, input_fns, float_calls):
+    """Pass 1: per-key min/max + null check + per-float-agg abs-max. Picks
+    the smallest power-of-two dense span per key that covers the observed
+    keys (composite keys pack into one index k = sum_i (k_i - min_i) *
+    stride_i) and a FIXED float scale per float aggregate, so the
+    accumulation's carry stays integer. None when keys are null or the
+    packed range exceeds conf.dense_agg_range."""
+    dev = batches[0].device
+    nkeys = len(partial.group_exprs)
+    big = torch.tensor(_BIG, dtype=torch.int64, device=dev)
+    kmins, kmaxs = [big] * nkeys, [-big] * nkeys
+    vmaxs = [torch.zeros((), dtype=torch.float64, device=dev)] * len(
+        float_calls)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    for b in batches:
+        b, mask = _apply_steps(steps, b)
+        for i, gfn in enumerate(partial._group_fns):
+            g = gfn(b)
+            gv = g.valid_mask()
+            bad = bad | (mask & ~gv).any()
+            k = g.data.to(torch.int64)
+            ok = mask & gv
+            kmins[i] = torch.minimum(kmins[i], torch.where(ok, k, big).min())
+            kmaxs[i] = torch.maximum(kmaxs[i], torch.where(ok, k, -big).max())
+        for j, ci in enumerate(float_calls):
+            vcol = input_fns[ci](b)
+            v = vcol.data.to(torch.float64)
+            ok = mask & vcol.valid_mask() & torch.isfinite(v)
+            av = torch.where(ok, v.abs(), torch.zeros_like(v)).max()
+            vmaxs[j] = torch.maximum(vmaxs[j], av)
+    # one host pull: int64 ranges, f64 maxima reinterpreted as int64 bits
+    parts = [torch.stack(kmins), torch.stack(kmaxs), bad.to(torch.int64)[None]]
+    if vmaxs:
+        parts.append(torch.stack(vmaxs).view(torch.int64))
+    host = torch.cat(parts).cpu().numpy()
+    kmins_v, kmaxs_v = host[:nkeys], host[nkeys:2 * nkeys]
+    if host[2 * nkeys]:
+        return None  # null grouping keys: dense slots can't hold them
+    vmaxs_v = host[2 * nkeys + 1:].view(np.float64)
+
+    # fixed float scales: 2 spare bits of headroom under the digit
+    # capacity (8*planes-2) over the probed max, so values drifting up to
+    # 4x on later data still digitize; beyond that the oob flag re-probes
+    cap_bits = 8.0 * mxu_agg.f64_chunks() - 4.0
+    scales = []
+    for j, ci in enumerate(float_calls):
+        vmax = float(vmaxs_v[j])
+        exp = (math.floor(math.log2(vmax)) + 1.0 if vmax > 0.0 else -996.0)
+        scales.append((ci, min(cap_bits - exp, 1000.0)))
+    spans, kmins = [], []
+    for lo, hi in zip(kmins_v, kmaxs_v):
+        lo, hi = (0, 0) if lo == _BIG else (int(lo), int(hi))
+        # power-of-two headroom per key, so one new key value later does
+        # not invalidate the memo
+        span, bucket = max(hi - lo + 1, 1), 8
+        while bucket < span:
+            bucket <<= 1
+        spans.append(bucket)
+        kmins.append(lo)
+    total = 1
+    for sp in spans:
+        total *= sp
+    # keep the TOTAL dense range at >= 512 by widening the last span
+    while total < 512:
+        spans[-1] <<= 1
+        total <<= 1
+    if total > int(conf.dense_agg_range):
+        return None
+    return tuple(spans), tuple(kmins), tuple(scales)
+
+
+def _pad(a: torch.Tensor, cap: int) -> torch.Tensor:
+    if a.shape[0] == cap:
+        return a
+    return torch.cat([a, torch.zeros((cap - a.shape[0],), dtype=a.dtype,
+                                     device=a.device)])
+
+
+def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
+               sum_is_float, has_validity, spans, kmins, scales):
+    """Pass 2: accumulate every batch into the digit-plane carry, then
+    recombine once and assemble the output batch. Returns (batch, flags)
+    with flags = [oob, num_rows] as one int32 tensor."""
+    dev = batches[0].device
+    calls = partial.aggs
+    R = 1
+    for sp in spans:
+        R *= sp
+    strides, acc_s = [], 1
+    for sp in reversed(spans):
+        strides.append(acc_s)
+        acc_s *= sp
+    strides = list(reversed(strides))
+
+    # plane count of the carry: presence + per-call validity-count planes
+    # + per-call sum digit planes
+    n_planes = 1
+    for i, call in enumerate(calls):
+        if has_validity[i]:
+            n_planes += 1
+        if call.fn in ("sum", "avg"):
+            n_planes += (mxu_agg.f64_chunks() if sum_is_float[i]
+                         else mxu_agg.I64_CHUNKS)
+
+    # map the probed per-CALL fixed scales onto SPEC indices (the spec
+    # list below is: presence, then per call [count?][sum?])
+    call_scale = dict(scales)
+    spec_fixed_scales = {}
+    spec_idx = 1
+    for i, call in enumerate(calls):
+        if has_validity[i]:
+            spec_idx += 1
+        if call.fn in ("sum", "avg"):
+            if sum_is_float[i] and i in call_scale:
+                spec_fixed_scales[spec_idx] = call_scale[i]
+            spec_idx += 1
+
+    # int32 twins of the key minima for the packed-index arithmetic
+    # (wrapping is benign: out-of-range rows are masked by `inb`)
+    kmins32 = [int(np.int64(m).astype(np.int32)) for m in kmins]
+    gh = (R + mxu_agg._GL - 1) // mxu_agg._GL
+    acc = torch.zeros((gh, n_planes, mxu_agg._GL), dtype=torch.int64,
+                      device=dev)
+    oob = torch.zeros((), dtype=torch.bool, device=dev)
+    layout = slots = None
+    for b in batches:
+        b, live = _apply_steps(steps, b)
+        # composite keys pack into one dense index. Bounds are checked
+        # exactly in int64; the packed index itself is int32: in-range
+        # offsets (< span <= R <= 2^16) are int32-exact
+        packed = torch.zeros((b.capacity,), dtype=torch.int32, device=dev)
+        inb = live
+        keys_valid = live
+        null_key = torch.zeros((), dtype=torch.bool, device=dev)
+        for i, gfn in enumerate(partial._group_fns):
+            g = gfn(b)
+            gv = g.valid_mask()
+            keys_valid = keys_valid & gv
+            null_key = null_key | (live & ~gv).any()
+            off64 = g.data.to(torch.int64) - kmins[i]
+            inb = inb & gv & (off64 >= 0) & (off64 < spans[i])
+            off32 = g.data.to(torch.int32) - kmins32[i]
+            packed = packed + off32.clamp(0, spans[i] - 1) * strides[i]
+        oob = oob | null_key | (keys_valid & ~inb).any()
+        k = packed.clamp(0, R - 1)
+        # every aggregate plane rides ONE accumulate; non-nullable inputs
+        # reuse the presence plane for their counts
+        specs = [("count", torch.ones_like(inb))]
+        slots = []  # per call: (sum_spec_idx|None, cnt_spec_idx|None)
+        for i, call in enumerate(calls):
+            vcol = input_fns[i](b)
+            if vcol.validity is None:
+                ci = None
+            else:
+                specs.append(("count", vcol.validity))
+                ci = len(specs) - 1
+            si = None
+            if call.fn in ("sum", "avg"):
+                data = vcol.data.to(torch.float64 if sum_is_float[i]
+                                    else torch.int64)
+                vv = (torch.ones_like(inb) if vcol.validity is None
+                      else vcol.validity)
+                specs.append(("sum", data, vv))
+                si = len(specs) - 1
+            slots.append((si, ci))
+        words, recipe, layout, _, bad_vals = mxu_agg.digitize(
+            inb, specs, fixed_scales=spec_fixed_scales)
+        # non-finite floats or fixed-scale overflow: flag and re-probe
+        oob = oob | bad_vals
+        acc += mxu_agg.accumulate_raw(k, inb, words, recipe, R)
+
+    outs = mxu_agg.finalize(acc, layout, R, scales=spec_fixed_scales)
+    pres = outs[0]
+    cap = bucket_capacity(R)
+    present = pres > 0
+    schema = (final or partial).schema
+    slot = torch.arange(R, dtype=torch.int64, device=dev)
+    cols = []
+    for i, gdtype in enumerate(gdtypes):
+        ki = torch.div(slot, strides[i], rounding_mode="floor") % spans[i] \
+            + kmins[i]
+        cols.append(Column(gdtype, _pad(ki.to(gdtype.torch_dtype()), cap),
+                           None))
+    for i, call in enumerate(calls):
+        si, ci = slots[i]
+        cnt = pres if ci is None else outs[ci]
+        has = cnt > 0
+        if call.fn == "count":
+            # count's state IS its result (state_fields: [count])
+            cols.append(Column(T.INT64, _pad(cnt, cap), None))
+            continue
+        if final is not None:
+            if call.fn == "avg":
+                if call.dtype.kind == TypeKind.DECIMAL:
+                    # decimal avg: unscaled floor-div at the result scale
+                    q = torch.div(outs[si], cnt.clamp(min=1),
+                                  rounding_mode="floor")
+                    q = torch.where(has, q, torch.zeros_like(q))
+                    cols.append(Column(call.dtype, _pad(q, cap),
+                                       _pad(has, cap)))
+                    continue
+                v = outs[si].to(torch.float64) / \
+                    cnt.clamp(min=1).to(torch.float64)
+                cols.append(Column(T.FLOAT64,
+                                   _pad(torch.where(has, v,
+                                                    torch.zeros_like(v)), cap),
+                                   _pad(has, cap)))
+            else:  # sum
+                cols.append(Column(result_field(call).dtype,
+                                   _pad(outs[si], cap), _pad(has, cap)))
+            continue
+        # partial (shuffle map side): typed STATE columns in the agg-buf
+        # layout the FINAL merge consumes by position (state_fields: sum ->
+        # [sum, nonempty]; avg -> [sum, count])
+        sd = state_fields(call, i)[0].dtype
+        cols.append(Column(sd, _pad(outs[si].to(sd.torch_dtype()), cap),
+                           None))
+        if call.fn == "avg":
+            cols.append(Column(T.INT64, _pad(cnt, cap), None))
+        else:
+            cols.append(Column(T.BOOLEAN, _pad(has, cap), None))
+    out = ColumnBatch(schema, cols,
+                      torch.tensor(R, dtype=torch.int32, device=dev), cap)
+    out = out.compact(_pad(present, cap))
+    flags = torch.stack([oob.to(torch.int32), out.num_rows])
+    return out, flags

@@ -1,0 +1,263 @@
+"""The port's main path against the JAX package and a numpy oracle, on the
+CPU: bench.py's q06 plan (ffi_reader -> filter -> project -> partial/final
+agg) as TaskDefinition bytes, decoded and collected in both packages over
+the identical batches (4 x 2^12 rows, 2^10 groups). Keys and counts must be
+equal, float sums within rtol 1e-12 of the JAX package and 1e-9 of numpy.
+
+Also: a partial-only plan, an avg aggregate, the typed NotImplementedError
+of every unported path, the import guard that keeps jax and `blaze_tpu`
+out of the port, and the no-CUDA construction error.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from blaze_tpu.columnar import types as JT
+from blaze_tpu.columnar.batch import ColumnBatch as JBatch
+from blaze_tpu.plan import plan_pb2 as jpb
+from blaze_tpu.plan.from_proto import decode_task_definition as jdecode
+from blaze_tpu.runtime import resources as jres
+from blaze_tpu.runtime.executor import collect as jcollect
+from blaze_tpu_torch.columnar import types as TT
+from blaze_tpu_torch.columnar.batch import ColumnBatch
+from blaze_tpu_torch.plan import plan_pb2 as tpb
+from blaze_tpu_torch.plan.from_proto import decode_task_definition
+from blaze_tpu_torch.runtime import resources
+from blaze_tpu_torch.runtime.executor import collect, collect_fetch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROWS, N_BATCHES, GROUPS = 1 << 12, 4, 1 << 10
+JSCHEMA = JT.Schema([JT.Field(n, getattr(JT, k)) for n, k in [
+    ("ss_item_sk", "INT32"), ("ss_quantity", "INT32"),
+    ("ss_sales_price", "FLOAT64"), ("ss_ext_sales_price", "FLOAT64")]])
+
+
+@pytest.fixture
+def small(monkeypatch):
+    """chip_smoke's copies of bench.py's workload, cut to test size."""
+    monkeypatch.setattr(cs, "ROWS", ROWS)
+    monkeypatch.setattr(cs, "GROUPS", GROUPS)
+    return cs
+
+
+def _both(datas, key_offset=0):
+    """The same batches in both packages (the port's carried over from
+    the JAX batches' host arrays) registered under one resource id."""
+    jbs = []
+    for d in datas:
+        d = dict(d, ss_item_sk=d["ss_item_sk"] + key_offset)
+        jbs.append(JBatch.from_numpy(d, JSCHEMA, capacity=ROWS))
+    tbs = [ColumnBatch.from_host_arrays(
+        cs.SCHEMA, [(np.asarray(c.data), None) for c in jb.columns],
+        int(jb.num_rows), jb.capacity, device="cpu") for jb in jbs]
+    rid = resources.register(lambda: iter(tbs))
+    jres.put(rid, lambda: iter(jbs))
+    return rid
+
+
+def _sorted(res: dict, key="ss_item_sk"):
+    order = np.argsort(np.asarray(res[key]), kind="stable")
+    return {k: np.asarray(v)[order] for k, v in res.items()}
+
+
+def _run(task: bytes):
+    plan, _ = decode_task_definition(task)
+    jplan, _ = jdecode(task)
+    out = collect(plan)
+    assert out.device == torch.device("cpu")
+    return _sorted(out.to_numpy()), _sorted(jcollect(jplan).to_numpy()), out
+
+
+def test_bench_plan_matches_jax_and_numpy(small):
+    datas = [small._make_data(s) for s in range(N_BATCHES)]
+    rid = _both(datas)
+    task = small._build_task(small.SCHEMA_PB, rid)
+    t, j, out = _run(task)
+    assert set(t) == {"ss_item_sk", "sum_amount", "cnt"}
+    np.testing.assert_array_equal(t["ss_item_sk"], j["ss_item_sk"])
+    np.testing.assert_array_equal(t["cnt"], j["cnt"])
+    np.testing.assert_allclose(t["sum_amount"], j["sum_amount"], rtol=1e-12)
+    ref_sums, ref_cnts = small._numpy_pipeline(datas)
+    nz = ref_cnts > 0
+    np.testing.assert_array_equal(t["ss_item_sk"], np.nonzero(nz)[0])
+    np.testing.assert_array_equal(t["cnt"], ref_cnts[nz])
+    np.testing.assert_allclose(t["sum_amount"], ref_sums[nz], rtol=1e-9)
+    assert out.schema.names() == ["ss_item_sk", "sum_amount", "cnt"]
+    assert repr(out.columns[2].dtype) == "int64"
+
+
+def test_collect_fetch_digest_and_memo(small):
+    """collect_fetch returns the packed result on the host; a second run
+    reuses the memoized dense range and gives the same digest."""
+    datas = [small._make_data(s) for s in range(N_BATCHES)]
+    rid = _both(datas)
+    plan, _ = decode_task_definition(small._build_task(small.SCHEMA_PB, rid))
+    full = collect_fetch(plan, small._full)
+    d1 = collect_fetch(plan, small._digest)
+    d2 = collect_fetch(plan, small._digest)
+    assert isinstance(full, np.ndarray) and full.dtype == np.float64
+    np.testing.assert_array_equal(d1, d2)
+    cap = (len(full) - 1) // 3
+    n = int(full[0])
+    w = (np.arange(cap) % 8191.0) + 1.0
+    wl = np.where(np.arange(cap) < n, w, 0.0)
+    np.testing.assert_allclose(
+        d1, [n, full[1:1 + cap] @ wl, full[1 + cap:1 + 2 * cap] @ wl,
+             full[1 + 2 * cap:] @ wl], rtol=1e-12)
+    assert plan.metrics["stage_compiled"] == 3
+    assert plan.metrics["output_rows"] == 3 * n
+
+
+def test_partial_only_plan_state_columns(small):
+    datas = [small._make_data(s) for s in range(N_BATCHES)]
+    rid = _both(datas)
+    task = small._build_task(small.SCHEMA_PB, rid, final=False)
+    t, j, out = _run(task)
+    names = out.schema.names()
+    assert names == ["ss_item_sk", "#9223372036854775807.0.sum",
+                     "#9223372036854775807.0.nonempty",
+                     "#9223372036854775807.1.count"]
+    assert list(t) == list(j) == names
+    np.testing.assert_array_equal(t[names[0]], j[names[0]])
+    np.testing.assert_allclose(t[names[1]], j[names[1]], rtol=1e-12)
+    np.testing.assert_array_equal(t[names[2]], j[names[2]])
+    np.testing.assert_array_equal(t[names[3]], j[names[3]])
+
+
+@pytest.mark.parametrize("final", [True, False])
+def test_avg_aggregate(small, final):
+    datas = [small._make_data(s) for s in range(N_BATCHES)]
+    rid = _both(datas, key_offset=5000)  # non-zero key minimum
+    task = small._build_task(small.SCHEMA_PB, rid,
+                             agg_fns=("avg", "count", "sum"), final=final)
+    t, j, _ = _run(task)
+    assert list(t) == list(j)
+    for k in t:
+        if t[k].dtype.kind == "f":
+            np.testing.assert_allclose(t[k], j[k], rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(t[k], j[k])
+    if final:
+        ref_sums, ref_cnts = small._numpy_pipeline(datas)
+        nz = ref_cnts > 0
+        np.testing.assert_array_equal(t["ss_item_sk"] - 5000,
+                                      np.nonzero(nz)[0])
+        np.testing.assert_allclose(t["avg_amount"],
+                                   ref_sums[nz] / ref_cnts[nz], rtol=1e-9)
+
+
+def _plan_with_source(batches, **task_kw):
+    rid = resources.register(lambda: iter(batches))
+    return decode_task_definition(cs._build_task(cs.SCHEMA_PB, rid,
+                                                 **task_kw))[0]
+
+
+def test_key_range_beyond_dense_range_raises(small):
+    datas = [small._make_data(s) for s in range(2)]
+    datas[1]["ss_item_sk"][0] = (1 << 16) + 7   # range one bucket too wide
+    datas[1]["ss_quantity"][0] = 1
+    datas[1]["ss_sales_price"][0] = 50.0
+    plan = _plan_with_source([ColumnBatch.from_numpy(d, cs.SCHEMA,
+                                                     device="cpu")
+                              for d in datas])
+    with pytest.raises(NotImplementedError,
+                       match="general sort-based aggregation"):
+        collect(plan)
+
+
+def test_min_max_aggregates_raise(small):
+    batch = ColumnBatch.from_numpy(small._make_data(0), cs.SCHEMA,
+                                   device="cpu")
+    rid = resources.register(lambda: iter([batch]))
+    td = tpb.TaskDefinition.FromString(cs._build_task(cs.SCHEMA_PB, rid))
+    for node in (td.plan.agg, td.plan.agg.input.agg):
+        node.aggs[0].fn = tpb.AGG_MIN
+    plan, _ = decode_task_definition(td.SerializeToString())
+    with pytest.raises(NotImplementedError,
+                       match="general sort-based aggregation"):
+        collect(plan)
+
+
+def test_batches_of_different_shapes_raise(small):
+    d = small._make_data(0)
+    plan = _plan_with_source([
+        ColumnBatch.from_numpy(d, cs.SCHEMA, device="cpu"),
+        ColumnBatch.from_numpy(d, cs.SCHEMA, capacity=2 * ROWS,
+                               device="cpu")])
+    with pytest.raises(NotImplementedError, match="different shapes"):
+        collect(plan)
+
+
+@pytest.mark.parametrize("arm", ["sort", "union", "limit", "parquet_scan"])
+def test_undecodable_node_raises(arm):
+    node = tpb.PlanNode()
+    getattr(node, arm).SetInParent()
+    td = tpb.TaskDefinition()
+    td.plan.CopyFrom(node)
+    with pytest.raises(NotImplementedError, match=f"plan node {arm}"):
+        decode_task_definition(td.SerializeToString())
+
+
+def test_ffi_reader_rejects_arrow_batches():
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.shuffle import FfiReaderExec
+
+    rid = resources.register(lambda: iter([object()]))
+    op = FfiReaderExec(cs.SCHEMA, rid)
+    with pytest.raises(NotImplementedError, match="arrow_io"):
+        list(op.execute(ExecContext()))
+
+
+def test_plan_bytes_decode_in_both_packages():
+    """Both plan_pb2 modules load in one process (the proto file is added
+    to the default pool twice and deduped) and parse the same bytes."""
+    task = cs._build_task(cs.SCHEMA_PB, "rid:x")
+    a = jpb.TaskDefinition.FromString(task)
+    b = tpb.TaskDefinition.FromString(task)
+    assert a.SerializeToString() == b.SerializeToString() == task
+    assert jpb.DESCRIPTOR.name == tpb.DESCRIPTOR.name == "plan.proto"
+    assert tpb.DESCRIPTOR.package == "blaze_tpu.plan"
+
+
+def test_port_imports_neither_jax_nor_blaze_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import blaze_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    blaze_tpu_torch.__path__, 'blaze_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k == 'blaze_tpu' or k.startswith('blaze_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+    import re
+
+    pat = re.compile(r"^\s*(from|import)\s+(jax|blaze_tpu)(\.|\s|$)", re.M)
+    srcs = [os.path.join(dp, f) for dp, _, fs in os.walk(
+        os.path.join(REPO, "blaze_tpu_torch")) for f in fs
+        if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    offenders = [p for p in srcs if pat.search(open(p).read())]
+    assert offenders == []
+
+
+def test_from_numpy_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ColumnBatch.from_numpy({"x": np.arange(4, dtype=np.int32)},
+                               TT.Schema([TT.Field("x", TT.INT32)]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ColumnBatch.empty(TT.Schema([TT.Field("x", TT.INT32)]))

@@ -31,7 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "mxu_accumulate": {
-        "mxu_accumulate": ([_P, _P, _P, _I, _P, _I, _LL, _P, _I, _P], _I),
+        "mxu_accumulate_scratch_bytes": ([_LL, _I, _I], _LL),
+        "mxu_accumulate_into": ([_P, _P, _P, _I, _P, _I, _LL, _I, _I, _P,
+                                 _P, _LL, _I, _P, _P], _I),
         "mxu_accumulate_error": ([_I], ctypes.c_char_p),
     },
 }
@@ -82,7 +84,8 @@ def build_all(names: List[str]) -> Dict[str, Path]:
         BUILD_INFO[name] = {
             "seconds": time.perf_counter() - t0,
             "ptxas": [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]}
+                      if "registers" in ln or "spill" in ln
+                      or "entry function" in ln]}
     return {name: _lib_path(name) for name in names}
 
 

@@ -8,16 +8,20 @@ digits per group:
     (digits of v + bias, bias = 0x80 per byte, minus 128 — signs fold
     into the digits). Floats are first scaled by 2^s and rounded, so the
     digits carry 8*planes-2 bits of the batch (or stage) max magnitude;
-  * per batch, every plane of every aggregate is summed per key into ONE
-    int32 (gh, P, 128) table — exact for up to 2^23 rows per block
-    (127 * 2^23 < 2^31);
+  * per batch, every plane of every aggregate is summed per key and added
+    into ONE int64 (gh, P, 128) carry (`accumulate_into`; the reference's
+    per-batch int32 table, exact for up to 2^23 rows per block since
+    127 * 2^23 < 2^31, stays available as `accumulate_raw`);
   * digits recombine once per stage (`finalize`): in f64 for float sums,
     in int64 for int sums (exact modulo 2^64) and counts.
 
-The per-batch table is the one hand-written kernel on this path:
-`_accumulate_planes` launches csrc/mxu_accumulate.cu on a CUDA tensor, and
-runs the plain torch version `_accumulate_planes_ref` on a CPU tensor.
-There is no other route: a CUDA tensor gets the kernel or an error.
+The per-batch accumulate is the one hand-written kernel on this path:
+`accumulate_into` adds a batch's plane sums straight into the stage's int64
+carry, launching the kernel chain of csrc/mxu_accumulate.cu on a CUDA
+tensor and running the plain torch version `_accumulate_into_ref` on a CPU
+tensor. There is no other route: a CUDA tensor gets the kernel or an error.
+`accumulate_raw` and `accumulate` keep the reference's per-batch int32
+table contract on top of it.
 
 Non-finite float values cannot ride digit planes (their digits would be
 garbage in every group's slot): digitization reports a `bad` flag so the
@@ -33,7 +37,7 @@ to the same bits.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -44,13 +48,18 @@ I64_CHUNKS = 8          # full int64 (|v| < 2^62; sums exact within 2^53)
 _GL = 128
 _I32_EXACT_ROWS = 1 << 23   # 127 * 2^23 < 2^31: int32 block-exactness bound
 
-# limits of the kernel's by-value parameter block (csrc/mxu_accumulate.cu)
+# limits of the kernel chain (csrc/mxu_accumulate.cu)
 _MAX_WORDS = 16
 _MAX_PLANES = 32
+_MAX_KEYS = 1 << 17        # 2^16 is dense_agg_range's most
 
-# launches of the CUDA kernel since import (one per <= 2^23-row block);
-# chip_smoke.py resets it and reads it around the main path
+# launches of the accumulate kernel chain since import: one per call that
+# reaches the card with rows to add (one per <= 2^23-row block on the
+# accumulate_raw route); and beside it, per kernel of the chain, the
+# launches that the C entry reports it made. chip_smoke.py resets both and
+# reads them around the main path
 KERNEL_LAUNCHES = 0
+CHAIN_LAUNCHES = {"count": 0, "scan": 0, "scatter": 0, "accumulate": 0}
 
 
 def f64_chunks() -> int:
@@ -83,72 +92,161 @@ def _i32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _expand_words(words: Sequence[torch.Tensor], recipe) -> torch.Tensor:
-    """Materialize the (n, P) int32 digit matrix from word columns."""
+    """Materialize the (n, P) int8 digit matrix from word columns (raw
+    planes are 0/1 counts; the cast to int8 is the reference's)."""
     planes = []
     for kind, wi, sh in recipe:
         w = words[wi]
         planes.append(((w >> sh) & 0xFF) - 128 if kind == "digit" else w)
-    return torch.stack(planes, dim=1).to(torch.int32)
+    return torch.stack(planes, dim=1).to(torch.int8)
 
 
-def _accumulate_planes_ref(keys: torch.Tensor, ok: torch.Tensor, words,
-                           recipe, gh: int) -> torch.Tensor:
-    """Plain torch version of the kernel: digits scatter-added into the
-    flat (gh*P*128) table. keys (n,) int32 in [0, gh*128), ok (n,) int32
-    0/1, words (n,) int32 each. Returns (gh, P, 128) int32."""
-    P = len(recipe)
-    D = _expand_words(words, recipe) * ok[:, None]
-    base = (keys >> 7).to(torch.int64) * (P * _GL) + (keys & (_GL - 1))
-    idx = base[:, None] + torch.arange(P, device=keys.device) * _GL
-    out = torch.zeros(gh * P * _GL, dtype=torch.int32, device=keys.device)
-    out.index_add_(0, idx.reshape(-1), D.reshape(-1))
-    return out.view(gh, P, _GL)
+def _plane_index(keys: torch.Tensor, P: int) -> torch.Tensor:
+    """(n, P) int64 flat offsets of each row's planes in a (gh, P, 128)
+    table; keys (n,) in [0, gh*128)."""
+    k = keys.to(torch.int64)
+    base = (k >> 7) * (P * _GL) + (k & (_GL - 1))
+    return base[:, None] + torch.arange(P, device=keys.device) * _GL
 
 
-def _accumulate_planes_cuda(keys: torch.Tensor, ok: torch.Tensor, words,
-                            recipe, gh: int) -> torch.Tensor:
-    """Launch csrc/mxu_accumulate.cu on PyTorch's current stream. Same
-    contract as _accumulate_planes_ref (keys must already lie in
-    [0, gh*128): _accumulate_planes clamps them); raises on anything the
-    kernel does not take or on a refused launch."""
-    global KERNEL_LAUNCHES
+def _accumulate_into_ref(acc: torch.Tensor, keys: torch.Tensor,
+                         valid: torch.Tensor, words, recipe,
+                         rng: int) -> None:
+    """Plain torch version of the kernel chain, same contract as
+    accumulate_into: acc += the batch's (gh, P, 128) plane sums, in place,
+    over rows with valid and 0 <= key < rng."""
+    ok = valid & (keys >= 0) & (keys < rng)
+    k = torch.where(ok, keys, torch.zeros_like(keys))
+    D = _expand_words(words, recipe).to(torch.int64) * ok[:, None]
+    acc.view(-1).index_add_(0, _plane_index(k, len(recipe)).reshape(-1),
+                            D.reshape(-1))
+
+
+_RECIPES: Dict[tuple, Tuple[ctypes.Array, int]] = {}
+
+
+def _recipe_arg(recipe) -> Tuple[ctypes.Array, int]:
+    """The kernel's flat (kind, word, shift) int32 recipe and the highest
+    word index it reads, built once per recipe tuple."""
+    recipe = tuple(recipe)
+    hit = _RECIPES.get(recipe)
+    if hit is None:
+        flat = []
+        for kind, wi, sh in recipe:
+            if kind not in ("digit", "raw") or wi < 0 \
+                    or sh not in (0, 8, 16, 24):
+                raise ValueError(f"mxu_accumulate: bad recipe entry "
+                                 f"{(kind, wi, sh)}")
+            flat += [1 if kind == "digit" else 0, wi, sh]
+        hit = ((ctypes.c_int32 * len(flat))(*flat),
+               max(wi for _, wi, _ in recipe))
+        _RECIPES[recipe] = hit
+    return hit
+
+
+def _check_into(acc, keys, valid, words, recipe, rng: int) -> None:
+    """Raise ValueError on anything accumulate_into does not take."""
     n, P, W = keys.shape[0], len(recipe), len(words)
-    dev = keys.device
-    for name, t in [("keys", keys), ("ok", ok)] + [
-            (f"words[{i}]", w) for i, w in enumerate(words)]:
-        if t.device != dev or t.dtype != torch.int32 or t.dim() != 1 \
-                or t.shape[0] != n or not t.is_contiguous():
-            raise ValueError(
-                f"mxu_accumulate: {name} must be a contiguous (n,) int32 "
-                f"tensor on {dev}, got {tuple(t.shape)} {t.dtype} on "
-                f"{t.device}")
     if not (1 <= P <= _MAX_PLANES and 1 <= W <= _MAX_WORDS):
         raise ValueError(f"mxu_accumulate: {P} planes / {W} words exceed "
                          f"the kernel's {_MAX_PLANES}/{_MAX_WORDS}")
-    if n > _I32_EXACT_ROWS:
-        raise ValueError(f"mxu_accumulate: {n} rows > 2^23 in one launch")
-    flat = []
-    for kind, wi, sh in recipe:
-        if kind not in ("digit", "raw") or not 0 <= wi < W \
-                or sh not in (0, 8, 16, 24):
-            raise ValueError(f"mxu_accumulate: bad recipe entry "
-                             f"{(kind, wi, sh)}")
-        flat += [1 if kind == "digit" else 0, wi, sh]
-    out = torch.zeros(gh * P * _GL, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out.view(gh, P, _GL)  # nothing to launch
+    dev = keys.device
+    for name, t, dtype in [("keys", keys, torch.int32),
+                           ("valid", valid, torch.bool)] + [
+            (f"words[{i}]", w, torch.int32) for i, w in enumerate(words)]:
+        if t.device != dev or t.dtype != dtype or t.dim() != 1 \
+                or t.shape[0] != n or not t.is_contiguous():
+            raise ValueError(
+                f"mxu_accumulate: {name} must be a contiguous (n,) {dtype} "
+                f"tensor on {dev}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+    gh = (rng + _GL - 1) // _GL
+    if acc.device != dev or acc.dtype != torch.int64 or acc.dim() != 3 \
+            or acc.shape[0] < gh or tuple(acc.shape[1:]) != (P, _GL) \
+            or not acc.is_contiguous():
+        raise ValueError(
+            f"mxu_accumulate: the carry must be a contiguous int64 "
+            f"(>= {gh}, {P}, {_GL}) tensor on {dev}, got "
+            f"{tuple(acc.shape)} {acc.dtype} on {acc.device}")
+    if _recipe_arg(recipe)[1] >= W:
+        raise ValueError(f"mxu_accumulate: recipe reads a word past {W}")
+    n_keys = acc.shape[0] * _GL
+    if n_keys > _MAX_KEYS:
+        raise ValueError(f"mxu_accumulate: a carry of {n_keys} keys exceeds "
+                         f"the kernel's {_MAX_KEYS}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy where its data is not 16-byte aligned: the
+    chain's loads are 16-byte vector loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _chain_call(acc, keys, valid, words, recipe, rng: int):
+    """The kernel chain's launch on PyTorch's current stream, as a function
+    of no arguments with every host step done: the library loaded, the
+    scratch allocated, the ctypes arguments built (inputs already checked
+    by _check_into, n > 0). Each call adds the batch into acc once more and
+    counts its launches; it raises on anything the chain refuses."""
+    n, P, W = keys.shape[0], len(recipe), len(words)
     lib = kernels.load("mxu_accumulate")
+    n_keys = acc.shape[0] * _GL
+    dev = keys.device
+    keys, valid = _aligned(keys), _aligned(valid)
+    words = [_aligned(w) for w in words]
+    nbytes = lib.mxu_accumulate_scratch_bytes(n, P, n_keys)
+    scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=dev)
+    rc, _ = _recipe_arg(recipe)
     word_ptrs = (ctypes.c_void_p * W)(*[w.data_ptr() for w in words])
-    recipe_arr = (ctypes.c_int32 * len(flat))(*flat)
-    err = lib.mxu_accumulate(
-        keys.data_ptr(), ok.data_ptr(), ctypes.addressof(word_ptrs), W,
-        ctypes.addressof(recipe_arr), P, n, out.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("mxu_accumulate launch failed: "
-                           + lib.mxu_accumulate_error(err).decode())
-    KERNEL_LAUNCHES += 1
-    return out.view(gh, P, _GL)
+    launched = (ctypes.c_int * len(CHAIN_LAUNCHES))()
+    args = (keys.data_ptr(), valid.data_ptr(), ctypes.addressof(word_ptrs),
+            W, ctypes.addressof(rc), P, n, rng, n_keys, acc.data_ptr(),
+            scratch.data_ptr(), nbytes, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+
+    def launch():
+        global KERNEL_LAUNCHES
+        err = lib.mxu_accumulate_into(*args)
+        for name, c in zip(CHAIN_LAUNCHES, launched):
+            CHAIN_LAUNCHES[name] += c
+        if err != 0:
+            raise RuntimeError("mxu_accumulate launch failed: "
+                               + lib.mxu_accumulate_error(err).decode())
+        KERNEL_LAUNCHES += 1
+
+    launch.keep = (scratch, word_ptrs, launched, acc, keys, valid, words)
+    return launch
+
+
+def _accumulate_into_cuda(acc, keys, valid, words, recipe, rng: int) -> None:
+    """Launch the kernel chain of csrc/mxu_accumulate.cu (inputs already
+    checked by _check_into)."""
+    if keys.shape[0]:
+        _chain_call(acc, keys, valid, words, recipe, rng)()
+
+
+def _route(dev: torch.device):
+    if dev.type == "cpu":
+        return _accumulate_into_ref
+    if dev.type == "cuda":
+        return _accumulate_into_cuda
+    raise RuntimeError(f"no digit-plane accumulate for {dev}")
+
+
+def accumulate_into(acc: torch.Tensor, keys: torch.Tensor,
+                    valid: torch.Tensor, words, recipe, rng: int) -> None:
+    """Add one batch's digit-plane sums into the stage's carry, IN PLACE
+    (the JAX package returns a new array; the port updates the carry).
+
+    acc: contiguous int64 (gh, P, 128), gh*128 >= rng, updated with two's-
+    complement wrap. keys (n,) int32, valid (n,) bool, words: (n,) int32
+    columns, all contiguous on acc's device. Rows with valid false or a key
+    outside [0, rng) add nothing. Any n: the carry is int64. On a CUDA
+    tensor this launches the kernel chain or raises; on a CPU tensor it
+    runs the plain version."""
+    _check_into(acc, keys, valid, words, recipe, rng)
+    _route(keys.device)(acc, keys, valid, words, recipe, rng)
 
 
 def _accumulate_planes(keys: torch.Tensor, valid: torch.Tensor, words,
@@ -156,20 +254,27 @@ def _accumulate_planes(keys: torch.Tensor, valid: torch.Tensor, words,
     """Rows outside [0, rng) or invalid contribute nothing. Returns
     (gh, P, GL) int32 — exact per-batch plane sums (per 2^23-row block;
     longer inputs sum their blocks in int32, as the JAX package does)."""
-    n = keys.shape[0]
-    ok = (valid & (keys >= 0) & (keys < rng)).to(torch.int32)
-    kc = keys.clamp(0, rng - 1).to(torch.int32)
+    route = _route(keys.device)
+    if keys.dtype != torch.int32:
+        valid = valid & (keys >= 0) & (keys < rng)
+        keys = keys.clamp(0, max(rng - 1, 0)).to(torch.int32)
+    keys = keys.contiguous()
+    valid = valid.to(torch.bool).contiguous()
     words = [w.to(torch.int32).contiguous() for w in words]
-    if keys.device.type == "cpu":
-        route = _accumulate_planes_ref
-    elif keys.device.type == "cuda":
-        route = _accumulate_planes_cuda
-    else:
-        raise RuntimeError(f"no digit-plane accumulate for {keys.device}")
+    n, P = keys.shape[0], len(recipe)
+
+    def carry():
+        return torch.zeros((gh, P, _GL), dtype=torch.int64,
+                           device=keys.device)
+
+    _check_into(carry(), keys, valid, words, recipe, rng)
     acc = None
     for s in range(0, max(n, 1), _I32_EXACT_ROWS):
         e = min(s + _I32_EXACT_ROWS, n)
-        part = route(kc[s:e], ok[s:e], [w[s:e] for w in words], recipe, gh)
+        part = carry()
+        route(part, keys[s:e], valid[s:e], [w[s:e] for w in words], recipe,
+              rng)
+        part = part.to(torch.int32)
         acc = part if acc is None else acc + part
     return acc
 

@@ -11,8 +11,8 @@ aggregates are sum/count/avg runs as:
   2. one eager pass over the batches: filters fold into a row mask, keys
      pack into one int32 dense index, aggregate inputs digitize into
      base-256 digit planes at the probed fixed scales, and the planes
-     accumulate per group (ops/mxu_agg.accumulate_raw — the CUDA kernel on
-     the card) into an exact int64 carry;
+     accumulate per group straight into an exact int64 carry
+     (ops/mxu_agg.accumulate_into — the CUDA kernel chain on the card);
   3. one recombination per stage (mxu_agg.finalize) and output assembly,
      finalized values for a FINAL root or the partial's typed state
      columns (`state_fields` layout) for a partial-only stage.
@@ -358,7 +358,6 @@ def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
             off32 = g.data.to(torch.int32) - kmins32[i]
             packed = packed + off32.clamp(0, spans[i] - 1) * strides[i]
         oob = oob | null_key | (keys_valid & ~inb).any()
-        k = packed.clamp(0, R - 1)
         # every aggregate plane rides ONE accumulate; non-nullable inputs
         # reuse the presence plane for their counts
         specs = [("count", torch.ones_like(inb))]
@@ -383,7 +382,8 @@ def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
             inb, specs, fixed_scales=spec_fixed_scales)
         # non-finite floats or fixed-scale overflow: flag and re-probe
         oob = oob | bad_vals
-        acc += mxu_agg.accumulate_raw(k, inb, words, recipe, R)
+        # in place: the kernel adds the batch straight into the carry
+        mxu_agg.accumulate_into(acc, packed, inb, words, recipe, R)
 
     outs = mxu_agg.finalize(acc, layout, R, scales=spec_fixed_scales)
     pres = outs[0]

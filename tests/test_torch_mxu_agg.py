@@ -3,7 +3,7 @@ with the JAX package's (blaze_tpu/ops/mxu_agg), on the CPU.
 
 On the JAX side `_accumulate_planes` takes its portable route
 (`_xla_accumulate`) off the TPU; on the port's side a CPU tensor takes the
-plain version `_accumulate_planes_ref`. Inputs are made with numpy from a
+plain version `_accumulate_into_ref` of the kernel chain. Inputs are made with numpy from a
 seed. Integers (words, plane sums, int sums, counts) must be equal; float
 sums within rtol 1e-12 — both recombine the same exact plane sums in the
 same order. The kernel itself runs only on the card: its tests are in
@@ -304,11 +304,177 @@ def test_wrapper_rejects_other_devices():
                              [keys], (("raw", 0, 0),), 1, 128)
 
 
-def test_kernel_wrapper_checks_inputs():
-    keys = torch.zeros(8, dtype=torch.int64)
-    ok = torch.ones(8, dtype=torch.int32)
-    with pytest.raises(ValueError, match="int32"):
-        M._accumulate_planes_cuda(keys, ok, [ok], (("raw", 0, 0),), 1)
-    with pytest.raises(ValueError, match="recipe"):
-        M._accumulate_planes_cuda(ok, ok, [ok], (("digit", 3, 0),), 1)
+def _into_inputs(n=64, P=2, W=1, rng=256):
+    """Valid arguments of accumulate_into at a small size on the CPU."""
+    keys = torch.arange(n, dtype=torch.int32) % rng
+    valid = torch.ones(n, dtype=torch.bool)
+    words = [torch.full((n,), 0x01020304, dtype=torch.int32)
+             for _ in range(W)]
+    recipe = tuple(("digit", i % W, 8 * (i % 4)) for i in range(P))
+    acc = torch.zeros(((rng + 127) // 128, P, 128), dtype=torch.int64)
+    return dict(acc=acc, keys=keys, valid=valid, words=words, recipe=recipe,
+                rng=rng)
 
+
+def _bad(field, fn):
+    def make():
+        kw = _into_inputs()
+        kw[field] = fn(kw)
+        return kw
+    return make
+
+
+BAD_INPUTS = {
+    "keys-int64": (_bad("keys", lambda kw: kw["keys"].to(torch.int64)),
+                   "keys must be"),
+    "valid-int32": (_bad("valid", lambda kw: kw["valid"].to(torch.int32)),
+                    "valid must be"),
+    "words-int64": (_bad("words", lambda kw: [kw["words"][0].long()]),
+                    r"words\[0\] must be"),
+    "keys-strided": (_bad("keys", lambda kw: torch.zeros(
+        128, dtype=torch.int32)[::2]), "keys must be"),
+    "valid-short": (_bad("valid", lambda kw: kw["valid"][:10]),
+                    "valid must be"),
+    "valid-meta": (_bad("valid", lambda kw: kw["valid"].to("meta")),
+                   "valid must be"),
+    "carry-int32": (_bad("acc", lambda kw: kw["acc"].to(torch.int32)),
+                    "carry must be"),
+    "carry-meta": (_bad("acc", lambda kw: kw["acc"].to("meta")),
+                   "carry must be"),
+    "carry-too-few-keys": (_bad("acc", lambda kw: kw["acc"][:1]),
+                           "carry must be"),
+    "carry-planes": (_bad("acc", lambda kw: torch.zeros(
+        (2, 3, 128), dtype=torch.int64)), "carry must be"),
+    "planes-33": (lambda: _into_inputs(P=33), "33 planes"),
+    "words-17": (lambda: _into_inputs(W=17), "17 words"),
+    "recipe-word": (_bad("recipe", lambda kw: (("digit", 3, 0),) * 2),
+                    "recipe reads a word"),
+    "recipe-shift": (_bad("recipe", lambda kw: (("digit", 0, 4),) * 2),
+                     "bad recipe entry"),
+    "recipe-kind": (_bad("recipe", lambda kw: (("sum", 0, 0),) * 2),
+                    "bad recipe entry"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_INPUTS))
+def test_kernel_wrapper_checks_inputs(case):
+    """accumulate_into raises before it touches the carry on any input the
+    kernel chain does not take, on the CPU route as on the card."""
+    make, match = BAD_INPUTS[case]
+    kw = make()
+    with pytest.raises(ValueError, match=match):
+        M.accumulate_into(**kw)
+
+
+def test_kernel_wrapper_checks_key_range():
+    """A carry of more keys than the kernel's 2^17 raises, on the CPU route
+    as on the card."""
+    kw = _into_inputs(P=2, rng=256)
+    kw["acc"] = torch.zeros(((1 << 17) // 128 + 1, 2, 128),
+                            dtype=torch.int64)
+    with pytest.raises(ValueError, match="exceeds the kernel's"):
+        M.accumulate_into(**kw)
+
+
+def test_kernel_wrapper_accepts_its_own_inputs():
+    kw = _into_inputs(P=3)
+    M.accumulate_into(**kw)
+    # every row keeps 3 digits of 0x01020304: 0x04, 0x03, 0x02 - 128
+    want = torch.tensor([4 - 128, 3 - 128, 2 - 128], dtype=torch.int64)
+    assert torch.equal(kw["acc"][0, :, 0], want)
+    assert int(kw["acc"].count_nonzero()) == 3 * 64
+
+
+def _into_batches(seed, n_batches, n, rng_keys, valid_p, kind):
+    """Seeded batches of keys (some outside [0, rng)), valid flags and the
+    spec list of one accumulate recipe kind, as numpy."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        keys = rng.integers(-40, rng_keys + 40, n).astype(np.int32)
+        valid = rng.random(n) < valid_p
+        ones = np.ones(n, bool)
+        if kind == "int":
+            specs = [("count", ones),
+                     ("sum", rng.integers(-2**50, 2**50, n), ones)]
+        elif kind == "float":
+            specs = [("count", ones), ("sum", _float_vals(rng, n), ones),
+                     ("count", rng.random(n) < 0.5)]
+        else:  # one count plane
+            specs = [("count", rng.random(n) < 0.7)]
+        out.append((keys, valid, specs))
+    return out
+
+
+def _specs_as(conv, specs):
+    return [(s[0],) + tuple(conv(a) for a in s[1:]) for s in specs]
+
+
+@pytest.mark.parametrize("kind,n,rng_keys,valid_p", [
+    ("int", 3000, 1024, 0.8), ("float", 2500, 700, 0.6),
+    ("count", 4001, 2048, 0.9), ("int", 1, 128, 1.0),
+    ("float", 2048, 512, 0.0),
+])
+def test_accumulate_into_matches_reference_carry(exact_exp2, kind, n,
+                                                 rng_keys, valid_p):
+    """accumulate_into over several batches equals the reference stage's
+    carry, the JAX accumulate_raw of each batch summed in int64
+    (blaze_tpu/runtime/stage_compiler.py:568-569), bit for bit."""
+    batches = _into_batches(n + rng_keys, 3, n, rng_keys, valid_p, kind)
+    gh = (rng_keys + 127) // 128
+    jcarry = None
+    tcarry = None
+    for keys, valid, specs in batches:
+        fs = {1: 20.0} if kind == "float" else None
+        jw, jr, _, _, _ = J.digitize(jnp.asarray(valid),
+                                     _specs_as(jnp.asarray, specs),
+                                     fixed_scales=fs)
+        tw, tr, _, _, _ = M.digitize(_t(valid), _specs_as(_t, specs),
+                                     fixed_scales=fs)
+        assert tr == jr
+        part = J.accumulate_raw(jnp.asarray(keys), jnp.asarray(valid), jw,
+                                jr, rng_keys).astype(jnp.int64)
+        jcarry = part if jcarry is None else jcarry + part
+        if tcarry is None:
+            tcarry = torch.zeros((gh, len(tr), 128), dtype=torch.int64)
+        M.accumulate_into(tcarry, _t(keys), _t(valid), tw, tr, rng_keys)
+    np.testing.assert_array_equal(tcarry.numpy(), np.asarray(jcarry))
+    if valid_p == 0.0:
+        assert not tcarry.any()
+
+
+def test_accumulate_into_adds_to_the_carry_with_wrap():
+    """The carry is updated in place, and int64 sums wrap in two's
+    complement as the kernel's 64-bit adds do."""
+    kw = _into_inputs(P=1, rng=128)
+    start = torch.full_like(kw["acc"], 2**63 - 1)
+    kw["acc"].copy_(start)
+    kw["words"] = [torch.full((64,), 0x81, dtype=torch.int32)]  # digit 1
+    before = kw["acc"].data_ptr()
+    M.accumulate_into(**kw)
+    assert kw["acc"].data_ptr() == before
+    hit = kw["acc"][0, 0, :64]
+    assert bool((hit == -2**63).all())
+    assert bool((kw["acc"][0, 0, 64:] == 2**63 - 1).all())
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 7, 8, 16, 32])
+def test_kernel_takes_the_widest_dense_key_range(P):
+    """The kernel's key limit covers the widest dense key range the stage
+    compiler sends (dense_agg_range <= 2^16) at every plane count: a carry
+    of 2^17 keys is accepted and adds like the plain sum."""
+    n = 4096
+    rng = np.random.default_rng(P)
+    keys = rng.integers(0, 1 << 17, n).astype(np.int32)
+    words = [torch.from_numpy(rng.integers(-2**31, 2**31, n)
+                              .astype(np.int32)) for _ in range(8)]
+    recipe = tuple(("digit", p // 4, 8 * (p % 4)) for p in range(P))
+    acc = torch.zeros(((1 << 17) // 128, P, 128), dtype=torch.int64)
+    M.accumulate_into(acc, _t(keys), torch.ones(n, dtype=torch.bool),
+                      words, recipe, 1 << 17)
+    want = np.zeros((1 << 17, P), np.int64)
+    for p, (_, wi, sh) in enumerate(recipe):
+        d = ((words[wi].numpy().astype(np.int64) >> sh) & 0xFF) - 128
+        np.add.at(want[:, p], keys, d)
+    got = acc.permute(0, 2, 1).reshape(1 << 17, P).numpy()
+    np.testing.assert_array_equal(got, want)

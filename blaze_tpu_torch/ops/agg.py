@@ -1,34 +1,52 @@
-"""AggExec — grouped aggregation: calls, modes, state layout, schema.
+"""AggExec — grouped aggregation, sort-based, partial/merge/final modes.
 
-Port of the construction half of blaze_tpu/ops/agg.py (ref:
-datafusion-ext-plans agg_exec.rs + agg/): `AggMode`, `AggCall`, the typed
-state layout (`state_fields`), result fields, and `AggExec`'s schema and
-compiled group/input expressions. The whole-stage dense path
-(runtime/stage_compiler.py) executes matching partial(+final) pairs.
+Port of blaze_tpu/ops/agg.py (ref: datafusion-ext-plans agg_exec.rs +
+agg/): `AggMode`, `AggCall`, the typed state layout (`state_fields`),
+result fields, and `AggExec`'s streaming execution. There are no hash
+tables: rows are sorted by the grouping key (ops/sort_keys.py) and every
+accumulator update is a segmented reduction (ops/segment.py). Input
+batches fold into a pending set; when the pending rows reach
+`collapse_threshold` they collapse into one state batch, and state batches
+collapse into one. The whole-stage dense path (runtime/stage_compiler.py)
+runs matching partial(+final) pairs without any of this.
 
-The general sort-based streaming `AggExec.execute` (with ops/segment.py,
-ops/sort*.py and ops/common.py) is not ported yet: executing an AggExec
-outside the whole-stage path raises NotImplementedError.
+The functions sum, count, avg, min, max, first and first_ignores_null run
+over the dense column kinds in the modes PARTIAL, PARTIAL_MERGE and FINAL.
+Left out, each raising NotImplementedError naming its module:
+collect_list/collect_set (list storage, columnar/batch.py ListData), string
+min/max (exprs/strings.py), wide-decimal sum/avg/min/max
+(exprs/wide_decimal.py) and spilling state to the host
+(columnar/serde.py). The JAX module's jit cache and compile-service shape
+rungs have no counterpart: PyTorch runs each step eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 from blaze_tpu_torch.columnar import types as T
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
 from blaze_tpu_torch.columnar.types import DataType, Field, Schema, TypeKind
+from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.device import resolve_device
 from blaze_tpu_torch.exprs import ir
-from blaze_tpu_torch.exprs.compiler import compile_expr
-from blaze_tpu_torch.ops.base import BatchStream, ExecContext, Operator
+from blaze_tpu_torch.exprs.compiler import compile_expr, cse_scope
+from blaze_tpu_torch.ops import segment as seg
+from blaze_tpu_torch.ops.base import (
+    BatchStream, ExecContext, Operator, count_stream,
+)
 from blaze_tpu_torch.ops.basic import infer_dtype
+from blaze_tpu_torch.ops.common import concat_batches
+from blaze_tpu_torch.ops.sort import truncate
+from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+from blaze_tpu_torch.runtime import memory as M
+from blaze_tpu_torch.runtime.metrics import to_host
 
 AGG_BUF_PREFIX = "#9223372036854775807"  # ref agg/mod.rs:38
-
-STREAMING_AGG_MISSING = (
-    "general sort-based aggregation (ops/agg.py streaming path) not yet "
-    "ported")
 
 
 class AggMode(enum.Enum):
@@ -98,15 +116,113 @@ def result_field(call: AggCall) -> Field:
     return Field(call.name, call.dtype)
 
 
+def _first_by_index(values_cols: Sequence[Column], layout, has
+                    ) -> Tuple[List[Column], torch.Tensor]:
+    """Gather several parallel state columns at each group's first row
+    where `has`; returns the gathered columns and ok."""
+    cap = has.shape[0]
+    iota = torch.arange(cap, dtype=torch.int64, device=has.device)
+    idx, ok = seg.seg_first(iota, layout, has, ignores_null=True)
+    idx = idx.clamp(0, cap - 1)
+    return [c.take(idx) for c in values_cols], ok
+
+
+class _AggState(M.MemConsumer):
+    """Aggregation state under the memory manager (ref AggTables and its
+    MemConsumer impl, agg_tables.rs:57-278). Relief is a collapse of raw
+    rows into state, and of several state batches into one; spilling
+    state batches to host files waits for columnar/serde.py."""
+
+    name = "agg"
+
+    def __init__(self, op: "AggExec", manager: M.MemManager) -> None:
+        self.op = op
+        self.manager = manager
+        self.raw: List[ColumnBatch] = []
+        self.raw_rows = 0
+        self.raw_bytes = 0
+        self.states: List[ColumnBatch] = []
+        self.state_bytes = 0
+        # True while self.states holds state batches made elsewhere (a
+        # partial's output): those may carry several rows per group even
+        # in one batch, so they are never "already collapsed"
+        self.states_external = False
+        self.collapses = 0
+        manager.register(self)
+
+    def mem_used(self) -> int:
+        return self.raw_bytes + self.state_bytes
+
+    def spill(self) -> int:
+        freed = self._collapse_all()
+        if freed or not self.states:
+            return freed
+        raise NotImplementedError(
+            f"agg: {self.state_bytes} bytes of collapsed state exceed the "
+            f"memory budget; {M.SPILL_MISSING}")
+
+    def _collapse_all(self) -> int:
+        freed = 0
+        if self.raw:
+            before = self.raw_bytes
+            s = self.op._collapse(self.raw, raw_input=True)
+            self.raw, self.raw_rows, self.raw_bytes = [], 0, 0
+            self._push_state(s)
+            freed += max(before - M.batch_nbytes(s), 0)
+            self.collapses += 1
+        if len(self.states) > 1 or (self.states_external and self.states):
+            before = self.state_bytes
+            s = self.op._collapse(self.states, raw_input=False)
+            self.states, self.state_bytes = [], 0
+            self._push_state(s)
+            self.states_external = False
+            freed += max(before - self.state_bytes, 0)
+            self.collapses += 1
+        return freed
+
+    def _push_state(self, s: ColumnBatch) -> None:
+        self.states.append(s)
+        self.state_bytes += M.batch_nbytes(s)
+
+    def add_raw(self, work: ColumnBatch, n: int) -> None:
+        # op_lock: serialize against a host-driven release()
+        with self.manager.op_lock:
+            self.raw.append(work)
+            self.raw_rows += n
+            self.raw_bytes += M.batch_nbytes(work)
+            if self.raw_rows >= self.op.collapse_threshold:
+                self._collapse_all()
+            self.manager.update_mem_used(self)
+
+    def add_state(self, batch: ColumnBatch) -> None:
+        with self.manager.op_lock:
+            self._push_state(batch)
+            self.states_external = True
+            if len(self.states) >= 16:
+                self._collapse_all()
+            self.manager.update_mem_used(self)
+
+    def merged(self) -> ColumnBatch:
+        self._collapse_all()
+        return self.states[0]
+
+    def close(self) -> None:
+        self.manager.unregister(self)
+        self.raw, self.states = [], []
+        self.raw_bytes = self.state_bytes = 0
+
+
 class AggExec(Operator):
     def __init__(self, child: Operator, group_exprs: Sequence[ir.Expr],
                  group_names: Sequence[str], aggs: Sequence[AggCall],
-                 mode: AggMode) -> None:
+                 mode: AggMode,
+                 collapse_threshold: Optional[int] = None) -> None:
         super().__init__([child])
         self.group_exprs = list(group_exprs)
         self.group_names = list(group_names)
         self.aggs = list(aggs)
         self.mode = mode
+        self.collapse_threshold = collapse_threshold or (conf.batch_size * 16)
         self._build_schema()
 
     # ---- schema plumbing ----
@@ -149,5 +265,230 @@ class AggExec(Operator):
                 tuple(c.key() for c in self.aggs),
                 self.children[0].plan_key())
 
+    # ---- execution ----
+    def _check_supported(self) -> None:
+        """Raise, before any input is read, for the parts not ported."""
+        for call in self.aggs:
+            if call.fn in ("collect_list", "collect_set"):
+                raise NotImplementedError(
+                    f"{call.fn}: its state is a list column (columnar/"
+                    "batch.py ListData), not yet ported")
+            if call.dtype.wide_decimal and call.fn != "count":
+                raise NotImplementedError(
+                    f"{call.fn} over {call.dtype}: wide-decimal state "
+                    "(exprs/wide_decimal.py), not yet ported")
+            if call.dtype.is_string_like and call.fn != "count":
+                raise NotImplementedError(
+                    f"{call.fn} over {call.dtype}: string state "
+                    "(exprs/strings.py), not yet ported")
+
     def execute(self, ctx: ExecContext) -> BatchStream:
-        raise NotImplementedError(STREAMING_AGG_MISSING)
+        self._check_supported()
+
+        def gen():
+            state = _AggState(self, M.get_manager(ctx))
+            device = None
+            try:
+                for batch in self.children[0].execute(ctx):
+                    ctx.check_running()
+                    device = batch.device
+                    n = int(to_host(batch.num_rows))
+                    if n == 0:
+                        continue
+                    with self.metrics.timer():
+                        if self._is_state_input():
+                            state.add_state(batch)
+                        else:
+                            state.add_raw(self._to_work(batch), n)
+                if not state.raw and not state.states:
+                    if not self.group_exprs:
+                        yield self._empty_global_result(
+                            device or resolve_device(ctx.device))
+                    return
+                with self.metrics.timer():
+                    merged = state.merged()
+                    out = (self._finalize(merged)
+                           if self.mode == AggMode.FINAL else merged)
+                self.metrics.add("collapses", state.collapses)
+                yield truncate(out, max(int(to_host(out.num_rows)), 1))
+            finally:
+                state.close()
+
+        return count_stream(self, gen())
+
+    def _is_state_input(self) -> bool:
+        return self.mode in (AggMode.PARTIAL_MERGE, AggMode.FINAL)
+
+    def _to_work(self, batch: ColumnBatch) -> ColumnBatch:
+        """Project child rows into the working layout: group columns, then
+        each aggregate's inputs."""
+        with cse_scope():
+            cols = [fn(batch) for fn in self._group_fns]
+            fields = list(self._group_fields)
+            for call, fns in zip(self.aggs, self._input_fns):
+                for j, fn in enumerate(fns):
+                    c = fn(batch)
+                    cols.append(c)
+                    fields.append(Field(f"in.{call.name}.{j}", c.dtype))
+        return batch.with_columns(Schema(fields), cols)
+
+    def _collapse(self, batches: List[ColumnBatch], raw_input: bool
+                  ) -> ColumnBatch:
+        """Sort the rows of `batches` by the group columns and reduce each
+        group to one state row. The JAX package pads the concatenation to
+        a compile-service capacity rung first, to bound its jit programs;
+        here the bucket capacity of the concatenation is used as it is."""
+        big = batches[0] if len(batches) == 1 else concat_batches(batches)
+        ngroups = len(self._group_fields)
+        sb = sort_batch(big, [SortSpec(i) for i in range(ngroups)])
+        layout = seg.group_layout(sb, list(range(ngroups)))
+        gcols = [sb.columns[i].take(layout.start_idx) for i in range(ngroups)]
+        if raw_input:
+            scols = self._accumulate_raw(sb, layout, ngroups)
+        else:
+            scols = self._merge_state(sb, layout, ngroups)
+        return ColumnBatch(self._state_schema, gcols + scols,
+                           layout.num_groups, sb.capacity)
+
+    def _accumulate_raw(self, sb: ColumnBatch, layout, ngroups: int
+                        ) -> List[Column]:
+        """Partial: raw input columns -> state columns."""
+        out: List[Column] = []
+        ci = ngroups
+        for call in self.aggs:
+            ins = sb.columns[ci:ci + len(call.inputs)]
+            ci += len(call.inputs)
+            out.extend(self._acc_one(call, ins, layout))
+        return out
+
+    def _acc_one(self, call: AggCall, ins: List[Column], layout
+                 ) -> List[Column]:
+        fn = call.fn
+        if fn == "count":
+            valid = None
+            for c in ins:
+                v = c.valid_mask()
+                valid = v if valid is None else (valid & v)
+            if valid is None:  # count(*) with no argument
+                valid = layout.row_mask
+            return [Column(T.INT64, seg.seg_count(valid, layout), None)]
+        (x,) = ins
+        valid = x.valid_mask()
+        if fn in ("sum", "avg"):
+            if fn == "sum":
+                sd = _sum_state_dtype(call.dtype)
+            else:
+                sd = (call.dtype if call.dtype.kind == TypeKind.DECIMAL
+                      else T.FLOAT64)
+            data = x.data.to(sd.torch_dtype())
+            s = seg.seg_sum(torch.where(valid, data, torch.zeros_like(data)),
+                            layout, valid)
+            cnt = seg.seg_count(valid, layout)
+            if fn == "sum":
+                return [Column(sd, s, None), Column(T.BOOLEAN, cnt > 0, None)]
+            return [Column(sd, s, None), Column(T.INT64, cnt, None)]
+        if fn in ("min", "max"):
+            red = seg.seg_min if fn == "min" else seg.seg_max
+            val, has = red(x.data, layout, valid)
+            return [Column(call.dtype, val, None),
+                    Column(T.BOOLEAN, has, None)]
+        if fn == "first":
+            idx = layout.start_idx
+            fvalid = (valid & layout.row_mask)[idx]
+            return [Column(call.dtype, x.data[idx], None),
+                    Column(T.BOOLEAN, fvalid, None),
+                    Column(T.BOOLEAN, layout.group_mask, None)]
+        if fn == "first_ignores_null":
+            val, has = seg.seg_first(x.data, layout, valid, ignores_null=True)
+            return [Column(call.dtype, val, None),
+                    Column(T.BOOLEAN, has, None)]
+        raise NotImplementedError(f"agg function {fn}")
+
+    def _merge_state(self, sb: ColumnBatch, layout, ngroups: int
+                     ) -> List[Column]:
+        out: List[Column] = []
+        ci = ngroups
+        ones = torch.ones((sb.capacity,), dtype=torch.bool, device=sb.device)
+        for call in self.aggs:
+            nstate = len(state_fields(call, 0))
+            cols = sb.columns[ci:ci + nstate]
+            ci += nstate
+            fn = call.fn
+            if fn == "count":
+                out.append(Column(T.INT64, seg.seg_sum(cols[0].data, layout,
+                                                       ones), None))
+            elif fn == "sum":
+                zero = torch.zeros_like(cols[0].data)
+                s = seg.seg_sum(torch.where(cols[1].data, cols[0].data, zero),
+                                layout, ones)
+                out += [Column(cols[0].dtype, s, None),
+                        Column(T.BOOLEAN, seg.seg_any(cols[1].data, layout),
+                               None)]
+            elif fn == "avg":
+                out += [Column(cols[0].dtype,
+                               seg.seg_sum(cols[0].data, layout, ones), None),
+                        Column(T.INT64,
+                               seg.seg_sum(cols[1].data, layout, ones), None)]
+            elif fn in ("min", "max"):
+                red = seg.seg_min if fn == "min" else seg.seg_max
+                val, has = red(cols[0].data, layout, cols[1].data)
+                out += [Column(cols[0].dtype, val, None),
+                        Column(T.BOOLEAN, has, None)]
+            elif fn == "first":
+                (v, vv), ok = _first_by_index([cols[0], cols[1]], layout,
+                                              cols[2].data)
+                out += [Column(cols[0].dtype, v.data, None),
+                        Column(T.BOOLEAN, vv.data, None),
+                        Column(T.BOOLEAN, ok, None)]
+            elif fn == "first_ignores_null":
+                (v,), ok = _first_by_index([cols[0]], layout, cols[1].data)
+                out += [Column(cols[0].dtype, v.data, None),
+                        Column(T.BOOLEAN, ok, None)]
+            else:
+                raise NotImplementedError(fn)
+        return out
+
+    # ---- finalize ----
+    def _finalize(self, state: ColumnBatch) -> ColumnBatch:
+        ngroups = len(self._group_fields)
+        cols = list(state.columns[:ngroups])
+        ci = ngroups
+        for call in self.aggs:
+            nstate = len(state_fields(call, 0))
+            cols.append(self._finalize_one(call,
+                                           state.columns[ci:ci + nstate]))
+            ci += nstate
+        return state.with_columns(self._schema, cols)
+
+    def _finalize_one(self, call: AggCall, scols: List[Column]) -> Column:
+        fn = call.fn
+        if fn == "count":
+            return scols[0]
+        if fn == "sum":
+            return Column(scols[0].dtype, scols[0].data, scols[1].data)
+        if fn == "avg":
+            s, cnt = scols[0].data, scols[1].data
+            ok = cnt > 0
+            if call.dtype.kind == TypeKind.DECIMAL:
+                q = torch.div(s, cnt.clamp(min=1), rounding_mode="floor")
+                return Column(call.dtype,
+                              torch.where(ok, q, torch.zeros_like(q)), ok)
+            v = s.to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
+            return Column(T.FLOAT64, torch.where(ok, v, torch.zeros_like(v)),
+                          ok)
+        if fn in ("min", "max", "first_ignores_null"):
+            return Column(call.dtype, scols[0].data, scols[1].data)
+        if fn == "first":
+            return Column(call.dtype, scols[0].data,
+                          scols[1].data & scols[2].data)
+        raise NotImplementedError(fn)
+
+    def _empty_global_result(self, device) -> ColumnBatch:
+        """Global aggregate over zero rows: one row of initial state
+        (count=0, sum=null, ...), Spark's global-agg-on-empty answer."""
+        cap = bucket_capacity(1)
+        state = ColumnBatch.empty(self._state_schema, cap,
+                                  device=device).with_num_rows(1)
+        if self.mode == AggMode.FINAL:
+            return self._finalize(state)
+        return state

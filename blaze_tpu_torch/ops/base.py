@@ -16,7 +16,8 @@ import torch
 
 from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.columnar.types import Schema
-from blaze_tpu_torch.runtime.metrics import MetricsSet
+from blaze_tpu_torch.device import DeviceLike
+from blaze_tpu_torch.runtime.metrics import MetricsSet, to_host
 
 BatchStream = Iterator[ColumnBatch]
 
@@ -30,6 +31,11 @@ class ExecContext:
     batch_size: Optional[int] = None
     # task-kill cooperation: check_running() at batch boundaries
     is_running: Callable[[], bool] = lambda: True
+    # where results made without an input batch go (an empty collect, a
+    # global aggregate over no rows): None is the CUDA card
+    device: DeviceLike = None
+    # memory manager of the task's consumers; None is the process-wide one
+    mem_manager: object = None
 
     def check_running(self) -> None:
         if not self.is_running():
@@ -101,7 +107,7 @@ def count_stream(op: Operator, stream: BatchStream) -> BatchStream:
     finally:
         if rows:
             op.metrics.add("output_rows",
-                           int(torch.stack(rows).sum()))  # one pull
+                           int(to_host(torch.stack(rows).sum())))  # one pull
         close = getattr(stream, "close", None)
         if close is not None:
             close()

@@ -1,9 +1,12 @@
-"""Map-like and source operators: MemorySource, Project, Filter, Rename.
+"""Map-like, source and stream operators.
 
-Port of the main-path subset of blaze_tpu/ops/basic.py (ref:
-datafusion-ext-plans project_exec.rs / filter_exec.rs /
-rename_columns_exec.rs). Filter+Project fuse into one per-batch function
-via the executor.
+Port of blaze_tpu/ops/basic.py (ref: datafusion-ext-plans project_exec.rs,
+filter_exec.rs, rename_columns_exec.rs, limit_exec.rs,
+empty_partitions_exec.rs, coalesce_stream.rs): MemorySource, Project,
+Filter, Rename, Local/GlobalLimit, Union, EmptyPartitions and
+CoalesceBatches. Filter+Project fuse into one per-batch function via the
+executor. The JAX module's DebugExec and the host-function expression
+operators wait for the slices that port their expressions.
 """
 
 from __future__ import annotations
@@ -14,11 +17,14 @@ import torch
 
 from blaze_tpu_torch.columnar.batch import ColumnBatch, bucket_capacity
 from blaze_tpu_torch.columnar.types import Field, Schema
+from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.compiler import compile_expr
 from blaze_tpu_torch.ops.base import (
     BatchStream, ExecContext, MapLikeOp, Operator, count_stream,
 )
+from blaze_tpu_torch.ops.common import concat_batches
+from blaze_tpu_torch.runtime.metrics import to_host
 
 
 def infer_dtype(fn, schema: Schema):
@@ -139,3 +145,119 @@ class RenameColumnsExec(MapLikeOp):
             return batch.with_columns(schema, batch.columns)
 
         return run
+
+
+class LocalLimitExec(Operator):
+    """Ref: limit_exec.rs LocalLimitExec — truncate the stream at k rows."""
+
+    def __init__(self, child: Operator, limit: int) -> None:
+        super().__init__([child])
+        self.limit = limit
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def plan_key(self) -> tuple:
+        return ("local_limit", self.limit, self.children[0].plan_key())
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        def gen():
+            remaining = self.limit
+            for batch in self.children[0].execute(ctx):
+                if remaining <= 0:
+                    break
+                n = int(to_host(batch.num_rows))
+                if n <= remaining:
+                    remaining -= n
+                    yield batch
+                else:
+                    yield batch.with_num_rows(remaining)
+                    remaining = 0
+
+        return count_stream(self, gen())
+
+
+class GlobalLimitExec(LocalLimitExec):
+    """Ref: limit_exec.rs GlobalLimitExec (the plan guarantees one
+    partition)."""
+
+    def plan_key(self) -> tuple:
+        return ("global_limit", self.limit, self.children[0].plan_key())
+
+
+class UnionExec(Operator):
+    """Ref: from_proto.rs :453 Union — the child streams one after
+    another."""
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        def gen():
+            for child in self.children:
+                yield from child.execute(ctx)
+
+        return count_stream(self, gen())
+
+
+class EmptyPartitionsExec(Operator):
+    """Ref: empty_partitions_exec.rs — schema only, zero rows."""
+
+    def __init__(self, schema: Schema, num_partitions: int = 1) -> None:
+        super().__init__([])
+        self._schema = schema
+        self.num_partitions = num_partitions
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def plan_key(self) -> tuple:
+        return ("empty", tuple(self._schema.names()))
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        return iter(())
+
+
+class CoalesceBatchesExec(Operator):
+    """Ref: streams/coalesce_stream.rs — re-chunk to the configured batch
+    size: small batches are held and concatenated on the device."""
+
+    def __init__(self, child: Operator,
+                 batch_size: Optional[int] = None) -> None:
+        super().__init__([child])
+        self.batch_size = batch_size
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def plan_key(self) -> tuple:
+        return ("coalesce", self.batch_size, self.children[0].plan_key())
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        target = self.batch_size or ctx.batch_size or conf.batch_size
+
+        def gen():
+            pending: List[ColumnBatch] = []
+            pending_rows = 0
+            for batch in self.children[0].execute(ctx):
+                n = int(to_host(batch.num_rows))
+                if n == 0:
+                    continue
+                staged = False
+                if n < target // 2 or pending:
+                    pending.append(batch)
+                    pending_rows += n
+                    staged = True
+                if pending_rows >= target:
+                    yield concat_batches(pending, self.schema)
+                    pending, pending_rows = [], 0
+                if not staged:
+                    yield batch
+            if pending:
+                yield concat_batches(pending, self.schema)
+
+        return count_stream(self, gen())

@@ -1,0 +1,78 @@
+"""Shared operator utilities: batch concatenation and slicing.
+
+Port of `concat_batches` and `slice_batch` from blaze_tpu/ops/common.py
+(ref: concat_batches in datafusion-ext-commons lib.rs:33-61) for the dense
+column kinds the port's batches hold. String and list columns raise
+NotImplementedError naming exprs/strings.py; the adaptive batch sizing of
+that module (`schema_row_bytes`, `adaptive_batch_rows`) waits for the scan
+sources that use it.
+
+The JAX versions run as one jitted program per (schema, shapes) so as to
+pay one dispatch instead of one per column on a remote-attached chip;
+here the same gathers run eagerly.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.types import Schema
+from blaze_tpu_torch.runtime.metrics import to_host
+
+
+def require_dense(schema: Schema) -> None:
+    """Raise for the column kinds the port's batches cannot hold yet."""
+    for f in schema.fields:
+        if f.dtype.is_string_like or f.dtype.is_nested:
+            raise NotImplementedError(
+                f"{f.dtype} column {f.name!r}: string and list storage "
+                "(exprs/strings.py) not yet ported")
+
+
+def concat_batches(batches: List[ColumnBatch],
+                   schema: Optional[Schema] = None) -> ColumnBatch:
+    """Concatenate the live rows of several batches into one, in order.
+
+    Materialization point: the row counts come to the host in one pull
+    (the JAX package reads them one batch at a time), because the output
+    capacity depends on their total. Padding rows are zeros."""
+    if not batches:
+        raise ValueError("concat_batches needs at least one batch")
+    schema = schema or batches[0].schema
+    require_dense(schema)
+    counts = to_host(torch.stack([b.num_rows for b in batches])).tolist()
+    total = sum(counts)
+    cap = bucket_capacity(total)
+    dev = batches[0].device
+    pad = cap - total
+    cols = []
+    for ci, field in enumerate(schema.fields):
+        parts = [b.columns[ci] for b in batches]
+        data = [p.data[:n] for p, n in zip(parts, counts)]
+        if pad:
+            data.append(torch.zeros((pad,), dtype=parts[0].data.dtype,
+                                    device=dev))
+        valid = None
+        if any(p.validity is not None for p in parts):
+            valid = [p.valid_mask()[:n] for p, n in zip(parts, counts)]
+            if pad:
+                valid.append(torch.zeros((pad,), dtype=torch.bool,
+                                         device=dev))
+            valid = torch.cat(valid)
+        cols.append(Column(field.dtype, torch.cat(data), valid))
+    return ColumnBatch(schema, cols,
+                       torch.tensor(total, dtype=torch.int32, device=dev), cap)
+
+
+def slice_batch(batch: ColumnBatch, start: int, count: int) -> ColumnBatch:
+    """Live rows [start, start+count) into a fresh batch of capacity
+    bucket_capacity(count); no host pull (the row count stays on the
+    device)."""
+    require_dense(batch.schema)
+    cap = bucket_capacity(count)
+    idx = torch.arange(cap, dtype=torch.int64, device=batch.device) + start
+    n = (batch.num_rows - start).clamp(0, count)
+    return batch.take(idx.clamp(0, batch.capacity - 1), n)

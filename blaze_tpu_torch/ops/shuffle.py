@@ -44,7 +44,8 @@ def _call_provider(provider, ctx: ExecContext):
 class FfiReaderExec(Operator):
     """Ref: ffi_reader_exec.rs — pulls batches from a registered export
     iterator. The provider yields ready `ColumnBatch`es; pyarrow
-    RecordBatches need columnar/arrow_io.py, which is not ported yet."""
+    RecordBatches need columnar/arrow_io.py, which comes with the serde
+    slice (columnar/serde.py)."""
 
     def __init__(self, schema: Schema, export_resource_id: str) -> None:
         super().__init__([])

@@ -4,9 +4,11 @@ Port of blaze_tpu/plan/from_proto.py (ref: blaze-serde from_proto.rs:
 121-793, lib.rs:191-535). The same `TaskDefinition` bytes decode in both
 packages: plan_pb2.py is the JAX package's generated module, copied. Types
 and scalars decode in full; expressions decode for the kinds the port's
-compiler handles; plan nodes decode for the main path's arms —
-ffi_reader, filter, projection, agg and rename_columns. Every other
-expression kind or plan node raises NotImplementedError naming it.
+compiler handles; plan nodes decode for the arms of the ported operators —
+ffi_reader, filter, projection, agg, rename_columns, sort (with its fetch
+limit), limit, union, empty_partitions and coalesce_batches. Every other
+expression kind or plan node (joins, windows, expand, shuffle, scans)
+raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from blaze_tpu_torch.ops import basic as B
 from blaze_tpu_torch.ops.agg import AggCall, AggExec, AggMode
 from blaze_tpu_torch.ops.base import Operator
 from blaze_tpu_torch.ops.shuffle import FfiReaderExec
+from blaze_tpu_torch.ops.sort import SortExec
+from blaze_tpu_torch.ops.sort_keys import SortSpec
 from blaze_tpu_torch.plan import plan_pb2 as pb
 
 # ---------------------------------------------------------------------------
@@ -131,6 +135,20 @@ def decode_expr(p: pb.ExprNode) -> ir.Expr:
     raise NotImplementedError(f"expression kind {which}")
 
 
+def _col_index(e: ir.Expr, schema: T.Schema) -> int:
+    if isinstance(e, ir.Col):
+        return schema.index_of(e.name)
+    if isinstance(e, ir.BoundRef):
+        return e.index
+    raise NotImplementedError(
+        f"expected a column reference, got {type(e).__name__}")
+
+
+def _sort_spec(term: pb.SortTerm, schema: T.Schema) -> SortSpec:
+    return SortSpec(_col_index(decode_expr(term.expr), schema),
+                    term.ascending, term.nulls_first)
+
+
 # ---------------------------------------------------------------------------
 # plan nodes
 # ---------------------------------------------------------------------------
@@ -168,11 +186,28 @@ def decode_plan(p: pb.PlanNode) -> Operator:
                  for a in n.aggs]
         return AggExec(child, [decode_expr(g) for g in n.grouping],
                        list(n.grouping_names), calls, _AGG_MODE[n.mode])
+    if which == "sort":
+        child = decode_plan(n.input)
+        specs = [_sort_spec(t, child.schema) for t in n.terms]
+        fetch = n.fetch_limit if n.fetch_limit > 0 else None
+        return SortExec(child, specs, fetch=fetch)
+    if which == "union":
+        return B.UnionExec([decode_plan(c) for c in n.inputs])
+    if which == "empty_partitions":
+        return B.EmptyPartitionsExec(decode_schema(n.schema),
+                                     n.num_partitions)
     if which == "rename_columns":
         return B.RenameColumnsExec(decode_plan(n.input), list(n.renamed))
+    if which == "limit":
+        child = decode_plan(n.input)
+        cls = B.GlobalLimitExec if getattr(n, "global") else B.LocalLimitExec
+        return cls(child, n.limit)
     if which == "ffi_reader":
         return FfiReaderExec(decode_schema(n.schema),
                              n.export_iter_resource_id)
+    if which == "coalesce_batches":
+        return B.CoalesceBatchesExec(decode_plan(n.input),
+                                     n.batch_size or None)
     raise NotImplementedError(f"plan node {which}")
 
 

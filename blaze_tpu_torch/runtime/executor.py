@@ -1,10 +1,12 @@
 """Per-task execution: pipeline fusion, collect, and the fetch entry.
 
-Port of the main-path subset of blaze_tpu/runtime/executor.py. Maximal
+Port of the collect subset of blaze_tpu/runtime/executor.py. Maximal
 chains of map-like operators run as one composed per-batch function,
 eagerly on the batch's device (PyTorch has no compiled-program cache to
-keep small, so there is no jit cache here), and a stage that matches the
-dense grouped-aggregation pattern runs through runtime/stage_compiler.py.
+keep small, so there is no jit cache here). `collect` first tries the
+whole-stage path of runtime/stage_compiler.py (the dense grouped
+aggregation, the agg-less chain stage); anything else streams, and a
+stream of several batches concatenates into one (ops/common.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.ops.base import (
     BatchStream, ExecContext, MapLikeOp, Operator, count_stream,
 )
+from blaze_tpu_torch.ops.common import concat_batches
+from blaze_tpu_torch.runtime.metrics import to_host
 
 
 def _fused_chain(op: MapLikeOp) -> tuple:
@@ -60,18 +64,20 @@ def collect(root: Operator, ctx: Optional[ExecContext] = None) -> ColumnBatch:
     staged = try_run_stage(root, ctx)
     if staged is not None:
         return staged
-    return _collect_streamed(root, ctx)
+    return collect_streamed(root, ctx)
 
 
-def _collect_streamed(root: Operator, ctx: ExecContext) -> ColumnBatch:
+def collect_streamed(root: Operator, ctx: ExecContext,
+                     device=None) -> ColumnBatch:
+    """All of `root`'s streamed output as one batch (concatenated when the
+    stream has several); an empty batch on `device`, or the context's,
+    when it yields none."""
     batches = list(execute_plan(root, ctx))
     if not batches:
-        return ColumnBatch.empty(root.schema)
+        return ColumnBatch.empty(root.schema, device=device or ctx.device)
     if len(batches) == 1:
         return batches[0]
-    raise NotImplementedError(
-        "collecting a multi-batch stream needs concat_batches "
-        "(ops/common.py), not yet ported")
+    return concat_batches(batches, root.schema)
 
 
 def collect_fetch(root: Operator, pack: Callable,
@@ -87,4 +93,4 @@ def collect_fetch_async(root: Operator, pack: Callable,
     `finish()` whose call pulls the packed result. The stage's own flags
     pull already happened; `pack` is only enqueued here."""
     packed = pack(collect(root, ctx))
-    return lambda: packed.cpu().numpy()
+    return lambda: to_host(packed).numpy()

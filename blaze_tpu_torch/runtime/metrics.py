@@ -12,6 +12,20 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+# device -> host reads made through `to_host` since import. On the card each
+# one waits for the device to drain its queue; chip_smoke.py resets and
+# reads it around a rep
+HOST_PULLS = 0
+
+
+def to_host(t):
+    """`t` on the host (a CPU tensor), counted in HOST_PULLS. The port's
+    reads of device values (row counts, stage flags, probe ranges) all go
+    through here."""
+    global HOST_PULLS
+    HOST_PULLS += 1
+    return t.cpu()
+
 
 class MetricsSet:
     def __init__(self) -> None:

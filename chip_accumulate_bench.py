@@ -3,6 +3,7 @@ on one NVIDIA GPU.
 
     python3 chip_accumulate_bench.py [--variant-cu PATH ...]
                                      [--baseline-cu PATH] [--parent-tree DIR]
+                                     [--spare-slots N ...]
 
 Runs from the repo root on a CUDA card with nvcc. At the main path's shape
 (chip_smoke.py's kernel-phase inputs: 2^21 rows, 2^16 keys, 7 planes,
@@ -30,6 +31,12 @@ one key), it measures:
     time and, from torch.profiler over one rep, the device launches and
     busy time by kernel. Unpack the other checkout with `git archive
     <commit> | tar -x -C _checkout/parent`.
+  * with --spare-slots, chip_smoke.py's general_agg plan (64 x 2^21 rows
+    grouped by 2 M nullable customer keys, through the streaming AggExec)
+    with ops/segment.py's `_SPARE` (the slots past the end that take the
+    masked rows of a segment scatter) set to each value in turns (a, b,
+    b, a), every run held to the first one's result: the median rep time
+    and one profiled rep's device busy time and top operations.
 
 Every ratio it prints is of two times from this one run. It prints one JSON
 line per measurement, then the card's nvidia-smi line.
@@ -110,7 +117,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 cs.phase_build()
-launches, plan, med = cs.phase_main_path({"ms": 0.0})
+main = cs.phase_main_path({"ms": 0.0})
+plan, med = main["plan"], main["rep_s"]
 with profile(activities=[ProfilerActivity.CUDA]) as prof:
     cs.collect_fetch(plan, cs._digest)
     torch.cuda.synchronize()
@@ -163,11 +171,47 @@ def _time_chain(lib, design, case, k, v, words, recipe, rng, want):
     return ms
 
 
+def _spare_slots_ab(values) -> None:
+    """general_agg's plan under each `_SPARE` value, in turns."""
+    import numpy as np
+
+    from blaze_tpu_torch.columnar.batch import ColumnBatch
+    from blaze_tpu_torch.ops import segment
+    from blaze_tpu_torch.plan.from_proto import decode_task_definition
+    from blaze_tpu_torch.runtime import resources
+    from blaze_tpu_torch.runtime.executor import collect_fetch
+
+    batches = [ColumnBatch.from_numpy(cs._make_data(s), cs.SCHEMA,
+                                      capacity=cs.ROWS)
+               for s in range(cs.GENERAL_BATCHES)]
+    gb = cs._general_batches(batches, [cs._make_customers(s)
+                                       for s in range(len(batches))])
+    rid = resources.register(lambda: iter(gb))
+    plan, _ = decode_task_definition(cs._build_task(
+        cs.GENERAL_SCHEMA_PB, rid, key="ss_customer_sk",
+        aggs=cs.GENERAL_AGGS))
+    ncols = 1 + len(cs.GENERAL_AGGS)
+    want = None
+    for n in list(values) + list(values)[::-1]:
+        segment._SPARE = n
+        packed = collect_fetch(plan, cs._full)
+        if want is None:
+            want = packed
+        np.testing.assert_allclose(packed, want, rtol=1e-9)
+        times = cs._timed_reps(plan, packed, ncols)
+        rows, busy_ms = cs._device_profile(
+            lambda: collect_fetch(plan, cs._digest))
+        cs._emit({"spare_slots": n, "rep_s": times,
+                  "median_rep_s": float(np.median(times)),
+                  "device_busy_ms": busy_ms, "top": cs._top(rows, 8)})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant-cu", type=Path, action="append", default=[])
     ap.add_argument("--baseline-cu", type=Path, default=None)
     ap.add_argument("--parent-tree", type=Path, default=None)
+    ap.add_argument("--spare-slots", type=int, nargs="+", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_accumulate_bench: no CUDA device", file=sys.stderr)
@@ -216,6 +260,8 @@ def main() -> int:
         trees = [("parent", args.parent_tree), ("this", Path("."))]
         for label, tree in trees + trees[::-1]:
             cs._emit({"main_path_probe": label, **_rep_probe(tree)})
+    if args.spare_slots:
+        _spare_slots_ab(args.spare_slots)
     print(smi, flush=True)
     return 0
 

@@ -27,10 +27,28 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
   5. profile    one more rep under torch.profiler: device time by kernel,
                 the device's idle share of a rep, and each chain kernel
                 seen on the device once per batch
+  6. dense_minmax  the same rows and plan with min(ss_sales_price) and
+                max(amount) beside sum and count: the dense path with its
+                min/max carriers, one chain launch a batch; keys, counts,
+                min and max exact against numpy, sums rtol 1e-9
+  7. general_agg   the same rows with a nullable ss_customer_sk, uniform
+                on [1, 2,000,000] (TPC-DS SF100's customers) with 5% nulls,
+                grouped by it: the dense path declines and the batches
+                stream through the sort-based AggExec; the whole output
+                against numpy (keys, counts, min, max exact; sums and
+                averages rtol 1e-9), then the plan under a top-100 sort
+                (cnt desc, key asc nulls first). Rep time, collapses and
+                host pulls a rep, the memory manager's peak and one
+                profiled rep's device busy time, idle share and top
+                operations
+  8. chain_stage   the agg-less scan -> filter -> project over 16 batches,
+                compacted into one batch and checked exactly
 
-Every phase prints one JSON line. Then come the kernels line, the card's
-`nvidia-smi` line, and last `{"ok": true, "device": {...}}`. Any failure
-raises and exits non-zero before the last line.
+Counts (kernel launches, host pulls) are set to 0 just before each path
+runs and read just after. Every phase prints one JSON line. Then come the
+kernels line, the card's `nvidia-smi` line, and last
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
+before the last line.
 """
 
 from __future__ import annotations
@@ -45,18 +63,21 @@ import torch
 
 from blaze_tpu_torch import kernels
 from blaze_tpu_torch.columnar import types as T
-from blaze_tpu_torch.columnar.batch import ColumnBatch
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
 from blaze_tpu_torch.ops import mxu_agg
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.from_proto import decode_task_definition
-from blaze_tpu_torch.runtime import resources
-from blaze_tpu_torch.runtime.executor import collect_fetch
+from blaze_tpu_torch.runtime import memory, metrics, resources
+from blaze_tpu_torch.runtime.executor import collect, collect_fetch
 
 ROWS = 1 << 21       # rows per batch (bench.py)
 N_BATCHES = 64       # 134M rows, ~3.2 GB input
 GROUPS = 1 << 16
 REPS = 5
 WARM_REPS = 2
+PATH_REPS = 3        # timed reps of each later path, after WARM_REPS
+GENERAL_BATCHES = N_BATCHES
+CHAIN_BATCHES = 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12        # data-sheet rate outside the tensor cores
 
@@ -69,6 +90,26 @@ SCHEMA = T.Schema([
 SCHEMA_PB = [("ss_item_sk", pb.TK_INT32), ("ss_quantity", pb.TK_INT32),
              ("ss_sales_price", pb.TK_FLOAT64),
              ("ss_ext_sales_price", pb.TK_FLOAT64)]
+
+# the general path: q06's rows with a nullable customer key, grouped by it
+CUSTOMERS = 2_000_000    # TPC-DS SF100's customer count
+NULL_SHARE = 0.05
+GENERAL_SCHEMA = T.Schema([T.Field("ss_customer_sk", T.INT32)]
+                          + list(SCHEMA.fields))
+GENERAL_SCHEMA_PB = [("ss_customer_sk", pb.TK_INT32)] + SCHEMA_PB
+# (fn, argument, result kind, name); None is the literal 1
+GENERAL_AGGS = [("sum", "amount", "f64", "sum_amount"),
+                ("count", None, "i64", "cnt"),
+                ("avg", "ss_sales_price", "f64", "avg_price"),
+                ("min", "ss_sales_price", "f64", "min_price"),
+                ("max", "amount", "f64", "max_amount")]
+# dense_minmax: q06 by item with min and max beside the sum and count
+MINMAX_AGGS = [("sum", "amount", "f64", "sum_amount"),
+               ("count", None, "i64", "cnt"),
+               ("min", "ss_sales_price", "f64", "min_price"),
+               ("max", "amount", "f64", "max_amount")]
+TOP_SORT = [("cnt", False, True), ("ss_customer_sk", True, True)]
+TOP_N = 100
 
 
 # ---------------------------------------------------------------------------
@@ -85,39 +126,107 @@ def _make_data(seed):
     }
 
 
-def _numpy_pipeline(datas):
-    out = np.zeros(GROUPS, np.float64)
-    cnt = np.zeros(GROUPS, np.int64)
-    for data in datas:
-        keep = (data["ss_quantity"] <= 50) & (data["ss_sales_price"] > 10.0)
-        k = data["ss_item_sk"][keep]
-        amount = data["ss_quantity"][keep].astype(np.float64) * \
-            data["ss_sales_price"][keep]
-        out += np.bincount(k, weights=amount, minlength=GROUPS)
-        cnt += np.bincount(k, minlength=GROUPS)
-    return out, cnt
+def _make_customers(seed):
+    """ss_customer_sk of one batch: uniform on [1, CUSTOMERS], NULL_SHARE
+    of the rows null. Returns (keys, valid)."""
+    rng = np.random.default_rng(10_000 + seed)
+    return (rng.integers(1, CUSTOMERS + 1, size=ROWS).astype(np.int32),
+            rng.random(ROWS) >= NULL_SHARE)
+
+
+def _kept(data):
+    keep = (data["ss_quantity"] <= 50) & (data["ss_sales_price"] > 10.0)
+    return keep, data["ss_quantity"][keep].astype(np.float64) * \
+        data["ss_sales_price"][keep]
+
+
+def _numpy_grouped(datas, keys_of, size):
+    """GENERAL_AGGS per group slot (keys_of(i, keep) -> int slots in
+    [0, size)): {"cnt", "sum_amount", "avg_price", "min_price",
+    "max_amount"} arrays of `size`."""
+    cnt = np.zeros(size, np.int64)
+    amt = np.zeros(size, np.float64)
+    price = np.zeros(size, np.float64)
+    mn = np.full(size, np.inf)
+    mx = np.full(size, -np.inf)
+    for i, data in enumerate(datas):
+        keep, amount = _kept(data)
+        k = keys_of(i, keep)
+        p = data["ss_sales_price"][keep]
+        cnt += np.bincount(k, minlength=size)
+        amt += np.bincount(k, weights=amount, minlength=size)
+        price += np.bincount(k, weights=p, minlength=size)
+        np.minimum.at(mn, k, p)
+        np.maximum.at(mx, k, amount)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        avg = price / cnt
+    return {"cnt": cnt, "sum_amount": amt, "avg_price": avg,
+            "min_price": mn, "max_amount": mx}
+
+
+def _item_oracle(datas):
+    """bench.py's q06 answer per item slot in [0, GROUPS)."""
+    return _numpy_grouped(
+        datas, lambda i, keep: datas[i]["ss_item_sk"][keep], GROUPS)
+
+
+def _general_oracle(datas, customers):
+    """The general plan's answer in the port's row order: the null group
+    first, then customers ascending. Returns (keys with -1 for null,
+    columns) over the groups that have rows."""
+    def slots(i, keep):
+        keys, valid = customers[i]
+        return np.where(valid[keep], keys[keep], 0)
+
+    cols = _numpy_grouped(datas, slots, CUSTOMERS + 1)
+    nz = cols["cnt"] > 0
+    keys = np.nonzero(nz)[0].astype(np.int64)
+    keys[keys == 0] = -1
+    return keys, {k: v[nz] for k, v in cols.items()}
+
+
+def _top_oracle(keys, cols):
+    """Rows of the TOP_SORT order (cnt desc, key asc, null first), cut to
+    TOP_N."""
+    order = np.lexsort((keys, -cols["cnt"]))[:TOP_N]
+    return keys[order], {k: v[order] for k, v in cols.items()}
+
+
+_AGG_CODES = {"sum": pb.AGG_SUM, "count": pb.AGG_COUNT, "avg": pb.AGG_AVG,
+              "min": pb.AGG_MIN, "max": pb.AGG_MAX, "first": pb.AGG_FIRST,
+              "first_ignores_null": pb.AGG_FIRST_IGNORES_NULL}
+_KINDS = {"f64": pb.TK_FLOAT64, "i64": pb.TK_INT64}
+# bench.py's aggregates, all of `amount`: fn -> (result kind, name)
+_AMOUNT_AGGS = {"sum": ("f64", "sum_amount"), "count": ("i64", "cnt"),
+                "avg": ("f64", "avg_amount")}
+
+
+def _col(name):
+    e = pb.ExprNode()
+    e.column.name = name
+    return e
+
+
+def _lit(kind, field, v):
+    e = pb.ExprNode()
+    e.literal.dtype.kind = kind
+    setattr(e.literal, field, v)
+    return e
 
 
 def _build_task(schema_fields, resource_id, agg_fns=("sum", "count"),
-                final=True):
-    """TaskDefinition bytes for the workload (bench.py's plan). agg_fns
-    picks the aggregate of `amount` per output column; final=False stops
-    at the partial aggregate."""
-    fn_map = {"sum": (pb.AGG_SUM, pb.TK_FLOAT64, "sum_amount"),
-              "count": (pb.AGG_COUNT, pb.TK_INT64, "cnt"),
-              "avg": (pb.AGG_AVG, pb.TK_FLOAT64, "avg_amount")}
-
-    def col(name):
-        e = pb.ExprNode()
-        e.column.name = name
-        return e
-
-    def lit(kind, field, v):
-        e = pb.ExprNode()
-        e.literal.dtype.kind = kind
-        setattr(e.literal, field, v)
-        return e
-
+                final=True, key="ss_item_sk", aggs=None, sort=None,
+                fetch=0, agg=True):
+    """TaskDefinition bytes of bench.py's plan: ffi_reader -> filter
+    (qty <= 50, price > 10) -> project (key, amount = qty * price, and any
+    other column an aggregate reads) -> partial agg [-> final agg]
+    [-> sort]. agg_fns picks the aggregates of `amount` (bench.py's);
+    `aggs` lists (fn, argument column or None for the literal 1, result
+    kind, name) instead. final=False stops at the partial aggregate,
+    agg=False at the projection. `sort` is a list of (column, ascending,
+    nulls_first) with a `fetch` limit (0: none)."""
+    if aggs is None:
+        aggs = [(fn, "amount") + _AMOUNT_AGGS[fn] for fn in agg_fns]
     src = pb.PlanNode()
     for name, kind in schema_fields:
         f = src.ffi_reader.schema.fields.add()
@@ -129,44 +238,61 @@ def _build_task(schema_fields, resource_id, agg_fns=("sum", "count"),
     flt.filter.input.CopyFrom(src)
     p1 = flt.filter.predicates.add()
     p1.binary.op = pb.OP_LE
-    p1.binary.left.CopyFrom(col("ss_quantity"))
-    p1.binary.right.CopyFrom(lit(pb.TK_INT32, "int_value", 50))
+    p1.binary.left.CopyFrom(_col("ss_quantity"))
+    p1.binary.right.CopyFrom(_lit(pb.TK_INT32, "int_value", 50))
     p2 = flt.filter.predicates.add()
     p2.binary.op = pb.OP_GT
-    p2.binary.left.CopyFrom(col("ss_sales_price"))
-    p2.binary.right.CopyFrom(lit(pb.TK_FLOAT64, "float_value", 10.0))
+    p2.binary.left.CopyFrom(_col("ss_sales_price"))
+    p2.binary.right.CopyFrom(_lit(pb.TK_FLOAT64, "float_value", 10.0))
 
     proj = pb.PlanNode()
     proj.projection.input.CopyFrom(flt)
-    proj.projection.exprs.add().CopyFrom(col("ss_item_sk"))
+    proj.projection.exprs.add().CopyFrom(_col(key))
     amount = pb.ExprNode()
     amount.binary.op = pb.OP_MUL
     cast_q = pb.ExprNode()
-    cast_q.cast.child.CopyFrom(col("ss_quantity"))
+    cast_q.cast.child.CopyFrom(_col("ss_quantity"))
     cast_q.cast.dtype.kind = pb.TK_FLOAT64
     amount.binary.left.CopyFrom(cast_q)
-    amount.binary.right.CopyFrom(col("ss_sales_price"))
+    amount.binary.right.CopyFrom(_col("ss_sales_price"))
     proj.projection.exprs.add().CopyFrom(amount)
-    proj.projection.names.extend(["ss_item_sk", "amount"])
+    names = [key, "amount"]
+    for _, arg, _, _ in aggs:
+        if arg is not None and arg not in names:
+            proj.projection.exprs.add().CopyFrom(_col(arg))
+            names.append(arg)
+    proj.projection.names.extend(names)
 
     def agg_node(inp, mode):
         n = pb.PlanNode()
         n.agg.input.CopyFrom(inp)
         n.agg.mode = mode
-        n.agg.grouping.add().CopyFrom(col("ss_item_sk"))
-        n.agg.grouping_names.append("ss_item_sk")
-        for fn in agg_fns:
-            code, kind, name = fn_map[fn]
+        n.agg.grouping.add().CopyFrom(_col(key))
+        n.agg.grouping_names.append(key)
+        for fn, arg, kind, name in aggs:
             a = n.agg.aggs.add()
-            a.fn = code
-            a.args.add().CopyFrom(col("amount"))
-            a.result_type.kind = kind
+            a.fn = _AGG_CODES[fn]
+            a.args.add().CopyFrom(_col(arg) if arg is not None
+                                  else _lit(pb.TK_INT32, "int_value", 1))
+            a.result_type.kind = _KINDS[kind]
             a.name = name
         return n
 
-    root = agg_node(proj, pb.AGG_PARTIAL)
-    if final:
-        root = agg_node(root, pb.AGG_FINAL)
+    root = proj
+    if agg:
+        root = agg_node(proj, pb.AGG_PARTIAL)
+        if final:
+            root = agg_node(root, pb.AGG_FINAL)
+    if sort:
+        top = pb.PlanNode()
+        top.sort.input.CopyFrom(root)
+        for name, asc, nulls_first in sort:
+            t = top.sort.terms.add()
+            t.expr.CopyFrom(_col(name))
+            t.ascending = asc
+            t.nulls_first = nulls_first
+        top.sort.fetch_limit = fetch
+        root = top
     td = pb.TaskDefinition()
     td.partition_id = 0
     td.plan.CopyFrom(root)
@@ -285,6 +411,91 @@ def _check_equal(name, keys, valid, words, recipe, rng) -> int:
         raise AssertionError(f"mxu_accumulate != plain version on {name} "
                              f"input (max |diff| {err})")
     return err
+
+
+def _full(out):
+    """num_rows, then every column as f64, nulls as -1."""
+    return torch.cat([out.num_rows.to(torch.float64)[None]] + [
+        torch.where(c.valid_mask(), c.data.to(torch.float64),
+                    torch.full_like(c.data, -1, dtype=torch.float64))
+        for c in out.columns])
+
+
+def _digest(out):
+    """_full's columns as weighted checksums (one small pull; bench.py's
+    digest)."""
+    cap = out.columns[0].data.shape[0]
+    packed = _full(out)[1:].reshape(len(out.columns), cap)
+    w = (torch.arange(cap, dtype=torch.float64, device=out.device)
+         % 8191.0) + 1.0
+    live = torch.arange(cap, device=out.device) < out.num_rows
+    wl = torch.where(live, w, torch.zeros_like(w))
+    return torch.cat([out.num_rows.to(torch.float64)[None], packed @ wl])
+
+
+def _unpack(packed, ncols):
+    """(n, [column arrays of the n live rows]) of a _full result."""
+    n = int(packed[0])
+    cols = packed[1:].reshape(ncols, -1)
+    return n, [c[:n] for c in cols]
+
+
+def _host_digest(packed, ncols):
+    cols = packed[1:].reshape(ncols, -1)
+    cap = cols.shape[1]
+    w = (np.arange(cap, dtype=np.float64) % 8191.0) + 1.0
+    wl = np.where(np.arange(cap) < packed[0], w, 0.0)
+    return np.concatenate([packed[:1], cols @ wl])
+
+
+def _reset_counts() -> None:
+    """Counts of the path about to run: kernel launches, host pulls."""
+    mxu_agg.KERNEL_LAUNCHES = 0
+    for name in mxu_agg.CHAIN_LAUNCHES:
+        mxu_agg.CHAIN_LAUNCHES[name] = 0
+    metrics.HOST_PULLS = 0
+
+
+def _timed_reps(plan, packed, ncols, reps=PATH_REPS):
+    """WARM_REPS untimed reps (allocator and launch caches settle), then
+    `reps` timed reps of collect_fetch(plan), each held to the checked
+    first run's digest (rtol 1e-9: float sums add in an order that is not
+    fixed on the card). Returns the rep times (s)."""
+    want = _host_digest(packed, ncols)
+    for _ in range(WARM_REPS):
+        collect_fetch(plan, _digest)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        d = collect_fetch(plan, _digest)
+        times.append(time.perf_counter() - t0)
+        np.testing.assert_allclose(d, want, rtol=1e-9)
+    return times
+
+
+def _device_profile(fn):
+    """One call of fn under torch.profiler: (rows, busy_ms), rows being
+    (device us, name, launches) by kernel, most time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((float(us), e.key, int(e.count)))
+    rows.sort(reverse=True)
+    return rows, sum(r[0] for r in rows) / 1e3
+
+
+def _top(rows, k=12):
+    return [{"kernel": name[:100], "ms": us / 1e3, "calls": c}
+            for us, name, c in rows[:k]]
 
 
 # ---------------------------------------------------------------------------
@@ -422,23 +633,7 @@ def phase_kernel() -> dict:
     return res
 
 
-def _digest(out):
-    """Weighted checksums over every output column (bench.py's digest)."""
-    cap = out.columns[0].data.shape[0]
-    dev = out.device
-    w = (torch.arange(cap, dtype=torch.float64, device=dev) % 8191.0) + 1.0
-    live = torch.arange(cap, device=dev) < out.num_rows
-    wl = torch.where(live, w, torch.zeros_like(w))
-    return torch.stack([out.num_rows.to(torch.float64)] + [
-        torch.dot(c.data.to(torch.float64), wl) for c in out.columns[:3]])
-
-
-def _full(out):
-    return torch.cat([out.num_rows.to(torch.float64)[None]] + [
-        c.data.to(torch.float64) for c in out.columns[:3]])
-
-
-def phase_main_path(kernel: dict):
+def phase_main_path(kernel: dict) -> dict:
     t0 = time.perf_counter()
     datas = [_make_data(seed) for seed in range(N_BATCHES)]
     input_bytes = sum(sum(a.nbytes for a in d.values()) for d in datas)
@@ -446,16 +641,14 @@ def phase_main_path(kernel: dict):
                for d in datas]
     torch.cuda.synchronize()
     _require(batches[0].device.type == "cuda", "batches not on cuda")
-    ref_sums, ref_cnts = _numpy_pipeline(datas)
+    ref = _item_oracle(datas)
     setup_s = time.perf_counter() - t0
 
     rid = resources.register(lambda: iter(batches))
     plan, _ = decode_task_definition(_build_task(SCHEMA_PB, rid))
 
     # the run whose launches count and whose result is checked in full
-    mxu_agg.KERNEL_LAUNCHES = 0
-    for name in mxu_agg.CHAIN_LAUNCHES:
-        mxu_agg.CHAIN_LAUNCHES[name] = 0
+    _reset_counts()
     t1 = time.perf_counter()
     packed = collect_fetch(plan, _full)
     first_s = time.perf_counter() - t1
@@ -464,32 +657,16 @@ def phase_main_path(kernel: dict):
     if launches != N_BATCHES or set(chain.values()) != {N_BATCHES}:
         raise AssertionError(f"main path launched mxu_accumulate {launches} "
                              f"times ({chain}) for {N_BATCHES} batches")
-    cap = (len(packed) - 1) // 3
-    n = int(packed[0])
-    keys = packed[1:1 + cap][:n].astype(np.int64)
-    sums = packed[1 + cap:1 + 2 * cap][:n]
-    cnts = packed[1 + 2 * cap:][:n].astype(np.int64)
+    n, (keys, sums, cnts) = _unpack(packed, 3)
     order = np.argsort(keys, kind="stable")
     keys, sums, cnts = keys[order], sums[order], cnts[order]
-    nz = ref_cnts > 0
+    nz = ref["cnt"] > 0
     np.testing.assert_array_equal(keys, np.nonzero(nz)[0])
-    np.testing.assert_array_equal(cnts, ref_cnts[nz])
-    np.testing.assert_allclose(sums, ref_sums[nz], rtol=1e-9)
+    np.testing.assert_array_equal(cnts, ref["cnt"][nz])
+    np.testing.assert_allclose(sums, ref["sum_amount"][nz], rtol=1e-9)
     _require(bool(np.all(np.isfinite(sums))), "non-finite sums")
 
-    w = (np.arange(cap, dtype=np.float64) % 8191.0) + 1.0
-    wl = np.where(np.arange(cap) < n, w, 0.0)
-    host_digest = np.array([float(n), packed[1:1 + cap] @ wl,
-                            packed[1 + cap:1 + 2 * cap] @ wl,
-                            packed[1 + 2 * cap:] @ wl])
-    for _ in range(WARM_REPS):  # allocator and launch caches settle
-        collect_fetch(plan, _digest)
-    times = []
-    for _ in range(REPS):
-        t2 = time.perf_counter()
-        d = collect_fetch(plan, _digest)
-        times.append(time.perf_counter() - t2)
-        np.testing.assert_allclose(d, host_digest, rtol=1e-9)
+    times = _timed_reps(plan, packed, 3, REPS)
     best, med = min(times), float(np.median(times))
     total_rows = N_BATCHES * ROWS
     _emit({"phase": "main_path", "batches": N_BATCHES, "rows": total_rows,
@@ -500,28 +677,16 @@ def phase_main_path(kernel: dict):
            "rows_per_s": total_rows / med,
            "input_GB_per_s": input_bytes / med / 1e9,
            "kernel_share": kernel["ms"] * N_BATCHES / 1e3 / med,
-           "max_abs_err_sum": float(np.max(np.abs(sums - ref_sums[nz])))})
-    return launches, plan, med
+           "max_abs_err_sum": float(np.max(np.abs(
+               sums - ref["sum_amount"][nz])))})
+    return {"launches": launches, "chain": chain, "plan": plan,
+            "rep_s": med, "datas": datas, "batches": batches}
 
 
 def phase_profile(plan, rep_s: float) -> None:
     """One warm rep of the main path under torch.profiler: device time by
     kernel name and the device's idle share against an unprofiled rep."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        collect_fetch(plan, _digest)
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((float(us), e.key, int(e.count)))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    rows, busy_ms = _device_profile(lambda: collect_fetch(plan, _digest))
     # the chain's kernels as the device ran them: once per batch each
     chain = {name: sum(c for _, key, c in rows if name in key)
              for name in CHAIN_KERNELS}
@@ -532,9 +697,201 @@ def phase_profile(plan, rep_s: float) -> None:
            "device_busy_ms": busy_ms,
            "device_launches": sum(r[2] for r in rows),
            "idle_share": 1.0 - busy_ms / (rep_s * 1e3),
-           "chain_kernel_calls": chain,
-           "top": [{"kernel": k[:100], "ms": us / 1e3, "calls": c}
-                   for us, k, c in rows[:12]]})
+           "chain_kernel_calls": chain, "top": _top(rows)})
+
+
+# ---------------------------------------------------------------------------
+# the later paths: dense min/max, the general aggregation, the chain stage
+# ---------------------------------------------------------------------------
+
+def phase_dense_minmax(datas, batches) -> dict:
+    """q06 with min(price) and max(amount) beside sum and count: the dense
+    path with its min/max carriers, one chain launch a batch."""
+    rid = resources.register(lambda: iter(batches))
+    plan, _ = decode_task_definition(_build_task(SCHEMA_PB, rid,
+                                                 aggs=MINMAX_AGGS))
+    _reset_counts()
+    packed = collect_fetch(plan, _full)
+    launches, chain = mxu_agg.KERNEL_LAUNCHES, dict(mxu_agg.CHAIN_LAUNCHES)
+    pulls = metrics.HOST_PULLS
+    compiled = plan.metrics["stage_compiled"]
+    _require(compiled == 1,
+             "dense_minmax did not take the dense path")
+    if launches != N_BATCHES or set(chain.values()) != {N_BATCHES}:
+        raise AssertionError(f"dense_minmax launched mxu_accumulate "
+                             f"{launches} times ({chain}) for {N_BATCHES} "
+                             "batches")
+    n, (keys, sums, cnts, mins, maxs) = _unpack(packed, 5)
+    order = np.argsort(keys, kind="stable")
+    ref = _numpy_grouped(datas, lambda i, keep: datas[i]["ss_item_sk"][keep],
+                         GROUPS)
+    nz = ref["cnt"] > 0
+    np.testing.assert_array_equal(keys[order], np.nonzero(nz)[0])
+    np.testing.assert_array_equal(cnts[order], ref["cnt"][nz])
+    np.testing.assert_array_equal(mins[order], ref["min_price"][nz])
+    np.testing.assert_array_equal(maxs[order], ref["max_amount"][nz])
+    np.testing.assert_allclose(sums[order], ref["sum_amount"][nz],
+                               rtol=1e-9)
+    times = _timed_reps(plan, packed, 5)
+    med = float(np.median(times))
+    rows, busy_ms = _device_profile(lambda: collect_fetch(plan, _digest))
+    res = {"phase": "dense_minmax", "batches": N_BATCHES,
+           "rows": N_BATCHES * ROWS, "groups": n, "launches": launches,
+           "chain_launches": chain, "host_pulls": pulls,
+           "stage_compiled": compiled,
+           "rep_s": times, "median_rep_s": med, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / (med * 1e3),
+           "device_launches": sum(r[2] for r in rows),
+           "top": _top(rows)}
+    _emit(res)
+    return res
+
+
+def _general_batches(batches, customers):
+    """q06's batches on the card with ss_customer_sk in front."""
+    out = []
+    for b, (keys, valid) in zip(batches, customers):
+        k = torch.from_numpy(np.where(valid, keys, 0)).to(b.device)
+        v = torch.from_numpy(valid).to(b.device)
+        out.append(ColumnBatch(GENERAL_SCHEMA,
+                               [Column(T.INT32, k, v)] + b.columns,
+                               b.num_rows, b.capacity))
+    return out
+
+
+def _check_general(packed, keys, cols):
+    """A packed GENERAL_AGGS result against the numpy oracle: keys,
+    counts, min and max exact, sums and averages rtol 1e-9."""
+    names = [name for _, _, _, name in GENERAL_AGGS]
+    n, got = _unpack(packed, 1 + len(names))
+    _require(n == len(keys), f"{n} groups, the oracle has {len(keys)}")
+    np.testing.assert_array_equal(got[0], keys)
+    for name, col in zip(names, got[1:]):
+        if name in ("sum_amount", "avg_price"):
+            np.testing.assert_allclose(col, cols[name], rtol=1e-9,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(col, cols[name], err_msg=name)
+    _require(bool(np.all(np.isfinite(np.stack(got[1:])))),
+             "non-finite aggregates")
+
+
+def phase_general_agg(datas, batches) -> dict:
+    """bench.py's q06 rows grouped by a nullable ss_customer_sk of 2 M
+    values (TPC-DS SF100): the dense path declines (null keys, a range
+    past dense_agg_range) and the captured batches stream through the
+    sort-based AggExec; then the same plan under a top-100 sort."""
+    t0 = time.perf_counter()
+    datas, batches = datas[:GENERAL_BATCHES], batches[:GENERAL_BATCHES]
+    customers = [_make_customers(s) for s in range(len(datas))]
+    gbatches = _general_batches(batches, customers)
+    okeys, ocols = _general_oracle(datas, customers)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rid = resources.register(lambda: iter(gbatches))
+    task = _build_task(GENERAL_SCHEMA_PB, rid, key="ss_customer_sk",
+                       aggs=GENERAL_AGGS)
+    plan, _ = decode_task_definition(task)
+    ncols = 1 + len(GENERAL_AGGS)
+
+    mgr = memory.get_manager()
+    mgr.reset_peak()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t1 = time.perf_counter()
+    packed = collect_fetch(plan, _full)
+    first_s = time.perf_counter() - t1
+    launches, pulls = mxu_agg.KERNEL_LAUNCHES, metrics.HOST_PULLS
+
+    def collapses():
+        return plan.metrics["collapses"] + plan.children[0].metrics[
+            "collapses"]
+
+    first_collapses = collapses()
+    compiled, fallbacks = (plan.metrics["stage_compiled"],
+                           plan.metrics["stage_fallbacks"])
+    _require(compiled == 0, "general_agg took the dense path")
+    _require(fallbacks == 1,
+             "general_agg did not fall back to the streaming AggExec")
+    _require(first_collapses >= 1, "general_agg made no collapse")
+    _check_general(packed, okeys, ocols)
+    mem_peak = mgr.peak_used
+    dev_peak = torch.cuda.max_memory_allocated()
+    _require(mgr.mem_used() == 0, "agg state still registered")
+
+    c0 = collapses()
+    metrics.HOST_PULLS = 0
+    times = _timed_reps(plan, packed, ncols)
+    per_rep = PATH_REPS + WARM_REPS
+    rep_pulls = metrics.HOST_PULLS / per_rep
+    rep_collapses = (collapses() - c0) / per_rep
+    med = float(np.median(times))
+    rows, busy_ms = _device_profile(lambda: collect_fetch(plan, _digest))
+
+    # the same plan under Sort(cnt DESC, ss_customer_sk ASC NULLS FIRST)
+    # with a fetch limit of 100; integer keys decide every tie
+    top_plan, _ = decode_task_definition(_build_task(
+        GENERAL_SCHEMA_PB, rid, key="ss_customer_sk", aggs=GENERAL_AGGS,
+        sort=TOP_SORT, fetch=TOP_N))
+    top_packed = collect_fetch(top_plan, _full)
+    _check_general(top_packed, *_top_oracle(okeys, ocols))
+    top_times = _timed_reps(top_plan, top_packed, ncols)
+    res = {"phase": "general_agg", "batches": len(gbatches),
+           "rows": len(gbatches) * ROWS, "customers": CUSTOMERS,
+           "null_share": NULL_SHARE, "groups": len(okeys),
+           "setup_s": setup_s, "first_run_s": first_s,
+           "stage_compiled": compiled, "stage_fallbacks": fallbacks,
+           "mxu_accumulate_launches": launches,
+           "first_run_host_pulls": pulls,
+           "first_run_collapses": first_collapses,
+           "host_pulls_per_rep": rep_pulls,
+           "collapses_per_rep": rep_collapses,
+           "mem_manager_peak_bytes": mem_peak,
+           "mem_budget_bytes": mgr.total,
+           "cuda_max_allocated_bytes": dev_peak,
+           "rep_s": times, "median_rep_s": med,
+           "rows_per_s": len(gbatches) * ROWS / med,
+           "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / (med * 1e3),
+           "device_launches": sum(r[2] for r in rows),
+           "top": _top(rows),
+           "top100_rep_s": top_times,
+           "top100_median_rep_s": float(np.median(top_times))}
+    _emit(res)
+    return res
+
+
+def phase_chain_stage(datas, batches) -> dict:
+    """BASELINE config 1: q06's scan -> filter -> project with no
+    aggregate over CHAIN_BATCHES batches, as one chain stage: one
+    compacted batch, rows checked exactly against numpy."""
+    datas, batches = datas[:CHAIN_BATCHES], batches[:CHAIN_BATCHES]
+    rid = resources.register(lambda: iter(batches))
+    plan, _ = decode_task_definition(_build_task(SCHEMA_PB, rid, agg=False))
+    _reset_counts()
+    out = collect(plan)
+    pulls = metrics.HOST_PULLS
+    compiled = plan.metrics["stage_compiled"]
+    _require(compiled == 1, "chain_stage did not take the chain stage")
+    _require(out.capacity == CHAIN_BATCHES * ROWS,
+             f"chain stage capacity {out.capacity}")
+    packed = _full(out).cpu().numpy()
+    n, (keys, amount) = _unpack(packed, 2)
+    kept = [_kept(d) for d in datas]
+    np.testing.assert_array_equal(keys, np.concatenate(
+        [d["ss_item_sk"][keep] for d, (keep, _) in zip(datas, kept)]))
+    np.testing.assert_array_equal(amount, np.concatenate(
+        [a for _, a in kept]))
+    times = _timed_reps(plan, packed, 2)
+    med = float(np.median(times))
+    rows, busy_ms = _device_profile(lambda: collect_fetch(plan, _digest))
+    res = {"phase": "chain_stage", "batches": CHAIN_BATCHES,
+           "rows": CHAIN_BATCHES * ROWS, "rows_out": n, "host_pulls": pulls,
+           "stage_compiled": compiled,
+           "rep_s": times, "median_rep_s": med, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / (med * 1e3), "top": _top(rows, 6)}
+    _emit(res)
+    return res
 
 
 def main() -> int:
@@ -545,13 +902,20 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     kern = phase_kernel()
-    launches, plan, rep_s = phase_main_path(kern)
-    phase_profile(plan, rep_s)
+    main_path = phase_main_path(kern)
+    phase_profile(main_path["plan"], main_path["rep_s"])
+    datas, batches = main_path["datas"], main_path["batches"]
+    minmax = phase_dense_minmax(datas, batches)
+    phase_general_agg(datas, batches)
+    phase_chain_stage(datas, batches)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
         "source": "blaze_tpu_torch/csrc/mxu_accumulate.cu",
         "replaces": "blaze_tpu/ops/mxu_agg.py:135",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": main_path["launches"],
+        "max_abs_err": kern["max_abs_err"],
+        "chain_launches": main_path["chain"],
+        "dense_minmax_launches": minmax["launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -20,7 +20,7 @@ from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.ops import mxu_agg as M
 from blaze_tpu_torch.plan.from_proto import decode_task_definition
 from blaze_tpu_torch.runtime import resources
-from blaze_tpu_torch.runtime.executor import collect_fetch
+from blaze_tpu_torch.runtime.executor import collect, collect_fetch
 
 pytestmark = pytest.mark.cuda
 
@@ -177,8 +177,144 @@ def test_bench_plan_on_card(cuda, monkeypatch):
     order = np.argsort(keys, kind="stable")
     sums = packed[1 + cap:1 + 2 * cap][:n][order]
     cnts = packed[1 + 2 * cap:][:n].astype(np.int64)[order]
-    ref_sums, ref_cnts = cs._numpy_pipeline(datas)
+    ref = cs._item_oracle(datas)
+    ref_sums, ref_cnts = ref["sum_amount"], ref["cnt"]
     nz = ref_cnts > 0
     np.testing.assert_array_equal(keys[order], np.nonzero(nz)[0])
     np.testing.assert_array_equal(cnts, ref_cnts[nz])
     np.testing.assert_allclose(sums, ref_sums[nz], rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the general aggregation, sort and limit path at test size: the card
+# against the port's own CPU route on the same numpy-made batches
+# ---------------------------------------------------------------------------
+
+def _general_workload(device, rows=1 << 12, n_batches=3, customers=3000):
+    """chip_smoke's general_agg batches (q06 rows with a nullable
+    ss_customer_sk) cut to test size, on `device`."""
+    from blaze_tpu_torch.columnar import types as T
+    from blaze_tpu_torch.columnar.batch import Column
+
+    batches = []
+    for s in range(n_batches):
+        rng = np.random.default_rng(100 + s)
+        d = {"ss_item_sk": rng.integers(0, 1 << 10, rows).astype(np.int32),
+             "ss_quantity": rng.integers(1, 100, rows).astype(np.int32),
+             "ss_sales_price": rng.random(rows) * 100,
+             "ss_ext_sales_price": rng.random(rows) * 500}
+        keys = rng.integers(1, customers + 1, rows).astype(np.int32)
+        valid = rng.random(rows) >= 0.05
+        b = ColumnBatch.from_numpy(d, cs.SCHEMA, capacity=rows,
+                                   device=device)
+        k = torch.from_numpy(np.where(valid, keys, 0)).to(device)
+        v = torch.from_numpy(valid).to(device)
+        batches.append(ColumnBatch(cs.GENERAL_SCHEMA,
+                                   [Column(T.INT32, k, v)] + b.columns,
+                                   b.num_rows, b.capacity))
+    return batches
+
+
+def _provider(batches):
+    return lambda: iter(batches)
+
+
+# six float sums and averages: 37 digit planes, past the 32 that one
+# launch of the accumulate kernel takes, so two launch groups
+MANY_PLANE_AGGS = [(fn, arg, "f64", f"{fn}_{arg}")
+                   for fn in ("sum", "avg")
+                   for arg in ("amount", "ss_sales_price",
+                               "ss_ext_sales_price")]
+
+GENERAL_PLANS = {
+    "general_agg": dict(key="ss_customer_sk", aggs=cs.GENERAL_AGGS),
+    "partial_only": dict(key="ss_customer_sk", aggs=cs.GENERAL_AGGS,
+                         final=False),
+    "top100": dict(key="ss_customer_sk", aggs=cs.GENERAL_AGGS,
+                   sort=cs.TOP_SORT, fetch=cs.TOP_N),
+    "dense_minmax": dict(aggs=cs.MINMAX_AGGS),
+    "many_planes": dict(aggs=MANY_PLANE_AGGS),
+    "chain_stage": dict(agg=False),
+}
+# the dense plans' chain launches a batch
+DENSE_LAUNCHES = {"dense_minmax": 1, "many_planes": 2}
+
+
+def _assert_card_equals_cpu(got, want):
+    assert got.device.type == "cuda" and want.device.type == "cpu"
+    assert got.schema.names() == want.schema.names()
+    n = int(want.num_rows)
+    assert int(got.num_rows) == n
+    for name, g, w in zip(want.schema.names(), got.columns, want.columns):
+        gv, wv = g.valid_mask()[:n].cpu(), w.valid_mask()[:n]
+        assert torch.equal(gv, wv), name
+        zero = torch.zeros((), dtype=w.data.dtype)
+        gd = torch.where(gv, g.data[:n].cpu(), zero)
+        wd = torch.where(wv, w.data[:n], zero)
+        if gd.dtype.is_floating_point and ("sum" in name or "avg" in name):
+            torch.testing.assert_close(gd, wd, rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(gd, wd), name
+
+
+@pytest.mark.parametrize("name", list(GENERAL_PLANS))
+def test_general_path_on_card_matches_cpu(cuda, name):
+    """Each later path of chip_smoke.py at test size, and a dense stage of
+    two launch groups (many_planes): the card's answer
+    equals the CPU route's, integer, key, min/max and row-order columns
+    with torch.equal and f64 sums within rtol 1e-12. Rows come out in the
+    same order on both: the sort-based path orders them by key, the dense
+    path by dense slot, the chain stage by input row."""
+    kw = GENERAL_PLANS[name]
+    schema_pb = cs.GENERAL_SCHEMA_PB
+    outs = {}
+    for dev in ("cpu", cuda):
+        batches = _general_workload(dev)
+        if "key" not in kw:  # the q06 plans read q06's columns
+            batches = [ColumnBatch(cs.SCHEMA, b.columns[1:], b.num_rows,
+                                   b.capacity) for b in batches]
+            schema_pb = cs.SCHEMA_PB
+        rid = resources.register(_provider(batches))
+        plan, _ = decode_task_definition(cs._build_task(schema_pb, rid, **kw))
+        before = M.KERNEL_LAUNCHES
+        outs[dev] = collect(plan)
+        if name in DENSE_LAUNCHES:
+            assert plan.metrics["stage_compiled"] == 1
+            if dev is cuda:
+                assert M.KERNEL_LAUNCHES == before + 3 * DENSE_LAUNCHES[name]
+        if name in ("general_agg", "partial_only"):
+            assert plan.metrics["stage_fallbacks"] == 1
+    _assert_card_equals_cpu(outs[cuda], outs["cpu"])
+
+
+def test_sort_keys_on_card_match_cpu(cuda):
+    """sort_batch over each key kind, both directions and null orders,
+    with ties: the card's permutation equals the CPU's (stable sorts)."""
+    from blaze_tpu_torch.columnar import types as T
+    from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+
+    rng = np.random.default_rng(3)
+    n = 5000
+    kinds = ["INT8", "INT16", "INT32", "INT64", "FLOAT32", "FLOAT64",
+             "BOOLEAN"]
+    floats = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5]
+    data = {f"c{i}": (rng.choice(floats, n) if k.startswith("FLOAT")
+                      else rng.integers(-3, 3, n))
+            for i, k in enumerate(kinds)}
+    data["rid"] = np.arange(n)
+    valid = {f"c{i}": rng.random(n) > 0.2 for i in range(len(kinds))}
+    schema = T.Schema([T.Field(f"c{i}", getattr(T, k))
+                       for i, k in enumerate(kinds)]
+                      + [T.Field("rid", T.INT32)])
+    for asc in (True, False):
+        for nf in (True, False):
+            specs = [SortSpec(i, asc ^ (i % 2 == 1), nf)
+                     for i in range(len(kinds))]
+            got = sort_batch(ColumnBatch.from_numpy(
+                data, schema, capacity=8192, validity=valid,
+                device=cuda), specs)
+            want = sort_batch(ColumnBatch.from_numpy(
+                data, schema, capacity=8192, validity=valid,
+                device="cpu"), specs)
+            assert torch.equal(got.columns[-1].data[:n].cpu(),
+                               want.columns[-1].data[:n])

@@ -31,6 +31,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import tempfile
 import threading
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -134,8 +135,10 @@ _DECLARATIONS: Tuple[Knob, ...] = (
     Knob("memory_budget", 0,
          doc="HBM budget for MemManager in bytes; 0 = derive from device "
              "memory stats."),
-    Knob("spill_dir", "/tmp/blaze_tpu_spill", env="BLAZE_TPU_SPILL_DIR",
-         doc="Directory for host spill files (MemManager/SpillFile)."),
+    Knob("spill_dir", os.path.join(tempfile.gettempdir(), "blaze_tpu_spill"),
+         env="BLAZE_TPU_SPILL_DIR",
+         doc="Directory for host spill files (MemManager/SpillFile); by "
+             "default under the process's temp dir ($TMPDIR)."),
     Knob("zstd_level", 1,
          doc="Compression level for shuffle/spill/broadcast frames (ref "
              "uses zstd level 1; this build's frame codec is zlib at the "
@@ -468,10 +471,11 @@ _DECLARATIONS: Tuple[Knob, ...] = (
          doc="Per-frame CRC32 + whole-file digests stamped into shuffle "
              ".index files at commit time and verified on every read "
              "path (server segment fetch, local shuffle reads, spill "
-             "re-read). A mismatch quarantines the artifact and triggers "
-             "lineage re-execution of the producing map task under a "
-             "fresh epoch. Off = commit/read behave as before (legacy "
-             "footer-less indexes are always accepted)."),
+             "re-read). A mismatch, or an index without its footer, "
+             "raises CorruptArtifactError (quarantine and lineage "
+             "re-execution of the producing map task come with the "
+             "service slice). Off = nothing is stamped or checked, and "
+             "footer-less indexes are accepted."),
     Knob("journal_dir", "", env="BLAZE_TPU_JOURNAL_DIR",
          doc="Write-ahead query journal directory ('' disables): one "
              "crash-atomic JSONL per query recording admission, plan "

@@ -14,10 +14,11 @@ The functions sum, count, avg, min, max, first and first_ignores_null run
 over the dense column kinds in the modes PARTIAL, PARTIAL_MERGE and FINAL.
 Left out, each raising NotImplementedError naming its module:
 collect_list/collect_set (list storage, columnar/batch.py ListData), string
-min/max (exprs/strings.py), wide-decimal sum/avg/min/max
-(exprs/wide_decimal.py) and spilling state to the host
-(columnar/serde.py). The JAX module's jit cache and compile-service shape
-rungs have no counterpart: PyTorch runs each step eagerly.
+min/max (exprs/strings.py) and wide-decimal sum/avg/min/max
+(exprs/wide_decimal.py). Over the memory budget, collapsed state spills to
+host files (runtime/memory.SpillFile) and merges back at the end. The JAX
+module's jit cache and compile-service shape rungs have no counterpart:
+PyTorch runs each step eagerly.
 """
 
 from __future__ import annotations
@@ -129,9 +130,11 @@ def _first_by_index(values_cols: Sequence[Column], layout, has
 
 class _AggState(M.MemConsumer):
     """Aggregation state under the memory manager (ref AggTables and its
-    MemConsumer impl, agg_tables.rs:57-278). Relief is a collapse of raw
-    rows into state, and of several state batches into one; spilling
-    state batches to host files waits for columnar/serde.py."""
+    MemConsumer impl, agg_tables.rs:57-278: in-memory tables spill to runs
+    merged on output). Relief is (1) a collapse of raw rows into state, and
+    of several state batches into one, then (2) a spill of the collapsed
+    state batches to a host file; `merged` folds the spilled state back
+    in."""
 
     name = "agg"
 
@@ -147,7 +150,9 @@ class _AggState(M.MemConsumer):
         # partial's output): those may carry several rows per group even
         # in one batch, so they are never "already collapsed"
         self.states_external = False
+        self.spills: List[M.SpillFile] = []
         self.collapses = 0
+        self.spill_files_used = 0
         manager.register(self)
 
     def mem_used(self) -> int:
@@ -157,9 +162,15 @@ class _AggState(M.MemConsumer):
         freed = self._collapse_all()
         if freed or not self.states:
             return freed
-        raise NotImplementedError(
-            f"agg: {self.state_bytes} bytes of collapsed state exceed the "
-            f"memory budget; {M.SPILL_MISSING}")
+        # already collapsed: the state batches go to a host spill file
+        freed = self.state_bytes
+        sf = M.SpillFile(self.op._state_schema, manager=self.manager)
+        self.spills.append(sf)
+        for s in self.states:
+            sf.write(s)
+        self.spill_files_used += 1
+        self.states, self.state_bytes = [], 0
+        return freed
 
     def _collapse_all(self) -> int:
         freed = 0
@@ -203,13 +214,24 @@ class _AggState(M.MemConsumer):
             self.manager.update_mem_used(self)
 
     def merged(self) -> ColumnBatch:
+        """The one collapsed state: the in-memory state, then each spilled
+        frame read back onto the device it left and collapsed in."""
         self._collapse_all()
-        return self.states[0]
+        acc = self.states[0] if self.states else None
+        for sf in self.spills:
+            for chunk in sf.read():
+                acc = chunk if acc is None else self.op._collapse(
+                    [acc, chunk], raw_input=False)
+        return acc
 
     def close(self) -> None:
+        """Also the error path: closing the spill files never masks the
+        error being unwound (close_all_quietly)."""
         self.manager.unregister(self)
         self.raw, self.states = [], []
         self.raw_bytes = self.state_bytes = 0
+        spills, self.spills = self.spills, []
+        M.close_all_quietly(spills, "agg spill")
 
 
 class AggExec(Operator):
@@ -300,7 +322,7 @@ class AggExec(Operator):
                             state.add_state(batch)
                         else:
                             state.add_raw(self._to_work(batch), n)
-                if not state.raw and not state.states:
+                if not (state.raw or state.states or state.spills):
                     if not self.group_exprs:
                         yield self._empty_global_result(
                             device or resolve_device(ctx.device))
@@ -310,6 +332,7 @@ class AggExec(Operator):
                     out = (self._finalize(merged)
                            if self.mode == AggMode.FINAL else merged)
                 self.metrics.add("collapses", state.collapses)
+                self.metrics.add("spill_count", state.spill_files_used)
                 yield truncate(out, max(int(to_host(out.num_rows)), 1))
             finally:
                 state.close()

@@ -3,9 +3,10 @@
 Port of `concat_batches` and `slice_batch` from blaze_tpu/ops/common.py
 (ref: concat_batches in datafusion-ext-commons lib.rs:33-61) for the dense
 column kinds the port's batches hold. String and list columns raise
-NotImplementedError naming exprs/strings.py; the adaptive batch sizing of
-that module (`schema_row_bytes`, `adaptive_batch_rows`) waits for the scan
-sources that use it.
+NotImplementedError naming exprs/strings.py. `adaptive_target_bytes` sizes
+the IPC reader's macro-batches; the row sizing of that module
+(`schema_row_bytes`, `adaptive_batch_rows`) waits for the scan sources
+that use it.
 
 The JAX versions run as one jitted program per (schema, shapes) so as to
 pay one dispatch instead of one per column on a remote-attached chip;
@@ -65,6 +66,19 @@ def concat_batches(batches: List[ColumnBatch],
         cols.append(Column(field.dtype, torch.cat(data), valid))
     return ColumnBatch(schema, cols,
                        torch.tensor(total, dtype=torch.int32, device=dev), cap)
+
+
+def adaptive_target_bytes(manager=None) -> int:
+    """Macro-batch byte target: conf.target_batch_bytes clamped so that one
+    batch stays well inside the memory budget; a small budget (spill
+    tests) gets small bounded batches back. The JAX package also clamps
+    to a query's own target, lowered by the resilience ladder; the
+    ladder comes with the service slice."""
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.runtime import memory as M
+
+    mgr = manager or M.get_manager()
+    return max(min(conf.target_batch_bytes, mgr.total // 8), 1 << 18)
 
 
 def slice_batch(batch: ColumnBatch, start: int, count: int) -> ColumnBatch:

@@ -1,0 +1,301 @@
+"""Host-side (numpy) row-encoded sort keys, run merge, and host batches.
+
+Port of blaze_tpu/ops/host_sort.py for the dense column kinds. Spilled sort
+runs live in host files as serde frames, so their k-way merge runs on the
+host, as the reference's LoserTree over spilled cursors does
+(datafusion-ext-commons loser_tree.rs:1-118, sort_exec.rs:419-475), and
+each merged macro-batch is uploaded once. IpcReaderExec coalesces decoded
+shuffle frames into macro-batches here too (`host_concat`, one upload).
+
+Keys are ONE memcmp-comparable byte string per row: each sort column adds
+big-endian bytes whose unsigned byte order is the requested
+(asc, nulls_first) Spark order, and the concatenation is viewed as a
+fixed-width `S` column that numpy compares with memcmp.
+
+float64 keys are exact IEEE total order (NaN greatest, -0.0 == 0.0), as
+the port's device sort (ops/sort_keys.py) orders them. The JAX package
+compares f64 at double-double resolution when its device sorts that way
+(`_device_sorts_f64_exact` false on the TPU, which has no 64-bit bitcast);
+CUDA has the bitcast, so that branch is gone here.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.serde import HostBatch, _HostCol
+# one count serves both names: the JAX package's host_nbytes and
+# host_batch_nbytes differ only on string and dictionary columns
+from blaze_tpu_torch.columnar.serde import host_batch_nbytes as host_nbytes
+from blaze_tpu_torch.columnar.types import Schema, TypeKind
+from blaze_tpu_torch.device import DeviceLike, resolve_device
+from blaze_tpu_torch.ops.sort_keys import SortSpec
+
+_I64_MIN = np.int64(-(1 << 63))
+_I32_MIN = np.uint32(1 << 31)
+
+
+def _be(a: np.ndarray) -> np.ndarray:
+    """(n,) unsigned -> (n, itemsize) uint8, big-endian."""
+    k = a.dtype.itemsize
+    return np.ascontiguousarray(
+        a.astype(a.dtype.newbyteorder(">"))).view(np.uint8).reshape(-1, k)
+
+
+def _f64_total_order(x: np.ndarray) -> np.ndarray:
+    x = np.where(np.isnan(x), np.float64(np.nan), x)
+    x = np.where(x == 0.0, np.float64(0.0), x)
+    u = x.view(np.uint64)
+    neg = (u >> np.uint64(63)) != 0
+    return np.where(neg, ~u, u ^ np.uint64(1 << 63))
+
+
+def _f32_total_order(x: np.ndarray) -> np.ndarray:
+    x = np.where(np.isnan(x), np.float32(np.nan), x)
+    x = np.where(x == np.float32(0.0), np.float32(0.0), x)
+    u = x.view(np.uint32)
+    neg = (u >> np.uint32(31)) != 0
+    return np.where(neg, ~u, u ^ _I32_MIN)
+
+
+def _value_parts(c: _HostCol, kind: TypeKind) -> List[np.ndarray]:
+    """Big-endian byte planes whose concatenated order is the ascending
+    value order (ops/sort_keys.encode_column, case by case)."""
+    if kind == TypeKind.NULL:
+        return []
+    if kind in (TypeKind.STRING, TypeKind.BINARY) or c.kind != "num":
+        raise NotImplementedError(
+            "host sort keys of string columns need string storage "
+            "(exprs/strings.py), not yet ported")
+    if kind == TypeKind.BOOLEAN:
+        return [c.data.astype(np.uint8).reshape(-1, 1)]
+    if kind == TypeKind.FLOAT64:
+        return [_be(_f64_total_order(c.data.astype(np.float64)))]
+    if kind == TypeKind.FLOAT32:
+        return [_be(_f32_total_order(c.data.astype(np.float32)))]
+    if kind in (TypeKind.INT64, TypeKind.TIMESTAMP, TypeKind.DECIMAL):
+        x = c.data.astype(np.int64)
+        return [_be((x ^ _I64_MIN).view(np.uint64))]
+    # int8/16/32/date: any self-consistent width gives the same order
+    x = c.data.astype(np.int32)
+    return [_be(x.view(np.uint32) ^ _I32_MIN)]
+
+
+def encode_keys(hb: HostBatch, specs: Sequence[SortSpec]) -> np.ndarray:
+    """(n,) `S`-bytes array whose memcmp order is the requested order.
+    Host batches hold live rows only, so there is no liveness plane."""
+    n = hb.num_rows
+    planes: List[np.ndarray] = []
+    for spec in specs:
+        c = hb.cols[spec.col]
+        f = hb.schema.fields[spec.col]
+        # the flag plane follows the FIELD's nullability, not whether this
+        # frame carried a validity array: keys of every frame of a column
+        # must share one byte width or the merge compares misaligned planes
+        if f.nullable:
+            valid = (c.validity if c.validity is not None
+                     else np.ones((n,), bool))
+            first = spec.nulls_first
+            flag = np.where(valid, np.uint8(1 if first else 0),
+                            np.uint8(0 if first else 1))
+            planes.append(flag.reshape(-1, 1))
+        else:
+            valid = None
+        if f.dtype.wide_decimal:
+            raise NotImplementedError(
+                "host sort keys of wide decimals need wide-decimal storage "
+                "(exprs/wide_decimal.py), not yet ported")
+        for p in _value_parts(c, f.dtype.kind):
+            if valid is not None:
+                p = np.where(valid[:, None], p, np.uint8(0))
+            planes.append(p if spec.asc else ~p)
+    if not planes:
+        return np.zeros((n,), "S1")
+    mat = np.ascontiguousarray(np.concatenate(planes, axis=1))
+    return mat.view(f"S{mat.shape[1]}").reshape(-1)
+
+
+def sort_perm(hb: HostBatch, specs: Sequence[SortSpec]) -> np.ndarray:
+    return np.argsort(encode_keys(hb, specs), kind="stable")
+
+
+# ---------------------------------------------------------------------------
+# host batch manipulation (take / concat / device upload)
+# ---------------------------------------------------------------------------
+
+def host_supported(schema: Schema) -> bool:
+    """Whether every column has a host form here: the dense kinds. The
+    JAX package also keeps strings and structs host-side; their storage
+    is not ported (exprs/strings.py)."""
+    return not any(f.dtype.is_string_like or f.dtype.is_nested
+                   or f.dtype.wide_decimal for f in schema.fields)
+
+
+def _col_take(c: _HostCol, idx: np.ndarray) -> _HostCol:
+    v = c.validity[idx] if c.validity is not None else None
+    return _HostCol(c.kind, None if c.data is None else c.data[idx], v)
+
+
+def host_take(hb: HostBatch, idx: np.ndarray) -> HostBatch:
+    return HostBatch(hb.schema, [_col_take(c, idx) for c in hb.cols],
+                     len(idx))
+
+
+def _col_concat(parts: List[_HostCol], rows: List[int]) -> _HostCol:
+    if any(p.validity is not None for p in parts):
+        v = np.concatenate([p.validity if p.validity is not None
+                            else np.ones((n,), bool)
+                            for p, n in zip(parts, rows)])
+    else:
+        v = None
+    if parts[0].kind == "null":
+        return _HostCol("null", None, v)
+    return _HostCol("num", np.concatenate([p.data for p in parts]), v)
+
+
+def host_concat(parts: List[HostBatch]) -> HostBatch:
+    if len(parts) == 1:
+        return parts[0]
+    rows = [p.num_rows for p in parts]
+    cols = [_col_concat([p.cols[i] for p in parts], rows)
+            for i in range(len(parts[0].schema.fields))]
+    return HostBatch(parts[0].schema, cols, sum(rows))
+
+
+def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
+                   device: DeviceLike = None) -> ColumnBatch:
+    """A host batch onto `device` (None: the CUDA card) in ONE host->device
+    copy: every column and validity is laid out, padded to the capacity,
+    in one byte buffer, uploaded, and viewed back per column. Invalid
+    slots are zeroed first (the batch invariant). The copy is a plain
+    blocking one: `non_blocking` from unpinned numpy memory may read the
+    buffer after it is freed."""
+    dev = resolve_device(device)
+    n = hb.num_rows
+    cap = capacity or bucket_capacity(n)
+    plan = []   # (field, np dtype of data, has validity)
+    size = 0
+    for f, c in zip(hb.schema.fields, hb.cols):
+        npdt = np.dtype(f.dtype.np_dtype())
+        hasv = c.kind == "null" or c.validity is not None
+        plan.append((f, npdt, hasv))
+        # parts are padded to 8 bytes so each view starts aligned
+        size += -(-cap * npdt.itemsize // 8) * 8
+        if hasv:
+            size += -(-cap // 8) * 8
+    buf = np.zeros((size,), np.uint8)
+    off = 0
+    spans = []
+    for (f, npdt, hasv), c in zip(plan, hb.cols):
+        dspan = (off, npdt)
+        if c.kind != "null":
+            d = buf[off:off + cap * npdt.itemsize].view(npdt)
+            d[:n] = c.data
+            if c.validity is not None:
+                d[:n][~c.validity] = 0
+        off += -(-cap * npdt.itemsize // 8) * 8
+        vspan = None
+        if hasv:
+            vspan = off
+            if c.validity is not None:
+                buf[off:off + n] = c.validity
+            off += -(-cap // 8) * 8
+        spans.append((dspan, vspan))
+    flat = torch.from_numpy(buf).to(dev)
+    cols = []
+    for (f, npdt, _), ((doff, _), voff) in zip(plan, spans):
+        tdt = f.dtype.torch_dtype()
+        data = flat[doff:doff + cap * npdt.itemsize].view(tdt)
+        valid = (None if voff is None
+                 else flat[voff:voff + cap].view(torch.bool))
+        cols.append(Column(f.dtype, data, valid))
+    return ColumnBatch(hb.schema, cols,
+                       torch.tensor(n, dtype=torch.int32, device=dev), cap)
+
+
+# ---------------------------------------------------------------------------
+# k-way merge of sorted spill runs
+# ---------------------------------------------------------------------------
+
+def merge_sorted_host(frame_iters: List[Iterator[HostBatch]],
+                      specs: Sequence[SortSpec],
+                      emit_bytes: int) -> Iterator[HostBatch]:
+    """Merge k sorted runs of host frames into sorted HostBatches.
+
+    Pool-and-sort rounds, all numpy (the LoserTree's role): each round loads
+    the next frame of every run whose loaded rows were consumed, sorts the
+    pool (memcmp row keys, one stable argsort), and emits every row <= the
+    smallest loaded frontier among active runs: no unread row can sort
+    below an active run's frontier. Rows whose whole keys tie are not kept
+    in input order when the ties span frames of several runs (a round
+    emits its ties before a run's unread ones, and carried rows come
+    before new ones); the JAX package merges the same way, and Spark
+    leaves the order of ties open. The working set stays O(k x frame)
+    rows (the spill writer sizes frames against the memory budget);
+    rounds past `emit_bytes` emit in chunks of about that size."""
+    k = len(frame_iters)
+    iters = [iter(it) for it in frame_iters]
+    need_load = [True] * k
+    exhausted = [False] * k
+    frontier: List[Optional[bytes]] = [None] * k
+    carry_hb: Optional[HostBatch] = None
+    carry_keys: Optional[np.ndarray] = None
+
+    while True:
+        pieces: List[HostBatch] = []
+        piece_keys: List[np.ndarray] = []
+        for r in range(k):
+            if exhausted[r] or not need_load[r]:
+                continue
+            # pull until a NON-empty frame (or exhaustion): an empty frame
+            # must not clear this run's frontier for the round, or rows
+            # could emit out of order
+            while True:
+                hb = next(iters[r], None)
+                if hb is None:
+                    exhausted[r] = True
+                    frontier[r] = None
+                    break
+                if hb.num_rows:
+                    keys = encode_keys(hb, specs)
+                    pieces.append(hb)
+                    piece_keys.append(keys)
+                    frontier[r] = keys[-1]
+                    need_load[r] = False
+                    break
+        hbs = ([carry_hb] if carry_hb is not None else []) + pieces
+        if not hbs:
+            if all(exhausted):
+                return
+            continue
+        keys = np.concatenate(
+            ([carry_keys] if carry_keys is not None else []) + piece_keys)
+        pooled = host_concat(hbs) if len(hbs) > 1 else hbs[0]
+        order = np.argsort(keys, kind="stable")
+        keys_sorted = keys[order]
+        active = [f for r, f in enumerate(frontier) if not exhausted[r]
+                  and f is not None]
+        if active:
+            bound = min(active)
+            cut = int(np.searchsorted(keys_sorted, bound, side="right"))
+        else:
+            cut = len(keys_sorted)
+        if cut:
+            row_b = max(host_nbytes(pooled) // max(pooled.num_rows, 1), 1)
+            step = max(int(emit_bytes // row_b), 1)
+            for lo in range(0, cut, step):
+                yield host_take(pooled, order[lo:min(lo + step, cut)])
+        if cut < len(keys_sorted):
+            carry_hb = host_take(pooled, order[cut:])
+            carry_keys = keys_sorted[cut:]
+        else:
+            carry_hb, carry_keys = None, None
+        for r in range(k):
+            if exhausted[r] or frontier[r] is None:
+                continue
+            if not active or frontier[r] <= bound:
+                need_load[r] = True  # its loaded rows are all emitted

@@ -4,22 +4,24 @@ Port of blaze_tpu/ops/sort.py (ref: datafusion-ext-plans sort_exec.rs and
 take_ordered_exec). In-memory batches are concatenated and sorted by the
 stable multi-word key sort of ops/sort_keys.py; the fetch-limited path
 folds a bounded top-k over the stream, so unbounded inputs never
-materialize.
+materialize. Over the memory budget, `ExternalSorter` spills sorted runs to
+host files (runtime/memory.SpillFile) and merges them on the host
+(ops/host_sort.merge_sorted_host).
 
 The JAX package's `sorted_batch_jit` is `sort_keys.sort_batch` here,
 without its jit cache and compile-service shape rung: PyTorch runs
-eagerly and compiles nothing per shape. The spill path of `ExternalSorter` (sorted runs in host
-spill files, merged by ops/host_sort.py) needs columnar/serde.py and
-raises until that slice; an in-memory sort over the memory budget raises
-with it rather than carry on.
+eagerly and compiles nothing per shape.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
+from blaze_tpu_torch.columnar import serde
 from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
 from blaze_tpu_torch.columnar.types import Schema
+from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.ops.base import (
     BatchStream, ExecContext, Operator, count_stream,
 )
@@ -43,9 +45,10 @@ def truncate(batch: ColumnBatch, limit: int) -> ColumnBatch:
 
 
 class ExternalSorter(M.MemConsumer):
-    """Budgeted sort state (ref sort_exec.rs). The in-memory path sorts
-    the concatenated batches once at finish; spilling sorted runs to the
-    host waits for columnar/serde.py."""
+    """Budgeted sort state (ref sort_exec.rs: in-memory batches, spilled
+    sorted runs, and a LoserTree merge over the spill cursors,
+    :307-475). A run is a SpillFile of sorted frames; `finish` merges the
+    runs on the host and uploads each merged macro-batch once."""
 
     def __init__(self, schema: Schema, specs: Sequence[SortSpec],
                  manager: Optional[M.MemManager] = None,
@@ -56,40 +59,102 @@ class ExternalSorter(M.MemConsumer):
         self.name = name
         self.pending: List[ColumnBatch] = []
         self.pending_bytes = 0
+        self.runs: List[M.SpillFile] = []
+        # where the input lives; merged runs go back there
+        self.device = None
+        # counters survive abort(): metrics read them after cleanup
+        self.spill_count = 0
+        self.spilled_bytes = 0
+        # host time of the run merge and its uploads, the consumer's time
+        # between merged batches left out
+        self.merge_ns = 0
         self.manager.register(self)
 
     def mem_used(self) -> int:
         return self.pending_bytes
 
     def spill(self) -> int:
+        """Sort the pending batches into one run and write it to a spill
+        file in frames of conf.spill_frame_rows, clamped so that the
+        merge's one head frame per run (plus pool and carry, which the
+        budget does not see) stays inside the budget class that forced
+        the spill: frames of about budget / 8."""
         if not self.pending:
             return 0
-        raise NotImplementedError(
-            f"{self.name}: {self.pending_bytes} bytes of sort input exceed "
-            f"the memory budget; {M.SPILL_MISSING}")
+        freed = self.pending_bytes
+        big = concat_batches(self.pending, self.schema)
+        row_bytes = max(M.batch_nbytes(big) // max(big.capacity, 1), 1)
+        budget_rows = max(self.manager.total // (8 * row_bytes), 1024)
+        frame = int(min(int(conf.spill_frame_rows), budget_rows))
+        # one pull of the sorted run, cut into frames on the host
+        hb = serde.to_host(sort_batch(big, self.specs))
+        run = M.SpillFile(self.schema, manager=self.manager)
+        self.runs.append(run)
+        for lo in range(0, hb.num_rows, frame):
+            run.write_host(hb, lo, min(lo + frame, hb.num_rows))
+        self.spill_count += 1
+        self.spilled_bytes += run.bytes_written
+        self.pending, self.pending_bytes = [], 0
+        return freed
 
     def add(self, batch: ColumnBatch) -> None:
+        # op_lock: a host-driven release() must not run spill() between
+        # the append and the accounting update
         with self.manager.op_lock:
+            self.device = batch.device
             self.pending.append(batch)
             self.pending_bytes += M.batch_nbytes(batch)
             self.manager.update_mem_used(self)
 
     def finish(self):
         try:
+            if not self.runs:
+                if self.pending:
+                    big = concat_batches(self.pending, self.schema)
+                    yield sort_batch(big, self.specs)
+                return
             if self.pending:
-                big = concat_batches(self.pending, self.schema)
-                yield sort_batch(big, self.specs)
+                self.spill()
+            yield from self._merge_runs()
         finally:
             self.abort()
 
+    def _merge_runs(self):
+        """k-way merge of the spilled runs on the host: the runs are host
+        files, so their frames are merged with numpy memcmp keys and each
+        merged macro-batch, sized inside the budget class that forced the
+        spill, is uploaded once. The JAX package keeps a device-dispatch
+        merge (`_merge_runs_device`) for the schemas the host merge does
+        not hold, string and list columns, whose storage is not ported."""
+        from blaze_tpu_torch.ops import host_sort
+
+        if not host_sort.host_supported(self.schema):
+            raise NotImplementedError(
+                "merging spilled sort runs of string or list columns "
+                "(ExternalSorter._merge_runs_device) needs their storage "
+                "(exprs/strings.py), not yet ported")
+        t0 = time.perf_counter_ns()
+        emit = int(max(self.manager.total // 4, 1 << 20))
+        iters = [r.read_host() for r in self.runs]
+        for hb in host_sort.merge_sorted_host(iters, self.specs, emit):
+            b = host_sort.host_to_device(hb, device=self.device)
+            self.merge_ns += time.perf_counter_ns() - t0
+            yield b
+            t0 = time.perf_counter_ns()
+        self.merge_ns += time.perf_counter_ns() - t0
+
     def abort(self) -> None:
-        """Idempotent cleanup (also the error path)."""
+        """Idempotent cleanup, also the error path. Closing the runs never
+        masks the error being unwound (close_all_quietly)."""
         self.manager.unregister(self)
         self.pending, self.pending_bytes = [], 0
+        runs, self.runs = self.runs, []
+        M.close_all_quietly(runs, "sort spill run")
 
 
 class SortExec(Operator):
-    """Full sort, or with `fetch` a bounded top-k."""
+    """Full sort, external when the memory budget forces spilling, or with
+    `fetch` a bounded top-k."""
 
     def __init__(self, child: Operator, specs: Sequence[SortSpec],
                  fetch: Optional[int] = None) -> None:
@@ -123,6 +188,10 @@ class SortExec(Operator):
                             sorter.add(batch)
                 with self.metrics.timer():
                     yield from sorter.finish()
+                # counters, not the runs list: abort() empties the list
+                self.metrics.add("spill_count", sorter.spill_count)
+                self.metrics.add("spilled_bytes", sorter.spilled_bytes)
+                self.metrics.add("spill_merge_ns", sorter.merge_ns)
             finally:
                 sorter.abort()
 

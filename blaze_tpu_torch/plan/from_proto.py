@@ -6,9 +6,10 @@ packages: plan_pb2.py is the JAX package's generated module, copied. Types
 and scalars decode in full; expressions decode for the kinds the port's
 compiler handles; plan nodes decode for the arms of the ported operators —
 ffi_reader, filter, projection, agg, rename_columns, sort (with its fetch
-limit), limit, union, empty_partitions and coalesce_batches. Every other
-expression kind or plan node (joins, windows, expand, shuffle, scans)
-raises NotImplementedError naming it.
+limit), limit, union, empty_partitions, coalesce_batches, shuffle_writer,
+rss_shuffle_writer, ipc_writer and ipc_reader. Every other expression kind
+or plan node (joins, windows, expand, scans) raises NotImplementedError
+naming it.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.ops import basic as B
 from blaze_tpu_torch.ops.agg import AggCall, AggExec, AggMode
+from blaze_tpu_torch.ops import shuffle as S
 from blaze_tpu_torch.ops.base import Operator
-from blaze_tpu_torch.ops.shuffle import FfiReaderExec
 from blaze_tpu_torch.ops.sort import SortExec
 from blaze_tpu_torch.ops.sort_keys import SortSpec
 from blaze_tpu_torch.plan import plan_pb2 as pb
@@ -167,6 +168,14 @@ _AGG_MODE = {
 }
 
 
+def _partitioning(p: pb.HashRepartition) -> S.Partitioning:
+    kind = {pb.HashRepartition.HASH: "hash",
+            pb.HashRepartition.SINGLE: "single",
+            pb.HashRepartition.ROUND_ROBIN: "round_robin"}[p.kind]
+    return S.Partitioning(kind, p.num_partitions,
+                          tuple(decode_expr(k) for k in p.keys))
+
+
 def decode_plan(p: pb.PlanNode) -> Operator:
     which = p.WhichOneof("node")
     n = getattr(p, which) if which is not None else None
@@ -203,11 +212,25 @@ def decode_plan(p: pb.PlanNode) -> Operator:
         cls = B.GlobalLimitExec if getattr(n, "global") else B.LocalLimitExec
         return cls(child, n.limit)
     if which == "ffi_reader":
-        return FfiReaderExec(decode_schema(n.schema),
-                             n.export_iter_resource_id)
+        return S.FfiReaderExec(decode_schema(n.schema),
+                               n.export_iter_resource_id)
     if which == "coalesce_batches":
         return B.CoalesceBatchesExec(decode_plan(n.input),
                                      n.batch_size or None)
+    if which == "shuffle_writer":
+        return S.ShuffleWriterExec(decode_plan(n.input),
+                                   _partitioning(n.partitioning),
+                                   n.data_file, n.index_file)
+    if which == "rss_shuffle_writer":
+        return S.RssShuffleWriterExec(decode_plan(n.input),
+                                      _partitioning(n.partitioning),
+                                      n.rss_writer_resource_id)
+    if which == "ipc_writer":
+        return S.IpcWriterExec(decode_plan(n.input), n.consumer_resource_id)
+    if which == "ipc_reader":
+        return S.IpcReaderExec(decode_schema(n.schema),
+                               n.provider_resource_id,
+                               n.num_partitions or 1)
     raise NotImplementedError(f"plan node {which}")
 
 

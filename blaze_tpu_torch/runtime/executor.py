@@ -1,6 +1,7 @@
 """Per-task execution: pipeline fusion, collect, and the fetch entry.
 
-Port of the collect subset of blaze_tpu/runtime/executor.py. Maximal
+Port of the collect subset of blaze_tpu/runtime/executor.py, and of
+`execute_stage_or_plan`, the entry of the shuffle writers. Maximal
 chains of map-like operators run as one composed per-batch function,
 eagerly on the batch's device (PyTorch has no compiled-program cache to
 keep small, so there is no jit cache here). `collect` first tries the
@@ -54,6 +55,23 @@ def execute_fused(op: MapLikeOp, ctx: ExecContext) -> BatchStream:
 def execute_plan(root: Operator,
                  ctx: Optional[ExecContext] = None) -> BatchStream:
     return root.execute(ctx or ExecContext())
+
+
+def execute_stage_or_plan(root: Operator,
+                          ctx: Optional[ExecContext] = None) -> BatchStream:
+    """The whole-stage path first, streaming otherwise; for operators that
+    run a whole stage below them (the shuffle writers): a matching
+    scan -> filter -> project -> partial agg map task runs as one dense
+    stage, one accumulate launch a batch. Agg-less chains stay streaming
+    (chain_ok=False): one whole-stage batch would defeat the writer's
+    bounded buffers and spill."""
+    from blaze_tpu_torch.runtime.stage_compiler import try_run_stage
+
+    ctx = ctx or ExecContext()
+    staged = try_run_stage(root, ctx, chain_ok=False)
+    if staged is not None:
+        return iter([staged])
+    return root.execute(ctx)
 
 
 def collect(root: Operator, ctx: Optional[ExecContext] = None) -> ColumnBatch:

@@ -8,26 +8,30 @@ budget the grower, or else the largest other consumer, is asked to
 `spill()`.
 
 The budget models device memory: `conf.memory_budget`, or 1 GiB as in the
-JAX package. Spilling to host files needs `SpillFile`, which rides the
-frame format of columnar/serde.py, not yet ported: a consumer that still
-holds too much after its in-device collapse raises NotImplementedError
-naming columnar/serde.py. It never drops state or carries on over budget.
-The tenant quotas, pipeline reservations and monitor hooks of the JAX
-module wait for the service slice.
+JAX package. A consumer spills to the host through `SpillFile`: serde
+frames in a pid-tagged tempfile under `conf.spill_dir`, each frame's crc
+checked before any frame decodes. Frames written but not yet synced to
+disk are host pages that count against the budget until the manager
+flushes them. The tenant quotas, pipeline reservations, fault points and
+monitor hooks of the JAX module wait for the service slice, and reads run
+serially (the JAX package's prefetch waits for runtime/pipeline.py).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import tempfile
 import threading
-from typing import List, Optional
+import weakref
+import zlib
+from typing import BinaryIO, Iterator, List, Optional
 
+from blaze_tpu_torch.columnar import serde
 from blaze_tpu_torch.columnar.batch import ColumnBatch
+from blaze_tpu_torch.columnar.types import Schema
 from blaze_tpu_torch.config import conf
-
-SPILL_MISSING = (
-    "spilling device state to the host needs SpillFile over the frame "
-    "format of columnar/serde.py, not yet ported")
+from blaze_tpu_torch.device import DeviceLike
 
 
 class MemConsumer:
@@ -54,6 +58,14 @@ class MemManager:
         self.op_lock = threading.RLock()
         self.spill_count = 0
         self.spilled_bytes = 0
+        # host spill pages (SpillFile frames written but not yet synced to
+        # disk) count toward the budget but are not consumers: a spill
+        # file is a sink, not spillable state, and must not join the
+        # fair_share() denominator. Weak refs, so tracking never keeps a
+        # dropped file (and its tempfile) alive.
+        self._spill_files: List[weakref.ref] = []
+        self.host_spill_bytes = 0
+        self.host_spill_files = 0
         # high-water mark of mem_used(), observed at every consumer growth
         self.peak_used = 0
 
@@ -67,13 +79,39 @@ class MemManager:
             if consumer in self._consumers:
                 self._consumers.remove(consumer)
 
+    def track_spill(self, sf: "SpillFile") -> None:
+        with self._lock:
+            self._spill_files.append(weakref.ref(sf))
+            self.host_spill_files += 1
+
+    def untrack_spill(self, sf: "SpillFile") -> None:
+        with self._lock:
+            self._spill_files = [r for r in self._spill_files
+                                 if r() is not None and r() is not sf]
+
+    def _live_spill_files(self) -> List["SpillFile"]:
+        with self._lock:
+            live = [(r, r()) for r in self._spill_files]
+            self._spill_files = [r for r, sf in live if sf is not None]
+            return [sf for _, sf in live if sf is not None]
+
     def _consumers_snapshot(self) -> List[MemConsumer]:
         with self._lock:
             return list(self._consumers)
 
     # -- accounting --
     def mem_used(self) -> int:
-        return sum(c.mem_used() for c in self._consumers_snapshot())
+        return (sum(c.mem_used() for c in self._consumers_snapshot())
+                + self.spill_pages_pending())
+
+    def spill_pages_pending(self) -> int:
+        """Bytes written to tracked spill files and not yet synced."""
+        return sum(sf.pending_bytes for sf in self._live_spill_files())
+
+    def flush_spill_pages(self) -> int:
+        """Sync every tracked spill file's buffered frames to disk; returns
+        the pending bytes given back to the budget."""
+        return sum(sf.flush_pages() for sf in self._live_spill_files())
 
     def observe_peak(self) -> int:
         used = self.mem_used()
@@ -96,6 +134,10 @@ class MemManager:
         its fair share spills itself, otherwise the largest other
         consumer is asked first."""
         used = self.observe_peak()
+        if used <= self.total:
+            return
+        # cheapest reclaim first: sync buffered spill pages to disk
+        used -= self.flush_spill_pages()
         if used <= self.total:
             return
         over = used - self.total
@@ -137,6 +179,8 @@ class MemManager:
                 got = c.spill()
                 self._note_spill(got)
                 freed += max(got, 0)
+            if freed < bytes_needed:
+                freed += self.flush_spill_pages()
         return freed
 
 
@@ -166,6 +210,120 @@ def close_all_quietly(closeables, what: str) -> None:
         except Exception:  # noqa: BLE001 - cleanup boundary, logged
             logging.getLogger(__name__).warning(
                 "closing %s failed", what, exc_info=True)
+
+
+class SpillFile:
+    """A sequence of serialized batches in a host tempfile (ref FileSpill,
+    onheap_spill.rs:26-75; format: the serde frames)."""
+
+    def __init__(self, schema: Schema,
+                 manager: Optional[MemManager] = None) -> None:
+        self.schema = schema
+        d = conf.spill_dir
+        os.makedirs(d, exist_ok=True)
+        # pid-tagged name: runtime/artifacts.sweep_orphans reclaims spill
+        # files whose owning process died mid-task
+        fd, self.path = tempfile.mkstemp(
+            prefix=f"blz{os.getpid()}-", suffix=".spill", dir=d)
+        self._fp: Optional[BinaryIO] = os.fdopen(fd, "w+b")
+        self.bytes_written = 0
+        self.num_batches = 0
+        # frames written but not yet synced: host pages on the budget
+        self.pending_bytes = 0
+        # (offset, crc32) of each frame, recorded at write time: a spill
+        # never outlives its process, so the checksums live here rather
+        # than in a footer, and reads verify the file against them first
+        self._frame_crcs: list = []
+        # where the spilled batches lived; reads decode back onto it
+        self.device: DeviceLike = None
+        self._manager = manager
+        if manager is not None:
+            manager.track_spill(self)
+
+    def write(self, batch: ColumnBatch) -> int:
+        """Append the batch's live rows as one frame (one device->host
+        pull)."""
+        if self.device is None:
+            self.device = batch.device
+        return self._append(serde.serialize_batch(batch))
+
+    def write_host(self, hb: serde.HostBatch, lo: int, hi: int) -> int:
+        """Append rows [lo, hi) of a batch already on the host as one
+        frame: a sorted run pulled once is cut into many frames."""
+        return self._append(hb.serialize(lo, hi))
+
+    def _append(self, buf: bytes) -> int:
+        if conf.artifact_checksums:
+            self._frame_crcs.append((self.bytes_written, zlib.crc32(buf)))
+        self._fp.write(buf)
+        n = len(buf)
+        self.bytes_written += n
+        self.num_batches += 1
+        self.pending_bytes += n
+        if self._manager is not None:
+            self._manager.host_spill_bytes += n
+        return n
+
+    def flush_pages(self) -> int:
+        """Sync buffered frames to disk; returns the pending bytes freed."""
+        freed = self.pending_bytes
+        if self._fp is not None and freed:
+            self._fp.flush()
+            os.fsync(self._fp.fileno())
+        self.pending_bytes = 0
+        return freed
+
+    def _verify_frames(self) -> None:
+        """Check the file against the write-time frame crcs before any
+        frame decodes. A mismatch raises CorruptArtifactError; the JAX
+        package then quarantines the file and the task's retry rebuilds
+        it, which comes with the service slice."""
+        from blaze_tpu_torch.runtime import artifacts
+
+        if not conf.artifact_checksums:
+            return
+        self._fp.seek(0)
+        try:
+            frames, _crc = artifacts.walk_frames(self._fp)
+            ok = frames == self._frame_crcs
+        except ValueError:
+            ok = False
+        if not ok:
+            raise artifacts.CorruptArtifactError(
+                f"spill checksum mismatch in {self.path}")
+
+    def _rewind(self) -> None:
+        self.flush_pages()
+        self._verify_frames()
+        self._fp.seek(0)
+
+    def read(self, device: DeviceLike = None) -> Iterator[ColumnBatch]:
+        """The spilled batches, decoded onto `device` (default: the device
+        they were spilled from)."""
+        self._rewind()
+        return serde.read_batches(self._fp, self.schema,
+                                  device=device or self.device)
+
+    def read_host(self) -> Iterator[serde.HostBatch]:
+        """The frames as host batches: the spill merge consumes runs on the
+        host (ops/host_sort.py)."""
+        self._rewind()
+        return serde.read_batches_host(self._fp, self.schema)
+
+    def close(self) -> None:
+        if self._fp is not None:
+            self._fp.close()
+            self._fp = None
+            self.pending_bytes = 0
+            if self._manager is not None:
+                self._manager.untrack_spill(self)
+            try:
+                os.unlink(self.path)
+            except OSError:
+                pass
+
+    def __del__(self):
+        self.close()
 
 
 def batch_nbytes(batch: ColumnBatch) -> int:

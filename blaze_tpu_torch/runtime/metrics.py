@@ -16,6 +16,10 @@ from typing import Callable, Dict, List, Optional
 # one waits for the device to drain its queue; chip_smoke.py resets and
 # reads it around a rep
 HOST_PULLS = 0
+# host time (ns) in frame encode (pack, compress) and decode (decompress,
+# unpack) of columnar/serde.py since import; the JAX package's monitor
+# counts the same windows as serde_encode / serde_decode
+SERDE_NS = {"encode": 0, "decode": 0}
 
 
 def to_host(t):

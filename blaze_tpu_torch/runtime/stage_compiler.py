@@ -207,15 +207,23 @@ def _meta_like(b: ColumnBatch) -> ColumnBatch:
     return ColumnBatch(b.schema, cols, t(b.num_rows), b.capacity)
 
 
-def try_run_stage(root: Operator, ctx: ExecContext) -> Optional[ColumnBatch]:
+def try_run_stage(root: Operator, ctx: ExecContext,
+                  chain_ok: bool = True) -> Optional[ColumnBatch]:
     """Run the stage through the whole-stage path, or None when the plan is
     not one of its patterns (the caller then streams it). A matching stage
     that the dense path declines after draining its source falls back to
-    the streaming operators over the captured batches."""
+    the streaming operators over the captured batches.
+
+    chain_ok=False (the shuffle writers): an agg-less chain stage compacts
+    the WHOLE stage into one batch, which is fine for a collect but would
+    defeat a writer's bounded buffers; agg stages are bounded by their
+    group count and run either way."""
     if not conf.enable_stage_compiler:
         return None
     m = _match(root)
     if m is None:
+        if not chain_ok:
+            return None
         mc = _match_chain(root)
         if mc is None:
             return None

@@ -26,11 +26,14 @@ one key), it measures:
     way, kernel-only and with its table's zeroing;
   * one `index_add_` into the carry on precomputed indices (yardstick);
   * with --parent-tree, the main path of chip_smoke.py (bench.py's q06 plan,
-    64 x 2^21 rows) run from that checkout and from this one, in turns
-    (parent, this, this, parent), each in its own process: the median rep
-    time and, from torch.profiler over one rep, the device launches and
-    busy time by kernel. Unpack the other checkout with `git archive
-    <commit> | tar -x -C _checkout/parent`.
+    64 x 2^21 rows) and its general_agg phase (the same rows grouped by
+    2 M nullable customer keys through the streaming AggExec) run from
+    that checkout and from this one, in turns (parent, this, this,
+    parent), each in its own process: for q06 the median rep time and,
+    from torch.profiler over one rep, the device launches and busy time by
+    kernel; for general_agg the phase's median rep, device busy time and
+    idle share. Unpack the other checkout with `git archive <commit> | tar
+    -x -C _checkout/parent`.
   * with --spare-slots, chip_smoke.py's general_agg plan (64 x 2^21 rows
     grouped by 2 M nullable customer keys, through the streaming AggExec)
     with ops/segment.py's `_SPARE` (the slots past the end that take the
@@ -129,9 +132,16 @@ for e in prof.key_averages():
         us = e.self_cuda_time_total if us is None else us
         c, t = by.get(e.key[:90], (0, 0.0))
         by[e.key[:90]] = (c + int(e.count), t + float(us) / 1e3)
+general = cs.phase_general_agg(main["datas"], main["batches"])
+if isinstance(general, tuple):  # trees since the shuffle slice
+    general = general[0]
 print("REP " + json.dumps({
     "median_rep_s": med, "device_launches": sum(c for c, _ in by.values()),
-    "device_busy_ms": sum(t for _, t in by.values()), "by_kernel": by}))
+    "device_busy_ms": sum(t for _, t in by.values()), "by_kernel": by,
+    "general_agg": {k: general[k] for k in (
+        "median_rep_s", "rep_s", "device_busy_ms", "idle_share",
+        "host_pulls_per_rep", "collapses_per_rep",
+        "top100_median_rep_s")}}))
 """
 
 

@@ -43,9 +43,31 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 operations
   8. chain_stage   the agg-less scan -> filter -> project over 16 batches,
                 compacted into one batch and checked exactly
+  9. shuffle_q06   q06 as Spark runs it: 8 map tasks of 8 batches, each
+                ffi_reader -> filter -> project -> Agg PARTIAL ->
+                ShuffleWriter(hash(ss_item_sk), 200) on the dense path (one
+                chain launch a batch, 64 a rep), committing a .data/.index
+                pair; then 200 reduce tasks, ipc_reader(partition p of the 8
+                outputs) -> Agg FINAL. Every pair's checksums verify and the
+                union of the reduce outputs equals the item oracle. Map and
+                reduce stage times, shuffle bytes, frames and host pulls a
+                rep, serde encode/decode host time, one map task and one
+                reduce task profiled
+ 10. shuffle_general  the general_agg rows grouped by ss_customer_sk
+                across the same 8 x 200 shuffle: the map tasks fall back to
+                the streaming AggExec (no launch); about 15.6 M partial state
+                rows cross the serde; checked against the customer oracle
+ 11. spill      (a) map task 0 of shuffle_general under a 64 MiB budget:
+                its agg state spills to host files and merges back, the
+                reduce stage over its output against numpy; (b) the chain
+                stage's 16 batches under Sort(amount DESC, ss_item_sk ASC)
+                with a 64 MiB budget: sorted runs spill and merge on the
+                host; every row in order against numpy's stable sort
 
-Counts (kernel launches, host pulls) are set to 0 just before each path
-runs and read just after. Every phase prints one JSON line. Then come the
+Every TaskDefinition is built as bytes and decoded with
+decode_task_definition. Counts (kernel launches, host pulls) are set to 0
+just before each path runs and read just after. Every phase prints one
+JSON line. Then come the
 kernels line, the card's `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
 before the last line.
@@ -54,21 +76,30 @@ before the last line.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from blaze_tpu_torch import kernels
+from blaze_tpu_torch.columnar import serde
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
+from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.ops import mxu_agg
+from blaze_tpu_torch.ops.base import ExecContext
+from blaze_tpu_torch.ops.shuffle import read_shuffle_partition_host
 from blaze_tpu_torch.plan import plan_pb2 as pb
+from blaze_tpu_torch.plan.from_proto import _KIND_MAP as _PB_KIND_MAP
 from blaze_tpu_torch.plan.from_proto import decode_task_definition
-from blaze_tpu_torch.runtime import memory, metrics, resources
-from blaze_tpu_torch.runtime.executor import collect, collect_fetch
+from blaze_tpu_torch.runtime import artifacts, memory, metrics, resources
+from blaze_tpu_torch.runtime.executor import (
+    collect, collect_fetch, execute_plan,
+)
 
 ROWS = 1 << 21       # rows per batch (bench.py)
 N_BATCHES = 64       # 134M rows, ~3.2 GB input
@@ -110,6 +141,18 @@ MINMAX_AGGS = [("sum", "amount", "f64", "sum_amount"),
                ("max", "amount", "f64", "max_amount")]
 TOP_SORT = [("cnt", False, True), ("ss_customer_sk", True, True)]
 TOP_N = 100
+# the shuffle phases: a map stage of MAP_TASKS tasks over consecutive
+# slices of the batches, each writing a hash shuffle into
+# SHUFFLE_PARTITIONS partitions (spark.sql.shuffle.partitions' default),
+# then a reduce stage of one task a partition
+MAP_TASKS = 8
+SHUFFLE_PARTITIONS = 200
+SHUFFLE_REPS = 2     # timed reps of each shuffle phase after its checked run
+# the spill phase: budgets that force the agg state of one map task of the
+# general shuffle, and the sort input of the chain stage's rows, to spill
+SPILL_AGG_BUDGET = 64 << 20
+SPILL_SORT_BUDGET = 64 << 20
+SPILL_SORT = [("amount", False, False), ("ss_item_sk", True, True)]
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +257,23 @@ def _lit(kind, field, v):
     return e
 
 
+def _agg_node(inp, mode, key, aggs):
+    """An agg plan node over `inp` grouped by `key`; aggs as _build_task's."""
+    n = pb.PlanNode()
+    n.agg.input.CopyFrom(inp)
+    n.agg.mode = mode
+    n.agg.grouping.add().CopyFrom(_col(key))
+    n.agg.grouping_names.append(key)
+    for fn, arg, kind, name in aggs:
+        a = n.agg.aggs.add()
+        a.fn = _AGG_CODES[fn]
+        a.args.add().CopyFrom(_col(arg) if arg is not None
+                              else _lit(pb.TK_INT32, "int_value", 1))
+        a.result_type.kind = _KINDS[kind]
+        a.name = name
+    return n
+
+
 def _build_task(schema_fields, resource_id, agg_fns=("sum", "count"),
                 final=True, key="ss_item_sk", aggs=None, sort=None,
                 fetch=0, agg=True):
@@ -263,26 +323,11 @@ def _build_task(schema_fields, resource_id, agg_fns=("sum", "count"),
             names.append(arg)
     proj.projection.names.extend(names)
 
-    def agg_node(inp, mode):
-        n = pb.PlanNode()
-        n.agg.input.CopyFrom(inp)
-        n.agg.mode = mode
-        n.agg.grouping.add().CopyFrom(_col(key))
-        n.agg.grouping_names.append(key)
-        for fn, arg, kind, name in aggs:
-            a = n.agg.aggs.add()
-            a.fn = _AGG_CODES[fn]
-            a.args.add().CopyFrom(_col(arg) if arg is not None
-                                  else _lit(pb.TK_INT32, "int_value", 1))
-            a.result_type.kind = _KINDS[kind]
-            a.name = name
-        return n
-
     root = proj
     if agg:
-        root = agg_node(proj, pb.AGG_PARTIAL)
+        root = _agg_node(proj, pb.AGG_PARTIAL, key, aggs)
         if final:
-            root = agg_node(root, pb.AGG_FINAL)
+            root = _agg_node(root, pb.AGG_FINAL, key, aggs)
     if sort:
         top = pb.PlanNode()
         top.sort.input.CopyFrom(root)
@@ -296,6 +341,55 @@ def _build_task(schema_fields, resource_id, agg_fns=("sum", "count"),
     td = pb.TaskDefinition()
     td.partition_id = 0
     td.plan.CopyFrom(root)
+    return td.SerializeToString()
+
+
+def _shuffle_map_task(schema_fields, resource_id, task, data_file,
+                      index_file, key="ss_item_sk", aggs=None,
+                      partitions=SHUFFLE_PARTITIONS):
+    """TaskDefinition bytes of map task `task` of a two-stage query:
+    _build_task's plan up to the partial aggregate, under a shuffle writer
+    that hash-partitions its rows on `key` (Spark's murmur3, seed 42, then
+    pmod) into `partitions` and commits data_file and index_file."""
+    td = pb.TaskDefinition.FromString(_build_task(
+        schema_fields, resource_id, final=False, key=key, aggs=aggs))
+    node = pb.PlanNode()
+    w = node.shuffle_writer
+    w.input.CopyFrom(td.plan)
+    w.partitioning.kind = pb.HashRepartition.HASH
+    w.partitioning.num_partitions = partitions
+    w.partitioning.keys.add().CopyFrom(_col(key))
+    w.data_file = data_file
+    w.index_file = index_file
+    td.plan.CopyFrom(node)
+    td.stage_id = 0
+    td.partition_id = task
+    return td.SerializeToString()
+
+
+_PB_KIND = {v: k for k, v in _PB_KIND_MAP.items()}
+
+
+def _shuffle_reduce_task(state_schema, resource_id, partition,
+                         key="ss_item_sk", aggs=None,
+                         partitions=SHUFFLE_PARTITIONS):
+    """TaskDefinition bytes of reduce task `partition`: an ipc_reader of the
+    partial state (`state_schema`, the map side's partial aggregate output)
+    from the provider under resource_id, then the final aggregate."""
+    if aggs is None:
+        aggs = [(fn, "amount") + _AMOUNT_AGGS[fn] for fn in ("sum", "count")]
+    src = pb.PlanNode()
+    for f in state_schema:
+        sf = src.ipc_reader.schema.fields.add()
+        sf.name = f.name
+        sf.dtype.kind = _PB_KIND[f.dtype.kind]
+        sf.nullable = f.nullable
+    src.ipc_reader.provider_resource_id = resource_id
+    src.ipc_reader.num_partitions = partitions
+    td = pb.TaskDefinition()
+    td.stage_id = 1
+    td.partition_id = partition
+    td.plan.CopyFrom(_agg_node(src, pb.AGG_FINAL, key, aggs))
     return td.SerializeToString()
 
 
@@ -449,11 +543,14 @@ def _host_digest(packed, ncols):
 
 
 def _reset_counts() -> None:
-    """Counts of the path about to run: kernel launches, host pulls."""
+    """Counts of the path about to run: kernel launches, host pulls, serde
+    host time."""
     mxu_agg.KERNEL_LAUNCHES = 0
     for name in mxu_agg.CHAIN_LAUNCHES:
         mxu_agg.CHAIN_LAUNCHES[name] = 0
     metrics.HOST_PULLS = 0
+    for k in metrics.SERDE_NS:
+        metrics.SERDE_NS[k] = 0
 
 
 def _timed_reps(plan, packed, ncols, reps=PATH_REPS):
@@ -858,7 +955,8 @@ def phase_general_agg(datas, batches) -> dict:
            "top100_rep_s": top_times,
            "top100_median_rep_s": float(np.median(top_times))}
     _emit(res)
-    return res
+    return res, {"datas": datas, "customers": customers,
+                 "batches": gbatches, "oracle": (okeys, ocols)}
 
 
 def phase_chain_stage(datas, batches) -> dict:
@@ -894,6 +992,307 @@ def phase_chain_stage(datas, batches) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the shuffle and spill paths: two-stage queries, work past the budget
+# ---------------------------------------------------------------------------
+
+def _shuffle_query(batches, schema_pb, work_dir, tag, key="ss_item_sk",
+                   aggs=None, tasks=MAP_TASKS):
+    """The task bytes of a two-stage query: `tasks` map tasks over
+    consecutive slices of `batches`, each committing a .data/.index pair
+    under work_dir, and SHUFFLE_PARTITIONS reduce tasks, whose ipc_reader
+    provider reads its partition from every map output. Returns (map
+    tasks, reduce tasks, [(data, index)] of the map tasks)."""
+    per = len(batches) // tasks
+    src = resources.register(
+        lambda task: iter(batches[task * per:(task + 1) * per]))
+    outputs = [(os.path.join(work_dir, f"{tag}_{t}.data"),
+                os.path.join(work_dir, f"{tag}_{t}.index"))
+               for t in range(tasks)]
+    maps = [_shuffle_map_task(schema_pb, src, t, d, i, key=key, aggs=aggs,
+                              partitions=SHUFFLE_PARTITIONS)
+            for t, (d, i) in enumerate(outputs)]
+    state_schema = decode_task_definition(maps[0])[0].children[0].schema
+
+    def provide(partition):
+        for d, i in outputs:
+            yield from read_shuffle_partition_host(d, i, partition,
+                                                   state_schema)
+
+    rid = resources.register(provide)
+    reduces = [_shuffle_reduce_task(state_schema, rid, p, key=key,
+                                    aggs=aggs, partitions=SHUFFLE_PARTITIONS)
+               for p in range(SHUFFLE_PARTITIONS)]
+    return maps, reduces, outputs
+
+
+def _run_map_stage(maps, mem_manager=None):
+    """Every map task decoded from its bytes and run to its commit; returns
+    the writer plans and each task's wall time (s)."""
+    plans, secs = [], []
+    for task in maps:
+        t0 = time.perf_counter()
+        plan, td = decode_task_definition(task)
+        list(execute_plan(plan, ExecContext(
+            partition=td.partition_id, num_partitions=len(maps),
+            mem_manager=mem_manager)))
+        secs.append(time.perf_counter() - t0)
+        plans.append(plan)
+    return plans, secs
+
+
+def _run_reduce_stage(reduces, ncols, device=None):
+    """Every reduce task decoded and collected onto `device` (None: the
+    card), its rows pulled once; the union of their rows in _full's layout,
+    ordered by key (null as -1 first)."""
+    cols = []
+    for task in reduces:
+        plan, td = decode_task_definition(task)
+        packed = collect_fetch(plan, _full, ExecContext(
+            partition=td.partition_id, num_partitions=len(reduces),
+            device=device))
+        cols.append(_unpack(packed, ncols)[1])
+    cols = [np.concatenate(c) for c in zip(*cols)]
+    order = np.argsort(cols[0], kind="stable")
+    return np.concatenate([[len(order)]] + [c[order] for c in cols])
+
+
+def _shuffle_counts(plans, outputs) -> dict:
+    """What the map stage wrote: bytes, frames (from the index footers),
+    the frames' payload bytes before compression (their headers' raw_len),
+    and whether every committed pair verifies."""
+    frames = raw = 0
+    for data, index in outputs:
+        frames += artifacts.read_index(index)[1]["n_frames"]
+        with open(data, "rb") as f:
+            raw += sum(r for r, _ in serde.frame_headers(f))
+    return {"shuffle_bytes": sum(p.metrics["shuffle_bytes_written"]
+                                 for p in plans),
+            "shuffle_raw_bytes": raw, "frames": frames,
+            "verified": all(artifacts.verify_pair(d, i)
+                            for d, i in outputs)}
+
+
+def _shuffle_rep(maps, reduces, outputs, ncols, want) -> dict:
+    """One timed rep of a two-stage query, its union held to the checked
+    run's (keys and counts exact, float columns rtol 1e-9)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    plans, task_s = _run_map_stage(maps)
+    t1 = time.perf_counter()
+    got = _run_reduce_stage(reduces, ncols)
+    t2 = time.perf_counter()
+    np.testing.assert_allclose(got, want, rtol=1e-9)
+    return dict(_shuffle_counts(plans, outputs), map_s=t1 - t0,
+                reduce_s=t2 - t1, map_task_s=task_s,
+                host_pulls=metrics.HOST_PULLS,
+                serde_encode_s=metrics.SERDE_NS["encode"] / 1e9,
+                serde_decode_s=metrics.SERDE_NS["decode"] / 1e9,
+                launches=mxu_agg.KERNEL_LAUNCHES)
+
+
+def _host_profile(fn, k=8):
+    """One call of fn under cProfile: the k functions with the most own
+    host time, heaviest first."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:k]
+    return [{"fn": f"{os.path.basename(f)}:{line}({fname})", "calls": nc,
+             "own_s": tt, "cum_s": ct}
+            for (f, line, fname), (_, nc, tt, ct, _) in rows]
+
+
+def _shuffle_summary(name, checked, reps, maps, reduces) -> dict:
+    """The phase line: the checked run's counts, the medians of the timed
+    reps, one map task profiled on the device (busy time, idle share
+    against the reps' median task time), and one reduce task timed alone,
+    profiled on the device and on the host (cProfile)."""
+    def med(k):
+        return float(np.median([r[k] for r in reps]))
+
+    task_s = float(np.median([s for r in reps for s in r["map_task_s"]]))
+
+    def one_map_task():
+        plan, td = decode_task_definition(maps[0])
+        list(execute_plan(plan, ExecContext(partition=td.partition_id,
+                                            num_partitions=len(maps))))
+
+    def one_reduce_task():
+        plan, td = decode_task_definition(reduces[0])
+        collect_fetch(plan, _full, ExecContext(
+            partition=td.partition_id, num_partitions=len(reduces)))
+
+    rows, busy_ms = _device_profile(one_map_task)
+    one_reduce_task()
+    t0 = time.perf_counter()
+    one_reduce_task()
+    reduce_task_s = time.perf_counter() - t0
+    rrows, rbusy_ms = _device_profile(one_reduce_task)
+    return dict(checked, phase=name, map_tasks=len(maps),
+                reduce_task_s=reduce_task_s,
+                reduce_task_device_busy_ms=rbusy_ms,
+                reduce_task_device_launches=sum(r[2] for r in rrows),
+                reduce_task_idle_share=1.0 - rbusy_ms / (reduce_task_s * 1e3),
+                reduce_task_top=_top(rrows, 5),
+                reduce_task_host_top=_host_profile(one_reduce_task),
+                reduce_tasks=SHUFFLE_PARTITIONS,
+                map_s=[r["map_s"] for r in reps],
+                reduce_s=[r["reduce_s"] for r in reps],
+                median_map_s=med("map_s"), median_reduce_s=med("reduce_s"),
+                median_map_task_s=task_s,
+                host_pulls_per_rep=med("host_pulls"),
+                frames_per_rep=med("frames"),
+                shuffle_bytes_per_rep=med("shuffle_bytes"),
+                shuffle_raw_bytes_per_rep=med("shuffle_raw_bytes"),
+                serde_encode_s=med("serde_encode_s"),
+                serde_decode_s=med("serde_decode_s"),
+                map_task_device_busy_ms=busy_ms,
+                map_task_idle_share=1.0 - busy_ms / (task_s * 1e3),
+                map_task_top=_top(rows, 8))
+
+
+def _checked_shuffle(maps, reduces, outputs, ncols) -> tuple:
+    """The checked first run: counts reset before it, read after; returns
+    (the reduce stage's union, the counts, the writer plans)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    plans, _ = _run_map_stage(maps)
+    map_s = time.perf_counter() - t0
+    launches, chain = mxu_agg.KERNEL_LAUNCHES, dict(mxu_agg.CHAIN_LAUNCHES)
+    counts = _shuffle_counts(plans, outputs)
+    _require(counts["verified"], "a map output's checksums do not verify")
+    got = _run_reduce_stage(reduces, ncols)
+    return got, dict(counts, first_map_s=map_s, launches=launches,
+                     chain_launches=chain,
+                     first_run_host_pulls=metrics.HOST_PULLS,
+                     stage_compiled=[p.children[0].metrics["stage_compiled"]
+                                     for p in plans],
+                     stage_fallbacks=[p.children[0].metrics["stage_fallbacks"]
+                                      for p in plans]), plans
+
+
+def phase_shuffle_q06(datas, batches, work_dir) -> dict:
+    """q06 the way Spark plans it: HashAggregate(partial) -> Exchange
+    hashpartitioning(ss_item_sk, 200) -> HashAggregate(final). Each map
+    task runs the dense stage (one accumulate chain launch a batch) and
+    commits its pair; each reduce task reads its partition of the 8 map
+    outputs and finalizes it."""
+    maps, reduces, outputs = _shuffle_query(batches, SCHEMA_PB, work_dir,
+                                            "q06")
+    got, checked, _ = _checked_shuffle(maps, reduces, outputs, 3)
+    _require(checked["stage_compiled"] == [1] * MAP_TASKS,
+             f"a q06 map task left the dense path: {checked}")
+    launches, chain = checked["launches"], checked["chain_launches"]
+    if launches != N_BATCHES or set(chain.values()) != {N_BATCHES}:
+        raise AssertionError(f"shuffle_q06 launched mxu_accumulate "
+                             f"{launches} times ({chain}) for {N_BATCHES} "
+                             "batches")
+    n, (keys, sums, cnts) = _unpack(got, 3)
+    ref = _item_oracle(datas)
+    nz = ref["cnt"] > 0
+    np.testing.assert_array_equal(keys, np.nonzero(nz)[0])
+    np.testing.assert_array_equal(cnts, ref["cnt"][nz])
+    np.testing.assert_allclose(sums, ref["sum_amount"][nz], rtol=1e-9)
+    reps = [_shuffle_rep(maps, reduces, outputs, 3, got)
+            for _ in range(SHUFFLE_REPS)]
+    _require(all(r["launches"] == N_BATCHES for r in reps),
+             "a timed shuffle_q06 rep did not launch once a batch")
+    res = _shuffle_summary("shuffle_q06", checked, reps, maps, reduces)
+    res.update(groups=n, batches=N_BATCHES, rows=N_BATCHES * ROWS)
+    _emit(res)
+    return res
+
+
+def phase_shuffle_general(general, work_dir) -> dict:
+    """GROUP BY a nullable ss_customer_sk (2 M values) across the same
+    8 x 200 shuffle: the map tasks fall back to the streaming AggExec and
+    launch no kernel; about 15 M partial state rows cross the serde."""
+    maps, reduces, outputs = _shuffle_query(
+        general["batches"], GENERAL_SCHEMA_PB, work_dir, "general",
+        key="ss_customer_sk", aggs=GENERAL_AGGS)
+    ncols = 1 + len(GENERAL_AGGS)
+    got, checked, plans = _checked_shuffle(maps, reduces, outputs, ncols)
+    _require(checked["stage_compiled"] == [0] * MAP_TASKS
+             and checked["stage_fallbacks"] == [1] * MAP_TASKS,
+             f"a general map task did not fall back: {checked}")
+    _require(checked["launches"] == 0, "shuffle_general launched a kernel")
+    _check_general(got, *general["oracle"])
+    state_rows = sum(p.children[0].metrics["output_rows"] for p in plans)
+    reps = [_shuffle_rep(maps, reduces, outputs, ncols, got)
+            for _ in range(SHUFFLE_REPS)]
+    res = _shuffle_summary("shuffle_general", checked, reps, maps,
+                           reduces)
+    res.update(groups=int(got[0]), partial_state_rows=state_rows,
+               batches=len(general["batches"]),
+               rows=len(general["batches"]) * ROWS)
+    _emit(res)
+    return res
+
+
+def phase_spill(datas, batches, general, work_dir) -> dict:
+    """(a) map task 0 of the general shuffle under SPILL_AGG_BUDGET: its
+    agg state spills to host files and merges back; the reduce stage over
+    that one output against numpy. (b) the chain stage's rows under
+    Sort(amount DESC, ss_item_sk ASC) with no fetch, under
+    SPILL_SORT_BUDGET: sorted runs spill and merge on the host; every row,
+    in order, against numpy's stable sort."""
+    per = len(general["batches"]) // MAP_TASKS
+    gdatas = general["datas"][:per]
+    maps, reduces, outputs = _shuffle_query(
+        general["batches"][:per], GENERAL_SCHEMA_PB, work_dir, "spill",
+        key="ss_customer_sk", aggs=GENERAL_AGGS, tasks=1)
+    ncols = 1 + len(GENERAL_AGGS)
+    mgr = memory.MemManager(SPILL_AGG_BUDGET)
+    t0 = time.perf_counter()
+    plans, _ = _run_map_stage(maps, mgr)
+    agg_s = time.perf_counter() - t0
+    agg = plans[0].children[0]
+    agg_spills = agg.metrics["spill_count"]
+    _require(agg_spills >= 2, f"agg state spilled {agg_spills} times")
+    got = _run_reduce_stage(reduces, ncols)
+    _check_general(got, *_general_oracle(gdatas,
+                                         general["customers"][:per]))
+
+    sort_batches = batches[:CHAIN_BATCHES]
+    rid = resources.register(lambda: iter(sort_batches))
+    plan, _ = decode_task_definition(_build_task(
+        SCHEMA_PB, rid, agg=False, sort=SPILL_SORT))
+    smgr = memory.MemManager(SPILL_SORT_BUDGET)
+    t1 = time.perf_counter()
+    out = collect(plan, ExecContext(mem_manager=smgr))
+    n, (keys, amount) = _unpack(_full(out).cpu().numpy(), 2)
+    sort_s = time.perf_counter() - t1
+    runs = plan.metrics["spill_count"]
+    _require(runs >= 4, f"the sort spilled {runs} runs")
+    kept = [_kept(d) for d in datas[:CHAIN_BATCHES]]
+    want_k = np.concatenate([d["ss_item_sk"][keep]
+                             for d, (keep, _) in zip(datas, kept)])
+    want_a = np.concatenate([a for _, a in kept])
+    order = np.lexsort((want_k, -want_a))
+    np.testing.assert_array_equal(keys, want_k[order])
+    np.testing.assert_array_equal(amount, want_a[order])
+    res = {"phase": "spill",
+           "agg_budget_bytes": SPILL_AGG_BUDGET,
+           "agg_spill_count": agg_spills,
+           "agg_spilled_bytes": mgr.host_spill_bytes,
+           "agg_spill_files": mgr.host_spill_files,
+           "agg_peak_bytes": mgr.peak_used,
+           "agg_map_task_s": agg_s, "agg_rows": per * ROWS,
+           "sort_budget_bytes": SPILL_SORT_BUDGET,
+           "sort_rows": n, "sort_runs": runs,
+           "sort_spilled_bytes": plan.metrics["spilled_bytes"],
+           "sort_merge_s": plan.metrics["spill_merge_ns"] / 1e9,
+           "sort_s": sort_s, "sort_peak_bytes": smgr.peak_used}
+    _emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -906,8 +1305,13 @@ def main() -> int:
     phase_profile(main_path["plan"], main_path["rep_s"])
     datas, batches = main_path["datas"], main_path["batches"]
     minmax = phase_dense_minmax(datas, batches)
-    phase_general_agg(datas, batches)
+    _, general = phase_general_agg(datas, batches)
     phase_chain_stage(datas, batches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
+        conf.spill_dir = os.path.join(work_dir, "spill")
+        shuffle = phase_shuffle_q06(datas, batches, work_dir)
+        phase_shuffle_general(general, work_dir)
+        phase_spill(datas, batches, general, work_dir)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
         "source": "blaze_tpu_torch/csrc/mxu_accumulate.cu",
@@ -916,6 +1320,7 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "chain_launches": main_path["chain"],
         "dense_minmax_launches": minmax["launches"],
+        "shuffle_q06_launches": shuffle["launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -10,6 +10,8 @@ and averages within rtol 1e-12. collapse_threshold is set small enough
 that every run collapses several times.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -189,7 +191,8 @@ def test_memory_returns_to_zero_and_peak_is_recorded():
 def test_release_collapses_raw_rows_and_init_sets_the_budget():
     """MemManager.release asks the largest consumer to spill: an agg state
     holding raw rows collapses them; a second release, with nothing left
-    to collapse, reaches the serde error. init() replaces the manager."""
+    to collapse, writes the collapsed state to a host spill file, and the
+    merged state reads it back unchanged. init() replaces the manager."""
     from blaze_tpu_torch.runtime.memory import close_all_quietly
 
     _, tbs = _batches(15, [100] * 8, cap=4096, keys=50)
@@ -205,10 +208,18 @@ def test_release_collapses_raw_rows_and_init_sets_the_budget():
         raw = state.mem_used()
         assert mgr.release(1) > 0 and state.collapses == 1
         assert 0 < state.mem_used() < raw and not state.raw
-        with pytest.raises(NotImplementedError, match="columnar/serde.py"):
-            mgr.release(1)
+        collapsed, before = state.states[0], state.mem_used()
+        assert mgr.release(1) == before
+        assert state.mem_used() == 0 and len(state.spills) == 1
+        # then the spill file's unsynced pages, then nothing is left
+        assert mgr.release(1) == state.spills[0].bytes_written > 0
+        assert mgr.release(1) == 0
+        back = state.merged()
+        assert back.device.type == "cpu"
+        _assert_same(back, collapsed)
+        path = state.spills[0].path
         state.close()
-        assert mgr.mem_used() == 0
+        assert mgr.mem_used() == 0 and not os.path.exists(path)
     finally:
         M._global = old
 
@@ -227,11 +238,19 @@ def test_release_collapses_raw_rows_and_init_sets_the_budget():
 
 
 def test_state_over_budget_raises_naming_serde():
-    _, tbs = _batches(9, [500, 500], keys=400)
+    """Over its budget the state no longer raises: the partial spills its
+    collapsed state to host files and merges it back. Every column equals
+    the JAX package's under the same budget; the manager ends empty."""
+    from blaze_tpu.runtime import memory as JM
+
+    jbs, tbs = _batches(9, [500, 500], keys=400)
     ctx = ExecContext(device="cpu", mem_manager=M.MemManager(2000))
     plan = _plan("torch", tbs, ["k0"], CALLS, MODES["final"], 1 << 20)
-    with pytest.raises(NotImplementedError, match="columnar/serde.py"):
-        _run("torch", plan, ctx)
+    got = _run("torch", plan, ctx)
+    assert plan.children[0].metrics["spill_count"] >= 2
+    jplan = _plan("jax", jbs, ["k0"], CALLS, MODES["final"], 1 << 20)
+    want = list(jplan.execute(JCtx(mem_manager=JM.MemManager(2000))))[0]
+    _assert_same(got, want)
     assert ctx.mem_manager.mem_used() == 0
 
 

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernel chain
-against its plain torch version, and bench.py's q06 plan through it at test
-size.
+against its plain torch version, bench.py's q06 plan through it at test
+size, and the later paths (general aggregation, sort, hash, partition sort,
+serde, spill) on the card against the port's own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -253,6 +254,9 @@ def _assert_card_equals_cpu(got, want):
         wd = torch.where(wv, w.data[:n], zero)
         if gd.dtype.is_floating_point and ("sum" in name or "avg" in name):
             torch.testing.assert_close(gd, wd, rtol=1e-12, atol=0)
+        elif gd.dtype.is_floating_point:  # NaN equals NaN, nothing else
+            torch.testing.assert_close(gd, wd, rtol=0, atol=0,
+                                       equal_nan=True, msg=name)
         else:
             assert torch.equal(gd, wd), name
 
@@ -318,3 +322,125 @@ def test_sort_keys_on_card_match_cpu(cuda):
                 device="cpu"), specs)
             assert torch.equal(got.columns[-1].data[:n].cpu(),
                                want.columns[-1].data[:n])
+
+
+# ---------------------------------------------------------------------------
+# the shuffle and spill path at test size: the card against the CPU route
+# ---------------------------------------------------------------------------
+
+HASH_KINDS = ["INT8", "INT16", "INT32", "DATE", "BOOLEAN", "INT64",
+              "TIMESTAMP", "FLOAT32", "FLOAT64"]
+
+
+def _kinds_batch(device, n=3000, cap=4096, seed=11):
+    """One batch of every hashed kind with extremes, -0.0, NaN and
+    infinities, 20% nulls; made with numpy, then put on `device`."""
+    from blaze_tpu_torch.columnar import types as T
+
+    rng = np.random.default_rng(seed)
+    data, valid = {}, {}
+    for i, k in enumerate(HASH_KINDS):
+        if k == "BOOLEAN":
+            v = rng.random(n) < 0.5
+        elif k.startswith("FLOAT"):
+            ft = np.float32 if k == "FLOAT32" else np.float64
+            v = (rng.standard_normal(n) * 1e3).astype(ft)
+            v[:6] = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf,
+                              np.finfo(ft).max], ft)
+        else:
+            it = {"INT8": np.int8, "INT16": np.int16, "INT32": np.int32,
+                  "DATE": np.int32}.get(k, np.int64)
+            info = np.iinfo(it)
+            v = rng.integers(info.min, info.max, n, endpoint=True,
+                             dtype=np.int64).astype(it)
+            v[:2] = [info.min, info.max]
+        data[f"c{i}"] = v
+        valid[f"c{i}"] = rng.random(n) > 0.2
+    schema = T.Schema([T.Field(f"c{i}", getattr(T, k))
+                       for i, k in enumerate(HASH_KINDS)])
+    return ColumnBatch.from_numpy(data, schema, capacity=cap, validity=valid,
+                                  device=device)
+
+
+def test_hash_on_card_matches_cpu(cuda):
+    """Spark murmur3 of every kind, doubles included, and a chain of all
+    of them, then pmod: bit-equal on the card and the CPU."""
+    from blaze_tpu_torch.exprs import hash as H
+
+    gb, wb = _kinds_batch(cuda), _kinds_batch("cpu")
+    for i in range(len(HASH_KINDS)):
+        got = H.hash_columns([gb.columns[i]], row_mask=gb.row_mask())
+        want = H.hash_columns([wb.columns[i]], row_mask=wb.row_mask())
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), HASH_KINDS[i]
+    got = H.hash_columns(gb.columns, row_mask=gb.row_mask())
+    want = H.hash_columns(wb.columns, row_mask=wb.row_mask())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(H.pmod(got, 200).cpu(), H.pmod(want, 200))
+
+
+@pytest.mark.parametrize("kind", ["hash", "single", "round_robin"])
+def test_partition_and_sort_on_card_matches_cpu(cuda, kind):
+    """The partition-grouped rows and per-partition counts of one batch:
+    equal on the card and the CPU, rows in input order inside a
+    partition."""
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs.compiler import compile_expr
+    from blaze_tpu_torch.ops.shuffle import Partitioning, partition_and_sort
+
+    P = 1 if kind == "single" else 7
+    keys = (ir.col("c0"), ir.col("c8"), ir.col("c4")) if kind == "hash" \
+        else ()
+    part = Partitioning(kind, P, keys)
+    outs = {}
+    for dev in ("cpu", cuda):
+        b = _kinds_batch(dev)
+        fns = [compile_expr(e, b.schema) for e in keys]
+        outs[dev] = partition_and_sort(b, part, fns, row_offset=5,
+                                       rr_start=3)
+    (gb, gc), (wb, wc) = outs[cuda], outs["cpu"]
+    assert torch.equal(gc.cpu(), wc)
+    assert int(gc.sum()) == 3000
+    _assert_card_equals_cpu(gb, wb)
+
+
+def test_serde_round_trip_on_card(cuda):
+    """A batch on the card serializes to the same frame bytes as on the
+    CPU (one device->host pull), and the frame decodes back onto the card
+    equal to the batch."""
+    from blaze_tpu_torch.columnar import serde
+    from blaze_tpu_torch.runtime import metrics
+
+    gb, wb = _kinds_batch(cuda), _kinds_batch("cpu")
+    pulls = metrics.HOST_PULLS
+    frame = serde.serialize_batch(gb)
+    assert metrics.HOST_PULLS == pulls + 1
+    assert frame == serde.serialize_batch(wb)
+    back = serde.deserialize_batch(frame, gb.schema, device=cuda)
+    assert back.device.type == "cuda"
+    _assert_card_equals_cpu(back, wb)
+    assert serde.serialize_batch(back) == frame  # bit for bit, -0.0 kept
+
+
+def test_spill_on_card_matches_cpu(cuda):
+    """The general plan and a full sort under budgets that force spills:
+    agg state and sorted runs go to host files and come back onto the
+    card; the answers equal the CPU route's under the same budgets."""
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.runtime import memory
+
+    plans = {"agg": dict(key="ss_customer_sk", aggs=cs.GENERAL_AGGS),
+             "sort": dict(agg=False, sort=cs.SPILL_SORT)}
+    for name, kw in plans.items():
+        outs = {}
+        for dev in ("cpu", cuda):
+            batches = _general_workload(dev, n_batches=6)
+            rid = resources.register(_provider(batches))
+            plan, _ = decode_task_definition(cs._build_task(
+                cs.GENERAL_SCHEMA_PB, rid, **kw))
+            budget = 48 << 10 if name == "agg" else 64 << 10
+            outs[dev] = collect(plan, ExecContext(
+                device=dev, mem_manager=memory.MemManager(budget)))
+            op = plan.children[0] if name == "agg" else plan
+            assert op.metrics["spill_count"] >= 2, (name, dev)
+        _assert_card_equals_cpu(outs[cuda], outs["cpu"])

@@ -1,0 +1,236 @@
+"""Arrow <-> device batch conversion.
+
+Port of blaze_tpu/columnar/arrow_io.py (ref: the JVM<->native Arrow
+boundary, ArrowFFIStreamImportIterator / ArrowFFIExportIterator and the
+FFI stream export in blaze/src/rt.rs:76-80) for the dense column kinds
+the port's batches hold: bool, the int kinds, f32/f64, date, timestamp
+and decimal with precision <= 18 (unscaled int64). Validity comes from
+the Arrow bitmap, and sliced arrays (a non-zero offset) are honoured.
+
+A null-free fixed-width column is viewed in place (`np.frombuffer` over
+the Arrow data buffer) and uploaded in one copy to the requested device;
+only a batch shorter than its capacity bucket pays a host copy for the
+padding. Every other column goes through pyarrow's fill_null and one
+upload.
+
+String and binary columns wait for exprs/strings.py, list, map and
+struct columns for the nested storage of columnar/batch.py, and decimal
+with precision > 18 for columnar/int128.py (ROADMAP item 19): they raise
+NotImplementedError naming that module, and never convert quietly.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import List, Optional
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+from blaze_tpu_torch.columnar import types as T
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, bucket_capacity, require_dense_kind,
+)
+from blaze_tpu_torch.device import DeviceLike, resolve_device
+
+_ARROW_TO_KIND = {
+    pa.types.is_boolean: T.BOOLEAN,
+    pa.types.is_int8: T.INT8,
+    pa.types.is_int16: T.INT16,
+    pa.types.is_int32: T.INT32,
+    pa.types.is_int64: T.INT64,
+    pa.types.is_float32: T.FLOAT32,
+    pa.types.is_float64: T.FLOAT64,
+    pa.types.is_date32: T.DATE,
+    pa.types.is_null: T.NULL,
+}
+
+
+def dtype_from_arrow(at: pa.DataType) -> T.DataType:
+    for pred, dt in _ARROW_TO_KIND.items():
+        if pred(at):
+            return dt
+    if pa.types.is_string(at) or pa.types.is_large_string(at):
+        return T.STRING
+    if pa.types.is_binary(at) or pa.types.is_large_binary(at):
+        return T.BINARY
+    if pa.types.is_timestamp(at):
+        return T.TIMESTAMP
+    if pa.types.is_decimal(at):
+        return T.decimal(at.precision, at.scale)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return T.list_of(dtype_from_arrow(at.value_type))
+    if pa.types.is_map(at):
+        return T.map_of(dtype_from_arrow(at.key_type),
+                        dtype_from_arrow(at.item_type))
+    if pa.types.is_struct(at):
+        return T.struct_of(T.Field(f.name, dtype_from_arrow(f.type),
+                                   f.nullable) for f in at)
+    if pa.types.is_dictionary(at):
+        return dtype_from_arrow(at.value_type)
+    raise TypeError(f"unsupported arrow type {at}")
+
+
+def dtype_to_arrow(dt: T.DataType) -> pa.DataType:
+    k = T.TypeKind
+    m = {
+        k.NULL: pa.null(), k.BOOLEAN: pa.bool_(), k.INT8: pa.int8(),
+        k.INT16: pa.int16(), k.INT32: pa.int32(), k.INT64: pa.int64(),
+        k.FLOAT32: pa.float32(), k.FLOAT64: pa.float64(),
+        k.STRING: pa.string(), k.BINARY: pa.binary(), k.DATE: pa.date32(),
+        k.TIMESTAMP: pa.timestamp("us"),
+    }
+    if dt.kind in m:
+        return m[dt.kind]
+    if dt.kind == k.DECIMAL:
+        return pa.decimal128(dt.precision, dt.scale)
+    if dt.kind == k.LIST:
+        return pa.list_(dtype_to_arrow(dt.element))
+    if dt.kind == k.MAP:
+        return pa.map_(dtype_to_arrow(dt.key), dtype_to_arrow(dt.element))
+    if dt.kind == k.STRUCT:
+        return pa.struct([pa.field(f.name, dtype_to_arrow(f.dtype),
+                                   f.nullable) for f in dt.fields])
+    raise TypeError(f"unsupported dtype {dt}")
+
+
+def schema_from_arrow(s: pa.Schema) -> T.Schema:
+    return T.Schema([T.Field(f.name, dtype_from_arrow(f.type), f.nullable)
+                     for f in s])
+
+
+def schema_to_arrow(s: T.Schema) -> pa.Schema:
+    return pa.schema([pa.field(f.name, dtype_to_arrow(f.dtype), f.nullable)
+                      for f in s])
+
+
+_ZC_KINDS = {
+    T.TypeKind.INT8: pa.int8(), T.TypeKind.INT16: pa.int16(),
+    T.TypeKind.INT32: pa.int32(), T.TypeKind.INT64: pa.int64(),
+    T.TypeKind.FLOAT32: pa.float32(), T.TypeKind.FLOAT64: pa.float64(),
+    T.TypeKind.DATE: pa.date32(),
+}
+
+
+def _upload(host: np.ndarray, cap: int, dev: torch.device) -> torch.Tensor:
+    """One host->device copy of `host`, zero-padded to `cap`. A read-only
+    view of an Arrow buffer is uploaded as it is when it already fills the
+    capacity and the device is not the host; otherwise it is copied into a
+    fresh padded array first (the CPU route never aliases Arrow memory)."""
+    n = host.shape[0]
+    if n == cap and dev.type != "cpu":
+        with warnings.catch_warnings():
+            # the tensor only feeds the copy to the device, nothing writes it
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.from_numpy(host).to(dev)
+    full = np.zeros((cap,), host.dtype)
+    full[:n] = host
+    return torch.from_numpy(full).to(dev)
+
+
+def _numeric_zero_copy(arr: pa.Array, dtype: T.DataType, cap: int,
+                       dev: torch.device) -> Optional[Column]:
+    """Null-free fixed-width column: the Arrow data buffer viewed in place
+    at its offset and uploaded in one copy; None when it does not apply."""
+    at = _ZC_KINDS.get(dtype.kind)
+    if at is None or arr.type != at or arr.null_count != 0:
+        return None
+    buf = arr.buffers()[1]
+    if buf is None:
+        return None
+    npd = dtype.np_dtype()
+    view = np.frombuffer(buf, npd, count=len(arr),
+                         offset=arr.offset * npd.itemsize)
+    return Column(dtype, _upload(view, cap, dev), None)
+
+
+def column_from_arrow(arr, dtype: T.DataType, cap: int,
+                      device: DeviceLike = None) -> Column:
+    """One Arrow array (or chunked array) as a column of capacity `cap` on
+    `device` (None: the CUDA card)."""
+    dev = resolve_device(device)
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if pa.types.is_dictionary(arr.type):
+        arr = arr.cast(arr.type.value_type)
+    require_dense_kind(dtype)
+    n = len(arr)
+    if dtype.kind == T.TypeKind.NULL:
+        return Column(dtype, torch.zeros((cap,), dtype=dtype.torch_dtype(),
+                                         device=dev),
+                      torch.zeros((cap,), dtype=torch.bool, device=dev))
+    fast = _numeric_zero_copy(arr, dtype, cap, dev)
+    if fast is not None:
+        return fast
+    validity = None
+    if arr.null_count:
+        validity = _upload(np.asarray(arr.is_valid()), cap, dev)
+    if dtype.is_decimal:
+        d = arr.cast(pa.decimal128(dtype.precision, dtype.scale)
+                     ).fill_null(0)
+        # decimal128 is 16-byte little-endian two's complement: the low
+        # int64 word is the unscaled value for precision <= 18
+        words = np.frombuffer(d.buffers()[1], np.int64, count=2 * n,
+                              offset=d.offset * 16)
+        vals = words[0::2]
+    elif dtype.kind == T.TypeKind.TIMESTAMP:
+        vals = np.asarray(arr.cast(pa.timestamp("us")).fill_null(0),
+                          np.int64)
+    elif dtype.kind == T.TypeKind.BOOLEAN:
+        vals = np.asarray(arr.fill_null(False))
+    else:
+        vals = np.asarray(arr.fill_null(0)).astype(dtype.np_dtype())
+    vals = np.ascontiguousarray(vals, dtype.np_dtype())
+    return Column(dtype, _upload(vals, cap, dev), validity).normalized()
+
+
+def batch_from_arrow(rb: pa.RecordBatch, capacity: Optional[int] = None,
+                     schema: Optional[T.Schema] = None,
+                     device: DeviceLike = None) -> ColumnBatch:
+    """An Arrow RecordBatch as a batch on `device` (None: the CUDA card):
+    one upload a column. Every column's kind is checked before the first
+    upload."""
+    schema = schema or schema_from_arrow(rb.schema)
+    for f in schema:
+        require_dense_kind(f.dtype, f.name)
+    dev = resolve_device(device)
+    cap = capacity or bucket_capacity(rb.num_rows)
+    cols = [column_from_arrow(rb.column(i), f.dtype, cap, dev)
+            for i, f in enumerate(schema)]
+    return ColumnBatch(schema, cols,
+                       torch.tensor(rb.num_rows, dtype=torch.int32,
+                                    device=dev), cap)
+
+
+def _validity_bitmap(valid: np.ndarray) -> pa.Buffer:
+    return pa.py_buffer(np.packbits(valid, bitorder="little").tobytes())
+
+
+def batch_to_arrow(batch: ColumnBatch) -> pa.RecordBatch:
+    """The live rows of `batch` as an Arrow RecordBatch (one device->host
+    copy a column)."""
+    from blaze_tpu_torch.runtime.metrics import to_host
+
+    n = int(to_host(batch.num_rows))
+    arrays: List[pa.Array] = []
+    for f, c in zip(batch.schema, batch.columns):
+        require_dense_kind(f.dtype, f.name)
+        valid = to_host(c.valid_mask()[:n]).numpy()
+        d = to_host(c.data[:n]).numpy()
+        at = dtype_to_arrow(f.dtype)
+        if f.dtype.kind == T.TypeKind.NULL:
+            arrays.append(pa.nulls(n))
+        elif f.dtype.is_decimal:
+            # unscaled int64 -> 16-byte two's complement (sign-extended)
+            d = np.where(valid, d, 0).astype(np.int64)
+            words = np.stack([d, d >> 63], axis=1).tobytes()
+            bitmap = None if valid.all() else _validity_bitmap(valid)
+            arrays.append(pa.Array.from_buffers(
+                at, n, [bitmap, pa.py_buffer(words)],
+                null_count=int(n - valid.sum())))
+        else:
+            arrays.append(pa.array(d, type=at,
+                                   mask=None if valid.all() else ~valid))
+    return pa.RecordBatch.from_arrays(arrays,
+                                      schema=schema_to_arrow(batch.schema))

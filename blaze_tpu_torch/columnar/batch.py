@@ -42,11 +42,19 @@ def bucket_capacity(n: int) -> int:
     return cap
 
 
-def _check_dense(dtype: DataType) -> None:
-    if dtype.is_string_like or dtype.is_nested or dtype.wide_decimal:
+def require_dense_kind(dtype: DataType, name: str = "") -> None:
+    """Raise for a column kind the port's batches cannot hold yet, naming
+    the module that will carry it (ROADMAP item 19)."""
+    where = None
+    if dtype.is_string_like:
+        where = "exprs/strings.py"
+    elif dtype.is_nested:
+        where = "the nested storage of columnar/batch.py"
+    elif dtype.wide_decimal:
+        where = "columnar/int128.py"
+    if where is not None:
         raise NotImplementedError(
-            f"{dtype} columns (string/nested/wide-decimal storage of "
-            "columnar/batch.py) not yet ported")
+            f"{dtype} column {name!r} needs {where}, not yet ported")
 
 
 @dataclasses.dataclass
@@ -75,10 +83,15 @@ class Column:
                                               device=self.data.device)),
                       self.validity)
 
-    def take(self, indices: torch.Tensor) -> "Column":
-        """Gather rows by index (clamped into the capacity)."""
+    def take(self, indices: torch.Tensor, *,
+             index_valid: Optional[torch.Tensor] = None) -> "Column":
+        """Gather rows by index (clamped into the capacity). Rows whose
+        `index_valid` is False become null (the outer joins' null
+        extension)."""
         idx = indices.clamp(0, self.capacity - 1)
         v = self.validity[idx] if self.validity is not None else None
+        if index_valid is not None:
+            v = index_valid if v is None else (v & index_valid)
         return Column(self.dtype, self.data[idx], v)
 
 
@@ -97,7 +110,7 @@ class ColumnBatch:
         cap = capacity or bucket_capacity(0)
         cols = []
         for f in schema:
-            _check_dense(f.dtype)
+            require_dense_kind(f.dtype, f.name)
             cols.append(Column(f.dtype, torch.zeros(
                 (cap,), dtype=f.dtype.torch_dtype(), device=dev),
                 torch.zeros((cap,), dtype=torch.bool, device=dev)
@@ -118,7 +131,7 @@ class ColumnBatch:
         cap = capacity or bucket_capacity(n)
         cols = []
         for f in schema:
-            _check_dense(f.dtype)
+            require_dense_kind(f.dtype, f.name)
             arr = np.asarray(data[f.name])
             v_np = None if validity is None else validity.get(f.name)
             if v_np is None and arr.dtype == object:
@@ -151,7 +164,7 @@ class ColumnBatch:
                 f"{len(arrays)} arrays for a {len(schema)}-field schema")
         cols = []
         for f, (data, valid) in zip(schema, arrays):
-            _check_dense(f.dtype)
+            require_dense_kind(f.dtype, f.name)
             # copies: arrays pulled from another framework may be read-only
             data = np.array(data, f.dtype.np_dtype(), copy=True, order="C")
             if data.shape != (capacity,):

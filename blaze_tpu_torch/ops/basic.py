@@ -2,15 +2,16 @@
 
 Port of blaze_tpu/ops/basic.py (ref: datafusion-ext-plans project_exec.rs,
 filter_exec.rs, rename_columns_exec.rs, limit_exec.rs,
-empty_partitions_exec.rs, coalesce_stream.rs): MemorySource, Project,
-Filter, Rename, Local/GlobalLimit, Union, EmptyPartitions and
-CoalesceBatches. Filter+Project fuse into one per-batch function via the
-executor. The JAX module's DebugExec and the host-function expression
-operators wait for the slices that port their expressions.
+empty_partitions_exec.rs, coalesce_stream.rs, debug_exec.rs):
+MemorySource, Project, Filter, Rename, Local/GlobalLimit, Union,
+EmptyPartitions, CoalesceBatches and Debug. Filter+Project fuse into one
+per-batch function via the executor. The JAX module's host-function
+expression operators wait for the slices that port their expressions.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -25,6 +26,8 @@ from blaze_tpu_torch.ops.base import (
 )
 from blaze_tpu_torch.ops.common import concat_batches
 from blaze_tpu_torch.runtime.metrics import to_host
+
+logger = logging.getLogger(__name__)
 
 
 def infer_dtype(fn, schema: Schema):
@@ -259,5 +262,27 @@ class CoalesceBatchesExec(Operator):
                     yield batch
             if pending:
                 yield concat_batches(pending, self.schema)
+
+        return count_stream(self, gen())
+
+
+class DebugExec(Operator):
+    """Ref: debug_exec.rs — log batches flowing through a tagged point
+    (one host read a batch, to print its rows)."""
+
+    def __init__(self, child: Operator, tag: str = "") -> None:
+        super().__init__([child])
+        self.tag = tag
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def execute(self, ctx: ExecContext) -> BatchStream:
+        def gen():
+            for i, batch in enumerate(self.children[0].execute(ctx)):
+                logger.info("[DEBUG %s] batch %d: %d rows\n%s", self.tag, i,
+                            int(to_host(batch.num_rows)), batch.to_numpy())
+                yield batch
 
         return count_stream(self, gen())

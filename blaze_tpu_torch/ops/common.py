@@ -4,9 +4,8 @@ Port of `concat_batches` and `slice_batch` from blaze_tpu/ops/common.py
 (ref: concat_batches in datafusion-ext-commons lib.rs:33-61) for the dense
 column kinds the port's batches hold. String and list columns raise
 NotImplementedError naming exprs/strings.py. `adaptive_target_bytes` sizes
-the IPC reader's macro-batches; the row sizing of that module
-(`schema_row_bytes`, `adaptive_batch_rows`) waits for the scan sources
-that use it.
+the IPC reader's macro-batches, and `adaptive_batch_rows` (over
+`schema_row_bytes`) the Parquet scan's.
 
 The JAX versions run as one jitted program per (schema, shapes) so as to
 pay one dispatch instead of one per column on a remote-attached chip;
@@ -19,18 +18,11 @@ from typing import List, Optional
 
 import torch
 
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
-from blaze_tpu_torch.columnar.types import Schema
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, bucket_capacity, require_dense_kind,
+)
+from blaze_tpu_torch.columnar.types import Schema, TypeKind
 from blaze_tpu_torch.runtime.metrics import to_host
-
-
-def require_dense(schema: Schema) -> None:
-    """Raise for the column kinds the port's batches cannot hold yet."""
-    for f in schema.fields:
-        if f.dtype.is_string_like or f.dtype.is_nested:
-            raise NotImplementedError(
-                f"{f.dtype} column {f.name!r}: string and list storage "
-                "(exprs/strings.py) not yet ported")
 
 
 def concat_batches(batches: List[ColumnBatch],
@@ -43,7 +35,8 @@ def concat_batches(batches: List[ColumnBatch],
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
     schema = schema or batches[0].schema
-    require_dense(schema)
+    for f in schema.fields:
+        require_dense_kind(f.dtype, f.name)
     counts = to_host(torch.stack([b.num_rows for b in batches])).tolist()
     total = sum(counts)
     cap = bucket_capacity(total)
@@ -68,6 +61,28 @@ def concat_batches(batches: List[ColumnBatch],
                        torch.tensor(total, dtype=torch.int32, device=dev), cap)
 
 
+def schema_row_bytes(schema: Schema) -> int:
+    """Rough per-row device bytes (validity + typical string width), the
+    JAX package's estimate for every kind, held ones or not."""
+    total = 0
+    for f in schema.fields:
+        total += _field_row_bytes(f.dtype) + 1
+    return max(total, 1)
+
+
+def _field_row_bytes(dtype) -> int:
+    k = dtype.kind
+    if k in (TypeKind.STRING, TypeKind.BINARY):
+        return 36  # 32-byte width bucket guess + lengths
+    if k in (TypeKind.LIST, TypeKind.MAP):
+        return 64
+    if dtype.wide_decimal:
+        return 16  # two int64 limb planes
+    if k == TypeKind.STRUCT:
+        return sum(_field_row_bytes(f.dtype) + 1 for f in dtype.fields)
+    return dtype.byte_width()
+
+
 def adaptive_target_bytes(manager=None) -> int:
     """Macro-batch byte target: conf.target_batch_bytes clamped so that one
     batch stays well inside the memory budget; a small budget (spill
@@ -81,11 +96,23 @@ def adaptive_target_bytes(manager=None) -> int:
     return max(min(conf.target_batch_bytes, mgr.total // 8), 1 << 18)
 
 
+def adaptive_batch_rows(schema: Schema, manager=None) -> int:
+    """Source batch row target for macro-batching: the byte target over
+    the row estimate, clamped to [conf.batch_size, conf.max_batch_rows]
+    and rounded down to a power of two (so capacities stay few)."""
+    from blaze_tpu_torch.config import conf
+
+    rows = adaptive_target_bytes(manager) // schema_row_bytes(schema)
+    rows = max(conf.batch_size, min(int(rows), conf.max_batch_rows))
+    return 1 << (max(int(rows), 1).bit_length() - 1)
+
+
 def slice_batch(batch: ColumnBatch, start: int, count: int) -> ColumnBatch:
     """Live rows [start, start+count) into a fresh batch of capacity
     bucket_capacity(count); no host pull (the row count stays on the
     device)."""
-    require_dense(batch.schema)
+    for f in batch.schema.fields:
+        require_dense_kind(f.dtype, f.name)
     cap = bucket_capacity(count)
     idx = torch.arange(cap, dtype=torch.int64, device=batch.device) + start
     n = (batch.num_rows - start).clamp(0, count)

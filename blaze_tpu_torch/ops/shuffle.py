@@ -21,8 +21,8 @@ Left out: the C++ map-output writer of the JAX package (native/, which
 writes the same bytes), and threaded pipelining. The JAX package overlaps
 frame compression and the read-side decode with device work through
 runtime/pipeline.py (`Sink`, `prefetch`); here both run inline, which is
-what the JAX package does with pipelining off. pyarrow ingestion in
-FfiReaderExec waits for columnar/arrow_io.py.
+what the JAX package does with pipelining off. FfiReaderExec takes
+pyarrow RecordBatches through columnar/arrow_io.py.
 """
 
 from __future__ import annotations
@@ -480,9 +480,11 @@ class IpcWriterExec(Operator):
 
 
 class FfiReaderExec(Operator):
-    """Ref: ffi_reader_exec.rs — pulls batches from a registered export
-    iterator. The provider yields ready `ColumnBatch`es; pyarrow
-    RecordBatches need columnar/arrow_io.py, not yet ported."""
+    """Ref: ffi_reader_exec.rs — pulls Arrow arrays from a registered
+    export iterator (the ConvertToNative row->columnar ingestion path,
+    ConvertToNativeBase.scala:59-98). The provider yields pyarrow
+    RecordBatches (the C-data crossing is pyarrow's), uploaded to the
+    task's device by columnar/arrow_io.py, or ready ColumnBatches."""
 
     def __init__(self, schema: Schema, export_resource_id: str) -> None:
         super().__init__([])
@@ -498,15 +500,16 @@ class FfiReaderExec(Operator):
 
     def execute(self, ctx: ExecContext) -> BatchStream:
         def gen():
+            from blaze_tpu_torch.columnar.arrow_io import batch_from_arrow
+
             source = _call_provider(resources.get(self.export_resource_id),
                                     ctx)
             for item in source:
                 ctx.check_running()
-                if not isinstance(item, ColumnBatch):
-                    raise NotImplementedError(
-                        f"FfiReaderExec input {type(item).__name__}: "
-                        "pyarrow ingestion (columnar/arrow_io.py) not yet "
-                        "ported")
-                yield item
+                if isinstance(item, ColumnBatch):
+                    yield item
+                else:
+                    yield batch_from_arrow(item, schema=self._schema,
+                                           device=ctx.device)
 
         return count_stream(self, gen())

@@ -7,14 +7,15 @@ and scalars decode in full; expressions decode for the kinds the port's
 compiler handles; plan nodes decode for the arms of the ported operators —
 ffi_reader, filter, projection, agg, rename_columns, sort (with its fetch
 limit), limit, union, empty_partitions, coalesce_batches, shuffle_writer,
-rss_shuffle_writer, ipc_writer and ipc_reader. Every other expression kind
-or plan node (joins, windows, expand, scans) raises NotImplementedError
-naming it.
+rss_shuffle_writer, ipc_writer, ipc_reader, sort_merge_join,
+broadcast_join, broadcast_nested_loop_join, parquet_scan, parquet_sink and
+debug. Every other expression kind or plan node (windows, expand,
+generate) raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.exprs import ir
@@ -22,6 +23,10 @@ from blaze_tpu_torch.ops import basic as B
 from blaze_tpu_torch.ops.agg import AggCall, AggExec, AggMode
 from blaze_tpu_torch.ops import shuffle as S
 from blaze_tpu_torch.ops.base import Operator
+from blaze_tpu_torch.ops.join import (
+    BroadcastJoinExec, BroadcastNestedLoopJoinExec, JoinKey, JoinType,
+    SortMergeJoinExec,
+)
 from blaze_tpu_torch.ops.sort import SortExec
 from blaze_tpu_torch.ops.sort_keys import SortSpec
 from blaze_tpu_torch.plan import plan_pb2 as pb
@@ -154,6 +159,14 @@ def _sort_spec(term: pb.SortTerm, schema: T.Schema) -> SortSpec:
 # plan nodes
 # ---------------------------------------------------------------------------
 
+_JOIN_TYPE = {
+    pb.JOIN_INNER: JoinType.INNER, pb.JOIN_LEFT: JoinType.LEFT,
+    pb.JOIN_RIGHT: JoinType.RIGHT, pb.JOIN_FULL: JoinType.FULL,
+    pb.JOIN_LEFT_SEMI: JoinType.LEFT_SEMI,
+    pb.JOIN_LEFT_ANTI: JoinType.LEFT_ANTI,
+    pb.JOIN_EXISTENCE: JoinType.EXISTENCE,
+}
+
 _AGG_FN = {
     pb.AGG_MIN: "min", pb.AGG_MAX: "max", pb.AGG_SUM: "sum",
     pb.AGG_AVG: "avg", pb.AGG_COUNT: "count", pb.AGG_FIRST: "first",
@@ -166,6 +179,16 @@ _AGG_MODE = {
     pb.AGG_PARTIAL_MERGE: AggMode.PARTIAL_MERGE,
     pb.AGG_FINAL: AggMode.FINAL,
 }
+
+
+def _join_keys(on, lschema: T.Schema, rschema: T.Schema) -> List[JoinKey]:
+    return [JoinKey(_col_index(decode_expr(o.left), lschema),
+                    _col_index(decode_expr(o.right), rschema),
+                    o.null_safe) for o in on]
+
+
+def _join_filter(n, field: str):
+    return decode_expr(getattr(n, field)) if n.HasField(field) else None
 
 
 def _partitioning(p: pb.HashRepartition) -> S.Partitioning:
@@ -187,6 +210,25 @@ def decode_plan(p: pb.PlanNode) -> Operator:
     if which == "filter":
         child = decode_plan(n.input)
         return B.FilterExec(child, [decode_expr(e) for e in n.predicates])
+    if which == "sort_merge_join":
+        left, right = decode_plan(n.left), decode_plan(n.right)
+        return SortMergeJoinExec(
+            left, right, _join_keys(n.on, left.schema, right.schema),
+            _JOIN_TYPE[n.join_type],
+            join_filter=_join_filter(n, "join_filter"),
+            existence_name=n.existence_name or "exists")
+    if which == "broadcast_join":
+        left, right = decode_plan(n.left), decode_plan(n.right)
+        return BroadcastJoinExec(
+            left, right, _join_keys(n.on, left.schema, right.schema),
+            _JOIN_TYPE[n.join_type], build_is_left=n.build_is_left,
+            join_filter=_join_filter(n, "join_filter"),
+            existence_name=n.existence_name or "exists")
+    if which == "broadcast_nested_loop_join":
+        left, right = decode_plan(n.left), decode_plan(n.right)
+        return BroadcastNestedLoopJoinExec(
+            left, right, _JOIN_TYPE[n.join_type],
+            condition=_join_filter(n, "condition"))
     if which == "agg":
         child = decode_plan(n.input)
         calls = [AggCall(_AGG_FN[a.fn],
@@ -231,6 +273,27 @@ def decode_plan(p: pb.PlanNode) -> Operator:
         return S.IpcReaderExec(decode_schema(n.schema),
                                n.provider_resource_id,
                                n.num_partitions or 1)
+    if which == "debug":
+        return B.DebugExec(decode_plan(n.input), n.debug_id)
+    if which == "parquet_scan":
+        from blaze_tpu_torch.ops.parquet import ParquetScanExec
+
+        return ParquetScanExec(
+            files=[(f.path, list(f.partition_values))
+                   for f in n.file_group.files],
+            file_schema=decode_schema(n.file_schema),
+            projection=list(n.projection),
+            partition_schema=decode_schema(n.partition_schema),
+            pruning_predicates=[decode_expr(e)
+                                for e in n.pruning_predicates],
+            fs_resource_id=n.fs_resource_id or None)
+    if which == "parquet_sink":
+        from blaze_tpu_torch.ops.parquet import ParquetSinkExec
+
+        return ParquetSinkExec(decode_plan(n.input), n.path,
+                               fs_resource_id=n.fs_resource_id or None,
+                               row_group_rows=n.row_group_rows or None,
+                               props={kv.key: kv.value for kv in n.props})
     raise NotImplementedError(f"plan node {which}")
 
 

@@ -43,7 +43,9 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.columnar import types as T
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, bucket_capacity, require_dense_kind,
+)
 from blaze_tpu_torch.columnar.types import TypeKind
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.ops import mxu_agg
@@ -297,9 +299,8 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
     stacks the batches into one program (`lax.scan`) padded to a
     compile-service batch-count rung; here the chain runs batch by batch
     and the columns concatenate once."""
-    from blaze_tpu_torch.ops.common import require_dense
-
-    require_dense(root.schema)  # before draining the source
+    for f in root.schema.fields:  # before draining the source
+        require_dense_kind(f.dtype, f.name)
     batches = list(source.execute(ctx))
     ctx.check_running()
     if not batches:

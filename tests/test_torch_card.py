@@ -444,3 +444,138 @@ def test_spill_on_card_matches_cpu(cuda):
             op = plan.children[0] if name == "agg" else plan
             assert op.metrics["spill_count"] >= 2, (name, dev)
         _assert_card_equals_cpu(outs[cuda], outs["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# joins and the Parquet scan
+# ---------------------------------------------------------------------------
+
+JOIN_TYPES = ["INNER", "LEFT", "RIGHT", "FULL", "LEFT_SEMI", "LEFT_ANTI",
+              "EXISTENCE"]
+
+
+def _join_side(rng, prefix, n, cap, device, null_p=0.15):
+    """One side of a join, made on the CPU from a seeded generator: a
+    nullable int64 key, a float key with NaN and -0.0, a payload."""
+    from blaze_tpu_torch.columnar import types as TT
+
+    schema = TT.Schema([TT.Field(f"{prefix}k", TT.INT64),
+                        TT.Field(f"{prefix}f", TT.FLOAT64),
+                        TT.Field(f"{prefix}v", TT.FLOAT64)])
+    data = {f"{prefix}k": rng.integers(0, 40, n),
+            f"{prefix}f": rng.choice(np.array([np.nan, -0.0, 0.0, 1.5]), n),
+            f"{prefix}v": rng.random(n)}
+    valid = {f"{prefix}k": rng.random(n) >= null_p}
+    return ColumnBatch.from_numpy(data, schema,
+                                  capacity=max(cap, 1 << (n - 1).bit_length()),
+                                  validity=valid, device=device)
+
+
+def _stream_on(op_fn, device):
+    """All batches of a freshly built operator on `device`, as one."""
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.common import concat_batches
+
+    op = op_fn(device)
+    outs = list(op.execute(ExecContext(device=device)))
+    if not outs:
+        return ColumnBatch.empty(op.schema, device=device), op
+    return concat_batches(outs, op.schema), op
+
+
+def _hash_join(cls_name, jt, build_is_left=False, nkeys=1, nl=3000,
+               nr=1500):
+    from blaze_tpu_torch.ops import join as J
+    from blaze_tpu_torch.ops.basic import MemorySourceExec
+
+    def make(device):
+        rng = np.random.default_rng(5)
+        left = [_join_side(rng, "l", nl, 4096, device) for _ in range(2)]
+        right = [_join_side(rng, "r", nr, 2048, device)]
+        keys = [J.JoinKey(i, i, null_safe=(i == 1)) for i in range(nkeys)]
+        return getattr(J, cls_name)(
+            MemorySourceExec(left), MemorySourceExec(right), keys,
+            J.JoinType[jt], build_is_left=build_is_left)
+
+    return make
+
+
+@pytest.mark.parametrize("cls_name", ["SortMergeJoinExec",
+                                      "BroadcastJoinExec"])
+@pytest.mark.parametrize("jt", JOIN_TYPES)
+def test_join_on_card_matches_cpu(cuda, cls_name, jt):
+    """Every join type on an int64 key and a null-safe float key (NaN
+    matches NaN, -0.0 matches 0.0): same rows, in the same order."""
+    make = _hash_join(cls_name, jt, build_is_left=(cls_name[0] == "B"),
+                      nkeys=2)
+    got, _ = _stream_on(make, cuda)
+    want, _ = _stream_on(make, "cpu")
+    assert int(want.num_rows) > 0
+    _assert_card_equals_cpu(got, want)
+
+
+@pytest.mark.parametrize("jt", ["INNER", "LEFT_ANTI"])
+def test_chunked_build_on_card_matches_cpu(cuda, monkeypatch, jt):
+    from blaze_tpu_torch.config import conf
+
+    monkeypatch.setattr(conf, "bhj_fallback_rows_threshold", 1000)
+    make = _hash_join("BroadcastJoinExec", jt, nr=3000)
+    got, op = _stream_on(make, cuda)
+    assert op.metrics["bhj_fallback_to_smj"] == 1
+    want, _ = _stream_on(make, "cpu")
+    _assert_card_equals_cpu(got, want)
+
+
+@pytest.mark.parametrize("jt", ["INNER", "FULL", "EXISTENCE"])
+def test_bnlj_on_card_matches_cpu(cuda, jt):
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.ops import join as J
+    from blaze_tpu_torch.ops.basic import MemorySourceExec
+
+    def make(device):
+        rng = np.random.default_rng(9)
+        left = [_join_side(rng, "l", 300, 512, device)]
+        right = [_join_side(rng, "r", 40, 64, device)]
+        cond = ir.Binary(ir.BinOp.GT, ir.col("lv"), ir.col("rv"))
+        return J.BroadcastNestedLoopJoinExec(
+            MemorySourceExec(left), MemorySourceExec(right),
+            J.JoinType[jt], cond)
+
+    got, _ = _stream_on(make, cuda)
+    want, _ = _stream_on(make, "cpu")
+    _assert_card_equals_cpu(got, want)
+
+
+def test_parquet_scan_on_card_matches_cpu(cuda, tmp_path):
+    """Two files of several row groups, nulls, pruning: each batch lands
+    on the card in one copy a column, equal to the CPU route's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.ops.parquet import ParquetScanExec
+
+    rng = np.random.default_rng(3)
+    files = []
+    for i in range(2):
+        n = 5000
+        p = str(tmp_path / f"f{i}.parquet")
+        pq.write_table(pa.table({
+            "a": pa.array(np.arange(i * n, (i + 1) * n)),
+            "b": pa.array(rng.random(n), mask=rng.random(n) < 0.1),
+            "d": pa.array(rng.integers(0, 9000, n).astype(np.int32),
+                          pa.date32())}), p, row_group_size=1000)
+        files.append((p, []))
+    schema = TT.Schema([TT.Field("a", TT.INT64), TT.Field("b", TT.FLOAT64),
+                        TT.Field("d", TT.DATE)])
+    pred = ir.Binary(ir.BinOp.GE, ir.col("a"), ir.lit(2500))
+
+    def make(device):
+        return ParquetScanExec(files, schema, [0, 1, 2],
+                               pruning_predicates=[pred])
+
+    got, op = _stream_on(make, cuda)
+    want, _ = _stream_on(make, "cpu")
+    assert op.metrics["row_groups_pruned"] == 2
+    _assert_card_equals_cpu(got, want)

@@ -230,28 +230,45 @@ def test_batches_of_different_shapes_raise(small):
 def test_undecodable_node_raises(arm):
     """A plan node the port does not decode raises naming it. sort, union
     and limit decode now: below each of them sits a window node, which
-    still does not, so the error names the window."""
+    still does not, so the error names the window. parquet_scan decodes
+    too: its pruning predicate is a LIKE, an expression kind the port does
+    not decode yet, so the error names that."""
     node = tpb.PlanNode()
     getattr(node, arm).SetInParent()
     if arm != "parquet_scan":
         inner = (node.union.inputs.add() if arm == "union"
                  else getattr(node, arm).input)
         inner.window.SetInParent()
+    else:
+        node.parquet_scan.pruning_predicates.add().like.SetInParent()
     td = tpb.TaskDefinition()
     td.plan.CopyFrom(node)
-    name = "parquet_scan" if arm == "parquet_scan" else "window"
-    with pytest.raises(NotImplementedError, match=f"plan node {name}"):
+    name = ("expression kind like" if arm == "parquet_scan"
+            else "plan node window")
+    with pytest.raises(NotImplementedError, match=name):
         decode_task_definition(td.SerializeToString())
 
 
 def test_ffi_reader_rejects_arrow_batches():
+    """Arrow RecordBatches are ingested (columnar/arrow_io.py); one with a
+    column kind the port cannot hold yet is rejected, naming the module
+    that will carry it."""
+    import pyarrow as pa
+
     from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.ops.shuffle import FfiReaderExec
 
-    rid = resources.register(lambda: iter([object()]))
-    op = FfiReaderExec(cs.SCHEMA, rid)
-    with pytest.raises(NotImplementedError, match="arrow_io"):
-        list(op.execute(ExecContext()))
+    schema = TT.Schema([TT.Field("a", TT.INT32), TT.Field("s", TT.STRING)])
+    rb = pa.record_batch([pa.array([1, 2], pa.int32()),
+                          pa.array(["x", None])], names=["a", "s"])
+    rid = resources.register(lambda: iter([rb]))
+    op = FfiReaderExec(schema, rid)
+    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
+        list(op.execute(ExecContext(device="cpu")))
+    dense = TT.Schema([TT.Field("a", TT.INT32)])
+    rid = resources.register(lambda: iter([rb.select(["a"])]))
+    out = list(FfiReaderExec(dense, rid).execute(ExecContext(device="cpu")))
+    np.testing.assert_array_equal(out[0].to_numpy()["a"], [1, 2])
 
 
 def test_plan_bytes_decode_in_both_packages():
@@ -272,6 +289,9 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    blaze_tpu_torch.__path__, 'blaze_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "need = {'blaze_tpu_torch.' + m for m in ('ops.join', 'ops.parquet',\n"
+        "        'columnar.arrow_io', 'runtime.filesystem')}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'blaze_tpu' or k.startswith('blaze_tpu.')]\n"

@@ -218,10 +218,16 @@ class ColumnBatch:
         idx = torch.sort((~mask).to(torch.uint8), stable=True).indices
         return self.take(idx, n)
 
-    # ---- host export (tests) ----
+    # ---- host export (tests, the driver's collect) ----
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Pull live rows to the host: numpy per field, an object array
         with None for nulls where a column has any."""
+        # the ordered collect (spark/local_runner.py) orders the rows on
+        # the host and caches them here, so the driver does not pull the
+        # same rows from the device a second time
+        cached = getattr(self, "_host_numpy", None)
+        if cached is not None:
+            return cached
         n = int(self.num_rows)
         out: Dict[str, np.ndarray] = {}
         for f, c in zip(self.schema, self.columns):

@@ -245,7 +245,9 @@ _DECLARATIONS: Tuple[Knob, ...] = (
              "Off = resource errors get plain bounded retries."),
 
     # -- task supervisor (runtime/supervisor.py) --
-    Knob("enable_supervisor", True,
+    # the port has no runtime/supervisor.py: spark/local_runner.py runs
+    # tasks inline on the driver thread and raises when this is set
+    Knob("enable_supervisor", False,
          doc="Off = the sequential runner: tasks run inline on the "
              "driver thread with retries/ladder only (no pool, watchdog, "
              "speculation)."),
@@ -322,7 +324,9 @@ _DECLARATIONS: Tuple[Knob, ...] = (
              "query) before the doctor flags it."),
 
     # -- pipelined async execution (runtime/pipeline.py) --
-    Knob("enable_pipeline", True,
+    # the port has no runtime/pipeline.py: streams run serially, and
+    # spark/local_runner.py raises when this is set
+    Knob("enable_pipeline", False,
          doc="Overlap host-side stages (parquet read+decode, serde, "
              "shuffle frame I/O, spill I/O) with device compute via a "
              "shared I/O pool behind bounded queues. False restores the "

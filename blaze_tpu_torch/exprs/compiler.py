@@ -1,8 +1,8 @@
 """Expression compiler: IR -> torch column functions.
 
-Port of blaze_tpu/exprs/compiler.py for the expressions the main path
-needs: columns, literals, casts, arithmetic and comparisons, Kleene
-AND/OR, NOT, IS [NOT] NULL and negation. A compiled expression is
+Port of blaze_tpu/exprs/compiler.py for the dense kinds: columns,
+literals, casts, arithmetic and comparisons, Kleene AND/OR, NOT,
+IS [NOT] NULL, negation, IF, CASE WHEN and [NOT] IN. A compiled expression is
 `fn(batch: ColumnBatch) -> Column`, evaluated eagerly on the batch's
 device; null semantics are Spark's (strict nulls for most ops, Kleene
 AND/OR). Every other expression kind raises NotImplementedError naming it.
@@ -96,13 +96,24 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
         c = compile_expr(expr.child, schema)
         dt = expr.dtype
         return lambda b: cast_column(c(b), dt)
+    if isinstance(expr, ir.If):
+        return _compile_case(((expr.cond, expr.then),), expr.otherwise,
+                             schema)
+    if isinstance(expr, ir.CaseWhen):
+        return _compile_case(expr.branches, expr.otherwise, schema)
+    if isinstance(expr, ir.InList):
+        return _compile_inlist(expr, schema)
     raise NotImplementedError(
         f"expression {type(expr).__name__} (exprs/compiler.py) not yet ported")
 
 
 def _compile_literal(expr: ir.Literal) -> CompiledExpr:
     dt, v = expr.dtype, expr.value
-    if dt.is_string_like or dt.is_nested or dt.is_decimal:
+    if dt.is_string_like:
+        raise NotImplementedError(
+            f"{dt} literals need string storage (exprs/strings.py), not yet "
+            "ported")
+    if dt.is_nested or dt.is_decimal:
         raise NotImplementedError(f"{dt} literals not yet ported")
     tdt = dt.torch_dtype()
 
@@ -242,3 +253,63 @@ def _arith(lc: Column, rc: Column, op: ir.BinOp,
         return Column(out_dt, torch.where(zero, torch.zeros_like(res), res),
                       _and_valid(validity, ~zero))
     raise NotImplementedError(f"arith op {op} not yet ported")
+
+
+def _compile_case(branches, otherwise, schema) -> CompiledExpr:
+    """CASE WHEN (and IF, one branch): the first branch whose condition is
+    true and valid wins; no branch and no ELSE gives null."""
+    conds = [compile_expr(c, schema) for c, _ in branches]
+    vals = [compile_expr(v, schema) for _, v in branches]
+    other = compile_expr(otherwise, schema) if otherwise is not None else None
+
+    def run(b: ColumnBatch) -> Column:
+        vcols = [f(b) for f in vals]
+        ocol = other(b) if other is not None else None
+        all_vals = vcols + ([ocol] if ocol is not None else [])
+        out_dtype = all_vals[0].dtype
+        # start from the ELSE (or null), then apply the branches; the
+        # `taken` mask lets an earlier branch win over a later one
+        if ocol is not None:
+            acc_data, acc_valid = ocol.data, ocol.valid_mask()
+        else:
+            acc_data = torch.zeros_like(all_vals[0].data)
+            acc_valid = torch.zeros((b.capacity,), dtype=torch.bool,
+                                    device=b.device)
+        taken = torch.zeros((b.capacity,), dtype=torch.bool, device=b.device)
+        for cf, vcol in zip(conds, vcols):
+            ccol = cf(b)
+            fire = ccol.data.to(torch.bool) & ccol.valid_mask() & ~taken
+            acc_data = torch.where(fire, vcol.data, acc_data)
+            acc_valid = torch.where(fire, vcol.valid_mask(), acc_valid)
+            taken = taken | fire
+        return Column(out_dtype, acc_data, acc_valid)
+
+    return run
+
+
+def _compile_inlist(expr: ir.InList, schema) -> CompiledExpr:
+    """Spark's three-valued IN: TRUE on a match; NULL when the operand is
+    null, or when nothing matched and the list holds a null; FALSE
+    otherwise. NOT IN flips the value and keeps the nullness."""
+    cf = compile_expr(expr.child, schema)
+    lits = [compile_expr(v, schema) for v in expr.values]
+    negated = expr.negated
+    has_null_lit = any(isinstance(v, ir.Literal) and v.value is None
+                       for v in expr.values)
+
+    def run(b: ColumnBatch) -> Column:
+        ccol = cf(b)
+        hit = torch.zeros((b.capacity,), dtype=torch.bool, device=b.device)
+        for lf in lits:
+            lcol = lf(b)
+            ld, rd = _promote(ccol, lcol)
+            hit = hit | ((ld == rd) & lcol.valid_mask())
+        res = ~hit if negated else hit
+        if ccol.validity is None and not has_null_lit:
+            return Column(BOOLEAN, res, None)
+        valid = ccol.valid_mask()
+        if has_null_lit:
+            valid = valid & hit
+        return Column(BOOLEAN, res, valid)
+
+    return run

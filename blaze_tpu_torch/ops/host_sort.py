@@ -217,6 +217,26 @@ def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
                        torch.tensor(n, dtype=torch.int32, device=dev), cap)
 
 
+def host_to_pylike(hb: HostBatch) -> dict:
+    """`ColumnBatch.to_numpy()`'s dict from a host batch: numpy per field,
+    an object array with None for nulls where a column has any. The
+    ordered collect hands it to the driver without a second device pull."""
+    out = {}
+    n = hb.num_rows
+    for f, c in zip(hb.schema.fields, hb.cols):
+        if c.kind == "null":
+            out[f.name] = np.full((n,), None, object)
+            continue
+        d = np.asarray(c.data[:n]).astype(f.dtype.np_dtype(), copy=False)
+        if c.validity is None or c.validity.all():
+            out[f.name] = d
+        else:
+            o = d.astype(object)
+            o[~c.validity] = None
+            out[f.name] = o
+    return out
+
+
 # ---------------------------------------------------------------------------
 # k-way merge of sorted spill runs
 # ---------------------------------------------------------------------------

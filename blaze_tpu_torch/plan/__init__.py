@@ -3,5 +3,24 @@
 `plan_pb2.py` is a verbatim copy of blaze_tpu/plan/plan_pb2.py (generated
 from `plan.proto`, proto package `blaze_tpu.plan`), so the same
 `TaskDefinition` bytes decode in both packages; `from_proto.py` is the
-decoder.
+decoder, `to_proto.py` the encoder, and `fingerprint.py` hashes a plan's
+shape.
 """
+
+from blaze_tpu_torch.plan.fingerprint import (
+    fingerprint_plan,
+    fingerprint_query,
+)
+from blaze_tpu_torch.plan.from_proto import (
+    decode_expr,
+    decode_plan,
+    decode_task_definition,
+)
+
+__all__ = [
+    "decode_expr",
+    "decode_plan",
+    "decode_task_definition",
+    "fingerprint_plan",
+    "fingerprint_query",
+]

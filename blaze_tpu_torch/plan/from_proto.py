@@ -4,13 +4,15 @@ Port of blaze_tpu/plan/from_proto.py (ref: blaze-serde from_proto.rs:
 121-793, lib.rs:191-535). The same `TaskDefinition` bytes decode in both
 packages: plan_pb2.py is the JAX package's generated module, copied. Types
 and scalars decode in full; expressions decode for the kinds the port's
-compiler handles; plan nodes decode for the arms of the ported operators —
-ffi_reader, filter, projection, agg, rename_columns, sort (with its fetch
-limit), limit, union, empty_partitions, coalesce_batches, shuffle_writer,
-rss_shuffle_writer, ipc_writer, ipc_reader, sort_merge_join,
-broadcast_join, broadcast_nested_loop_join, parquet_scan, parquet_sink and
-debug. Every other expression kind or plan node (windows, expand,
-generate) raises NotImplementedError naming it.
+compiler handles, IN lists, CASE and IF included; plan nodes decode for
+the arms of the ported operators — ffi_reader, filter, projection, agg,
+rename_columns, sort (with its fetch limit), limit, union,
+empty_partitions, coalesce_batches, shuffle_writer, rss_shuffle_writer,
+ipc_writer, ipc_reader, sort_merge_join, broadcast_join,
+broadcast_nested_loop_join, parquet_scan, parquet_sink and debug. Every
+other expression kind or plan node (windows, expand, generate) raises
+NotImplementedError naming it, and the module that will run it where one
+is known (scalar functions, string predicates, LIKE).
 """
 
 from __future__ import annotations
@@ -113,6 +115,46 @@ _BINOP_MAP = {
     pb.OP_SC_AND: ir.BinOp.AND, pb.OP_SC_OR: ir.BinOp.OR,
 }
 
+_FN_NAME = {
+    pb.FN_ABS: "abs", pb.FN_ACOS: "acos", pb.FN_ASIN: "asin",
+    pb.FN_ATAN: "atan", pb.FN_ATAN2: "atan2", pb.FN_CEIL: "ceil",
+    pb.FN_COS: "cos", pb.FN_EXP: "exp", pb.FN_FLOOR: "floor",
+    pb.FN_LN: "ln", pb.FN_LOG: "log", pb.FN_LOG10: "log10",
+    pb.FN_LOG2: "log2", pb.FN_POW: "pow", pb.FN_ROUND: "round",
+    pb.FN_SIGNUM: "signum", pb.FN_SIN: "sin", pb.FN_SQRT: "sqrt",
+    pb.FN_TAN: "tan", pb.FN_TRUNC: "trunc", pb.FN_COALESCE: "coalesce",
+    pb.FN_NULLIF: "nullif", pb.FN_ISNAN: "isnan", pb.FN_NANVL: "nanvl",
+    pb.FN_ASCII: "ascii", pb.FN_BIT_LENGTH: "bit_length",
+    pb.FN_BTRIM: "btrim", pb.FN_CHAR_LENGTH: "char_length",
+    pb.FN_CHR: "chr", pb.FN_CONCAT: "concat", pb.FN_CONCAT_WS: "concat_ws",
+    pb.FN_INITCAP: "initcap", pb.FN_LEFT: "left", pb.FN_LOWER: "lower",
+    pb.FN_LPAD: "lpad", pb.FN_LTRIM: "ltrim",
+    pb.FN_OCTET_LENGTH: "octet_length", pb.FN_REPEAT: "repeat",
+    pb.FN_REPLACE: "replace", pb.FN_REVERSE: "reverse",
+    pb.FN_RIGHT: "right", pb.FN_RPAD: "rpad", pb.FN_RTRIM: "rtrim",
+    pb.FN_SPLIT_PART: "split_part", pb.FN_STARTS_WITH: "starts_with",
+    pb.FN_STRPOS: "strpos", pb.FN_SUBSTR: "substr", pb.FN_TO_HEX: "to_hex",
+    pb.FN_TRANSLATE: "translate", pb.FN_TRIM: "trim", pb.FN_UPPER: "upper",
+    pb.FN_STRING_SPACE: "string_space", pb.FN_MD5: "md5",
+    pb.FN_SHA224: "sha224", pb.FN_SHA256: "sha256", pb.FN_SHA384: "sha384",
+    pb.FN_SHA512: "sha512", pb.FN_CRC32: "crc32",
+    pb.FN_MURMUR3_HASH: "murmur3_hash",
+    pb.FN_NULL_IF_ZERO: "null_if_zero",
+    pb.FN_MAKE_ARRAY: "make_array",
+    pb.FN_GET_JSON_OBJECT: "get_json_object", pb.FN_PARSE_JSON: "parse_json",
+    pb.FN_DATE_ADD: "date_add", pb.FN_DATE_SUB: "date_sub",
+    pb.FN_DATEDIFF: "datediff", pb.FN_YEAR: "year", pb.FN_MONTH: "month",
+    pb.FN_DAY: "day",
+}
+
+# expression kinds that decode in the JAX package but wait for a module of
+# the port: the decoder raises naming it
+_EXPR_MODULE = {
+    "scalar_fn": "exprs/functions.py",
+    "string_predicate": "exprs/strings.py",
+    "like": "exprs/strings.py",
+}
+
 
 def decode_expr(p: pb.ExprNode) -> ir.Expr:
     which = p.WhichOneof("expr")
@@ -138,6 +180,25 @@ def decode_expr(p: pb.ExprNode) -> ir.Expr:
         return ir.IsNotNull(decode_expr(p.is_not_null))
     if which == "negative":
         return ir.Negate(decode_expr(p.negative))
+    if which == "in_list":
+        il = p.in_list
+        return ir.InList(decode_expr(il.child),
+                         tuple(decode_expr(v) for v in il.values),
+                         il.negated)
+    if which == "case":
+        c = p.case
+        return ir.CaseWhen(
+            tuple((decode_expr(w.when), decode_expr(w.then))
+                  for w in c.branches),
+            decode_expr(c.else_expr) if c.HasField("else_expr") else None)
+    if which == "if_expr":
+        i = p.if_expr
+        return ir.If(decode_expr(i.condition), decode_expr(i.then),
+                     decode_expr(i.else_expr))
+    if which in _EXPR_MODULE:
+        raise NotImplementedError(
+            f"expression kind {which} ({_EXPR_MODULE[which]}) not yet "
+            "ported")
     raise NotImplementedError(f"expression kind {which}")
 
 
@@ -172,6 +233,14 @@ _AGG_FN = {
     pb.AGG_AVG: "avg", pb.AGG_COUNT: "count", pb.AGG_FIRST: "first",
     pb.AGG_FIRST_IGNORES_NULL: "first_ignores_null",
     pb.AGG_COLLECT_LIST: "collect_list", pb.AGG_COLLECT_SET: "collect_set",
+}
+
+# plan nodes that decode in the JAX package but wait for a module of the
+# port: the decoder raises naming it
+_NODE_MODULE = {
+    "expand": "ops/expand.py",
+    "generate": "ops/expand.py",
+    "window": "ops/window.py",
 }
 
 _AGG_MODE = {
@@ -294,6 +363,9 @@ def decode_plan(p: pb.PlanNode) -> Operator:
                                fs_resource_id=n.fs_resource_id or None,
                                row_group_rows=n.row_group_rows or None,
                                props={kv.key: kv.value for kv in n.props})
+    if which in _NODE_MODULE:
+        raise NotImplementedError(
+            f"plan node {which} ({_NODE_MODULE[which]}) not yet ported")
     raise NotImplementedError(f"plan node {which}")
 
 

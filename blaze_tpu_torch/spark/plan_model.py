@@ -1,0 +1,156 @@
+"""Serializable model of Spark physical plans — the converter's input.
+
+Port of blaze_tpu/spark/plan_model.py. Ref: the Spark `SparkPlan` nodes
+the reference pattern-matches in BlazeConverters.scala:133-222
+(ShuffleExchange, FileSourceScan/parquet, Project, Filter, Sort, Union,
+SortMergeJoin, BroadcastHashJoin, BNLJ, BroadcastExchange, limits,
+HashAggregate, Object/SortAggregate, Expand, Window, Generate,
+DataWritingCommand). In the JVM deployment a shim walks Catalyst's tree
+and emits this model (one message per node); the catalogues and tests
+construct it directly.
+
+Expressions reuse the engine IR (exprs/ir.py) — the JVM shim lowers
+Catalyst expressions to IR the same way NativeConverters.scala lowers them
+to protobuf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from blaze_tpu_torch.columnar.types import Schema
+from blaze_tpu_torch.exprs import ir
+
+
+@dataclasses.dataclass
+class SparkPlan:
+    """One Spark physical operator.
+
+    `kind` mirrors Spark's node class name (simplified); `schema` is the
+    node's OUTPUT schema; kind-specific attributes live in `attrs`.
+    """
+
+    kind: str
+    schema: Schema
+    children: List["SparkPlan"] = dataclasses.field(default_factory=list)
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    # conversion tags (ref convertibleTag / convertStrategyTag)
+    convertible: Optional[bool] = None
+    strategy: Optional[str] = None  # Default | AlwaysConvert | NeverConvert
+
+    def pretty(self, indent: int = 0) -> str:
+        mark = {True: "+", False: "-", None: "?"}[self.convertible]
+        s = "  " * indent + f"[{mark}{self.strategy or ''}] {self.kind}\n"
+        return s + "".join(c.pretty(indent + 1) for c in self.children)
+
+
+# -- convenience constructors (the shapes tests/shims build) --
+
+def scan(schema: Schema, files: Sequence[Tuple[str, list]],
+         predicates: Sequence[ir.Expr] = ()) -> SparkPlan:
+    return SparkPlan("FileSourceScanExec", schema, [],
+                     {"format": "parquet", "files": list(files),
+                      "pruning_predicates": list(predicates)})
+
+
+def project(child: SparkPlan, exprs: Sequence[ir.Expr],
+            names: Sequence[str], schema: Schema) -> SparkPlan:
+    return SparkPlan("ProjectExec", schema, [child],
+                     {"exprs": list(exprs), "names": list(names)})
+
+
+def filter_(child: SparkPlan, condition: ir.Expr) -> SparkPlan:
+    return SparkPlan("FilterExec", child.schema, [child],
+                     {"condition": condition})
+
+
+def sort(child: SparkPlan, orders: Sequence[tuple],
+         global_: bool = True) -> SparkPlan:
+    """orders: (expr, asc, nulls_first)"""
+    return SparkPlan("SortExec", child.schema, [child],
+                     {"orders": list(orders), "global": global_})
+
+
+def shuffle_exchange(child: SparkPlan, keys: Sequence[ir.Expr],
+                     num_partitions: int) -> SparkPlan:
+    return SparkPlan("ShuffleExchangeExec", child.schema, [child],
+                     {"keys": list(keys), "num_partitions": num_partitions})
+
+
+def broadcast_exchange(child: SparkPlan) -> SparkPlan:
+    return SparkPlan("BroadcastExchangeExec", child.schema, [child], {})
+
+
+def smj(left: SparkPlan, right: SparkPlan, left_keys, right_keys,
+        join_type: str, schema: Schema,
+        condition: Optional[ir.Expr] = None) -> SparkPlan:
+    return SparkPlan("SortMergeJoinExec", schema, [left, right],
+                     {"left_keys": list(left_keys),
+                      "right_keys": list(right_keys),
+                      "join_type": join_type, "condition": condition})
+
+
+def bhj(left: SparkPlan, right: SparkPlan, left_keys, right_keys,
+        join_type: str, build_side: str, schema: Schema,
+        condition: Optional[ir.Expr] = None) -> SparkPlan:
+    return SparkPlan("BroadcastHashJoinExec", schema, [left, right],
+                     {"left_keys": list(left_keys),
+                      "right_keys": list(right_keys),
+                      "join_type": join_type, "build_side": build_side,
+                      "condition": condition})
+
+
+def bnlj(left: SparkPlan, right: SparkPlan, join_type: str,
+         schema: Schema, condition: Optional[ir.Expr] = None) -> SparkPlan:
+    return SparkPlan("BroadcastNestedLoopJoinExec", schema, [left, right],
+                     {"join_type": join_type, "condition": condition})
+
+
+def parquet_insert(child: SparkPlan, path: str,
+                   props: Optional[dict] = None) -> SparkPlan:
+    return SparkPlan("DataWritingCommandExec", child.schema, [child],
+                     {"format": "parquet", "path": path,
+                      "props": props or {}})
+
+
+def hash_agg(child: SparkPlan, mode: str, grouping: Sequence[ir.Expr],
+             grouping_names: Sequence[str], aggs: Sequence[dict],
+             schema: Schema) -> SparkPlan:
+    """aggs: {fn, args, dtype, name} dicts (ref AggregateExpression)."""
+    return SparkPlan("HashAggregateExec", schema, [child],
+                     {"mode": mode, "grouping": list(grouping),
+                      "grouping_names": list(grouping_names),
+                      "aggs": list(aggs)})
+
+
+def window(child: SparkPlan, calls: Sequence[dict], partition_by,
+           order_by, schema: Schema) -> SparkPlan:
+    return SparkPlan("WindowExec", schema, [child],
+                     {"calls": list(calls), "partition_by": list(partition_by),
+                      "order_by": list(order_by)})
+
+
+def limit(child: SparkPlan, n: int, global_: bool) -> SparkPlan:
+    kind = "GlobalLimitExec" if global_ else "LocalLimitExec"
+    return SparkPlan(kind, child.schema, [child], {"limit": n})
+
+
+def union(children: Sequence[SparkPlan]) -> SparkPlan:
+    return SparkPlan("UnionExec", children[0].schema, list(children), {})
+
+
+def expand(child: SparkPlan, projections, schema: Schema) -> SparkPlan:
+    return SparkPlan("ExpandExec", schema, [child],
+                     {"projections": [list(p) for p in projections]})
+
+
+def generate(child: SparkPlan, generator_expr: ir.Expr, required_cols,
+             output_names, pos: bool, outer: bool,
+             schema: Schema) -> SparkPlan:
+    return SparkPlan("GenerateExec", schema, [child],
+                     {"generator": generator_expr,
+                      "required_cols": list(required_cols),
+                      "output_names": list(output_names),
+                      "pos": pos, "outer": outer})

@@ -1,0 +1,142 @@
+"""Stage splitting: exchanges become native shuffle/broadcast stages.
+
+Port of blaze_tpu/spark/stages.py. Ref: the execution topology of
+SURVEY.md §3.3/§3.4 — Spark owns stage scheduling; each ShuffleExchange
+becomes a map-side stage whose root is a ShuffleWriterNode (committed via
+the shuffle manager) and a reduce-side IpcReader leaf; each
+BroadcastExchange becomes a collect stage rooted at an IpcWriterNode whose
+frames ride Spark's TorrentBroadcast, consumed via an IpcReader
+(NativeShuffleExchangeBase / NativeBroadcastExchangeBase).
+
+Resource-id convention (the embedding layer registers the matching
+providers/consumers before running each stage's tasks):
+  shuffle stage s  : writer commits data/index paths given per task;
+                     readers resolve  "shuffle:<s>"
+  broadcast stage s: writer pushes to  "broadcast_sink:<s>";
+                     readers resolve  "broadcast:<s>"
+
+Queries in one process each restart stage numbering at 0, so plan_stages
+takes a ``namespace`` (the query id) that prefixes every resource id as
+"<ns>/shuffle:<s>" — the global resource registry stays collision-free.
+``local_resource_id()`` strips the prefix for sites that parse the
+"<kind>:<sid>" tail (query ids contain no '/' or ':').
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+from blaze_tpu_torch.plan import plan_pb2 as pb
+from blaze_tpu_torch.plan.to_proto import encode_expr, encode_schema
+from blaze_tpu_torch.spark.converters import convert_spark_plan
+from blaze_tpu_torch.spark.plan_model import SparkPlan
+
+
+@dataclasses.dataclass
+class Stage:
+    stage_id: int
+    kind: str          # "shuffle_map" | "broadcast" | "result"
+    plan: pb.PlanNode  # native plan for one task of this stage
+    num_partitions: int
+    depends_on: List[int]
+    # the SparkPlan subtree this stage's plan was converted from: what
+    # the JAX package's resilience ladder re-runs on its row interpreter
+    # (spark/fallback.py, not ported)
+    source: Optional[SparkPlan] = None
+
+
+def local_resource_id(rid: str) -> str:
+    """Strip the query-namespace prefix: "q7-1/shuffle:3" -> "shuffle:3".
+
+    Ids planned without a namespace pass through unchanged, so every
+    parse site ("does this reader feed from a shuffle?", "which sid?")
+    works on both forms."""
+    return rid.rsplit("/", 1)[-1]
+
+
+def plan_stages(root: SparkPlan, default_partitions: int = 1,
+                namespace: str = "") -> List[Stage]:
+    """Bottom-up stage plans; the result stage is last."""
+    stages: List[Stage] = []
+    ns = f"{namespace}/" if namespace else ""
+
+    def walk(plan: SparkPlan) -> SparkPlan:
+        if plan.kind == "ShuffleExchangeExec":
+            child = walk(plan.children[0])
+            sid = len(stages)
+            node = pb.PlanNode()
+            w = node.shuffle_writer
+            w.input.CopyFrom(convert_spark_plan(child))
+            part = plan.attrs.get("keys", [])
+            w.partitioning.num_partitions = plan.attrs.get(
+                "num_partitions", default_partitions)
+            kind = plan.attrs.get("kind")
+            if kind == "round_robin":
+                w.partitioning.kind = pb.HashRepartition.ROUND_ROBIN
+            elif part:
+                w.partitioning.kind = pb.HashRepartition.HASH
+                for k in part:
+                    w.partitioning.keys.add().CopyFrom(encode_expr(k))
+            else:
+                w.partitioning.kind = pb.HashRepartition.SINGLE
+            # data/index paths are task-scoped: the embedding layer rewrites
+            # them per map task before execution (placeholders here)
+            w.data_file = f"__shuffle_{sid}__.data"
+            w.index_file = f"__shuffle_{sid}__.index"
+            stages.append(Stage(sid, "shuffle_map", node,
+                                w.partitioning.num_partitions,
+                                _deps_of(child), source=child))
+            reader = SparkPlan("__IpcReader", plan.schema, [],
+                               {"resource_id": f"{ns}shuffle:{sid}",
+                                "num_partitions":
+                                    w.partitioning.num_partitions,
+                                "stage_dep": sid})
+            return reader
+        if plan.kind == "BroadcastExchangeExec":
+            child = walk(plan.children[0])
+            sid = len(stages)
+            node = pb.PlanNode()
+            node.ipc_writer.input.CopyFrom(convert_spark_plan(child))
+            node.ipc_writer.consumer_resource_id = f"{ns}broadcast_sink:{sid}"
+            stages.append(Stage(sid, "broadcast", node, 1, _deps_of(child),
+                                source=child))
+            return SparkPlan("__IpcReader", plan.schema, [],
+                             {"resource_id": f"{ns}broadcast:{sid}",
+                              "num_partitions": 1, "stage_dep": sid})
+        plan.children = [walk(c) for c in plan.children]
+        return plan
+
+    result_tree = walk(root)
+    result_pb = convert_spark_plan(result_tree)
+    stages.append(Stage(len(stages), "result", result_pb,
+                        default_partitions, _deps_of(result_tree),
+                        source=result_tree))
+    return stages
+
+
+def _deps_of(plan: SparkPlan) -> List[int]:
+    deps: List[int] = []
+
+    def visit(p: SparkPlan) -> None:
+        if p.kind == "__IpcReader" and "stage_dep" in p.attrs:
+            deps.append(p.attrs["stage_dep"])
+        for c in p.children:
+            visit(c)
+
+    visit(plan)
+    return deps
+
+
+def _convert_ipc_reader(plan: SparkPlan) -> pb.PlanNode:
+    node = pb.PlanNode()
+    node.ipc_reader.schema.CopyFrom(encode_schema(plan.schema))
+    node.ipc_reader.provider_resource_id = plan.attrs["resource_id"]
+    node.ipc_reader.num_partitions = plan.attrs.get("num_partitions", 1)
+    return node
+
+
+# register the synthetic reader kind with the converter dispatch
+from blaze_tpu_torch.spark import converters as _conv  # noqa: E402
+
+_conv._CONVERTERS["__IpcReader"] = _convert_ipc_reader

@@ -68,7 +68,8 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 catalog_sales and 8 store_sales files of 2^21 rows, one
                 row group each (SF100's row counts cut 2.1x, 2.1x, 17x;
                 widths and key domains kept: 2 M customers, 5% null date
-                and customer keys)
+                and customer keys; store_sales at spark/tpcds.py's full
+                width of 12 columns)
  13. tpcds_q02  q02 (spark/tpcds.py:367, BHJ mode): a broadcast stage of
                 date_dim, 16 map tasks of Union(scan ws, scan cs) ->
                 BroadcastJoin -> the dense partial agg by (d_year, d_qoy)
@@ -84,11 +85,21 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 and a top 100; then the final top 100, exact against
                 numpy; stage times, serde time, arm state rows, join rows
                 a level, host pulls, one reduce task's host profile
+ 15. runner_tpcds  spark/tpcds.py's own q02, q04 and q09 plans (BHJ
+                mode), made by its query functions with each scan listing
+                all of its table's files, through the driver path
+                spark/local_runner.run_plan: tagging, conversion, stage
+                splitting, AQE, and the stages in order (a scan stage is
+                one task over all of its files). Each once checked (q02
+                and q04 against numpy and against phases 13 and 14's
+                rows, q09's four bucket averages against numpy, rtol
+                1e-9) and once timed; run_info's stage counts, routes,
+                launches and host pulls
 
-Every TaskDefinition is built as bytes and decoded with
-decode_task_definition. Counts (kernel launches, host pulls) are set to 0
-just before each path runs and read just after. Every phase prints one
-JSON line. Then come the
+Phases 4-14 build every TaskDefinition as bytes and decode it with
+decode_task_definition; phase 15 has run_plan convert and decode them.
+Counts (kernel launches, host pulls) are set to 0 just before each path
+runs and read just after. Every phase prints one JSON line. Then come the
 kernels line, the card's `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
 before the last line.
@@ -1370,6 +1381,18 @@ Q04_ARMS = [("s1", "store_sales", 1999, "c1", "t_s1"),
             ("w1", "web_sales", 1999, "c3", "t_w1"),
             ("w2", "web_sales", 2000, "c4", "t_w2")]
 Q04_TOP = 100
+# store_sales at spark/tpcds.py's full width (SS, tpcds.py:38-51): its
+# columns in order, and the four dimension keys beyond date and customer
+# with SF100's dimension sizes (items, customer demographics, stores,
+# promotions)
+SS_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+              "ss_cdemo_sk", "ss_store_sk", "ss_promo_sk", "ss_quantity",
+              "ss_list_price", "ss_sales_price", "ss_coupon_amt",
+              "ss_ext_sales_price", "ss_net_profit")
+SS_DIMS = (("item", 204_000), ("cdemo", 1_920_800), ("store", 402),
+           ("promo", 1_000))
+# q09's quantity buckets (tpcds.py:817)
+Q09_BUCKETS = ((1, 20), (21, 40), (41, 60), (61, 80), (81, 100))
 
 
 def _date_dim():
@@ -1382,11 +1405,38 @@ def _date_dim():
             "d_moy": moy, "d_qoy": ((moy - 1) // 3 + 1).astype(np.int32)}
 
 
+def _store_sales_rest(rng, n, price):
+    """The store_sales columns beyond date, customer and price, drawn after
+    them from the same generator with spark/tpcds.py's distributions
+    (generate_tables) on SF100's dimension sizes. Returns {column: Arrow
+    array} and what q09's oracle needs: each quantity bucket's row count
+    and the sum and count of its non-null ss_ext_sales_price."""
+    import pyarrow as pa
+
+    def cents(hi, lo=0.0):  # tpcds.py's rounded prices, 4% null
+        v = np.round(rng.random(n) * (hi - lo) + lo, 2)
+        return pa.array(v, mask=rng.random(n) < 0.04)
+
+    cols = {f"ss_{name}_sk": pa.array(rng.integers(1, size + 1, n))
+            for name, size in SS_DIMS}
+    qty = rng.integers(1, 101, n).astype(np.int32)
+    qvalid = rng.random(n) >= 0.04
+    cols["ss_quantity"] = pa.array(qty, mask=~qvalid)
+    cols.update(ss_list_price=cents(250), ss_sales_price=cents(200),
+                ss_coupon_amt=cents(40), ss_net_profit=cents(300, -100))
+    q09 = np.array([(inb.sum(), price[inb].sum(), inb.sum()) for inb in
+                    (qvalid & (qty >= lo) & (qty <= hi)
+                     for lo, hi in Q09_BUCKETS)])
+    return cols, q09
+
+
 def _fact_file(seed, table, i, path, dd):
     """Write file i of a fact table; returns what the oracles need of it:
-    q02's (year, quarter) sums and counts for web and catalog sales, and
-    for web and store sales the (customer, price) rows of 1999 and
-    2000."""
+    q02's (year, quarter) sums and counts for web and catalog sales, for
+    web and store sales the (customer, price) rows of 1999 and 2000, and
+    for store sales q09's bucket counts and sums. store_sales is written
+    at spark/tpcds.py's full width (SS), the other tables with the three
+    columns the queries read."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -1398,13 +1448,17 @@ def _fact_file(seed, table, i, path, dd):
     cvalid = rng.random(n) >= TPCDS_NULL_SHARE
     price = rng.integers(0, 30_000, n) / 100.0
     dcol, ccol, pcol = FACT_COLS[table]
-    pq.write_table(pa.table({dcol: pa.array(date, mask=~dvalid),
-                             ccol: pa.array(cust, mask=~cvalid),
-                             pcol: pa.array(price)}),
-                   path, row_group_size=n, compression="snappy")
+    cols = {dcol: pa.array(date, mask=~dvalid),
+            ccol: pa.array(cust, mask=~cvalid), pcol: pa.array(price)}
+    out = {}
+    if table == "store_sales":
+        rest, out["q09"] = _store_sales_rest(rng, n, price)
+        cols.update(rest)
+        cols = {name: cols[name] for name in SS_COLUMNS}
+    pq.write_table(pa.table(cols), path, row_group_size=n,
+                   compression="snappy")
     idx = date[dvalid] - DATE_SK0
     year, p = dd["d_year"][idx], price[dvalid]
-    out = {}
     if table != "store_sales":
         slot = year.astype(np.int64) * 4 + dd["d_qoy"][idx] - 1
         out["q02"] = (np.bincount(slot, weights=p, minlength=2101 * 4),
@@ -1438,9 +1492,11 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
     q04 = {(t, y): [np.zeros(CUSTOMERS + 1),
                     np.zeros(CUSTOMERS + 1, np.int64)]
            for t in ("store_sales", "web_sales") for y in (1999, 2000)}
+    q09 = np.zeros((len(Q09_BUCKETS), 3))
     with cf.ThreadPoolExecutor(max_workers=8) as ex:
         for (table, _, _), part in zip(jobs, ex.map(
                 lambda j: _fact_file(seed, j[0], j[1], j[2], dd), jobs)):
+            q09 += part.get("q09", 0)
             if "q02" in part:
                 q02[0] += part["q02"][0]
                 q02[1] += part["q02"][1]
@@ -1448,7 +1504,7 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                 acc = q04[(table, y)]
                 acc[0] += np.bincount(c, weights=p, minlength=CUSTOMERS + 1)
                 acc[1] += np.bincount(c, minlength=CUSTOMERS + 1)
-    return paths, {"q02": q02, "q04": q04}
+    return paths, {"q02": q02, "q04": q04, "q09": q09}
 
 
 def _q02_oracle(orc):
@@ -1910,6 +1966,7 @@ def phase_tpcds_q02(paths, orc, work_dir) -> dict:
                map_task_device_launches=sum(r[2] for r in rows),
                map_task_top=_top(rows, 8))
     _emit(res)
+    res["rows"] = first["plans"]["out"].to_numpy()
     return res
 
 
@@ -1953,6 +2010,131 @@ def phase_tpcds_q04(paths, orc, work_dir) -> dict:
     res.update(rows_out=first["plans"]["rows"], arm_state_rows=arm_rows,
                smj_levels_top_down=levels,
                reduce_task_host_top=_host_profile(one_reduce_task))
+    _emit(res)
+    res["rows"] = first["plans"]["out"].to_numpy()
+    return res
+
+
+def _q09_oracle(orc):
+    """q09's four bucket values: bucket i's average ss_ext_sales_price
+    where bucket i holds rows, else bucket i+1's."""
+    cnt, psum, pcnt = orc["q09"].T
+    avg = psum / np.maximum(pcnt, 1)
+    return np.array([avg[i] if cnt[i] > 0 else avg[i + 1]
+                     for i in range(len(Q09_BUCKETS) - 1)])
+
+
+def check_q09(out, orc):
+    """q09's one row against the oracle, rtol 1e-9."""
+    d = out.to_numpy()
+    want = _q09_oracle(orc)
+    got = [d[f"bucket{i + 1}"] for i in range(len(want))]
+    _require(all(len(g) == 1 for g in got), f"q09 gave {len(got[0])} rows")
+    np.testing.assert_allclose([float(g[0]) for g in got], want, rtol=1e-9)
+
+
+RUNNER_INFO = ("file_stages", "broadcast_stages", "map_tasks_run",
+               "stage_compiled", "stage_fallbacks", "stage_s",
+               "bytes_scanned")
+
+
+def _runner_plan(q, paths, mode="bhj"):
+    """spark/tpcds.py's own plan of q over the Parquet files. Its query
+    function names one file a table; each scan then lists every file of
+    its table, as Spark's scan does. Operators and expressions stay
+    tpcds.py's."""
+    from blaze_tpu_torch.spark import tpcds
+
+    files = {t: v if isinstance(v, list) else [v] for t, v in paths.items()}
+    first = {t: v[0] for t, v in files.items()}
+    owner = {v: t for t, v in first.items()}
+    plan, _ = tpcds.QUERIES[q](first, None, mode)
+
+    def widen(p):
+        if p.kind == "FileSourceScanExec":
+            table = owner[p.attrs["files"][0][0]]
+            p.attrs["files"] = [(f, []) for f in files[table]]
+        for c in p.children:
+            widen(c)
+
+    widen(plan)
+    return plan
+
+
+def _runner_stages(q, paths):
+    """(kind, partitions) of each stage plan_stages makes of q."""
+    from blaze_tpu_torch.spark.convert_strategy import apply_strategy
+    from blaze_tpu_torch.spark.stages import plan_stages
+
+    plan = _runner_plan(q, paths)
+    apply_strategy(plan)
+    return [(st.kind, st.num_partitions)
+            for st in plan_stages(plan, default_partitions=4)]
+
+
+def _runner_run(q, paths, work_dir, check) -> dict:
+    """One run of q through run_plan, with the counts reset before it,
+    timed to its rows on the host; `check` holds the result."""
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    plan = _runner_plan(q, paths)  # plans are single-use
+    info = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = run_plan(plan, work_dir=os.path.join(work_dir, "runner", q),
+                   run_info=info)
+    rows = out.to_numpy()
+    wall = time.perf_counter() - t0
+    check(out)
+    return dict({k: info[k] for k in RUNNER_INFO}, wall_s=wall, rows=rows,
+                launches=mxu_agg.KERNEL_LAUNCHES,
+                host_pulls=metrics.HOST_PULLS,
+                # io_time_ns: Arrow to device, host conversion plus copies
+                scan_to_device_s=info["io_time_ns"] / 1e9,
+                serde_encode_s=metrics.SERDE_NS["encode"] / 1e9,
+                serde_decode_s=metrics.SERDE_NS["decode"] / 1e9)
+
+
+def _same_rows(got, want, what):
+    """Rows in order: keys and counts exact, floats rtol 1e-9 (the two
+    runs add partial sums in different task splits)."""
+    _require(list(got) == list(want), f"{what}: columns differ")
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        _require(len(g) == len(w), f"{what}: {len(g)} rows != {len(w)}")
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-9, err_msg=what)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+def phase_runner_tpcds(paths, orc, work_dir, hand_q02, hand_q04) -> dict:
+    """spark/tpcds.py's own q02, q04 and q09 (BHJ mode) through the
+    port's driver path, run_plan: tagging, conversion, stage splitting,
+    AQE and the stages in order, each scan stage one task over all of its
+    table's files. Each query once checked against numpy, then once
+    timed; q02 and q04 must also equal the hand-built phases' rows."""
+    checks = {"q02": lambda out: check_q02(out, orc),
+              "q04": lambda out: check_q04(out, orc),
+              "q09": lambda out: check_q09(out, orc)}
+    res = {"phase": "runner_tpcds", "mode": "bhj"}
+    rows = {}
+    for q in ("q02", "q04", "q09"):
+        first = _runner_run(q, paths, work_dir, checks[q])
+        timed = _runner_run(q, paths, work_dir, checks[q])
+        _require(timed["launches"] == first["launches"],
+                 f"{q}: launches moved between runs")
+        rows[q] = first.pop("rows")
+        first["checked_s"] = first.pop("wall_s")
+        res[q] = dict(first, timed_s=timed["wall_s"],
+                      stages=_runner_stages(q, paths))
+    _same_rows(rows["q02"], hand_q02["rows"], "q02 against tpcds_q02")
+    _same_rows(rows["q04"], hand_q04["rows"], "q04 against tpcds_q04")
+    q02 = res["q02"]
+    _require(q02["launches"] > 0 and q02["stage_fallbacks"] == 0,
+             f"q02's map stage left the dense path: {q02}")
+    q02["hand_built_map_plus_reduce_s"] = (hand_q02["median_map_s"]
+                                           + hand_q02["median_reduce_s"])
     _emit(res)
     return res
 
@@ -2000,7 +2182,8 @@ def main(argv=None) -> int:
         paths, orc = phase_tpcds_data(os.path.join(work_dir, "tpcds"),
                                       args.seed)
         q02 = phase_tpcds_q02(paths, orc, work_dir)
-        phase_tpcds_q04(paths, orc, work_dir)
+        q04 = phase_tpcds_q04(paths, orc, work_dir)
+        runner = phase_runner_tpcds(paths, orc, work_dir, q02, q04)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -2013,6 +2196,7 @@ def main(argv=None) -> int:
         "dense_minmax_launches": minmax["launches"],
         "shuffle_q06_launches": shuffle["launches"],
         "tpcds_q02_launches": q02["launches_per_rep"],
+        "runner_q02_launches": runner["q02"]["launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA card: the hand-written kernel chain
 against its plain torch version, bench.py's q06 plan through it at test
 size, and the later paths (general aggregation, sort, hash, partition sort,
-serde, spill) on the card against the port's own CPU route.
+serde, spill, joins, the Parquet scan, CASE and IN, and spark/tpcds.py's
+q02 and q09 through run_plan) on the card against the port's own CPU
+route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -579,3 +581,76 @@ def test_parquet_scan_on_card_matches_cpu(cuda, tmp_path):
     want, _ = _stream_on(make, "cpu")
     assert op.metrics["row_groups_pruned"] == 2
     _assert_card_equals_cpu(got, want)
+
+
+@pytest.fixture(scope="module")
+def tpcds_tables(tmp_path_factory):
+    from blaze_tpu_torch.spark import tpcds
+
+    d = tmp_path_factory.mktemp("tpcds")
+    return tpcds.generate_tables(str(d), rows=6000)
+
+
+@pytest.mark.parametrize("q", ["q02", "q09"])
+def test_run_plan_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, q):
+    """spark/tpcds.py's q02 and q09 (BHJ) through run_plan on the card:
+    the same rows in order as the CPU route (integers exact, floats rtol
+    1e-12), the same stages and routes."""
+    from blaze_tpu_torch.spark import tpcds
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    paths, frames = tpcds_tables
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        plan, _ = tpcds.QUERIES[q](paths, frames, "bhj")
+        info = {}
+        out = run_plan(plan, work_dir=str(tmp_path / dev), run_info=info,
+                       device=dev)
+        assert out.device.type == dev
+        runs[dev] = out.to_numpy(), info
+    (got, ginfo), (want, winfo) = runs["cuda"], runs["cpu"]
+    keys = ("file_stages", "broadcast_stages", "map_tasks_run",
+            "stage_compiled", "stage_fallbacks")
+    assert {k: ginfo[k] for k in keys} == {k: winfo[k] for k in keys}
+    assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_case_and_in_on_card_match_cpu(cuda):
+    """CASE WHEN (null conditions, no ELSE), IF and [NOT] IN with a null
+    in the list, on the card against the CPU route."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs.compiler import compile_expr
+
+    rng = np.random.default_rng(9)
+    n = 5000
+    schema = TT.Schema([TT.Field("q", TT.INT32), TT.Field("p", TT.FLOAT64),
+                        TT.Field("f", TT.BOOLEAN)])
+    data = {"q": rng.integers(0, 12, n).astype(np.int32),
+            "p": rng.random(n) * 100, "f": rng.random(n) < 0.5}
+    validity = {k: rng.random(n) < 0.8 for k in data}
+    i32 = [ir.Literal(TT.INT32, v) for v in (1, 3, None)]
+    exprs = [
+        ir.CaseWhen(((ir.Binary(ir.BinOp.LE, ir.col("q"), i32[1]),
+                      ir.col("p")), (ir.col("f"), ir.Negate(ir.col("p")))),
+                    None),
+        ir.If(ir.col("f"), ir.col("q"), i32[0]),
+        ir.InList(ir.col("q"), tuple(i32)),
+        ir.InList(ir.col("q"), tuple(i32[:2]), True),
+    ]
+    for e in exprs:
+        cols = {}
+        for dev in ("cuda", "cpu"):
+            b = ColumnBatch.from_numpy(data, schema, validity=validity,
+                                       device=dev)
+            cols[dev] = compile_expr(e, schema)(b)
+        g, w = cols["cuda"], cols["cpu"]
+        gv, wv = g.valid_mask()[:n].cpu(), w.valid_mask()[:n]
+        assert torch.equal(gv, wv), e
+        assert torch.equal(g.data[:n].cpu()[wv], w.data[:n][wv]), e

@@ -1,8 +1,13 @@
 """Parity of the port's expression compiler (blaze_tpu_torch/exprs) with the
 JAX package's (blaze_tpu/exprs), on the CPU: bench.py's predicates and
-projection plus the arithmetic, comparison, Kleene-logic and numeric-cast
-cases around them, evaluated on the identical batch in both packages.
-Values and validity of live rows must be bitwise equal (NaN == NaN)."""
+projection plus the arithmetic, comparison, Kleene-logic, numeric-cast,
+CASE/IF and [NOT] IN cases around them, evaluated on the identical batch
+in both packages. Values and validity of live rows must be bitwise equal
+(NaN == NaN).
+
+MOD is the exception: the port computes Java's remainder (`np.fmod`,
+Spark's `%`), and the JAX package's formula differs from it. Those cases
+hold the port to `np.fmod` and bound the reference's difference."""
 
 import numpy as np
 import pytest
@@ -115,6 +120,36 @@ EXPRS = {
                                                  T.FLOAT32),
     "CAST(flag AS bigint)": lambda ir, T: ir.Cast(ir.col("flag"), T.INT64),
     "CAST(qn AS boolean)": lambda ir, T: ir.Cast(ir.col("qn"), T.BOOLEAN),
+    # CASE / IF over nullable conditions and values
+    "CASE WHEN qn<=5 THEN price WHEN flag THEN pn ELSE -price": lambda ir, T:
+        ir.CaseWhen(((_bin(ir, "LE", ir.col("qn"), _lit(ir, T, "INT32", 5)),
+                      ir.col("price")),
+                     (ir.col("flag"), ir.col("pn"))),
+                    ir.Negate(ir.col("price"))),
+    "CASE WHEN flag THEN pn (no ELSE)": lambda ir, T: ir.CaseWhen(
+        ((ir.col("flag"), ir.col("pn")),), None),
+    "CASE WHEN p1 THEN 1.0 ELSE 0.0": lambda ir, T: ir.CaseWhen(
+        ((_p1(ir, T), _lit(ir, T, "FLOAT64", 1.0)),),
+        _lit(ir, T, "FLOAT64", 0.0)),
+    "CASE WHEN pn>10 THEN NULL ELSE qn": lambda ir, T: ir.CaseWhen(
+        ((_bin(ir, "GT", ir.col("pn"), _lit(ir, T, "FLOAT64", 10.0)),
+          _lit(ir, T, "INT32", None)),), ir.col("qn")),
+    "IF(flag, qty, qn)": lambda ir, T: ir.If(ir.col("flag"), ir.col("qty"),
+                                            ir.col("qn")),
+    # [NOT] IN, three-valued
+    "qn IN (1, 3, 5)": lambda ir, T: ir.InList(
+        ir.col("qn"), tuple(_lit(ir, T, "INT32", v) for v in (1, 3, 5))),
+    "qn IN (2, NULL)": lambda ir, T: ir.InList(
+        ir.col("qn"), (_lit(ir, T, "INT32", 2), _lit(ir, T, "INT32", None))),
+    "qty NOT IN (7, 9)": lambda ir, T: ir.InList(
+        ir.col("qty"), (_lit(ir, T, "INT32", 7), _lit(ir, T, "INT32", 9)),
+        True),
+    "qn NOT IN (4, NULL)": lambda ir, T: ir.InList(
+        ir.col("qn"), (_lit(ir, T, "INT32", 4), _lit(ir, T, "INT32", None)),
+        True),
+    "l IN (qty, 3)": lambda ir, T: ir.InList(
+        ir.col("l"), (ir.Cast(ir.col("qty"), T.INT64),
+                      _lit(ir, T, "INT64", 3))),
 }
 
 
@@ -143,8 +178,9 @@ def test_expression_matches_jax(batches, name):
 
 
 @pytest.mark.parametrize("expr", [
-    lambda ir, T: ir.InList(ir.col("qty"), (ir.lit(1),)),
-    lambda ir, T: ir.CaseWhen(((ir.col("flag"), ir.col("qty")),), None),
+    lambda ir, T: ir.InList(ir.col("qty"), (ir.Literal(T.STRING, "x"),)),
+    lambda ir, T: ir.CaseWhen(((ir.col("flag"),
+                                ir.Literal(T.STRING, "x")),), None),
     lambda ir, T: ir.ScalarFn("abs", (ir.col("price"),)),
     lambda ir, T: ir.Literal(T.STRING, "x"),
     lambda ir, T: _bin(ir, "ADD", ir.Literal(T.decimal(10, 2), 5),
@@ -164,3 +200,45 @@ def test_cse_scope_evaluates_once(batches):
     with cse_scope():
         assert fn(tb) is fn(tb)
     assert fn(tb) is not fn(tb)
+
+
+def _pair(kind, a, b):
+    """Columns a and b in both packages, with the MOD of each."""
+    js = JT.Schema([JT.Field("a", getattr(JT, kind)),
+                    JT.Field("b", getattr(JT, kind))])
+    ts = TT.Schema([TT.Field("a", getattr(TT, kind)),
+                    TT.Field("b", getattr(TT, kind))])
+    jb = JBatch.from_numpy({"a": a, "b": b}, js, capacity=len(a))
+    tb = ColumnBatch.from_numpy({"a": a, "b": b}, ts, capacity=len(a),
+                                device="cpu")
+    jr = jcompile(_bin(jir, "MOD", jir.col("a"), jir.col("b")), js)(jb)
+    tr = tcompile(_bin(tir, "MOD", tir.col("a"), tir.col("b")), ts)(tb)
+    return np.asarray(jr.data), tr.data.numpy()
+
+
+def test_mod_float64_is_java_remainder():
+    """f64 `%` on a uniform on +-1e6, b on +-1e3: the port equals np.fmod
+    bit for bit. The reference computes a - trunc(a/b)*b, whose one
+    rounding puts it within half an ulp of a of the exact remainder."""
+    rng = np.random.default_rng(11)
+    a = rng.uniform(-1e6, 1e6, 4096)
+    b = rng.uniform(-1e3, 1e3, 4096)
+    ref, port = _pair("FLOAT64", a, b)
+    want = np.fmod(a, b)
+    np.testing.assert_array_equal(port, want)
+    assert np.all(np.abs(ref - want) <= np.spacing(np.abs(a)) / 2)
+    assert np.any(ref != want)  # the reference really differs
+
+
+def test_mod_int64_min_is_java_remainder():
+    """int64 `%` at INT64_MIN: Java (and Spark, and np.fmod) give
+    -2^63 % 3 = -2 and 5 % -2^63 = 5; the port agrees on every row. The
+    reference's sign(a) * (|a| % |b|) overflows |INT64_MIN| and differs at
+    exactly those two rows (-1 and -9223372036854775803)."""
+    a = np.array([-2**63, 5, 7, -7, 2**62, -2**63 + 1], np.int64)
+    b = np.array([3, -2**63, 3, -3, -5, 7], np.int64)
+    ref, port = _pair("INT64", a, b)
+    want = np.fmod(a, b)
+    np.testing.assert_array_equal(port, want)
+    np.testing.assert_array_equal(np.nonzero(ref != want)[0], [0, 1])
+    np.testing.assert_array_equal(ref[:2], [-1, -9223372036854775803])

@@ -7,7 +7,8 @@ equal, float sums within rtol 1e-12 of the JAX package and 1e-9 of numpy.
 Also: a partial-only plan, an avg aggregate, min/max on the dense path,
 the fallback of stages the dense path declines, the typed
 NotImplementedError of undecoded plan nodes, the import guard that keeps
-jax and `blaze_tpu` out of the port, and the no-CUDA construction error.
+jax, `blaze_tpu` and (at import) pandas out of the port, and the no-CUDA
+construction error.
 """
 
 import os
@@ -290,11 +291,16 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "    blaze_tpu_torch.__path__, 'blaze_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "need = {'blaze_tpu_torch.' + m for m in ('ops.join', 'ops.parquet',\n"
-        "        'columnar.arrow_io', 'runtime.filesystem')}\n"
+        "        'columnar.arrow_io', 'runtime.filesystem', 'plan.to_proto',\n"
+        "        'plan.fingerprint', 'spark.plan_model', 'spark.converters',\n"
+        "        'spark.expr_subtree_fallback', 'spark.convert_strategy',\n"
+        "        'spark.stages', 'spark.aqe', 'spark.shuffle_manager',\n"
+        "        'spark.local_runner', 'spark.tpcds', 'spark.validator')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'blaze_tpu' or k.startswith('blaze_tpu.')]\n"
+        "       or k == 'blaze_tpu' or k.startswith('blaze_tpu.')\n"
+        "       or k == 'pandas' or k.startswith('pandas.')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ)

@@ -1,0 +1,303 @@
+"""The port's `run_plan` against the JAX package's, on the CPU.
+
+Each package generates its tables from the same seed (the TPC-DS
+catalogue's at 6000 store_sales rows, the validator core catalogue's at
+6000), makes each plan with its own query function, and runs it through
+its own `run_plan` (the JAX package with `mesh_exchange="off"` and its
+supervisor and threaded pipeline off, the inline path the port runs). The
+results must be equal row for row, in order (integers bitwise, floats
+within rtol 1e-12), each package's answer must pass its validator's
+`_compare` against the pandas oracle, and the two runs must agree on
+`run_info`'s `file_stages` and `broadcast_stages` and on the whole-stage
+routes (`stage_compiled`, `stage_fallbacks`; the JAX package counts
+neither per query, so the test tallies its metric updates).
+
+The queries the port cannot run yet must raise NotImplementedError naming
+the missing module, and so must what the port's runner leaves out: a
+NeverConvert subtree (the row interpreter, spark/fallback.py), the mesh
+exchange, and every conf knob that would switch on an unported module.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from blaze_tpu.config import conf as jconf
+from blaze_tpu.runtime import metrics as jmetrics
+from blaze_tpu.runtime import stage_compiler as jstage
+from blaze_tpu.spark import tpcds as jtpcds
+from blaze_tpu.spark import validator as jvalidator
+from blaze_tpu.spark.local_runner import run_plan as jrun_plan
+from blaze_tpu_torch.columnar import types as T
+from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.exprs.ir import col as ir_col
+from blaze_tpu_torch.plan import decode_plan
+from blaze_tpu_torch.spark import plan_model as P
+from blaze_tpu_torch.spark import tpcds, validator
+from blaze_tpu_torch.spark.convert_strategy import apply_strategy
+from blaze_tpu_torch.spark.local_runner import run_plan
+from blaze_tpu_torch.spark.stages import plan_stages
+
+ROWS = 6000
+CATALOGUES = {"tpcds": (tpcds, jtpcds), "core": (validator, jvalidator)}
+RUNS = [("tpcds", "q02", "bhj"), ("tpcds", "q02", "smj"),
+        ("tpcds", "q04", "bhj"), ("tpcds", "q04", "smj"),
+        ("tpcds", "q09", "bhj"),
+        ("core", "q1_scan_filter_project", "bhj"),
+        ("core", "q2_q06_core_agg", "bhj"),
+        ("core", "q3_join_agg_sort", "bhj"),
+        ("core", "q3_join_agg_sort", "smj"),
+        ("core", "q4_repartition_sort", "bhj"),
+        ("core", "q6_semi_join", "bhj"),
+        ("core", "q6_semi_join", "smj")]
+STRINGS, FUNCTIONS = "exprs/strings.py", "exprs/functions.py"
+# the module the first failing stage names; q05 also needs ops/expand.py
+# for its ROLLUP, which a later stage names at decode
+MISSING = {("tpcds", "q01"): STRINGS, ("tpcds", "q03"): STRINGS,
+           ("tpcds", "q05"): STRINGS, ("tpcds", "q06"): STRINGS,
+           ("tpcds", "q07"): STRINGS, ("tpcds", "q08"): FUNCTIONS,
+           ("tpcds", "q10"): STRINGS,
+           ("core", "q5_multijoin_limit"): STRINGS,
+           ("core", "q7_left_outer_join"): STRINGS,
+           ("core", "q8_category_like"): STRINGS,
+           ("core", "q9_substr_group"): STRINGS}
+
+
+@pytest.fixture(scope="module")
+def tables(tmp_path_factory):
+    """Each package's tables, written from the same seed."""
+    out = {}
+    for suite, (port, jax) in CATALOGUES.items():
+        d = tmp_path_factory.mktemp(suite)
+        (d / "port").mkdir()
+        (d / "jax").mkdir()
+        out[suite] = (port.generate_tables(str(d / "port"), rows=ROWS),
+                      jax.generate_tables(str(d / "jax"), rows=ROWS))
+    return out
+
+
+@pytest.fixture
+def jax_routes(monkeypatch):
+    """Tally the JAX package's whole-stage routes under the port's names:
+    its operators' `stage_compiled` metric updates (not the process-wide
+    compile-service tally), and its `_fallback` calls."""
+    from blaze_tpu.runtime import compile_service
+
+    counts = {"stage_compiled": 0, "stage_fallbacks": 0}
+    real_add, real_fallback = jmetrics.MetricsSet.add, jstage._fallback
+
+    def add(self, name, delta):
+        if name in counts and self is not compile_service.TELEMETRY:
+            counts[name] += int(delta)
+        return real_add(self, name, delta)
+
+    def fallback(root, *args):
+        counts["stage_fallbacks"] += 1
+        return real_fallback(root, *args)
+
+    monkeypatch.setattr(jmetrics.MetricsSet, "add", add)
+    monkeypatch.setattr(jstage, "_fallback", fallback)
+    # tasks one after another on the driver thread, as the port runs them
+    monkeypatch.setattr(jconf, "enable_supervisor", False)
+    monkeypatch.setattr(jconf, "enable_pipeline", False)
+    return counts
+
+
+def _same_rows(got: dict, want: dict) -> None:
+    assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert len(g) == len(w), k
+        gnull = np.array([x is None for x in g], bool)
+        wnull = np.array([x is None for x in w], bool)
+        np.testing.assert_array_equal(gnull, wnull, err_msg=k)
+        g, w = g[~gnull], w[~wnull]
+        if any(isinstance(x, float) for x in w) or w.dtype.kind == "f":
+            np.testing.assert_allclose(g.astype(np.float64),
+                                       w.astype(np.float64), rtol=1e-12,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(g.astype(np.int64),
+                                          w.astype(np.int64), err_msg=k)
+
+
+@pytest.mark.parametrize("suite,q,mode", RUNS)
+def test_run_plan_matches_jax(tables, jax_routes, tmp_path, suite, q, mode):
+    port, jax = CATALOGUES[suite]
+    (paths, frames), (jpaths, jframes) = tables[suite]
+    plan, oracle = port.QUERIES[q](paths, frames, mode)
+    info = {}
+    out = run_plan(plan, num_partitions=4, work_dir=str(tmp_path / "port"),
+                   run_info=info, device="cpu")
+    jplan, joracle = jax.QUERIES[q](jpaths, jframes, mode)
+    jinfo = {}
+    jout = jrun_plan(jplan, num_partitions=4, work_dir=str(tmp_path / "jax"),
+                     mesh_exchange="off", run_info=jinfo)
+    _same_rows(out.to_numpy(), jout.to_numpy())
+    assert validator._compare(validator._to_pandas(out).reset_index(
+        drop=True), oracle().reset_index(drop=True)) is None
+    assert jvalidator._compare(jvalidator._to_pandas(jout).reset_index(
+        drop=True), joracle().reset_index(drop=True)) is None
+    for key in ("file_stages", "broadcast_stages"):
+        assert info[key] == jinfo[key], key
+    assert {k: info[k] for k in jax_routes} == jax_routes
+    assert info["map_tasks_run"] == jinfo["map_tasks_run"]
+
+
+def test_tables_match_jax(tables):
+    """The port's generators write the JAX package's frames."""
+    for suite in CATALOGUES:
+        (_, frames), (_, jframes) = tables[suite]
+        assert list(frames) == list(jframes)
+        for name in frames:
+            assert frames[name].equals(jframes[name]), (suite, name)
+
+
+@pytest.mark.parametrize("suite,q", sorted(MISSING))
+def test_unported_query_raises_naming_module(tables, tmp_path, suite, q):
+    port, _ = CATALOGUES[suite]
+    (paths, frames), _ = tables[suite]
+    plan, _ = port.QUERIES[q](paths, frames, "bhj")
+    with pytest.raises(NotImplementedError, match=MISSING[(suite, q)]):
+        run_plan(plan, num_partitions=4, work_dir=str(tmp_path),
+                 device="cpu")
+
+
+def test_rollup_stage_names_expand(tables):
+    """q05's ROLLUP converts (an `expand` node), and its stage's decode
+    names ops/expand.py."""
+    (paths, frames), _ = tables["tpcds"]
+    plan, _ = tpcds.QUERIES["q05"](paths, frames, "bhj")
+    apply_strategy(plan)
+    named = []
+    for stage in plan_stages(plan, default_partitions=4):
+        try:
+            decode_plan(stage.plan)
+        except NotImplementedError as e:
+            named.append(str(e))
+    assert any("ops/expand.py" in m for m in named), named
+
+
+def _scan_ss(paths):
+    return P.scan(tpcds.SS, [(paths["store_sales"], [])])
+
+
+def test_never_convert_subtree_raises(tables, tmp_path):
+    """A node no converter takes is tagged NeverConvert and would run on
+    the row interpreter: the runner raises naming it."""
+    (paths, _), _ = tables["tpcds"]
+    odd = P.SparkPlan("CartesianProductExec", tpcds.SS, [_scan_ss(paths)])
+    with pytest.raises(NotImplementedError, match="spark/fallback.py"):
+        run_plan(odd, work_dir=str(tmp_path), device="cpu")
+    assert odd.strategy == "NeverConvert"
+
+
+def test_unsupported_scalar_function_raises(tables, tmp_path):
+    """A scalar function outside the native registry would be wrapped for
+    (or demote its operator to) the row interpreter."""
+    from blaze_tpu_torch.exprs import ir
+
+    (paths, _), _ = tables["tpcds"]
+    proj = P.project(_scan_ss(paths),
+                     [ir.ScalarFn("soundex", (ir.col("ss_item_sk"),),
+                                  T.INT64)],
+                     ["x"], T.Schema([T.Field("x", T.INT64)]))
+    with pytest.raises(NotImplementedError, match="spark/fallback.py"):
+        run_plan(proj, work_dir=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("knob,value,module", [
+    ("mesh_exchange", "auto", "parallel/stage_exchange.py"),
+    ("enable_supervisor", True, "runtime/supervisor.py"),
+    ("enable_pipeline", True, "runtime/pipeline.py"),
+    ("trace_enabled", True, "runtime/trace.py"),
+    ("history_dir", "/nonexistent", "runtime/history.py"),
+    ("journal_dir", "/nonexistent", "runtime/journal.py"),
+    ("progress_enabled", True, "runtime/progress.py"),
+    ("autopilot_enabled", True, "runtime/autopilot.py"),
+    ("flight_dir", "/nonexistent", "runtime/flight_recorder.py"),
+    ("profile_enabled", True, "runtime/profiler.py"),
+    ("executor_count", 2, "runtime/executor_pool.py"),
+])
+def test_left_out_modules_raise(tables, monkeypatch, tmp_path, knob, value,
+                                module):
+    (paths, frames), _ = tables["tpcds"]
+    plan, _ = tpcds.QUERIES["q09"](paths, frames, "bhj")
+    kwargs = {}
+    if knob == "mesh_exchange":
+        kwargs["mesh_exchange"] = value
+    else:
+        monkeypatch.setattr(conf, knob, value)
+    with pytest.raises(NotImplementedError, match=module):
+        run_plan(plan, work_dir=str(tmp_path), device="cpu", **kwargs)
+
+
+def test_run_plan_defaults_to_the_card(tables):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    (paths, frames), _ = tables["tpcds"]
+    plan, _ = tpcds.QUERIES["q09"](paths, frames, "bhj")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_plan(plan)
+
+
+def test_shuffle_manager_readers(tmp_path):
+    """Two map outputs committed through writer slots: MapStatus lengths
+    come from the .index, the device reader and the host-frame reader
+    return the same rows, and the runner's all-partitions resource
+    (spark/aqe.py) chains every partition."""
+    from blaze_tpu_torch.columnar.batch import ColumnBatch
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.basic import MemorySourceExec
+    from blaze_tpu_torch.ops.host_sort import host_concat, host_to_pylike
+    from blaze_tpu_torch.ops.shuffle import Partitioning, ShuffleWriterExec
+    from blaze_tpu_torch.runtime import resources
+    from blaze_tpu_torch.spark.aqe import _all_partitions_resource
+    from blaze_tpu_torch.spark.shuffle_manager import BlazeShuffleManager
+
+    schema = T.Schema([T.Field("k", T.INT64), T.Field("v", T.FLOAT64)])
+    mgr = BlazeShuffleManager(str(tmp_path))
+    handle = mgr.register_shuffle(0, 3, schema)
+    rng = np.random.default_rng(5)
+    for m in range(2):
+        data = {"k": rng.integers(0, 50, 700), "v": rng.random(700)}
+        batch = ColumnBatch.from_numpy(data, schema, device="cpu")
+        slot = mgr.get_writer(handle, m)
+        writer = ShuffleWriterExec(
+            MemorySourceExec([batch]),
+            Partitioning("hash", 3, (ir_col("k"),)),
+            slot.data_path, slot.index_path)
+        list(writer.execute(ExecContext(partition=m, num_partitions=2,
+                                        device="cpu")))
+        status = slot.commit()
+        assert sum(status.partition_lengths) == os.path.getsize(
+            slot.data_path)
+    assert [s.map_id for s in mgr.map_statuses(0)] == [0, 1]
+
+    def rows(batches):
+        out = [b.to_numpy() for b in batches]
+        return {k: np.concatenate([o[k] for o in out]) for k in ("k", "v")}
+
+    total = 0
+    for p in range(3):
+        dev = rows(mgr.get_reader(handle, p, device="cpu"))
+        host = host_to_pylike(host_concat(list(mgr.get_reader_host(handle,
+                                                                   p))))
+        for k in ("k", "v"):
+            np.testing.assert_array_equal(dev[k], host[k])
+        total += len(dev["k"])
+    assert total == 1400
+    # the runner's chained resource, which broadcast stages read
+    rid = "test/shuffle:0"
+    resources.put(rid, lambda p: mgr.get_reader_host(handle, p))
+    all_rid = _all_partitions_resource(rid, 3)
+    every = host_to_pylike(host_concat(list(resources.get(all_rid)(0))))
+    resources.pop(all_rid)
+    resources.pop(rid)
+    assert len(every["k"]) == 1400
+    mgr.unregister_shuffle(0)
+    assert not any(f.endswith((".data", ".index"))
+                   for f in os.listdir(tmp_path))

@@ -2,10 +2,12 @@
 
 Port of blaze_tpu/columnar/arrow_io.py (ref: the JVM<->native Arrow
 boundary, ArrowFFIStreamImportIterator / ArrowFFIExportIterator and the
-FFI stream export in blaze/src/rt.rs:76-80) for the dense column kinds
-the port's batches hold: bool, the int kinds, f32/f64, date, timestamp
-and decimal with precision <= 18 (unscaled int64). Validity comes from
-the Arrow bitmap, and sliced arrays (a non-zero offset) are honoured.
+FFI stream export in blaze/src/rt.rs:76-80) for the column kinds the
+port's batches hold: bool, the int kinds, f32/f64, date, timestamp,
+decimal with precision <= 18 (unscaled int64), and string, large_string,
+binary, large_binary and dictionary-of-string columns, which become
+fixed-width byte matrices (`StringData`). Validity comes from the Arrow
+bitmap, and sliced arrays (a non-zero offset) are honoured.
 
 A null-free fixed-width column is viewed in place (`np.frombuffer` over
 the Arrow data buffer) and uploaded in one copy to the requested device;
@@ -13,10 +15,10 @@ only a batch shorter than its capacity bucket pays a host copy for the
 padding. Every other column goes through pyarrow's fill_null and one
 upload.
 
-String and binary columns wait for exprs/strings.py, list, map and
-struct columns for the nested storage of columnar/batch.py, and decimal
-with precision > 18 for columnar/int128.py (ROADMAP item 19): they raise
-NotImplementedError naming that module, and never convert quietly.
+List, map and struct columns wait for the nested storage of
+columnar/batch.py, and decimal with precision > 18 for columnar/int128.py:
+they raise NotImplementedError naming that module, and never convert
+quietly.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, bucket_capacity, require_dense_kind,
+    Column, ColumnBatch, StringData, bucket_capacity, bucket_width,
+    require_dense_kind, strings_to_host,
 )
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 
@@ -145,6 +148,30 @@ def _numeric_zero_copy(arr: pa.Array, dtype: T.DataType, cap: int,
     return Column(dtype, _upload(view, cap, dev), None)
 
 
+def _varbin_to_fixed(arr: pa.Array, cap: int, min_width: int = 0):
+    """Variable-length binary Arrow array -> (cap, W) uint8 matrix and
+    int32 lengths, W the bucket of the longest value. The values between
+    the first and the last offset are contiguous, so one boolean-mask
+    assignment places them row by row."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    arr = arr.cast(pa.large_binary())
+    n = len(arr)
+    offsets = np.frombuffer(arr.buffers()[1], np.int64, count=n + 1,
+                            offset=arr.offset * 8)
+    databuf = arr.buffers()[2]
+    data = (np.frombuffer(databuf, np.uint8) if databuf is not None
+            else np.zeros(0, np.uint8))
+    lengths = np.zeros((cap,), np.int32)
+    lengths[:n] = offsets[1:] - offsets[:-1]
+    width = bucket_width(max(int(lengths.max()) if n else 0, min_width, 1))
+    mat = np.zeros((cap, width), np.uint8)
+    if n:
+        mat[np.arange(width)[None, :] < lengths[:, None]] = \
+            data[offsets[0]:offsets[n]]
+    return mat, lengths
+
+
 def column_from_arrow(arr, dtype: T.DataType, cap: int,
                       device: DeviceLike = None) -> Column:
     """One Arrow array (or chunked array) as a column of capacity `cap` on
@@ -165,7 +192,17 @@ def column_from_arrow(arr, dtype: T.DataType, cap: int,
         return fast
     validity = None
     if arr.null_count:
-        validity = _upload(np.asarray(arr.is_valid()), cap, dev)
+        valid = np.asarray(arr.is_valid())
+        validity = _upload(valid, cap, dev)
+    if dtype.is_string_like:
+        mat, lens = _varbin_to_fixed(arr, cap)
+        if validity is not None:
+            # null rows are zeroed on the host (the batch invariant)
+            mat[:n][~valid] = 0
+            lens[:n][~valid] = 0
+        return Column(dtype, StringData(torch.from_numpy(mat).to(dev),
+                                        torch.from_numpy(lens).to(dev)),
+                      validity)
     if dtype.is_decimal:
         d = arr.cast(pa.decimal128(dtype.precision, dtype.scale)
                      ).fill_null(0)
@@ -217,8 +254,15 @@ def batch_to_arrow(batch: ColumnBatch) -> pa.RecordBatch:
     for f, c in zip(batch.schema, batch.columns):
         require_dense_kind(f.dtype, f.name)
         valid = to_host(c.valid_mask()[:n]).numpy()
-        d = to_host(c.data[:n]).numpy()
         at = dtype_to_arrow(f.dtype)
+        if c.is_string:
+            vals = strings_to_host(c, n, valid)
+            if f.dtype.kind == T.TypeKind.STRING:
+                vals = [None if v is None else v.decode("utf-8", "replace")
+                        for v in vals]
+            arrays.append(pa.array(vals, at))
+            continue
+        d = to_host(c.data[:n]).numpy()
         if f.dtype.kind == T.TypeKind.NULL:
             arrays.append(pa.nulls(n))
         elif f.dtype.is_decimal:

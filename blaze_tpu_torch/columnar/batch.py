@@ -1,17 +1,20 @@
 """Device-resident columnar batches with static (bucketed) shapes.
 
 Port of blaze_tpu/columnar/batch.py for dense (numeric, boolean, date,
-timestamp, compact decimal) columns. A batch is:
+timestamp, compact decimal) and string/binary columns. A batch is:
 
   * a static `capacity` (bucketed power of two),
   * a `num_rows` 0-d int32 tensor on the batch's device: rows
     [0, num_rows) are live, the rest padding (a tensor, not a Python int,
     so that compaction and the whole-stage path never wait on the host),
-  * one `Column` per field: dense tensor + optional bool validity tensor.
+  * one `Column` per field: dense tensor + optional bool validity tensor;
+    strings/binary are fixed-width uint8 matrices (capacity, W) + int32
+    lengths (`StringData`), or int32 codes into a small dictionary of that
+    form (`DictData`), with W bucketed as well.
 
 Invariants ops may rely on (the same as the JAX package's):
   * invalid slots among LIVE rows contain the dtype's zero (see
-    `Column.normalized`);
+    `Column.normalized`); string bytes past a row's length are zero;
   * padding rows (>= num_rows) have UNSPECIFIED content — any op that
     reduces or sorts full-capacity tensors MUST mask with `row_mask()`;
   * `validity is None` means all live rows valid.
@@ -24,7 +27,7 @@ raises when there is none. Everything downstream follows the tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,13 +45,95 @@ def bucket_capacity(n: int) -> int:
     return cap
 
 
+def bucket_width(w: int) -> int:
+    """Round string byte-width up to a power-of-two bucket (min 4).
+
+    Raises beyond conf.max_string_width: a single huge value would
+    otherwise inflate the whole (capacity, width) matrix."""
+    b = max(int(conf.min_string_width), 4)
+    while b < w:
+        b <<= 1
+    if b > conf.max_string_width:
+        raise ValueError(
+            f"string width {w} (bucket {b}) exceeds max_string_width="
+            f"{conf.max_string_width}")
+    return b
+
+
+def bucket_dict_rows(k: int) -> int:
+    """Round a dictionary's entry count up to a power-of-two bucket (min
+    8): dictionaries are small, so they get their own bucket ladder."""
+    cap = 8
+    while cap < k:
+        cap <<= 1
+    return cap
+
+
+@dataclasses.dataclass
+class StringData:
+    """Fixed-width string/binary storage: (capacity, width) uint8 + int32
+    lengths. Bytes past a row's length are zero."""
+
+    bytes: torch.Tensor    # uint8 (capacity, width)
+    lengths: torch.Tensor  # int32 (capacity,)
+
+    @property
+    def capacity(self) -> int:
+        return self.bytes.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.bytes.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.lengths.device
+
+
+@dataclasses.dataclass
+class DictData:
+    """Dictionary-encoded string/binary storage: per-row int32 codes into a
+    small (dict_capacity, width) uint8 dictionary.
+
+    Entry 0 is always the empty string (all-zero row, length 0):
+    `Column.normalized` nulls a row by pointing its code at 0. `bytes` and
+    `lengths` expand to the `StringData` layout by a gather, so hashing,
+    comparison and sort keys work on the encoded form as they are."""
+
+    codes: torch.Tensor         # int32 (capacity,)
+    dict_bytes: torch.Tensor    # uint8 (dict_capacity, width)
+    dict_lengths: torch.Tensor  # int32 (dict_capacity,)
+
+    @property
+    def capacity(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.dict_bytes.shape[1]
+
+    @property
+    def dict_capacity(self) -> int:
+        return self.dict_bytes.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def bytes(self) -> torch.Tensor:
+        return self.dict_bytes[self.codes.long()]
+
+    @property
+    def lengths(self) -> torch.Tensor:
+        return self.dict_lengths[self.codes.long()]
+
+
 def require_dense_kind(dtype: DataType, name: str = "") -> None:
     """Raise for a column kind the port's batches cannot hold yet, naming
-    the module that will carry it (ROADMAP item 19)."""
+    the module that will carry it."""
     where = None
-    if dtype.is_string_like:
-        where = "exprs/strings.py"
-    elif dtype.is_nested:
+    if dtype.is_nested:
         where = "the nested storage of columnar/batch.py"
     elif dtype.wide_decimal:
         where = "columnar/int128.py"
@@ -60,23 +145,51 @@ def require_dense_kind(dtype: DataType, name: str = "") -> None:
 @dataclasses.dataclass
 class Column:
     dtype: DataType
-    data: torch.Tensor
+    data: Union[torch.Tensor, StringData, DictData]
     validity: Optional[torch.Tensor] = None  # bool (capacity,); None = all valid
 
     @property
     def capacity(self) -> int:
+        if isinstance(self.data, (StringData, DictData)):
+            return self.data.capacity
         return self.data.shape[0]
+
+    @property
+    def is_string(self) -> bool:
+        return isinstance(self.data, (StringData, DictData))
+
+    @property
+    def is_dict(self) -> bool:
+        return isinstance(self.data, DictData)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
 
     def valid_mask(self) -> torch.Tensor:
         if self.validity is None:
             return torch.ones((self.capacity,), dtype=torch.bool,
-                              device=self.data.device)
+                              device=self.device)
         return self.validity
 
     def normalized(self) -> "Column":
-        """Zero out data in invalid slots (canonical form)."""
+        """Zero out data in invalid slots (canonical form for hash, sort
+        and serde)."""
         if self.validity is None:
             return self
+        v = self.validity
+        if self.is_dict:
+            # entry 0 is the empty string, so nulling a row rewrites its
+            # code; the dictionary stays shared
+            d = self.data
+            return Column(self.dtype, DictData(
+                torch.where(v, d.codes, torch.zeros_like(d.codes)),
+                d.dict_bytes, d.dict_lengths), v)
+        if self.is_string:
+            d = self.data
+            return Column(self.dtype, StringData(
+                torch.where(v[:, None], d.bytes, torch.zeros_like(d.bytes)),
+                torch.where(v, d.lengths, torch.zeros_like(d.lengths))), v)
         return Column(self.dtype,
                       torch.where(self.validity, self.data,
                                   torch.zeros((), dtype=self.data.dtype,
@@ -92,7 +205,16 @@ class Column:
         v = self.validity[idx] if self.validity is not None else None
         if index_valid is not None:
             v = index_valid if v is None else (v & index_valid)
-        return Column(self.dtype, self.data[idx], v)
+        d = self.data
+        if self.is_dict:
+            # codes only: the column stays encoded through filter, sort,
+            # join and limit
+            data = DictData(d.codes[idx], d.dict_bytes, d.dict_lengths)
+        elif self.is_string:
+            data = StringData(d.bytes[idx], d.lengths[idx])
+        else:
+            data = d[idx]
+        return Column(self.dtype, data, v)
 
 
 @dataclasses.dataclass
@@ -108,13 +230,7 @@ class ColumnBatch:
               device: DeviceLike = None) -> "ColumnBatch":
         dev = resolve_device(device)
         cap = capacity or bucket_capacity(0)
-        cols = []
-        for f in schema:
-            require_dense_kind(f.dtype, f.name)
-            cols.append(Column(f.dtype, torch.zeros(
-                (cap,), dtype=f.dtype.torch_dtype(), device=dev),
-                torch.zeros((cap,), dtype=torch.bool, device=dev)
-                if f.dtype.kind == TypeKind.NULL else None))
+        cols = [_zero_column(f, cap, dev) for f in schema]
         return ColumnBatch(schema, cols, _rows(0, dev), cap)
 
     @staticmethod
@@ -122,7 +238,8 @@ class ColumnBatch:
                    capacity: Optional[int] = None,
                    validity: Optional[Dict[str, np.ndarray]] = None,
                    device: DeviceLike = None) -> "ColumnBatch":
-        """numpy per field -> batch on `device` (None = the CUDA card).
+        """numpy (or a list of str/bytes for strings) per field -> batch
+        on `device` (None = the CUDA card).
 
         Object arrays holding None mark those rows null, as in the JAX
         package."""
@@ -132,8 +249,12 @@ class ColumnBatch:
         cols = []
         for f in schema:
             require_dense_kind(f.dtype, f.name)
-            arr = np.asarray(data[f.name])
             v_np = None if validity is None else validity.get(f.name)
+            if f.dtype.is_string_like:
+                cols.append(_strings_to_column(f.dtype, data[f.name], cap,
+                                               v_np, dev))
+                continue
+            arr = np.asarray(data[f.name])
             if v_np is None and arr.dtype == object:
                 v_np = np.array([v is not None for v in arr], bool)
                 arr = np.array([v if v is not None else 0 for v in arr])
@@ -157,7 +278,8 @@ class ColumnBatch:
         """Rebuild a batch from full-capacity host arrays, one
         (data, validity|None) pair per field — e.g. the arrays of a
         `blaze_tpu` batch pulled to the host — so that both packages
-        compute on the identical batch, padding rows included."""
+        compute on the identical batch, padding rows included. A string
+        field's data is a (bytes (capacity, W), lengths) pair."""
         dev = resolve_device(device)
         if len(arrays) != len(schema):
             raise ValueError(
@@ -165,15 +287,26 @@ class ColumnBatch:
         cols = []
         for f, (data, valid) in zip(schema, arrays):
             require_dense_kind(f.dtype, f.name)
+            v = None
+            if valid is not None:
+                v = torch.from_numpy(np.array(valid, bool, copy=True,
+                                              order="C")).to(dev)
+            if f.dtype.is_string_like:
+                b, l = (np.array(a, t, copy=True, order="C")
+                        for a, t in zip(data, (np.uint8, np.int32)))
+                if b.shape[0] != capacity or l.shape != (capacity,):
+                    raise ValueError(
+                        f"column {f.name}: shape {b.shape} != "
+                        f"({capacity}, W)")
+                cols.append(Column(f.dtype, StringData(
+                    torch.from_numpy(b).to(dev),
+                    torch.from_numpy(l).to(dev)), v))
+                continue
             # copies: arrays pulled from another framework may be read-only
             data = np.array(data, f.dtype.np_dtype(), copy=True, order="C")
             if data.shape != (capacity,):
                 raise ValueError(
                     f"column {f.name}: shape {data.shape} != ({capacity},)")
-            v = None
-            if valid is not None:
-                v = torch.from_numpy(np.array(valid, bool, copy=True,
-                                              order="C")).to(dev)
             cols.append(Column(f.dtype, torch.from_numpy(data).to(dev), v))
         return ColumnBatch(schema, cols, _rows(num_rows, dev), capacity)
 
@@ -190,7 +323,13 @@ class ColumnBatch:
         """Shape signature (capacity, per-column dtype and validity)."""
         parts: list = [self.capacity]
         for c in self.columns:
-            parts.append((str(c.data.dtype), c.validity is not None))
+            if c.is_dict:
+                parts.append(("d", c.data.width, c.data.dict_capacity,
+                              c.validity is not None))
+            elif c.is_string:
+                parts.append(("s", c.data.width, c.validity is not None))
+            else:
+                parts.append((str(c.data.dtype), c.validity is not None))
         return tuple(parts)
 
     # ---- transforms ----
@@ -201,6 +340,10 @@ class ColumnBatch:
     def with_num_rows(self, num_rows) -> "ColumnBatch":
         return ColumnBatch(self.schema, self.columns,
                            _rows(num_rows, self.device), self.capacity)
+
+    def normalized(self) -> "ColumnBatch":
+        return self.with_columns(self.schema,
+                                 [c.normalized() for c in self.columns])
 
     def take(self, indices: torch.Tensor, num_rows) -> "ColumnBatch":
         # output capacity = len(indices): callers pass bucket-sized index
@@ -221,7 +364,8 @@ class ColumnBatch:
     # ---- host export (tests, the driver's collect) ----
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """Pull live rows to the host: numpy per field, an object array
-        with None for nulls where a column has any."""
+        with None for nulls where a column has any; strings as a list of
+        bytes or None, as the JAX package gives them."""
         # the ordered collect (spark/local_runner.py) orders the rows on
         # the host and caches them here, so the driver does not pull the
         # same rows from the device a second time
@@ -231,8 +375,11 @@ class ColumnBatch:
         n = int(self.num_rows)
         out: Dict[str, np.ndarray] = {}
         for f, c in zip(self.schema, self.columns):
-            d = c.data[:n].cpu().numpy()
             valid = c.valid_mask()[:n].cpu().numpy()
+            if c.is_string:
+                out[f.name] = strings_to_host(c, n, valid)
+                continue
+            d = c.data[:n].cpu().numpy()
             if valid.all():
                 out[f.name] = d
             else:
@@ -240,6 +387,62 @@ class ColumnBatch:
                 o[~valid] = None
                 out[f.name] = o
         return out
+
+
+def strings_to_host(c: Column, n: int, valid: np.ndarray) -> list:
+    """The first n rows of a string column as bytes, None where null. A
+    dictionary column pulls its codes and the small dictionary, never the
+    expanded matrix."""
+    d = c.data
+    if c.is_dict:
+        codes = d.codes[:n].cpu().numpy()
+        db = d.dict_bytes.cpu().numpy()
+        dl = d.dict_lengths.cpu().numpy()
+        return [bytes(db[k, :dl[k]]) if ok else None
+                for k, ok in zip(codes, valid)]
+    b = d.bytes[:n].cpu().numpy()
+    ln = d.lengths[:n].cpu().numpy()
+    return [bytes(b[i, :ln[i]]) if valid[i] else None for i in range(n)]
+
+
+def _zero_column(f, cap: int, dev: torch.device) -> Column:
+    require_dense_kind(f.dtype, f.name)
+    if f.dtype.is_string_like:
+        return Column(f.dtype, StringData(
+            torch.zeros((cap, bucket_width(1)), dtype=torch.uint8,
+                        device=dev),
+            torch.zeros((cap,), dtype=torch.int32, device=dev)))
+    return Column(f.dtype, torch.zeros(
+        (cap,), dtype=f.dtype.torch_dtype(), device=dev),
+        torch.zeros((cap,), dtype=torch.bool, device=dev)
+        if f.dtype.kind == TypeKind.NULL else None)
+
+
+def _strings_to_column(dtype: DataType, raw, cap: int,
+                       validity_np: Optional[np.ndarray],
+                       dev: torch.device) -> Column:
+    """A list of str/bytes/None -> a normalized StringData column (the JAX
+    package's `_host_to_column` string arm)."""
+    raw = list(raw)
+    vals = [v.encode() if isinstance(v, str) else bytes(v)
+            if v is not None else b"" for v in raw]
+    if validity_np is None and any(v is None for v in raw):
+        validity_np = np.array([v is not None for v in raw], bool)
+    n = len(vals)
+    w = bucket_width(max((len(v) for v in vals), default=1) or 1)
+    mat = np.zeros((cap, w), np.uint8)
+    lens = np.zeros((cap,), np.int32)
+    for i, v in enumerate(vals):
+        mat[i, :len(v)] = np.frombuffer(v, np.uint8)
+        lens[i] = len(v)
+    v = None
+    if validity_np is not None:
+        vp = np.zeros((cap,), bool)
+        vp[:n] = np.asarray(validity_np, bool)[:n]
+        v = torch.from_numpy(vp).to(dev)
+    return Column(dtype, StringData(torch.from_numpy(mat).to(dev),
+                                    torch.from_numpy(lens).to(dev)),
+                  v).normalized()
 
 
 def _rows(n, device: torch.device) -> torch.Tensor:

@@ -13,10 +13,18 @@ Payload:
 Colblock:
   u8 has_validity | [ceil(n/8) bytes packed validity (LSB-first)]
   numeric/bool: n * itemsize raw LE values
+  string/binary: u32 total | n x u32 lengths | concatenated bytes
+  string/binary (dict): u32 0xFFFFFFFF | u32 K | u32 dict_total |
+                        K x u32 dict_lengths | dict bytes | n x u32 codes
   null column: nothing
 
-The string, dictionary, list and struct colblocks of the JAX module need
-string and nested storage (exprs/strings.py) and raise, written or read.
+The dict form (conf.dict_encode_strings) writes each distinct string of a
+slice once plus per-row codes; code 0 is always the empty string. A slice
+past conf.dict_max_cardinality distinct strings, or where the dict form is
+not smaller, is written plain. A column that is already a dictionary
+(`DictData`) ships its dictionary and the slice's codes as they are, and
+decodes back into one. The list and struct colblocks of the JAX module
+need nested storage and raise, written or read.
 
 `to_host` pulls a batch to the host in ONE device->host copy (all columns
 packed into one byte tensor, counted in metrics.HOST_PULLS); `HostBatch`
@@ -73,15 +81,19 @@ from blaze_tpu_torch.device import DeviceLike
 from blaze_tpu_torch.runtime import metrics
 
 MAGIC = b"BTB1"
-STRINGS_MISSING = "string, dictionary, list and struct colblocks need " \
-    "string and nested storage (exprs/strings.py), not yet ported"
+DICT_SENTINEL = 0xFFFFFFFF  # an impossible plain string `total`
+NESTED_MISSING = "list and struct colblocks need nested storage (the " \
+    "nested storage of columnar/batch.py), not yet ported"
 
 
 @dataclasses.dataclass
 class _HostCol:
-    kind: str                        # "num" | "null"
-    data: Optional[np.ndarray]       # (n,) values; bool as uint8 when pulled
+    kind: str                        # "num" | "str" | "dict" | "null"
+    data: Optional[np.ndarray]       # (n,) values, bool as uint8 when
+                                     # pulled | (n, W) bytes | dict: (K, W)
     validity: Optional[np.ndarray]   # (n,) bool, None = all valid
+    lengths: Optional[np.ndarray] = None  # str: (n,) | dict: (K,) int32
+    codes: Optional[np.ndarray] = None    # dict: (n,) int32 codes
 
 
 @dataclasses.dataclass
@@ -106,12 +118,44 @@ class HostBatch:
 
 
 def _check_host_kind(dtype: DataType) -> None:
-    if dtype.is_string_like or dtype.is_nested:
-        raise NotImplementedError(f"{dtype} column: {STRINGS_MISSING}")
+    if dtype.is_nested:
+        raise NotImplementedError(f"{dtype} column: {NESTED_MISSING}")
     if dtype.wide_decimal:
         raise NotImplementedError(
             f"{dtype} column: wide-decimal storage (exprs/wide_decimal.py), "
             "not yet ported")
+
+
+def _dict_encode_slice(b: np.ndarray, lens: np.ndarray):
+    """Distinct strings of a slice -> (dict (K, W), dict_lens (K,),
+    codes (n,)) with entry 0 the empty string, or None past the
+    cardinality cap. The length is part of the key: b"a\\x00" and b"a"
+    share padded bytes but are different strings."""
+    w = int(b.shape[1]) if b.ndim == 2 else 0
+    pos = np.arange(w)[None, :] < lens[:, None]
+    canon = np.where(pos, b, 0).astype(np.uint8, copy=False)
+    key = np.concatenate(
+        [canon, lens.astype("<u4")[:, None].view(np.uint8)], axis=1)
+    # an all-zero first row sorts first and pins code 0 to the empty string
+    key = np.vstack([np.zeros((1, w + 4), np.uint8), key])
+    uniq, inv = np.unique(key, axis=0, return_inverse=True)
+    if uniq.shape[0] - 1 > conf.dict_max_cardinality:
+        return None
+    dmat = np.ascontiguousarray(uniq[:, :w])
+    dlens = np.ascontiguousarray(uniq[:, w:]).view("<u4").reshape(-1)
+    return dmat, dlens, inv.reshape(-1)[1:].astype(np.uint32)
+
+
+def _write_dict_block(out, dmat: np.ndarray, dlens: np.ndarray,
+                      codes: np.ndarray) -> None:
+    dlens = dlens.astype(np.uint32)
+    out.write(struct.pack("<III", DICT_SENTINEL, dlens.shape[0],
+                          int(dlens.sum())))
+    out.write(dlens.tobytes())
+    if dmat.size:
+        pos = np.arange(dmat.shape[1])[None, :] < dlens[:, None]
+        out.write(np.ascontiguousarray(dmat)[pos].tobytes())
+    out.write(codes.astype(np.uint32).tobytes())
 
 
 def _write_col(out, c: _HostCol, lo: int, hi: int) -> None:
@@ -122,8 +166,30 @@ def _write_col(out, c: _HostCol, lo: int, hi: int) -> None:
                               bitorder="little").tobytes())
     if c.kind == "null":
         return
+    if c.kind == "dict":
+        # already encoded: the dictionary and the slice's codes
+        _write_dict_block(out, c.data, c.lengths, c.codes[lo:hi])
+        return
+    if c.kind == "str":
+        lens = c.lengths[lo:hi].astype(np.uint32)
+        total = int(lens.sum())
+        n = int(lens.shape[0])
+        if conf.dict_encode_strings and n:
+            enc = _dict_encode_slice(c.data[lo:hi], lens)
+            if enc is not None:
+                dmat, dlens, codes = enc
+                dict_sz = 12 + 4 * dlens.shape[0] + int(dlens.sum()) + 4 * n
+                if dict_sz < 4 + 4 * n + total:
+                    _write_dict_block(out, dmat, dlens, codes)
+                    return
+        out.write(struct.pack("<I", total) + lens.tobytes())
+        if total:
+            b = c.data[lo:hi]
+            pos = np.arange(b.shape[1])[None, :] < lens[:, None]
+            out.write(b[pos].tobytes())
+        return
     if c.kind != "num":
-        raise NotImplementedError(STRINGS_MISSING)
+        raise NotImplementedError(NESTED_MISSING)
     out.write(np.ascontiguousarray(c.data[lo:hi]).tobytes())
 
 
@@ -148,7 +214,14 @@ def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
         _check_host_kind(f.dtype)
     parts: List[torch.Tensor] = []
     for c in batch.columns:
-        parts.append(_bytes_of(c.data))
+        if c.is_dict:
+            d = c.data
+            parts += [_bytes_of(d.codes), _bytes_of(d.dict_bytes),
+                      _bytes_of(d.dict_lengths)]
+        elif c.is_string:
+            parts += [_bytes_of(c.data.bytes), _bytes_of(c.data.lengths)]
+        else:
+            parts.append(_bytes_of(c.data))
         if c.validity is not None:
             parts.append(_bytes_of(c.validity))
     parts.extend(_bytes_of(e) for e in extra)
@@ -163,15 +236,28 @@ def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
         off += count * dtype.itemsize
         return arr
 
+    i32, u8 = np.dtype(np.int32), np.dtype(np.uint8)
     cols = []
     for f, c in zip(batch.schema, batch.columns):
-        data = take(_np_dtype(c.data), c.capacity)[:n]
-        valid = (take(np.dtype(bool), c.capacity)[:n]
-                 if c.validity is not None else None)
-        if f.dtype.kind == TypeKind.NULL:
-            cols.append(_HostCol("null", None, valid))
+        if c.is_dict:
+            d = c.data
+            codes = take(i32, c.capacity)[:n]
+            dmat = take(u8, d.dict_capacity * d.width).reshape(
+                d.dict_capacity, d.width)
+            dlens = take(i32, d.dict_capacity)
+            hc = _HostCol("dict", dmat, None, dlens, codes)
+        elif c.is_string:
+            w = c.data.width
+            mat = take(u8, c.capacity * w).reshape(c.capacity, w)[:n]
+            hc = _HostCol("str", mat, None, take(i32, c.capacity)[:n])
         else:
-            cols.append(_HostCol("num", data, valid))
+            data = take(_np_dtype(c.data), c.capacity)[:n]
+            hc = _HostCol("null" if f.dtype.kind == TypeKind.NULL else "num",
+                          None if f.dtype.kind == TypeKind.NULL else data,
+                          None)
+        if c.validity is not None:
+            hc.validity = take(np.dtype(bool), c.capacity)[:n]
+        cols.append(hc)
     extras = [take(_np_dtype(e), e.numel()).reshape(tuple(e.shape))
               for e in extra]
     return HostBatch(batch.schema, cols, n), extras
@@ -186,7 +272,7 @@ def host_batch_nbytes(hb: HostBatch) -> int:
     """Host footprint of a pulled batch."""
     total = 0
     for c in hb.cols:
-        for arr in (c.data, c.validity):
+        for arr in (c.data, c.validity, c.lengths, c.codes):
             if arr is not None:
                 total += arr.nbytes
     return total
@@ -225,6 +311,20 @@ def _decode_payload(raw: bytes, schema: Schema) -> HostBatch:
                               for f in schema], n)
 
 
+def _read_dict_block(fp: BinaryIO, n: int):
+    """A dict colblock's body (after the sentinel) -> (dict (K, w),
+    dict_lens int32 (K,), codes int32 (n,))."""
+    K, dict_total = struct.unpack("<II", _read_exact(fp, 8))
+    dlens = np.frombuffer(_read_exact(fp, 4 * K), np.uint32)
+    payload = np.frombuffer(_read_exact(fp, dict_total), np.uint8)
+    w = max(int(dlens.max()) if K else 1, 1)
+    dmat = np.zeros((K, w), np.uint8)
+    if K:
+        dmat[np.arange(w)[None, :] < dlens[:, None]] = payload
+    codes = np.frombuffer(_read_exact(fp, 4 * n), np.uint32).astype(np.int32)
+    return dmat, dlens.astype(np.int32), codes
+
+
 def _decode_col_host(fp: BinaryIO, dtype: DataType, n: int) -> _HostCol:
     (hasv,) = struct.unpack("<B", _read_exact(fp, 1))
     validity = None
@@ -236,6 +336,18 @@ def _decode_col_host(fp: BinaryIO, dtype: DataType, n: int) -> _HostCol:
         return _HostCol("null", None, validity if validity is not None
                         else np.zeros((n,), bool))
     _check_host_kind(dtype)
+    if dtype.is_string_like:
+        (total,) = struct.unpack("<I", _read_exact(fp, 4))
+        if total == DICT_SENTINEL:
+            dmat, dlens, codes = _read_dict_block(fp, n)
+            return _HostCol("dict", dmat, validity, dlens, codes)
+        lens = np.frombuffer(_read_exact(fp, 4 * n), np.uint32)
+        payload = np.frombuffer(_read_exact(fp, total), np.uint8)
+        w = max(int(lens.max()) if n else 1, 1)
+        mat = np.zeros((n, w), np.uint8)
+        if n:
+            mat[np.arange(w)[None, :] < lens[:, None]] = payload
+        return _HostCol("str", mat, validity, lens.astype(np.int32))
     if dtype.kind == TypeKind.BOOLEAN:
         raw = np.frombuffer(_read_exact(fp, n), np.uint8).astype(bool)
         return _HostCol("num", raw, validity)

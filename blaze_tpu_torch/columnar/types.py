@@ -13,8 +13,12 @@ the torch dtype each lands in on the device:
   decimal(p<=18, s)     torch.int64 (cap,)   unscaled value
   null                  torch.int8 zeros (all-invalid validity)
 
-String, binary, nested and wide-decimal columns are carried through the
-plan's types but have no device storage in the port yet.
+  string/binary         columnar/batch.StringData: uint8 (cap, W) + int32
+                        lengths, or DictData: int32 codes into a small
+                        dictionary of that form
+
+Nested and wide-decimal columns are carried through the plan's types but
+have no device storage in the port yet.
 """
 
 from __future__ import annotations

@@ -24,6 +24,13 @@ def cast_column(col: Column, target: DataType) -> Column:
     src = col.dtype
     if src == target:
         return col
+    if src.kind == TypeKind.NULL and target.is_string_like:
+        from blaze_tpu_torch.exprs.compiler import const_string
+
+        dev = col.data.device
+        return Column(target, const_string(b"", col.capacity, dev),
+                      torch.zeros((col.capacity,), dtype=torch.bool,
+                                  device=dev))
     if (src.is_string_like or target.is_string_like or src.is_decimal
             or target.is_decimal or src.is_nested or target.is_nested):
         raise NotImplementedError(

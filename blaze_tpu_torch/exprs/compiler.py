@@ -1,8 +1,10 @@
 """Expression compiler: IR -> torch column functions.
 
-Port of blaze_tpu/exprs/compiler.py for the dense kinds: columns,
-literals, casts, arithmetic and comparisons, Kleene AND/OR, NOT,
-IS [NOT] NULL, negation, IF, CASE WHEN and [NOT] IN. A compiled expression is
+Port of blaze_tpu/exprs/compiler.py for the dense and string kinds:
+columns, literals, casts, arithmetic and comparisons, Kleene AND/OR, NOT,
+IS [NOT] NULL, negation, IF, CASE WHEN and [NOT] IN, the string
+predicates (StartsWith/EndsWith/Contains), LIKE and the scalar functions
+of exprs/functions.py. A compiled expression is
 `fn(batch: ColumnBatch) -> Column`, evaluated eagerly on the batch's
 device; null semantics are Spark's (strict nulls for most ops, Kleene
 AND/OR). Every other expression kind raises NotImplementedError naming it.
@@ -16,9 +18,12 @@ from typing import Callable, Optional
 
 import torch
 
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, StringData, bucket_width,
+)
 from blaze_tpu_torch.columnar.types import BOOLEAN, DataType, FLOAT64
 from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs import strings as S
 from blaze_tpu_torch.exprs.cast import cast_column
 
 CompiledExpr = Callable[[ColumnBatch], Column]
@@ -103,18 +108,61 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
         return _compile_case(expr.branches, expr.otherwise, schema)
     if isinstance(expr, ir.InList):
         return _compile_inlist(expr, schema)
+    if isinstance(expr, ir.StringPredicate):
+        c = compile_expr(expr.child, schema)
+        fn = {"starts_with": S.starts_with, "ends_with": S.ends_with,
+              "contains": S.contains}[expr.op]
+        pat = expr.pattern
+
+        def run_pred(b):
+            col = c(b)
+            return Column(BOOLEAN, fn(col.data, pat), col.validity)
+
+        return run_pred
+    if isinstance(expr, ir.Like):
+        c = compile_expr(expr.child, schema)
+        pat, esc = expr.pattern, expr.escape
+
+        def run_like(b):
+            col = c(b)
+            return Column(BOOLEAN, S.like_match(col.data, pat, esc),
+                          col.validity)
+
+        return run_like
+    if isinstance(expr, ir.ScalarFn):
+        from blaze_tpu_torch.exprs.functions import compile_function
+
+        return compile_function(expr, schema)
     raise NotImplementedError(
         f"expression {type(expr).__name__} (exprs/compiler.py) not yet ported")
 
 
+def const_string(value: bytes, cap: int, device) -> StringData:
+    """`value` in every one of `cap` rows."""
+    mat = torch.zeros((cap, bucket_width(max(len(value), 1))),
+                      dtype=torch.uint8, device=device)
+    if value:
+        mat[:, :len(value)] = torch.tensor(list(value), dtype=torch.uint8,
+                                           device=device)
+    return StringData(mat, torch.full((cap,), len(value), dtype=torch.int32,
+                                      device=device))
+
+
 def _compile_literal(expr: ir.Literal) -> CompiledExpr:
     dt, v = expr.dtype, expr.value
-    if dt.is_string_like:
-        raise NotImplementedError(
-            f"{dt} literals need string storage (exprs/strings.py), not yet "
-            "ported")
     if dt.is_nested or dt.is_decimal:
         raise NotImplementedError(f"{dt} literals not yet ported")
+    if dt.is_string_like:
+        raw = b"" if v is None else (
+            v.encode() if isinstance(v, str) else bytes(v))
+
+        def run_str(b: ColumnBatch) -> Column:
+            cap, dev = b.capacity, b.device
+            valid = (torch.zeros((cap,), dtype=torch.bool, device=dev)
+                     if v is None else None)
+            return Column(dt, const_string(raw, cap, dev), valid)
+
+        return run_str
     tdt = dt.torch_dtype()
 
     def run(b: ColumnBatch) -> Column:
@@ -154,6 +202,15 @@ def _compile_binary(expr: ir.Binary, schema) -> CompiledExpr:
 
 
 def _compare(lc: Column, rc: Column, op: ir.BinOp) -> Column:
+    if lc.is_string or rc.is_string:
+        lt, eq = S.compare(lc.data, rc.data)
+        res = {ir.BinOp.EQ: eq, ir.BinOp.NEQ: ~eq, ir.BinOp.LT: lt,
+               ir.BinOp.LE: lt | eq, ir.BinOp.GT: ~lt & ~eq,
+               ir.BinOp.GE: ~lt, ir.BinOp.EQ_NULLSAFE: eq}[op]
+        if op == ir.BinOp.EQ_NULLSAFE:
+            lv, rv = lc.valid_mask(), rc.valid_mask()
+            return Column(BOOLEAN, (~lv & ~rv) | (lv & rv & res), None)
+        return Column(BOOLEAN, res, _strict(lc, rc))
     ld, rd = _promote(lc, rc)
     if op == ir.BinOp.EQ:
         res = ld == rd
@@ -267,19 +324,37 @@ def _compile_case(branches, otherwise, schema) -> CompiledExpr:
         ocol = other(b) if other is not None else None
         all_vals = vcols + ([ocol] if ocol is not None else [])
         out_dtype = all_vals[0].dtype
+        is_str = all_vals[0].is_string
+        if is_str:
+            # every branch at the widest branch's width
+            w = max(v.data.width for v in all_vals)
+            all_vals = [Column(v.dtype, S.ensure_width(StringData(
+                v.data.bytes, v.data.lengths), w), v.validity)
+                for v in all_vals]
+            vcols = all_vals[:len(vcols)]
+            ocol = all_vals[-1] if ocol is not None else None
         # start from the ELSE (or null), then apply the branches; the
         # `taken` mask lets an earlier branch win over a later one
         if ocol is not None:
             acc_data, acc_valid = ocol.data, ocol.valid_mask()
         else:
-            acc_data = torch.zeros_like(all_vals[0].data)
+            proto = all_vals[0].data
+            acc_data = (StringData(torch.zeros_like(proto.bytes),
+                                   torch.zeros_like(proto.lengths))
+                        if is_str else torch.zeros_like(proto))
             acc_valid = torch.zeros((b.capacity,), dtype=torch.bool,
                                     device=b.device)
         taken = torch.zeros((b.capacity,), dtype=torch.bool, device=b.device)
         for cf, vcol in zip(conds, vcols):
             ccol = cf(b)
             fire = ccol.data.to(torch.bool) & ccol.valid_mask() & ~taken
-            acc_data = torch.where(fire, vcol.data, acc_data)
+            if is_str:
+                acc_data = StringData(
+                    torch.where(fire[:, None], vcol.data.bytes,
+                                acc_data.bytes),
+                    torch.where(fire, vcol.data.lengths, acc_data.lengths))
+            else:
+                acc_data = torch.where(fire, vcol.data, acc_data)
             acc_valid = torch.where(fire, vcol.valid_mask(), acc_valid)
             taken = taken | fire
         return Column(out_dtype, acc_data, acc_valid)
@@ -302,8 +377,12 @@ def _compile_inlist(expr: ir.InList, schema) -> CompiledExpr:
         hit = torch.zeros((b.capacity,), dtype=torch.bool, device=b.device)
         for lf in lits:
             lcol = lf(b)
-            ld, rd = _promote(ccol, lcol)
-            hit = hit | ((ld == rd) & lcol.valid_mask())
+            if ccol.is_string:
+                eq = S.equals(ccol.data, lcol.data)
+            else:
+                ld, rd = _promote(ccol, lcol)
+                eq = ld == rd
+            hit = hit | (eq & lcol.valid_mask())
         res = ~hit if negated else hit
         if ccol.validity is None and not has_null_lit:
             return Column(BOOLEAN, res, None)

@@ -24,8 +24,11 @@ Spark's bits only on its CPU backend (the TPU has no 64-bit bitcast); here
 does not canonicalise float32 NaN payloads; Spark's floatToIntBits does,
 and so does this module.
 
-String, binary and wide-decimal hashing wait for exprs/strings.py and
-exprs/wide_decimal.py, and raise.
+  * string/binary (plain or dictionary): hashUnsafeBytes over the bytes
+    up to the row's length, the 0-3 tail bytes mixed one at a time as
+    SIGNED bytes
+
+Wide-decimal hashing waits for exprs/wide_decimal.py and raises.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from blaze_tpu_torch.columnar.batch import Column
+from blaze_tpu_torch.columnar.batch import Column, StringData
 from blaze_tpu_torch.columnar.types import TypeKind
 
 SPARK_SHUFFLE_SEED = 42
@@ -62,7 +65,7 @@ def _mix_h1(h1: Seed, k1: torch.Tensor) -> torch.Tensor:
     return (h1 * 5 + _M5) & _M32
 
 
-def _fmix(h1: torch.Tensor, length: int) -> torch.Tensor:
+def _fmix(h1: torch.Tensor, length: Seed) -> torch.Tensor:
     h1 = h1 ^ length
     h1 = h1 ^ (h1 >> 16)
     h1 = (h1 * 0x85EBCA6B) & _M32
@@ -101,10 +104,26 @@ def hash_u32_halves(high: torch.Tensor, low: torch.Tensor,
     return _fmix(h1, 8)
 
 
-def hash_bytes(*_args, **_kw):
-    raise NotImplementedError(
-        "string/binary hashing (hash_bytes) needs string storage "
-        "(exprs/strings.py), not yet ported")
+def hash_bytes(s: StringData, seed: Seed) -> torch.Tensor:
+    """Spark hashUnsafeBytes over the fixed-width matrix, masked by length.
+    Returns uint32 values held in int64."""
+    cap, w = s.bytes.shape
+    b = s.bytes.reshape(cap, w // 4, 4).to(torch.int64)
+    words = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+    lens = s.lengths.to(torch.int64)
+    nfull = lens // 4  # full 4-byte words
+    h = torch.as_tensor(seed, dtype=torch.int64,
+                        device=s.bytes.device).expand(cap)
+    for j in range(w // 4):
+        h = torch.where(j < nfull, _mix_h1(h, _mix_k1(words[:, j])), h)
+    # tail: the remaining 0-3 bytes, each as a SIGNED byte
+    aligned = nfull * 4
+    for t in range(3):
+        pos = aligned + t
+        byte = torch.gather(s.bytes, 1, pos.clamp(0, w - 1)[:, None])[:, 0]
+        sbyte = u32(byte.view(torch.int8))
+        h = torch.where(pos < lens, _mix_h1(h, _mix_k1(sbyte)), h)
+    return _fmix(h, lens)
 
 
 def _canonical_float(x: torch.Tensor) -> torch.Tensor:
@@ -118,14 +137,14 @@ def hash_column(col: Column, seed: Seed,
                 row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chainable per-column hash: null (or padding) rows keep `seed`."""
     k = col.dtype.kind
-    if col.dtype.is_string_like:
-        hash_bytes()
     if col.dtype.wide_decimal:
         raise NotImplementedError(
             f"hash of {col.dtype} (_hash_wide_decimal) needs wide-decimal "
             "storage (exprs/wide_decimal.py), not yet ported")
     cap = col.capacity
-    if k in (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.DATE,
+    if col.is_string:
+        h = hash_bytes(col.data, seed)
+    elif k in (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.DATE,
              TypeKind.BOOLEAN):
         h = hash_int32(col.data.to(torch.int32), seed)
     elif k in (TypeKind.INT64, TypeKind.TIMESTAMP, TypeKind.DECIMAL):
@@ -139,7 +158,7 @@ def hash_column(col: Column, seed: Seed,
     else:
         raise TypeError(f"hash of {col.dtype} not supported")
     seed_t = torch.as_tensor(seed, dtype=torch.int64,
-                             device=col.data.device).expand(cap)
+                             device=col.device).expand(cap)
     if h is None:
         return seed_t.clone()
     valid = col.valid_mask()

@@ -11,11 +11,11 @@ collapse into one. The whole-stage dense path (runtime/stage_compiler.py)
 runs matching partial(+final) pairs without any of this.
 
 The functions sum, count, avg, min, max, first and first_ignores_null run
-over the dense column kinds in the modes PARTIAL, PARTIAL_MERGE and FINAL.
+over the dense column kinds in the modes PARTIAL, PARTIAL_MERGE and FINAL;
+group keys, min, max, first and first_ignores_null also take strings.
 Left out, each raising NotImplementedError naming its module:
-collect_list/collect_set (list storage, columnar/batch.py ListData), string
-min/max (exprs/strings.py) and wide-decimal sum/avg/min/max
-(exprs/wide_decimal.py). Over the memory budget, collapsed state spills to
+collect_list/collect_set (list storage, columnar/batch.py ListData) and
+wide-decimal sum/avg/min/max (exprs/wide_decimal.py). Over the memory budget, collapsed state spills to
 host files (runtime/memory.SpillFile) and merges back at the end. The JAX
 module's jit cache and compile-service shape rungs have no counterpart:
 PyTorch runs each step eagerly.
@@ -43,7 +43,9 @@ from blaze_tpu_torch.ops.base import (
 from blaze_tpu_torch.ops.basic import infer_dtype
 from blaze_tpu_torch.ops.common import concat_batches
 from blaze_tpu_torch.ops.sort import truncate
-from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+from blaze_tpu_torch.ops.sort_keys import (
+    SortSpec, pack_keys, sort_batch, sort_permutation, string_words,
+)
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.metrics import to_host
 
@@ -126,6 +128,30 @@ def _first_by_index(values_cols: Sequence[Column], layout, has
     idx, ok = seg.seg_first(iota, layout, has, ignores_null=True)
     idx = idx.clamp(0, cap - 1)
     return [c.take(idx) for c in values_cols], ok
+
+
+def _minmax_string(call: AggCall, x: Column, layout, fn: str
+                   ) -> List[Column]:
+    """String min/max: order the rows by (group, encoded string) and pick
+    each group's first row. Null strings encode to sort last in both
+    directions. The rows are already in group order, so group g's run
+    keeps its place and starts at `layout.start_idx[g]`."""
+    valid = x.valid_mask() & layout.row_mask
+    i64_max = (1 << 63) - 1
+    # words are 64-bit keys in signed order: ~w reverses it
+    keys = [(torch.where(layout.row_mask, layout.gid,
+                         torch.full_like(layout.gid, 1 << 30)), 31)]
+    for w in string_words(x.data):
+        keys.append((torch.where(valid, w if fn == "min" else ~w,
+                                 torch.full_like(w, i64_max)), 64))
+    ln = x.data.lengths.to(torch.int64)
+    keys.append((torch.where(valid, ln if fn == "min" else 0xFFFFFFFF - ln,
+                             torch.full_like(ln, 0xFFFFFFFF)), 32))
+    perm = sort_permutation(pack_keys(keys))
+    picked = x.take(perm[layout.start_idx])
+    has = seg.seg_any(valid, layout)
+    return [Column(call.dtype, picked.data, None),
+            Column(T.BOOLEAN, has, None)]
 
 
 class _AggState(M.MemConsumer):
@@ -299,10 +325,8 @@ class AggExec(Operator):
                 raise NotImplementedError(
                     f"{call.fn} over {call.dtype}: wide-decimal state "
                     "(exprs/wide_decimal.py), not yet ported")
-            if call.dtype.is_string_like and call.fn != "count":
-                raise NotImplementedError(
-                    f"{call.fn} over {call.dtype}: string state "
-                    "(exprs/strings.py), not yet ported")
+            if call.dtype.is_string_like and call.fn in ("sum", "avg"):
+                raise TypeError(f"{call.fn} over {call.dtype}")
 
     def execute(self, ctx: ExecContext) -> BatchStream:
         self._check_supported()
@@ -411,6 +435,8 @@ class AggExec(Operator):
                 return [Column(sd, s, None), Column(T.BOOLEAN, cnt > 0, None)]
             return [Column(sd, s, None), Column(T.INT64, cnt, None)]
         if fn in ("min", "max"):
+            if x.is_string:
+                return _minmax_string(call, x, layout, fn)
             red = seg.seg_min if fn == "min" else seg.seg_max
             val, has = red(x.data, layout, valid)
             return [Column(call.dtype, val, None),
@@ -418,10 +444,14 @@ class AggExec(Operator):
         if fn == "first":
             idx = layout.start_idx
             fvalid = (valid & layout.row_mask)[idx]
-            return [Column(call.dtype, x.data[idx], None),
+            return [Column(call.dtype, x.take(idx).data, None),
                     Column(T.BOOLEAN, fvalid, None),
                     Column(T.BOOLEAN, layout.group_mask, None)]
         if fn == "first_ignores_null":
+            if x.is_string:
+                (v,), ok = _first_by_index([x], layout, valid)
+                return [Column(call.dtype, v.data, None),
+                        Column(T.BOOLEAN, ok, None)]
             val, has = seg.seg_first(x.data, layout, valid, ignores_null=True)
             return [Column(call.dtype, val, None),
                     Column(T.BOOLEAN, has, None)]
@@ -452,6 +482,10 @@ class AggExec(Operator):
                                seg.seg_sum(cols[0].data, layout, ones), None),
                         Column(T.INT64,
                                seg.seg_sum(cols[1].data, layout, ones), None)]
+            elif fn in ("min", "max") and cols[0].is_string:
+                out.extend(_minmax_string(
+                    call, Column(cols[0].dtype, cols[0].data, cols[1].data),
+                    layout, fn))
             elif fn in ("min", "max"):
                 red = seg.seg_min if fn == "min" else seg.seg_max
                 val, has = red(cols[0].data, layout, cols[1].data)

@@ -2,8 +2,9 @@
 
 Port of `concat_batches` and `slice_batch` from blaze_tpu/ops/common.py
 (ref: concat_batches in datafusion-ext-commons lib.rs:33-61) for the dense
-column kinds the port's batches hold. String and list columns raise
-NotImplementedError naming exprs/strings.py. `adaptive_target_bytes` sizes
+and string column kinds the port's batches hold. String columns of
+different width buckets are padded to the widest first, and dictionary
+columns come out expanded, as in the JAX package. `adaptive_target_bytes` sizes
 the IPC reader's macro-batches, and `adaptive_batch_rows` (over
 `schema_row_bytes`) the Parquet scan's.
 
@@ -19,10 +20,19 @@ from typing import List, Optional
 import torch
 
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, bucket_capacity, require_dense_kind,
+    Column, ColumnBatch, StringData, bucket_capacity, require_dense_kind,
 )
 from blaze_tpu_torch.columnar.types import Schema, TypeKind
+from blaze_tpu_torch.exprs import strings as S
 from blaze_tpu_torch.runtime.metrics import to_host
+
+
+def _cat_rows(tensors, counts, pad: int) -> torch.Tensor:
+    """The first counts[i] rows of each tensor, then `pad` zero rows."""
+    out = [t[:n] for t, n in zip(tensors, counts)]
+    if pad:
+        out.append(tensors[0].new_zeros((pad,) + tuple(tensors[0].shape[1:])))
+    return torch.cat(out)
 
 
 def concat_batches(batches: List[ColumnBatch],
@@ -40,25 +50,26 @@ def concat_batches(batches: List[ColumnBatch],
     counts = to_host(torch.stack([b.num_rows for b in batches])).tolist()
     total = sum(counts)
     cap = bucket_capacity(total)
-    dev = batches[0].device
     pad = cap - total
     cols = []
     for ci, field in enumerate(schema.fields):
         parts = [b.columns[ci] for b in batches]
-        data = [p.data[:n] for p, n in zip(parts, counts)]
-        if pad:
-            data.append(torch.zeros((pad,), dtype=parts[0].data.dtype,
-                                    device=dev))
+        if parts[0].is_string:
+            w = max(p.data.width for p in parts)
+            datas = [S.ensure_width(StringData(p.data.bytes, p.data.lengths),
+                                    w) for p in parts]
+            data = StringData(_cat_rows([d.bytes for d in datas], counts, pad),
+                              _cat_rows([d.lengths for d in datas], counts,
+                                        pad))
+        else:
+            data = _cat_rows([p.data for p in parts], counts, pad)
         valid = None
         if any(p.validity is not None for p in parts):
-            valid = [p.valid_mask()[:n] for p, n in zip(parts, counts)]
-            if pad:
-                valid.append(torch.zeros((pad,), dtype=torch.bool,
-                                         device=dev))
-            valid = torch.cat(valid)
-        cols.append(Column(field.dtype, torch.cat(data), valid))
+            valid = _cat_rows([p.valid_mask() for p in parts], counts, pad)
+        cols.append(Column(field.dtype, data, valid))
     return ColumnBatch(schema, cols,
-                       torch.tensor(total, dtype=torch.int32, device=dev), cap)
+                       torch.tensor(total, dtype=torch.int32,
+                                    device=batches[0].device), cap)
 
 
 def schema_row_bytes(schema: Schema) -> int:

@@ -1,6 +1,7 @@
 """Host-side (numpy) row-encoded sort keys, run merge, and host batches.
 
-Port of blaze_tpu/ops/host_sort.py for the dense column kinds. Spilled sort
+Port of blaze_tpu/ops/host_sort.py for the dense and string column kinds
+(plain and dictionary). Spilled sort
 runs live in host files as serde frames, so their k-way merge runs on the
 host, as the reference's LoserTree over spilled cursors does
 (datafusion-ext-commons loser_tree.rs:1-118, sort_exec.rs:419-475), and
@@ -26,14 +27,17 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, DictData, StringData, bucket_capacity,
+    bucket_dict_rows, bucket_width,
+)
 from blaze_tpu_torch.columnar.serde import HostBatch, _HostCol
 # one count serves both names: the JAX package's host_nbytes and
 # host_batch_nbytes differ only on string and dictionary columns
 from blaze_tpu_torch.columnar.serde import host_batch_nbytes as host_nbytes
 from blaze_tpu_torch.columnar.types import Schema, TypeKind
 from blaze_tpu_torch.device import DeviceLike, resolve_device
-from blaze_tpu_torch.ops.sort_keys import SortSpec
+from blaze_tpu_torch.ops.sort_keys import DEFAULT_MAX_STRING_WORDS, SortSpec
 
 _I64_MIN = np.int64(-(1 << 63))
 _I32_MIN = np.uint32(1 << 31)
@@ -67,10 +71,17 @@ def _value_parts(c: _HostCol, kind: TypeKind) -> List[np.ndarray]:
     value order (ops/sort_keys.encode_column, case by case)."""
     if kind == TypeKind.NULL:
         return []
-    if kind in (TypeKind.STRING, TypeKind.BINARY) or c.kind != "num":
-        raise NotImplementedError(
-            "host sort keys of string columns need string storage "
-            "(exprs/strings.py), not yet ported")
+    if kind in (TypeKind.STRING, TypeKind.BINARY):
+        # the device key's 8-word prefix, then the length
+        w = DEFAULT_MAX_STRING_WORDS * 8
+        if c.kind == "dict":
+            # the prefix plane of the K entries, gathered by code
+            dp = np.zeros((c.data.shape[0], w), np.uint8)
+            dp[:, :min(w, c.data.shape[1])] = c.data[:, :w]
+            return [dp[c.codes], _be(c.lengths[c.codes].astype(np.uint32))]
+        prefix = np.zeros((c.data.shape[0], w), np.uint8)
+        prefix[:, :min(w, c.data.shape[1])] = c.data[:, :w]
+        return [prefix, _be(c.lengths.astype(np.uint32))]
     if kind == TypeKind.BOOLEAN:
         return [c.data.astype(np.uint8).reshape(-1, 1)]
     if kind == TypeKind.FLOAT64:
@@ -128,21 +139,64 @@ def sort_perm(hb: HostBatch, specs: Sequence[SortSpec]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def host_supported(schema: Schema) -> bool:
-    """Whether every column has a host form here: the dense kinds. The
-    JAX package also keeps strings and structs host-side; their storage
-    is not ported (exprs/strings.py)."""
-    return not any(f.dtype.is_string_like or f.dtype.is_nested
-                   or f.dtype.wide_decimal for f in schema.fields)
+    """Whether every column has a host form here: the dense and string
+    kinds. The JAX package also keeps structs host-side; nested storage
+    is not ported."""
+    return not any(f.dtype.is_nested or f.dtype.wide_decimal
+                   for f in schema.fields)
 
 
 def _col_take(c: _HostCol, idx: np.ndarray) -> _HostCol:
     v = c.validity[idx] if c.validity is not None else None
+    if c.kind == "dict":
+        # codes only; the dictionary is shared
+        return _HostCol("dict", c.data, v, c.lengths, c.codes[idx])
+    if c.kind == "str":
+        return _HostCol("str", c.data[idx], v, c.lengths[idx])
     return _HostCol(c.kind, None if c.data is None else c.data[idx], v)
 
 
 def host_take(hb: HostBatch, idx: np.ndarray) -> HostBatch:
     return HostBatch(hb.schema, [_col_take(c, idx) for c in hb.cols],
                      len(idx))
+
+
+def _widen(m: np.ndarray, w: int) -> np.ndarray:
+    if m.shape[1] >= w:
+        return m
+    out = np.zeros((m.shape[0], w), np.uint8)
+    out[:, :m.shape[1]] = m
+    return out
+
+
+def _dict_expand(c: _HostCol) -> _HostCol:
+    """A dict host column in the plain (n, W) layout."""
+    if c.kind != "dict":
+        return c
+    return _HostCol("str", c.data[c.codes], c.validity, c.lengths[c.codes])
+
+
+def _string_concat(parts: List[_HostCol], rows: List[int],
+                   v: Optional[np.ndarray]) -> _HostCol:
+    """The JAX package's rule: all-dictionary parts merge their
+    dictionaries by offsetting codes (part 0's entry 0 keeps code 0 the
+    empty string) while the merged dictionary has at most max(rows, 8)
+    entries; otherwise every part expands to the plain layout."""
+    entries = sum(p.data.shape[0] for p in parts if p.kind == "dict")
+    if all(p.kind == "dict" for p in parts) and entries <= max(sum(rows), 8):
+        w = max(p.data.shape[1] for p in parts)
+        codes, base = [], 0
+        for p in parts:
+            codes.append(p.codes + np.int32(base))
+            base += p.data.shape[0]
+        return _HostCol("dict",
+                        np.concatenate([_widen(p.data, w) for p in parts]),
+                        v, np.concatenate([p.lengths for p in parts]),
+                        np.concatenate(codes))
+    parts = [_dict_expand(p) for p in parts]
+    w = max(p.data.shape[1] for p in parts)
+    return _HostCol("str", np.concatenate([_widen(p.data, w) for p in parts]),
+                    v, np.concatenate([p.lengths for p in parts]))
 
 
 def _col_concat(parts: List[_HostCol], rows: List[int]) -> _HostCol:
@@ -154,6 +208,8 @@ def _col_concat(parts: List[_HostCol], rows: List[int]) -> _HostCol:
         v = None
     if parts[0].kind == "null":
         return _HostCol("null", None, v)
+    if parts[0].kind in ("str", "dict"):
+        return _string_concat(parts, rows, v)
     return _HostCol("num", np.concatenate([p.data for p in parts]), v)
 
 
@@ -171,47 +227,89 @@ def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
     """A host batch onto `device` (None: the CUDA card) in ONE host->device
     copy: every column and validity is laid out, padded to the capacity,
     in one byte buffer, uploaded, and viewed back per column. Invalid
-    slots are zeroed first (the batch invariant). The copy is a plain
+    slots are zeroed first (the batch invariant). A string column's width
+    is the bucket of its longest row; a dictionary keeps its entries in a
+    `bucket_dict_rows` table. The copy is a plain
     blocking one: `non_blocking` from unpinned numpy memory may read the
     buffer after it is freed."""
     dev = resolve_device(device)
     n = hb.num_rows
     cap = capacity or bucket_capacity(n)
-    plan = []   # (field, np dtype of data, has validity)
-    size = 0
+    # each column's parts, (offset, np dtype, shape) in one byte buffer,
+    # padded to the capacity; offsets are 8-byte aligned
+    views, size = [], 0
     for f, c in zip(hb.schema.fields, hb.cols):
-        npdt = np.dtype(f.dtype.np_dtype())
-        hasv = c.kind == "null" or c.validity is not None
-        plan.append((f, npdt, hasv))
-        # parts are padded to 8 bytes so each view starts aligned
-        size += -(-cap * npdt.itemsize // 8) * 8
-        if hasv:
-            size += -(-cap // 8) * 8
+        if c.kind == "dict":
+            K = c.data.shape[0]
+            w = bucket_width(max(int(c.lengths.max()) if K else 1, 1))
+            kcap = bucket_dict_rows(max(K, 1))
+            parts = [(np.int32, (cap,)), (np.uint8, (kcap, w)),
+                     (np.int32, (kcap,))]
+        elif c.kind == "str":
+            w = bucket_width(max(int(c.lengths.max()) if n else 1, 1))
+            parts = [(np.uint8, (cap, w)), (np.int32, (cap,))]
+        else:
+            parts = [(f.dtype.np_dtype(), (cap,))]
+        if c.kind == "null" or c.validity is not None:
+            parts.append((np.bool_, (cap,)))
+        vs = []
+        for t, shape in parts:
+            t = np.dtype(t)
+            vs.append((size, t, shape))
+            size += -(-int(np.prod(shape)) * t.itemsize // 8) * 8
+        views.append(vs)
     buf = np.zeros((size,), np.uint8)
-    off = 0
-    spans = []
-    for (f, npdt, hasv), c in zip(plan, hb.cols):
-        dspan = (off, npdt)
-        if c.kind != "null":
-            d = buf[off:off + cap * npdt.itemsize].view(npdt)
-            d[:n] = c.data
-            if c.validity is not None:
-                d[:n][~c.validity] = 0
-        off += -(-cap * npdt.itemsize // 8) * 8
-        vspan = None
-        if hasv:
-            vspan = off
-            if c.validity is not None:
-                buf[off:off + n] = c.validity
-            off += -(-cap // 8) * 8
-        spans.append((dspan, vspan))
+
+    def host(v):
+        off, t, shape = v
+        return buf[off:off + int(np.prod(shape)) * t.itemsize].view(
+            t).reshape(shape)
+
+    for c, vs in zip(hb.cols, views):
+        # rows [0, n) of each per-row part; invalid ones are zeroed below
+        # (the batch invariant; a dictionary row's code 0 is the empty
+        # string)
+        if c.kind == "dict":
+            K = c.data.shape[0]
+            rows = [host(vs[0])[:n]]
+            rows[0][:] = c.codes
+            db = host(vs[1])
+            cw = min(db.shape[1], c.data.shape[1])
+            db[:K, :cw] = c.data[:, :cw]
+            host(vs[2])[:K] = c.lengths
+        elif c.kind == "str":
+            rows = [host(vs[0])[:n], host(vs[1])[:n]]
+            cw = min(rows[0].shape[1], c.data.shape[1])
+            rows[0][:, :cw] = c.data[:, :cw]
+            rows[1][:] = c.lengths
+        elif c.kind != "null":
+            rows = [host(vs[0])[:n]]
+            rows[0][:] = c.data
+        if c.validity is not None:
+            host(vs[-1])[:n] = c.validity
+            if c.kind != "null":
+                for r in rows:
+                    r[~c.validity] = 0
     flat = torch.from_numpy(buf).to(dev)
+
+    def dev_view(v, tdt):
+        off, t, shape = v
+        return flat[off:off + int(np.prod(shape)) * t.itemsize].view(
+            tdt).reshape(shape)
+
     cols = []
-    for (f, npdt, _), ((doff, _), voff) in zip(plan, spans):
-        tdt = f.dtype.torch_dtype()
-        data = flat[doff:doff + cap * npdt.itemsize].view(tdt)
-        valid = (None if voff is None
-                 else flat[voff:voff + cap].view(torch.bool))
+    for f, c, vs in zip(hb.schema.fields, hb.cols, views):
+        valid = (dev_view(vs[-1], torch.bool)
+                 if c.kind == "null" or c.validity is not None else None)
+        if c.kind == "dict":
+            data = DictData(dev_view(vs[0], torch.int32),
+                            dev_view(vs[1], torch.uint8),
+                            dev_view(vs[2], torch.int32))
+        elif c.kind == "str":
+            data = StringData(dev_view(vs[0], torch.uint8),
+                              dev_view(vs[1], torch.int32))
+        else:
+            data = dev_view(vs[0], f.dtype.torch_dtype())
         cols.append(Column(f.dtype, data, valid))
     return ColumnBatch(hb.schema, cols,
                        torch.tensor(n, dtype=torch.int32, device=dev), cap)
@@ -219,13 +317,21 @@ def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
 
 def host_to_pylike(hb: HostBatch) -> dict:
     """`ColumnBatch.to_numpy()`'s dict from a host batch: numpy per field,
-    an object array with None for nulls where a column has any. The
+    an object array with None for nulls where a column has any, strings
+    as a list of bytes or None. The
     ordered collect hands it to the driver without a second device pull."""
     out = {}
     n = hb.num_rows
     for f, c in zip(hb.schema.fields, hb.cols):
         if c.kind == "null":
             out[f.name] = np.full((n,), None, object)
+            continue
+        if c.kind in ("str", "dict"):
+            c = _dict_expand(c)
+            valid = (c.validity if c.validity is not None
+                     else np.ones((n,), bool))
+            out[f.name] = [bytes(c.data[i, :c.lengths[i]]) if valid[i]
+                           else None for i in range(n)]
             continue
         d = np.asarray(c.data[:n]).astype(f.dtype.np_dtype(), copy=False)
         if c.validity is None or c.validity.all():

@@ -29,7 +29,9 @@ sorted-build order. Join keys with nulls never match unless the key is
 null-safe (`<=>`): rows carrying a null in a plain key get a per-side tag
 in a "disable" key so they cannot share a run across sides. Float keys
 match as the sort encoding orders them: NaN equals NaN and -0.0 equals
-0.0. String keys wait for exprs/strings.py and raise.
+0.0. String keys are encoded at their full width (join equality is exact;
+only ORDER BY keys stop at 64 bytes), and the match phase pads both sides
+to one word count, so sides of different width buckets agree.
 
 Naming below is probe/build: SMJ probes with the LEFT child streaming
 against the materialized right; BHJ probes with the stream side against
@@ -92,31 +94,42 @@ class JoinKey:
 # ---------------------------------------------------------------------------
 
 def _equality_keys(batch: ColumnBatch, cols: Sequence[int],
-                   force_flags: Sequence[bool]) -> List[Key]:
+                   force_flags: Sequence[bool],
+                   string_words_n: Optional[Sequence[Optional[int]]] = None,
+                   ) -> List[Key]:
     """Encoded keys; both sides must produce identical layouts, so a null
-    flag is emitted whenever EITHER side's column carries validity."""
+    flag is emitted whenever EITHER side's column carries validity, and
+    string keys pad to a common word count."""
     mask = batch.row_mask()
     out: List[Key] = []
-    for ci, force in zip(cols, force_flags):
+    for i, (ci, force) in enumerate(zip(cols, force_flags)):
         col = batch.columns[ci]
         if force and col.validity is None:
             col = Column(col.dtype, col.data,
                          torch.ones((batch.capacity,), dtype=torch.bool,
                                     device=batch.device))
-        out.extend(encode_column(col, True, True, mask))
+        exact = string_words_n[i] if string_words_n else None
+        if col.is_string and exact is None:
+            exact = (col.data.width + 7) // 8
+        out.extend(encode_column(col, True, True, mask,
+                                 exact_string_words=exact))
     return out
 
 
 def _join_sort_keys(batch: ColumnBatch, cols: Sequence[int],
                     null_safe: Sequence[bool], force_flags: Sequence[bool],
-                    side_tag: int) -> List[Key]:
+                    side_tag: int,
+                    string_words_n: Optional[Sequence[Optional[int]]] = None,
+                    ) -> List[Key]:
     """The composite ordering every join phase agrees on: [liveness,
     null-disable, encoded equality keys...]. The build sort and the merged
     match sort both use exactly this order, so build positions stay
-    aligned across phases."""
+    aligned across phases (extra zero words of a wider match layout never
+    change the relative order of the build-side sort)."""
     dead = (~batch.row_mask()).to(torch.int64)
     dis = _null_disable(batch, cols, null_safe, side_tag)
-    return [(dead, 1), (dis, 2)] + _equality_keys(batch, cols, force_flags)
+    return [(dead, 1), (dis, 2)] + _equality_keys(batch, cols, force_flags,
+                                                  string_words_n)
 
 
 def _null_disable(batch: ColumnBatch, cols: Sequence[int],
@@ -165,8 +178,16 @@ def match_ranges(build: ColumnBatch, probe: ColumnBatch,
     capB, capP = build.capacity, probe.capacity
     cap = capB + capP
     dev = probe.device
-    bkeys = _join_sort_keys(build, build_cols, null_safe, force_flags, 0)
-    pkeys = _join_sort_keys(probe, probe_cols, null_safe, force_flags, 1)
+    # one string word count for both sides, so their layouts agree
+    swords: List[Optional[int]] = []
+    for bc, pc in zip(build_cols, probe_cols):
+        b, p = build.columns[bc], probe.columns[pc]
+        swords.append(max((b.data.width + 7) // 8, (p.data.width + 7) // 8)
+                      if b.is_string else None)
+    bkeys = _join_sort_keys(build, build_cols, null_safe, force_flags, 0,
+                            swords)
+    pkeys = _join_sort_keys(probe, probe_cols, null_safe, force_flags, 1,
+                            swords)
     keys: List[Key] = []
     for (bw, bb), (pw, pb) in zip(bkeys, pkeys):
         if bb != pb:
@@ -255,11 +276,10 @@ def expand_pairs(start: torch.Tensor, cnt: torch.Tensor, out_cap: int,
 
 def _null_columns(schema: Schema, cap: int, device) -> List[Column]:
     """All-null columns of `schema` (zero data, validity all False)."""
-    return [Column(f.dtype,
-                   torch.zeros((cap,), dtype=f.dtype.torch_dtype(),
-                               device=device),
+    empty = ColumnBatch.empty(schema, cap, device=device)
+    return [Column(f.dtype, c.data,
                    torch.zeros((cap,), dtype=torch.bool, device=device))
-            for f in schema.fields]
+            for f, c in zip(schema.fields, empty.columns)]
 
 
 def _nullable(fields: Sequence[Field]) -> List[Field]:

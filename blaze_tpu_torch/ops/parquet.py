@@ -17,10 +17,8 @@ JAX package does with pipelining off (the prefetch waits for
 runtime/pipeline.py).
 
 The sink writes the same files as the JAX package's sink: the same rows,
-the same row groups, under the same names. Its one output row holds
-(num_rows, num_bytes); the JAX package's also holds the path, a string
-column that waits for exprs/strings.py, so the port keeps the paths in
-`ParquetSinkExec.written_paths`.
+the same row groups, under the same names, and yields the same one stats
+row (path, num_rows, num_bytes).
 """
 
 from __future__ import annotations
@@ -216,10 +214,10 @@ def _scalar_to_literal(v, f: Field) -> ir.Literal:
 class ParquetSinkExec(Operator):
     """Arrow->parquet writer (ref parquet_sink_exec.rs; used by the
     NativeParquetInsertIntoHiveTable path). Writes one part file a task
-    and yields one stats row (num_rows, num_bytes); the file's path is in
-    `written_paths` (module docstring)."""
+    and yields one stats row (path, num_rows, num_bytes)."""
 
-    STATS_SCHEMA = Schema([Field("num_rows", T.INT64, nullable=False),
+    STATS_SCHEMA = Schema([Field("path", T.STRING, nullable=False),
+                           Field("num_rows", T.INT64, nullable=False),
                            Field("num_bytes", T.INT64, nullable=False)])
 
     def __init__(self, child: Operator, path: str,
@@ -231,7 +229,6 @@ class ParquetSinkExec(Operator):
         self.fs_resource_id = fs_resource_id
         self.row_group_rows = row_group_rows or 1 << 20
         self.props = props or {}
-        self.written_paths: List[str] = []
 
     @property
     def schema(self) -> Schema:
@@ -300,10 +297,9 @@ class ParquetSinkExec(Operator):
                 if not isinstance(sink, str) and hasattr(sink, "close"):
                     sink.close()
             nbytes = 0 if self.fs_resource_id else filesystem.size(out_path)
-            self.written_paths.append(out_path)
             self.metrics.add("output_rows_written", rows)
             yield ColumnBatch.from_numpy(
-                {"num_rows": np.array([rows], np.int64),
+                {"path": [out_path], "num_rows": np.array([rows], np.int64),
                  "num_bytes": np.array([nbytes], np.int64)},
                 self.STATS_SCHEMA, device=ctx.device)
 

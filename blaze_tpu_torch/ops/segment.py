@@ -45,13 +45,21 @@ def _col_neighbor_eq(col: Column) -> torch.Tensor:
     """eq[i] = row i equals row i-1 in this column (eq[0] = False).
 
     Null == null (Spark grouping: null is its own group); NaN == NaN and
-    -0.0 == 0.0 for floats."""
+    -0.0 == 0.0 for floats; strings compare their bytes up to the length,
+    and the lengths."""
     valid = col.valid_mask()
     vprev = torch.roll(valid, 1)
-    prev = torch.roll(col.data, 1)
-    data_eq = col.data == prev
-    if col.data.dtype.is_floating_point:
-        data_eq = data_eq | (torch.isnan(col.data) & torch.isnan(prev))
+    if col.is_string:
+        b, ln = col.data.bytes, col.data.lengths
+        pos = torch.arange(b.shape[1], dtype=torch.int32, device=b.device)
+        in_len = pos[None, :] < ln[:, None]
+        data_eq = (ln == torch.roll(ln, 1)) & (
+            (b == torch.roll(b, 1, dims=0)) | ~in_len).all(dim=1)
+    else:
+        prev = torch.roll(col.data, 1)
+        data_eq = col.data == prev
+        if col.data.dtype.is_floating_point:
+            data_eq = data_eq | (torch.isnan(col.data) & torch.isnan(prev))
     eq = torch.where(valid & vprev, data_eq, ~valid & ~vprev)
     if eq.shape[0]:
         eq[0] = False

@@ -416,8 +416,8 @@ class IpcReaderExec(Operator):
                 pending.append(hb)
                 pending_bytes += host_sort.host_nbytes(hb)
 
-            # every dense schema has a host form; string and nested
-            # columns raise in the frame decode, naming exprs/strings.py
+            # every dense and string schema has a host form; nested
+            # columns raise in the frame decode, naming their module
             try:
                 for seg in source:
                     ctx.check_running()

@@ -19,7 +19,9 @@ import time
 from typing import List, Optional, Sequence
 
 from blaze_tpu_torch.columnar import serde
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, StringData, bucket_capacity,
+)
 from blaze_tpu_torch.columnar.types import Schema
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.ops.base import (
@@ -38,7 +40,11 @@ def truncate(batch: ColumnBatch, limit: int) -> ColumnBatch:
     n = batch.num_rows.clamp(max=limit)
     if cap >= batch.capacity:
         return batch.with_num_rows(n)
-    cols = [Column(c.dtype, c.data[:cap],
+    cols = [Column(c.dtype,
+                   # a dictionary column comes out expanded, as in the
+                   # JAX package
+                   StringData(c.data.bytes[:cap], c.data.lengths[:cap])
+                   if c.is_string else c.data[:cap],
                    None if c.validity is None else c.validity[:cap])
             for c in batch.columns]
     return ColumnBatch(batch.schema, cols, n, cap)
@@ -125,14 +131,14 @@ class ExternalSorter(M.MemConsumer):
         merged macro-batch, sized inside the budget class that forced the
         spill, is uploaded once. The JAX package keeps a device-dispatch
         merge (`_merge_runs_device`) for the schemas the host merge does
-        not hold, string and list columns, whose storage is not ported."""
+        not hold, list columns, whose storage is not ported."""
         from blaze_tpu_torch.ops import host_sort
 
         if not host_sort.host_supported(self.schema):
             raise NotImplementedError(
-                "merging spilled sort runs of string or list columns "
+                "merging spilled sort runs of list or struct columns "
                 "(ExternalSorter._merge_runs_device) needs their storage "
-                "(exprs/strings.py), not yet ported")
+                "(the nested storage of columnar/batch.py), not yet ported")
         t0 = time.perf_counter_ns()
         emit = int(max(self.manager.total // 4, 1 << 20))
         iters = [r.read_host() for r in self.runs]

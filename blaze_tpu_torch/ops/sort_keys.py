@@ -26,23 +26,28 @@ Encodings (the JAX package's, in int64):
   * nulls: a 1-bit flag key before the value; a null's value is the
     domain's least (its greatest when descending)
   * descending: the complement of the value within its width
-String keys (`string_words`) wait for the strings slice and raise.
+  * strings: the first 8 big-endian 8-byte words of the zero-padded bytes
+    (64-bit keys), then the length (32 bits). Strings longer than 64 bytes
+    that share those 64 bytes and their length tie, as in the JAX package
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
+from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, StringData
 from blaze_tpu_torch.columnar.types import TypeKind
 
 Key = Tuple[torch.Tensor, int]   # (int64 word, bits)
 
 _I64_MIN = -(1 << 63)
 _LOW63 = (1 << 63) - 1
+
+# default prefix words of a string ORDER BY key (8 bytes each)
+DEFAULT_MAX_STRING_WORDS = 8
 
 _INT_BITS = {TypeKind.INT8: 8, TypeKind.INT16: 16, TypeKind.INT32: 32,
              TypeKind.DATE: 32}
@@ -73,14 +78,35 @@ def _float_word(x: torch.Tensor) -> Key:
     return torch.where(s < 0, s ^ _LOW63, s), 64
 
 
-def string_words(*_args, **_kw):
-    raise NotImplementedError(
-        "string sort keys (string_words) need string storage "
-        "(exprs/strings.py), not yet ported")
+def string_words(s: StringData, max_words: Optional[int] = None,
+                 exact_words: Optional[int] = None) -> List[torch.Tensor]:
+    """Big-endian 64-bit words of the padded byte matrix, each an int64
+    whose signed order is the words' unsigned order (XOR the sign bit).
+
+    `exact_words` pads or cuts to a fixed word count, so the two sides of
+    a join emit the same key layout whatever their width buckets."""
+    cap, w = s.bytes.shape
+    nwords = (w + 7) // 8
+    if max_words is not None:
+        nwords = min(nwords, max_words)
+    if exact_words is not None:
+        nwords = exact_words
+    padded_w = nwords * 8
+    b = s.bytes[:, :padded_w]
+    if padded_w > w:
+        b = torch.nn.functional.pad(b, (0, padded_w - w))
+    b = b.reshape(cap, nwords, 8).to(torch.int64)
+    packed = b[..., 0] << 56
+    for i in range(1, 8):
+        packed = packed | (b[..., i] << (56 - 8 * i))
+    packed = packed ^ _I64_MIN
+    return [packed[:, i] for i in range(nwords)]
 
 
 def encode_column(col: Column, asc: bool, nulls_first: bool,
-                  row_mask: torch.Tensor) -> List[Key]:
+                  row_mask: torch.Tensor,
+                  max_string_words: int = DEFAULT_MAX_STRING_WORDS,
+                  exact_string_words: Optional[int] = None) -> List[Key]:
     """Key words of one column; earlier words are more significant."""
     keys: List[Key] = []
     valid = col.valid_mask() & row_mask
@@ -89,10 +115,18 @@ def encode_column(col: Column, asc: bool, nulls_first: bool,
         flag = valid if nulls_first else ~valid
         keys.append((flag.to(torch.int64), 1))
     k = col.dtype.kind
-    if col.dtype.is_string_like or col.dtype.is_nested or \
-            col.dtype.wide_decimal:
-        string_words()
+    if col.dtype.is_nested or col.dtype.wide_decimal:
+        raise NotImplementedError(
+            f"sort keys of {col.dtype} need nested or wide-decimal storage "
+            "(columnar/batch.py, exprs/wide_decimal.py), not yet ported")
     if k == TypeKind.NULL:
+        return keys
+    if col.is_string:
+        words = [(w, 64) for w in string_words(
+            col.data, max_string_words, exact_string_words)]
+        words.append((col.data.lengths.to(torch.int64), 32))
+        for word, bits in words:
+            keys.append(_directed(word, bits, valid, asc))
         return keys
     if k == TypeKind.BOOLEAN:
         word, bits = col.data.to(torch.int64), 1
@@ -103,14 +137,19 @@ def encode_column(col: Column, asc: bool, nulls_first: bool,
         word = col.data.to(torch.int64) + (1 << (bits - 1))
     else:  # int64, timestamp, decimal: signed order is the key order
         word, bits = col.data.to(torch.int64), 64
+    keys.append(_directed(word, bits, valid, asc))
+    return keys
+
+
+def _directed(word: torch.Tensor, bits: int, valid: torch.Tensor,
+              asc: bool) -> Key:
     # nulls take the domain's least value (the JAX package zeroes its
     # unsigned encoding); the flag already ranks them
     least = _I64_MIN if bits == 64 else 0
     word = torch.where(valid, word, torch.full_like(word, least))
     if not asc:
         word = ~word if bits == 64 else ((1 << bits) - 1) - word
-    keys.append((word, bits))
-    return keys
+    return word, bits
 
 
 def pack_keys(keys: Sequence[Key]) -> List[torch.Tensor]:

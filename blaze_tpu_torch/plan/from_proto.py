@@ -4,7 +4,8 @@ Port of blaze_tpu/plan/from_proto.py (ref: blaze-serde from_proto.rs:
 121-793, lib.rs:191-535). The same `TaskDefinition` bytes decode in both
 packages: plan_pb2.py is the JAX package's generated module, copied. Types
 and scalars decode in full; expressions decode for the kinds the port's
-compiler handles, IN lists, CASE and IF included; plan nodes decode for
+compiler handles, IN lists, CASE, IF, scalar functions, string predicates
+and LIKE included; plan nodes decode for
 the arms of the ported operators — ffi_reader, filter, projection, agg,
 rename_columns, sort (with its fetch limit), limit, union,
 empty_partitions, coalesce_batches, shuffle_writer, rss_shuffle_writer,
@@ -12,7 +13,7 @@ ipc_writer, ipc_reader, sort_merge_join, broadcast_join,
 broadcast_nested_loop_join, parquet_scan, parquet_sink and debug. Every
 other expression kind or plan node (windows, expand, generate) raises
 NotImplementedError naming it, and the module that will run it where one
-is known (scalar functions, string predicates, LIKE).
+is known.
 """
 
 from __future__ import annotations
@@ -147,15 +148,6 @@ _FN_NAME = {
     pb.FN_DAY: "day",
 }
 
-# expression kinds that decode in the JAX package but wait for a module of
-# the port: the decoder raises naming it
-_EXPR_MODULE = {
-    "scalar_fn": "exprs/functions.py",
-    "string_predicate": "exprs/strings.py",
-    "like": "exprs/strings.py",
-}
-
-
 def decode_expr(p: pb.ExprNode) -> ir.Expr:
     which = p.WhichOneof("expr")
     if which == "column":
@@ -195,10 +187,23 @@ def decode_expr(p: pb.ExprNode) -> ir.Expr:
         i = p.if_expr
         return ir.If(decode_expr(i.condition), decode_expr(i.then),
                      decode_expr(i.else_expr))
-    if which in _EXPR_MODULE:
-        raise NotImplementedError(
-            f"expression kind {which} ({_EXPR_MODULE[which]}) not yet "
-            "ported")
+    if which == "scalar_fn":
+        f = p.scalar_fn
+        name = f.ext_name if f.fn == pb.FN_EXT else _FN_NAME[f.fn]
+        rt = (decode_dtype(f.result_type)
+              if f.HasField("result_type") else None)
+        return ir.ScalarFn(name, tuple(decode_expr(a) for a in f.args), rt)
+    if which == "string_predicate":
+        sp = p.string_predicate
+        op = {pb.StringPredicateExpr.STARTS_WITH: "starts_with",
+              pb.StringPredicateExpr.ENDS_WITH: "ends_with",
+              pb.StringPredicateExpr.CONTAINS: "contains"}[sp.op]
+        return ir.StringPredicate(op, decode_expr(sp.child),
+                                  bytes(sp.pattern))
+    if which == "like":
+        lk = p.like
+        return ir.Like(decode_expr(lk.child), bytes(lk.pattern),
+                       bytes(lk.escape) or b"\\")
     raise NotImplementedError(f"expression kind {which}")
 
 

@@ -331,7 +331,16 @@ def batch_nbytes(batch: ColumnBatch) -> int:
     shapes only, never the device."""
     total = 0
     for c in batch.columns:
-        total += c.data.numel() * c.data.element_size()
+        d = c.data
+        if c.is_dict:
+            # the encoded form: codes and the small dictionary, not the
+            # expanded (capacity, width) matrix
+            total += (4 * d.codes.shape[0] + d.dict_bytes.numel()
+                      + 4 * d.dict_lengths.shape[0])
+        elif c.is_string:
+            total += d.bytes.numel() + 4 * d.lengths.shape[0]
+        else:
+            total += d.numel() * d.element_size()
         if c.validity is not None:
             total += c.validity.numel()
     return total

@@ -44,10 +44,12 @@ import torch
 
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, bucket_capacity, require_dense_kind,
+    Column, ColumnBatch, DictData, StringData, bucket_capacity,
+    require_dense_kind,
 )
 from blaze_tpu_torch.columnar.types import TypeKind
 from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.exprs import strings as S
 from blaze_tpu_torch.ops import mxu_agg
 from blaze_tpu_torch.ops import segment as seg
 from blaze_tpu_torch.ops.agg import (
@@ -205,7 +207,15 @@ def _meta_like(b: ColumnBatch) -> ColumnBatch:
     def t(x):
         return None if x is None else torch.empty_like(x, device="meta")
 
-    cols = [Column(c.dtype, t(c.data), t(c.validity)) for c in b.columns]
+    def data(c):
+        if c.is_dict:
+            return DictData(t(c.data.codes), t(c.data.dict_bytes),
+                            t(c.data.dict_lengths))
+        if c.is_string:
+            return StringData(t(c.data.bytes), t(c.data.lengths))
+        return t(c.data)
+
+    cols = [Column(c.dtype, data(c), t(c.validity)) for c in b.columns]
     return ColumnBatch(b.schema, cols, t(b.num_rows), b.capacity)
 
 
@@ -253,9 +263,12 @@ def try_run_stage(root: Operator, ctx: ExecContext,
     for i, call in enumerate(partial.aggs):
         col = input_fns[i](mb)
         has_validity.append(col.validity is not None)
+        # a string input reaches here only under count, which reads its
+        # validity alone
+        vdt = torch.uint8 if col.is_string else col.data.dtype
         sum_is_float.append(call.fn in ("sum", "avg")
-                            and col.data.dtype.is_floating_point)
-        val_dtypes.append(col.data.dtype)
+                            and vdt.is_floating_point)
+        val_dtypes.append(vdt)
     float_calls = [i for i, f in enumerate(sum_is_float) if f]
 
     memo_key = (root.plan_key(), shape0)
@@ -322,8 +335,17 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
         valid = None
         if any(p.validity is not None for p in parts):
             valid = torch.cat([p.valid_mask() for p in parts])
-        cols.append(Column(f.dtype, torch.cat([p.data for p in parts]),
-                           valid))
+        if parts[0].is_string:
+            # one width: the batches share a shape key; dictionaries
+            # expand (each batch may carry its own)
+            w = max(p.data.width for p in parts)
+            datas = [S.ensure_width(StringData(p.data.bytes, p.data.lengths),
+                                    w) for p in parts]
+            data = StringData(torch.cat([d.bytes for d in datas]),
+                              torch.cat([d.lengths for d in datas]))
+        else:
+            data = torch.cat([p.data for p in parts])
+        cols.append(Column(f.dtype, data, valid))
     flat = ColumnBatch(root.schema, cols,
                        torch.tensor(cap, dtype=torch.int32,
                                     device=batches[0].device), cap)

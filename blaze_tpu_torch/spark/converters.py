@@ -16,10 +16,10 @@ row interpreter (spark/fallback.py), which the port does not have: the
 port's runner raises naming it as soon as a bridge is drained.
 
 Tagging needs to know which scalar functions the engine runs natively.
-The port has no exprs/functions.py yet, so `_FN_NAMES` keeps a copy of
-the JAX registry's names only, and tagging decides as the JAX package
-decides; evaluating such a function still raises in the decoder, naming
-exprs/functions.py.
+The port's exprs/functions.py registers the JAX registry's names, so
+tagging decides as the JAX package decides and stage bytes do not move;
+it runs `substring`/`substr`, and compiling any other of those names
+raises there, naming exprs/functions.py.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.types import Schema, TypeKind
 from blaze_tpu_torch.config import conf
-from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs import functions, ir
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.to_proto import (
     encode_dtype, encode_expr, encode_schema,
@@ -57,28 +57,11 @@ _AGG_FN = {
 _AGG_MODE = {"partial": pb.AGG_PARTIAL, "partial_merge": pb.AGG_PARTIAL_MERGE,
              "final": pb.AGG_FINAL}
 
-# names of the JAX package's scalar-function registry
-# (blaze_tpu/exprs/functions.py registered_names())
-_FN_NAMES = frozenset({
-    "abs", "acos", "ascii", "asin", "atan", "atan2", "bit_length", "btrim",
-    "ceil", "char_length", "character_length", "chr", "coalesce", "concat",
-    "concat_ws", "cos", "crc32", "date_add", "date_sub", "datediff", "day",
-    "dayofmonth", "dayofweek", "exp", "floor", "get_json_object",
-    "get_parsed_json_object", "hash", "hex", "initcap", "instr", "left",
-    "length", "ln", "log", "log10", "log2", "lower", "lpad", "ltrim",
-    "make_array", "md5", "month", "murmur3_hash", "null_if_zero", "nullif",
-    "nullifzero", "octet_length", "parse_json", "position", "pow", "power",
-    "repeat", "replace", "reverse", "right", "round", "rpad", "rtrim",
-    "sha224", "sha256", "sha384", "sha512", "signum", "sin", "split_part",
-    "sqrt", "string_space", "strpos", "substr", "substring", "tan",
-    "to_hex", "translate", "trim", "trunc", "upper", "year",
-})
-
-
 def is_supported(name: str) -> bool:
-    """Plan-time check of the expression walk: does the JAX package's
-    registry run this scalar function natively?"""
-    return name.lower() in _FN_NAMES
+    """Plan-time check of the expression walk: does the scalar-function
+    registry run this function natively? The registry holds the JAX
+    package's names, so tagging decides as it does."""
+    return functions.is_supported(name)
 
 
 class ConversionError(Exception):

@@ -69,7 +69,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 row group each (SF100's row counts cut 2.1x, 2.1x, 17x;
                 widths and key domains kept: 2 M customers, 5% null date
                 and customer keys; store_sales at spark/tpcds.py's full
-                width of 12 columns)
+                width of 12 columns), and phase 16's dimension tables
  13. tpcds_q02  q02 (spark/tpcds.py:367, BHJ mode): a broadcast stage of
                 date_dim, 16 map tasks of Union(scan ws, scan cs) ->
                 BroadcastJoin -> the dense partial agg by (d_year, d_qoy)
@@ -95,9 +95,21 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 rows, q09's four bucket averages against numpy, rtol
                 1e-9) and once timed; run_info's stage counts, routes,
                 launches and host pulls
+ 16. runner_strings  spark/tpcds.py's q03, q06, q07 and q08 (BHJ) the same
+                way, over phase 12's store_sales files and the dimension
+                tables it also writes at SF100's row counts (item 204,000,
+                customer 2,000,000, customer_address 1,000,000,
+                customer_demographics 1,920,800, store 402, promotion
+                1,000; string ids, brands, categories, states and zips):
+                string literals, comparisons, group, sort and join keys,
+                substring and string broadcasts through the serde. Each
+                against numpy (strings and counts exact, sums and
+                averages rtol 1e-9), once timed, and one q07 map task
+                profiled (device busy, idle share, top operations)
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phase 15 has run_plan convert and decode them.
+decode_task_definition; phases 15-16 have run_plan convert and decode
+them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
 kernels line, the card's `nvidia-smi` line, and last
@@ -1410,31 +1422,39 @@ def _store_sales_rest(rng, n, price):
     them from the same generator with spark/tpcds.py's distributions
     (generate_tables) on SF100's dimension sizes. Returns {column: Arrow
     array} and what q09's oracle needs: each quantity bucket's row count
-    and the sum and count of its non-null ss_ext_sales_price."""
+    and the sum and count of its non-null ss_ext_sales_price, and the
+    host columns the string queries' oracles read."""
     import pyarrow as pa
 
-    def cents(hi, lo=0.0):  # tpcds.py's rounded prices, 4% null
-        v = np.round(rng.random(n) * (hi - lo) + lo, 2)
-        return pa.array(v, mask=rng.random(n) < 0.04)
+    host = {}  # name -> (values, valid) for the string queries' oracles
 
-    cols = {f"ss_{name}_sk": pa.array(rng.integers(1, size + 1, n))
-            for name, size in SS_DIMS}
+    def cents(name, hi, lo=0.0):  # tpcds.py's rounded prices, 4% null
+        v = np.round(rng.random(n) * (hi - lo) + lo, 2)
+        valid = rng.random(n) >= 0.04
+        host[name] = (v, valid)
+        return pa.array(v, mask=~valid)
+
+    keys = {name: rng.integers(1, size + 1, n) for name, size in SS_DIMS}
+    cols = {f"ss_{name}_sk": pa.array(v) for name, v in keys.items()}
     qty = rng.integers(1, 101, n).astype(np.int32)
     qvalid = rng.random(n) >= 0.04
     cols["ss_quantity"] = pa.array(qty, mask=~qvalid)
-    cols.update(ss_list_price=cents(250), ss_sales_price=cents(200),
-                ss_coupon_amt=cents(40), ss_net_profit=cents(300, -100))
+    cols.update(ss_list_price=cents("lp", 250), ss_sales_price=cents("sp", 200),
+                ss_coupon_amt=cents("ca", 40),
+                ss_net_profit=cents("np", 300, -100))
     q09 = np.array([(inb.sum(), price[inb].sum(), inb.sum()) for inb in
                     (qvalid & (qty >= lo) & (qty <= hi)
                      for lo, hi in Q09_BUCKETS)])
-    return cols, q09
+    host.update(keys, q=(qty.astype(np.float64), qvalid))
+    return cols, q09, host
 
 
-def _fact_file(seed, table, i, path, dd):
+def _fact_file(seed, table, i, path, dd, dims):
     """Write file i of a fact table; returns what the oracles need of it:
     q02's (year, quarter) sums and counts for web and catalog sales, for
     web and store sales the (customer, price) rows of 1999 and 2000, and
-    for store sales q09's bucket counts and sums. store_sales is written
+    for store sales q09's bucket counts and sums and the string queries'
+    partial aggregates (`_string_partials`). store_sales is written
     at spark/tpcds.py's full width (SS), the other tables with the three
     columns the queries read."""
     import pyarrow as pa
@@ -1452,9 +1472,11 @@ def _fact_file(seed, table, i, path, dd):
             ccol: pa.array(cust, mask=~cvalid), pcol: pa.array(price)}
     out = {}
     if table == "store_sales":
-        rest, out["q09"] = _store_sales_rest(rng, n, price)
+        rest, out["q09"], host = _store_sales_rest(rng, n, price)
         cols.update(rest)
         cols = {name: cols[name] for name in SS_COLUMNS}
+        out.update(_string_partials(date, dvalid, cust, cvalid, price, host,
+                                    dd, dims))
     pq.write_table(pa.table(cols), path, row_group_size=n,
                    compression="snappy")
     idx = date[dvalid] - DATE_SK0
@@ -1471,9 +1493,155 @@ def _fact_file(seed, table, i, path, dd):
     return out
 
 
+# the dimension tables the string queries read (runner_strings), at
+# SF100's row counts: spark/tpcds.py's schemas and value formats
+# (generate_tables), one file each
+DIM_ROWS = {"item": dict(SS_DIMS)["item"], "customer": CUSTOMERS,
+            "customer_address": 1_000_000,
+            "customer_demographics": dict(SS_DIMS)["cdemo"],
+            "store": dict(SS_DIMS)["store"],
+            "promotion": dict(SS_DIMS)["promo"]}
+_EDUCATION = ["Primary", "Secondary", "College", "2 yr Degree",
+              "4 yr Degree", "Advanced Degree"]
+
+
+def _dim_tables(seed):
+    """{table: {column: numpy or list of str}} in spark/tpcds.py's formats,
+    and the arrays the oracles index by surrogate key. One departure:
+    tpcds.py ties cd_gender, cd_marital_status and cd_education_status to
+    i % 2, i % 5 and i % 6, so no row is ('M', 'S', 'College') and q07
+    selects nothing; here they vary as a cross product (i % 2, i // 2 % 5,
+    i // 10 % 6), as TPC-DS's customer_demographics does."""
+    from blaze_tpu_torch.spark.tpcds import _CATS, _STATES
+
+    rng = np.random.default_rng([seed, 99])
+    n_it, n_c = DIM_ROWS["item"], DIM_ROWS["customer"]
+    n_ca, n_cd = DIM_ROWS["customer_address"], DIM_ROWS[
+        "customer_demographics"]
+    n_st, n_pr = DIM_ROWS["store"], DIM_ROWS["promotion"]
+    i_it = np.arange(n_it)
+    price = np.round(rng.random(n_it) * 95 + 5, 2)
+    addr = rng.integers(1, n_ca + 1, n_c)
+    i_cd = np.arange(n_cd)
+    i_pr = np.arange(n_pr)
+    tables = {
+        "item": {"i_item_sk": i_it + 1,
+                 "i_item_id": [f"ITEM{i:08d}" for i in range(1, n_it + 1)],
+                 "i_brand_id": (i_it % 50 + 1).astype(np.int32),
+                 "i_brand": [f"Brand#{i % 50 + 1}" for i in range(n_it)],
+                 "i_manufact_id": (i_it % 100 + 1).astype(np.int32),
+                 "i_category": [_CATS[i % len(_CATS)] for i in range(n_it)],
+                 "i_current_price": price},
+        "customer": {"c_customer_sk": np.arange(1, n_c + 1),
+                     "c_customer_id": [f"AAAA{i:012d}"
+                                       for i in range(1, n_c + 1)],
+                     "c_current_addr_sk": addr,
+                     "c_current_cdemo_sk": rng.integers(1, n_cd + 1, n_c)},
+        "customer_address": {
+            "ca_address_sk": np.arange(1, n_ca + 1),
+            "ca_state": [_STATES[i % len(_STATES)] for i in range(n_ca)],
+            "ca_zip": [f"{35000 + 61 * i % 65000:05d}"
+                       for i in range(n_ca)]},
+        "customer_demographics": {
+            "cd_demo_sk": i_cd + 1,
+            "cd_gender": [("M" if i % 2 else "F") for i in range(n_cd)],
+            "cd_marital_status": ["SMDWU"[i // 2 % 5] for i in range(n_cd)],
+            "cd_education_status": [_EDUCATION[i // 10 % 6]
+                                    for i in range(n_cd)]},
+        "store": {"s_store_sk": np.arange(1, n_st + 1),
+                  "s_store_name": [f"Store#{i}" for i in range(1, n_st + 1)],
+                  "s_state": [_STATES[i % 4] for i in range(n_st)],
+                  "s_zip": [f"{35000 + 137 * i % 65000:05d}"
+                            for i in range(n_st)]},
+        "promotion": {"p_promo_sk": i_pr + 1,
+                      "p_channel_email": [("N" if i % 3 else "Y")
+                                          for i in i_pr],
+                      "p_channel_event": [("N" if i % 2 else "Y")
+                                          for i in i_pr]},
+    }
+    cat = i_it % len(_CATS)
+    cat_avg = np.bincount(cat, weights=price) / np.bincount(cat)
+    pad = np.zeros(1, bool)  # index 0: no surrogate key is 0
+    zips = {35000 + 61 * i % 65000 for i in range(min(n_ca, 65000))}
+    dims = {
+        "hot": np.concatenate([pad, price > cat_avg[cat] * 1.2]),
+        "manufact28": np.concatenate([pad, i_it % 100 + 1 == 28]),
+        "cust_addr": np.concatenate([[0], addr]),
+        "ca_state": np.concatenate([[0], np.arange(n_ca) % len(_STATES)]),
+        "cd_ok": np.concatenate([pad, (i_cd % 2 == 1) & (i_cd // 2 % 5 == 0)
+                                 & (i_cd // 10 % 6 == 2)]),
+        "promo_ok": np.concatenate([pad, (i_pr % 3 != 0) | (i_pr % 2 != 0)]),
+        "store_ok": np.concatenate([pad, [35000 + 137 * i % 65000 in zips
+                                          for i in range(n_st)]]),
+    }
+    return tables, dims
+
+
+def _write_dims(tables, work_dir, paths):
+    """One snappy Parquet file a dimension table, typed as spark/tpcds.py's
+    schema of it."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from blaze_tpu_torch.columnar.arrow_io import schema_to_arrow
+    from blaze_tpu_torch.spark import tpcds
+
+    schemas = {"item": tpcds.ITEM, "customer": tpcds.CUST,
+               "customer_address": tpcds.CA,
+               "customer_demographics": tpcds.CD, "store": tpcds.STORE,
+               "promotion": tpcds.PROMO}
+    for name, cols in tables.items():
+        schema = schema_to_arrow(schemas[name])
+        t = pa.table([pa.array(cols[f.name], f.type) for f in schema],
+                     schema=schema)
+        paths[name] = os.path.join(work_dir, f"{name}.parquet")
+        pq.write_table(t, paths[name], compression="snappy")
+
+
+def _string_partials(date, dvalid, cust, cvalid, price, host, dd, dims):
+    """One store_sales file's share of the string queries' answers:
+    q03's per-year sums and counts (d_moy = 11, i_manufact_id = 28), q06's
+    per-state counts (2000-01, hot items, through customer and address),
+    q07's per-item row counts and sums and counts of its four measures
+    (2000, the demographic and the promotion), q08's per-store row counts
+    and net-profit sums and counts (2000 Q2, stores whose zip has
+    customers)."""
+    day = np.where(dvalid, date - DATE_SK0, 0)
+    year, moy, qoy = dd["d_year"][day], dd["d_moy"][day], dd["d_qoy"][day]
+    item, store = host["item"], host["store"]
+    out = {}
+    m = dvalid & (moy == 11) & dims["manufact28"][item]
+    out["q03"] = (np.bincount(year[m] - 1900, weights=price[m],
+                              minlength=202),
+                  np.bincount(year[m] - 1900, minlength=202))
+    m = dvalid & (year == 2000) & (moy == 1) & cvalid & dims["hot"][item]
+    state = dims["ca_state"][dims["cust_addr"][cust[m]]]
+    out["q06"] = np.bincount(state, minlength=8)
+    m = dvalid & (year == 2000) & dims["cd_ok"][host["cdemo"]] & \
+        dims["promo_ok"][host["promo"]]
+    it, n_it = item[m], DIM_ROWS["item"] + 1
+    q07 = [np.bincount(it, minlength=n_it)]
+    for name in ("q", "lp", "ca", "sp"):
+        v, ok = host[name]
+        ok = ok[m]
+        q07 += [np.bincount(it[ok], weights=v[m][ok], minlength=n_it),
+                np.bincount(it[ok], minlength=n_it)]
+    out["q07"] = q07
+    m = dvalid & (year == 2000) & (qoy == 2) & dims["store_ok"][store]
+    v, ok = host["np"]
+    st, n_st = store[m], DIM_ROWS["store"] + 1
+    ok = ok[m]
+    out["q08"] = [np.bincount(st, minlength=n_st),
+                  np.bincount(st[ok], weights=v[m][ok], minlength=n_st),
+                  np.bincount(st[ok], minlength=n_st)]
+    return out
+
+
+
 def write_tpcds(work_dir, seed=TPCDS_SEED):
-    """date_dim and the fact files under work_dir (threads write them in
-    parallel); returns (paths, oracle inputs)."""
+    """date_dim, the dimension tables of the string queries and the fact
+    files under work_dir (threads write the fact files in parallel);
+    returns (paths, oracle inputs)."""
     import concurrent.futures as cf
 
     import pyarrow as pa
@@ -1483,6 +1651,9 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
     os.makedirs(work_dir, exist_ok=True)
     paths = {"date_dim": os.path.join(work_dir, "date_dim.parquet")}
     pq.write_table(pa.table(dd), paths["date_dim"], compression="snappy")
+    tables, dims = _dim_tables(seed)
+    _write_dims(tables, work_dir, paths)
+    del tables
     jobs = []
     for table, nfiles in TPCDS_FILES.items():
         paths[table] = [os.path.join(work_dir, f"{table}_{i:03d}.parquet")
@@ -1493,10 +1664,18 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                     np.zeros(CUSTOMERS + 1, np.int64)]
            for t in ("store_sales", "web_sales") for y in (1999, 2000)}
     q09 = np.zeros((len(Q09_BUCKETS), 3))
+    strings = {}
     with cf.ThreadPoolExecutor(max_workers=8) as ex:
         for (table, _, _), part in zip(jobs, ex.map(
-                lambda j: _fact_file(seed, j[0], j[1], j[2], dd), jobs)):
+                lambda j: _fact_file(seed, j[0], j[1], j[2], dd, dims),
+                jobs)):
             q09 += part.get("q09", 0)
+            for q in ("q03", "q06", "q07", "q08"):
+                if q in part:
+                    acc = strings.get(q)
+                    strings[q] = part[q] if acc is None else (
+                        [a + b for a, b in zip(acc, part[q])]
+                        if isinstance(acc, (list, tuple)) else acc + part[q])
             if "q02" in part:
                 q02[0] += part["q02"][0]
                 q02[1] += part["q02"][1]
@@ -1504,7 +1683,7 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                 acc = q04[(table, y)]
                 acc[0] += np.bincount(c, weights=p, minlength=CUSTOMERS + 1)
                 acc[1] += np.bincount(c, minlength=CUSTOMERS + 1)
-    return paths, {"q02": q02, "q04": q04, "q09": q09}
+    return paths, dict(strings, q02=q02, q04=q04, q09=q09)
 
 
 def _q02_oracle(orc):
@@ -2139,13 +2318,146 @@ def phase_runner_tpcds(paths, orc, work_dir, hand_q02, hand_q04) -> dict:
     return res
 
 
+def _check_rows(d, want, what, float_cols=()):
+    """Columns in order: strings, keys and counts exact, `float_cols`
+    rtol 1e-9 with nulls in the same rows."""
+    _require(list(d) == list(want), f"{what}: columns {list(d)}")
+    for k, w in want.items():
+        g = list(d[k])
+        _require(len(g) == len(w), f"{what}: {len(g)} rows != {len(w)}")
+        _require([x is None for x in g] == [x is None for x in w],
+                 f"{what}: nulls of {k} differ")
+        gv = [x for x in g if x is not None]
+        wv = [x for x in w if x is not None]
+        if k in float_cols:
+            np.testing.assert_allclose(np.array(gv, np.float64),
+                                       np.array(wv, np.float64), rtol=1e-9,
+                                       err_msg=f"{what}: {k}")
+        else:
+            _require([x.item() if hasattr(x, "item") else x for x in gv]
+                     == [x.item() if hasattr(x, "item") else x for x in wv],
+                     f"{what}: {k} differs")
+
+
+def check_q03(out, orc):
+    """q03: one brand a year (i_manufact_id 28 is brand 28), by year."""
+    sums, cnts = orc["q03"]
+    years = np.nonzero(cnts)[0]
+    _check_rows(out.to_numpy(), {
+        "d_year": list(years + 1900), "brand_id": [28] * len(years),
+        "brand": [b"Brand#28"] * len(years), "sum_agg": list(sums[years])},
+        "q03", ("sum_agg",))
+
+
+def check_q06(out, orc):
+    """q06: states with at least 10 rows, by (cnt, state)."""
+    from blaze_tpu_torch.spark.tpcds import _STATES
+
+    rows = sorted((int(c), _STATES[i].encode())
+                  for i, c in enumerate(orc["q06"]) if c >= 10)
+    _check_rows(out.to_numpy(), {"state": [s for _, s in rows],
+                                 "cnt": [c for c, _ in rows]}, "q06")
+
+
+def check_q07(out, orc):
+    """q07: the first 100 items by i_item_id, each measure's average over
+    its non-null rows (null where there are none)."""
+    rows, *measures = orc["q07"]
+    items = np.nonzero(rows)[0][:100]
+    want = {"i_item_id": [f"ITEM{i:08d}".encode() for i in items]}
+    for k, (sums, cnts) in enumerate(zip(measures[0::2], measures[1::2])):
+        want[f"agg{k + 1}"] = [sums[i] / cnts[i] if cnts[i] else None
+                               for i in items]
+    _check_rows(out.to_numpy(), want, "q07",
+                ("agg1", "agg2", "agg3", "agg4"))
+
+
+def check_q08(out, orc):
+    """q08: the first 100 store names in byte order, each store's net
+    profit (null where every value is null)."""
+    rows, sums, cnts = orc["q08"]
+    stores = sorted((f"Store#{i}".encode(), i) for i in np.nonzero(rows)[0])
+    stores = stores[:100]
+    _check_rows(out.to_numpy(), {
+        "s_store_name": [name for name, _ in stores],
+        "net_profit": [sums[i] if cnts[i] else None for _, i in stores]},
+        "q08", ("net_profit",))
+
+
+STRING_QUERIES = {"q03": check_q03, "q06": check_q06, "q07": check_q07,
+                  "q08": check_q08}
+
+
+def _profiled_map_stage(q, paths, work_dir) -> dict:
+    """One more run of q with its map stage (one task over all store_sales
+    files) under torch.profiler: the task's wall time, device busy time,
+    idle share and top device operations."""
+    from blaze_tpu_torch.spark import local_runner
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    real = local_runner._run_shuffle_stage
+    prof = {}
+
+    def profiled(stage, *args):
+        if prof:  # only the first map stage
+            return real(stage, *args)
+        t0 = time.perf_counter()
+        rows, busy_ms = _device_profile(lambda: prof.setdefault(
+            "ret", real(stage, *args)))
+        wall = time.perf_counter() - t0
+        prof.update(task_wall_s=wall, device_busy_ms=busy_ms,
+                    idle_share=1.0 - busy_ms / (wall * 1e3),
+                    device_ops=sum(r[2] for r in rows), top=_top(rows, 15))
+        return prof["ret"]
+
+    local_runner._run_shuffle_stage = profiled
+    try:
+        run_plan(_runner_plan(q, paths),
+                 work_dir=os.path.join(work_dir, "runner", q + "_prof"))
+    finally:
+        local_runner._run_shuffle_stage = real
+    prof.pop("ret", None)
+    return prof
+
+
+def phase_runner_strings(paths, orc, work_dir) -> dict:
+    """spark/tpcds.py's q03, q06, q07 and q08 (BHJ mode) through run_plan
+    over the dimension tables at SF100's row counts and all 8 store_sales
+    files: string literals and equality (q07), string group and sort keys
+    (q03's brand, q06's state, q07's item id, q08's store name), string
+    join keys (q06's category), substring and a string semi-join key
+    (q08), string columns through the broadcasts' serde (customer's 2 M
+    ids in q06, customer_address's 1 M zips in q08). Each query once
+    checked against numpy, then once timed; one q07 map task profiled.
+
+    q10 (its BHJ plan broadcasts whole web_sales and catalog_sales
+    relations through zlib) and q01 (store_returns, which this script
+    does not write) are left to tests/test_torch_runner.py on the CPU."""
+    res = {"phase": "runner_strings", "mode": "bhj"}
+    for q, check in STRING_QUERIES.items():
+        first = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
+        timed = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
+        _require(timed["launches"] == first["launches"],
+                 f"{q}: launches moved between runs")
+        first["result_rows"] = len(next(iter(first.pop("rows").values())))
+        first["checked_s"] = first.pop("wall_s")
+        res[q] = dict(first, timed_s=timed["wall_s"],
+                      stages=_runner_stages(q, paths))
+    res["q07_map_task_profile"] = _profiled_map_stage("q07", paths,
+                                                      work_dir)
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
     paths, orc = write_tpcds(work_dir, seed)
-    files = [paths["date_dim"]] + [p for t in TPCDS_FILES for p in paths[t]]
+    files = [paths["date_dim"]] + [paths[t] for t in DIM_ROWS] + \
+        [p for t in TPCDS_FILES for p in paths[t]]
     _emit({"phase": "tpcds_data", "seconds": time.perf_counter() - t0,
            "seed": seed, "date_dim_rows": DATE_DIM_ROWS,
+           "dim_rows": DIM_ROWS,
            "fact_rows": {t: n * FACT_FILE_ROWS
                          for t, n in TPCDS_FILES.items()},
            "files": len(files),
@@ -2184,6 +2496,7 @@ def main(argv=None) -> int:
         q02 = phase_tpcds_q02(paths, orc, work_dir)
         q04 = phase_tpcds_q04(paths, orc, work_dir)
         runner = phase_runner_tpcds(paths, orc, work_dir, q02, q04)
+        phase_runner_strings(paths, orc, work_dir)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",

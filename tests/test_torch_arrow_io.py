@@ -167,8 +167,6 @@ def test_dtype_and_schema_mapping_equal():
 
 
 @pytest.mark.parametrize("arr,module", [
-    (pa.array(["a", None]), "exprs/strings.py"),
-    (pa.array([b"a", b"bc"]), "exprs/strings.py"),
     (pa.array([[1], [2, 3]]), "nested storage"),
     (pa.array([{"x": 1}, {"x": 2}]), "nested storage"),
     (pa.array([[("k", 1)]], pa.map_(pa.string(), pa.int64())),

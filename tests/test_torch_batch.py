@@ -36,7 +36,7 @@ def test_decimal_maps_like_jax():
     assert TT.decimal(38, 2).wide_decimal
 
 
-@pytest.mark.parametrize("dtype", [TT.STRING, TT.list_of(TT.INT32),
+@pytest.mark.parametrize("dtype", [TT.list_of(TT.INT32),
                                    TT.decimal(38, 0)])
 def test_unported_storage_raises(dtype):
     with pytest.raises(NotImplementedError):

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: the hand-written kernel chain
 against its plain torch version, bench.py's q06 plan through it at test
 size, and the later paths (general aggregation, sort, hash, partition sort,
-serde, spill, joins, the Parquet scan, CASE and IN, and spark/tpcds.py's
-q02 and q09 through run_plan) on the card against the port's own CPU
+serde, spill, joins, the Parquet scan, CASE and IN, the string functions
+and a dictionary column's serde round trip, and spark/tpcds.py's q02, q03,
+q07, q08 and q09 through run_plan) on the card against the port's own CPU
 route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
@@ -591,11 +592,12 @@ def tpcds_tables(tmp_path_factory):
     return tpcds.generate_tables(str(d), rows=6000)
 
 
-@pytest.mark.parametrize("q", ["q02", "q09"])
+@pytest.mark.parametrize("q", ["q02", "q09", "q03", "q07", "q08"])
 def test_run_plan_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, q):
-    """spark/tpcds.py's q02 and q09 (BHJ) through run_plan on the card:
-    the same rows in order as the CPU route (integers exact, floats rtol
-    1e-12), the same stages and routes."""
+    """spark/tpcds.py's q02 and q09 (BHJ), and the string queries q03, q07
+    and q08, through run_plan on the card: the same rows in order as the
+    CPU route (integers and strings exact, floats rtol 1e-12), the same
+    stages and routes."""
     from blaze_tpu_torch.spark import tpcds
     from blaze_tpu_torch.spark.local_runner import run_plan
 
@@ -654,3 +656,66 @@ def test_case_and_in_on_card_match_cpu(cuda):
         gv, wv = g.valid_mask()[:n].cpu(), w.valid_mask()[:n]
         assert torch.equal(gv, wv), e
         assert torch.equal(g.data[:n].cpu()[wv], w.data[:n][wv]), e
+
+
+def _string_batch(dev, n=3000, seed=13):
+    """Strings over all 256 byte values, lengths 0..40, 10% null."""
+    from blaze_tpu_torch.columnar import types as TT
+
+    rng = np.random.default_rng(seed)
+    words = [bytes(rng.integers(0, 256, ln).astype(np.uint8))
+             for ln in rng.integers(0, 41, 64)] + [b"", b"ab", b"abab%"]
+    vals = [None if rng.random() < 0.1 else words[i]
+            for i in rng.integers(0, len(words), n)]
+    schema = TT.Schema([TT.Field("s", TT.BINARY), TT.Field("i", TT.INT32)])
+    return ColumnBatch.from_numpy(
+        {"s": vals, "i": rng.integers(-50, 50, n).astype(np.int32)}, schema,
+        device=dev)
+
+
+def test_string_functions_on_card_match_cpu(cuda):
+    """hash_bytes, the string_words sort order, compare/equals, substring
+    and like_match on the card equal the CPU route bit for bit."""
+    from blaze_tpu_torch.exprs import hash as H
+    from blaze_tpu_torch.exprs import strings as S
+    from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = _string_batch(dev)
+        s = b.columns[0].data
+        other = S.reverse(s)
+        start = b.columns[1].data
+        res = [H.hash_columns(b.columns, row_mask=b.row_mask()),
+               *S.compare(s, other), S.equals(s, other),
+               S.substring(s, start, (start.abs() % 7)).bytes,
+               S.like_match(s, b"%ab%"), S.like_match(s, b"_\\%_")]
+        sb = sort_batch(b, [SortSpec(0, False, False), SortSpec(1)])
+        res += [sb.columns[0].data.bytes, sb.columns[0].data.lengths,
+                sb.columns[1].data]
+        out[dev] = [r.cpu() for r in res]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, w)
+
+
+def test_dict_serde_round_trip_onto_card(cuda, monkeypatch):
+    """A frame with a dictionary-encoded string column decodes onto the
+    card as DictData equal to the CPU decode, and the card's batch writes
+    the same frame back."""
+    from blaze_tpu_torch.columnar import serde
+    from blaze_tpu_torch.config import conf
+
+    monkeypatch.setattr(conf, "dict_encode_strings", True)
+    cpu = _string_batch("cpu")
+    frame = serde.serialize_batch(cpu)
+    on_card = serde.deserialize_batch(frame, cpu.schema, device="cuda")
+    on_cpu = serde.deserialize_batch(frame, cpu.schema, device="cpu")
+    gd, wd = on_card.columns[0], on_cpu.columns[0]
+    assert gd.is_dict and wd.is_dict and gd.data.codes.is_cuda
+    for a, b in ((gd.data.codes, wd.data.codes),
+                 (gd.data.dict_bytes, wd.data.dict_bytes),
+                 (gd.data.dict_lengths, wd.data.dict_lengths),
+                 (gd.validity, wd.validity)):
+        assert torch.equal(a.cpu(), b)
+    assert serde.serialize_batch(on_card) == serde.serialize_batch(on_cpu)
+    assert on_card.to_numpy()["s"] == cpu.to_numpy()["s"]

@@ -178,11 +178,10 @@ def test_expression_matches_jax(batches, name):
 
 
 @pytest.mark.parametrize("expr", [
-    lambda ir, T: ir.InList(ir.col("qty"), (ir.Literal(T.STRING, "x"),)),
-    lambda ir, T: ir.CaseWhen(((ir.col("flag"),
-                                ir.Literal(T.STRING, "x")),), None),
+    lambda ir, T: ir.Cast(ir.Literal(T.STRING, "1"), T.INT32),
+    lambda ir, T: ir.ScalarFn("upper", (ir.Literal(T.STRING, "x"),)),
     lambda ir, T: ir.ScalarFn("abs", (ir.col("price"),)),
-    lambda ir, T: ir.Literal(T.STRING, "x"),
+    lambda ir, T: ir.Cast(ir.col("qty"), T.STRING),
     lambda ir, T: _bin(ir, "ADD", ir.Literal(T.decimal(10, 2), 5),
                        ir.col("l")),
 ])

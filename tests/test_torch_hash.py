@@ -161,9 +161,8 @@ def test_round_robin_start_matches_jax():
 
 
 def test_string_and_wide_decimal_hashes_raise_by_module():
-    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
-        H.hash_column(Column(TT.STRING, torch.zeros(4, dtype=torch.int8)),
-                      42)
+    """Strings hash now (tests/test_torch_strings.py); wide decimals still
+    raise, naming their module."""
     with pytest.raises(NotImplementedError, match="exprs/wide_decimal.py"):
         H.hash_column(Column(TT.decimal(30, 2),
                              torch.zeros(4, dtype=torch.int64)), 42)

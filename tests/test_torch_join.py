@@ -304,17 +304,6 @@ def test_bnlj_empty_sides_equal(empty, jt):
     _assert_same(*_run_both(*_bnlj(left, right, jt, True)))
 
 
-def test_string_keys_raise():
-    import torch
-
-    from blaze_tpu_torch.columnar.batch import Column
-    from blaze_tpu_torch.ops.sort_keys import encode_column
-
-    c = Column(TT.STRING, torch.zeros((4,), dtype=torch.int64), None)
-    with pytest.raises(NotImplementedError, match="strings"):
-        encode_column(c, True, True, torch.ones(4, dtype=torch.bool))
-
-
 def _replay(items):
     return lambda: iter(items)
 

@@ -232,8 +232,8 @@ def test_undecodable_node_raises(arm):
     """A plan node the port does not decode raises naming it. sort, union
     and limit decode now: below each of them sits a window node, which
     still does not, so the error names the window. parquet_scan decodes
-    too: its pruning predicate is a LIKE, an expression kind the port does
-    not decode yet, so the error names that."""
+    too: its pruning predicate is a struct field access, an expression
+    kind the port does not decode yet, so the error names that."""
     node = tpb.PlanNode()
     getattr(node, arm).SetInParent()
     if arm != "parquet_scan":
@@ -241,35 +241,40 @@ def test_undecodable_node_raises(arm):
                  else getattr(node, arm).input)
         inner.window.SetInParent()
     else:
-        node.parquet_scan.pruning_predicates.add().like.SetInParent()
+        node.parquet_scan.pruning_predicates.add(
+        ).get_struct_field.SetInParent()
     td = tpb.TaskDefinition()
     td.plan.CopyFrom(node)
-    name = ("expression kind like" if arm == "parquet_scan"
+    name = ("expression kind get_struct_field" if arm == "parquet_scan"
             else "plan node window")
     with pytest.raises(NotImplementedError, match=name):
         decode_task_definition(td.SerializeToString())
 
 
 def test_ffi_reader_rejects_arrow_batches():
-    """Arrow RecordBatches are ingested (columnar/arrow_io.py); one with a
-    column kind the port cannot hold yet is rejected, naming the module
-    that will carry it."""
+    """Arrow RecordBatches are ingested (columnar/arrow_io.py), string
+    columns included; one with a column kind the port cannot hold yet is
+    rejected, naming the module that will carry it."""
     import pyarrow as pa
 
     from blaze_tpu_torch.ops.base import ExecContext
     from blaze_tpu_torch.ops.shuffle import FfiReaderExec
 
-    schema = TT.Schema([TT.Field("a", TT.INT32), TT.Field("s", TT.STRING)])
+    schema = TT.Schema([TT.Field("a", TT.INT32),
+                        TT.Field("l", TT.list_of(TT.INT32))])
+    rb = pa.record_batch([pa.array([1, 2], pa.int32()),
+                          pa.array([[1], None])], names=["a", "l"])
+    rid = resources.register(lambda: iter([rb]))
+    op = FfiReaderExec(schema, rid)
+    with pytest.raises(NotImplementedError, match="nested storage"):
+        list(op.execute(ExecContext(device="cpu")))
+    strs = TT.Schema([TT.Field("a", TT.INT32), TT.Field("s", TT.STRING)])
     rb = pa.record_batch([pa.array([1, 2], pa.int32()),
                           pa.array(["x", None])], names=["a", "s"])
     rid = resources.register(lambda: iter([rb]))
-    op = FfiReaderExec(schema, rid)
-    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
-        list(op.execute(ExecContext(device="cpu")))
-    dense = TT.Schema([TT.Field("a", TT.INT32)])
-    rid = resources.register(lambda: iter([rb.select(["a"])]))
-    out = list(FfiReaderExec(dense, rid).execute(ExecContext(device="cpu")))
+    out = list(FfiReaderExec(strs, rid).execute(ExecContext(device="cpu")))
     np.testing.assert_array_equal(out[0].to_numpy()["a"], [1, 2])
+    assert out[0].to_numpy()["s"] == [b"x", None]
 
 
 def test_plan_bytes_decode_in_both_packages():
@@ -295,7 +300,8 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'plan.fingerprint', 'spark.plan_model', 'spark.converters',\n"
         "        'spark.expr_subtree_fallback', 'spark.convert_strategy',\n"
         "        'spark.stages', 'spark.aqe', 'spark.shuffle_manager',\n"
-        "        'spark.local_runner', 'spark.tpcds', 'spark.validator')}\n"
+        "        'spark.local_runner', 'spark.tpcds', 'spark.validator',\n"
+        "        'exprs.strings', 'exprs.functions')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

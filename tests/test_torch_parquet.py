@@ -165,13 +165,6 @@ def test_corrupt_files(tmp_path, monkeypatch, ignore):
                 ExecContext(device="cpu")))
 
 
-def test_string_column_raises_before_reading(tmp_path):
-    files = [(p, []) for p in _write(tmp_path, nfiles=1)]
-    op = ParquetScanExec(files, TSCHEMA, [0, 4])
-    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
-        op.execute(ExecContext(device="cpu"))
-
-
 def _sink_rows(tmp_path, seed=3):
     """The same three batches (numeric, with nulls) in both packages."""
     from test_torch_join import _pair
@@ -202,9 +195,11 @@ def test_sink_files_equal(tmp_path, tasks):
         tstat = list(tsink.execute(ExecContext(
             partition=part, num_partitions=tasks, device="cpu")))[0]
         assert int(np.asarray(jstat.columns[1].data)[0]) == \
-            int(tstat.columns[0].data[0]) == 800
-        assert int(tstat.columns[1].data[0]) == \
-            os.path.getsize(tsink.written_paths[0])
+            int(tstat.columns[1].data[0]) == 800
+        tpath = tstat.to_numpy()["path"][0].decode()
+        assert int(tstat.columns[2].data[0]) == os.path.getsize(tpath)
+        jpath = jstat.to_numpy()["path"][0].decode()
+        assert os.path.relpath(tpath, tdir) == os.path.relpath(jpath, jdir)
     if tasks == 1:
         names = [("jax", "port")]
     else:

@@ -12,8 +12,9 @@ within rtol 1e-12), each package's answer must pass its validator's
 routes (`stage_compiled`, `stage_fallbacks`; the JAX package counts
 neither per query, so the test tallies its metric updates).
 
-The queries the port cannot run yet must raise NotImplementedError naming
-the missing module, and so must what the port's runner leaves out: a
+The query the port cannot run yet (q05's ROLLUP) must raise
+NotImplementedError naming the missing module, and so must what the
+port's runner leaves out: a
 NeverConvert subtree (the row interpreter, spark/fallback.py), the mesh
 exchange, and every conf knob that would switch on an unported module.
 """
@@ -51,17 +52,18 @@ RUNS = [("tpcds", "q02", "bhj"), ("tpcds", "q02", "smj"),
         ("core", "q4_repartition_sort", "bhj"),
         ("core", "q6_semi_join", "bhj"),
         ("core", "q6_semi_join", "smj")]
-STRINGS, FUNCTIONS = "exprs/strings.py", "exprs/functions.py"
-# the module the first failing stage names; q05 also needs ops/expand.py
-# for its ROLLUP, which a later stage names at decode
-MISSING = {("tpcds", "q01"): STRINGS, ("tpcds", "q03"): STRINGS,
-           ("tpcds", "q05"): STRINGS, ("tpcds", "q06"): STRINGS,
-           ("tpcds", "q07"): STRINGS, ("tpcds", "q08"): FUNCTIONS,
-           ("tpcds", "q10"): STRINGS,
-           ("core", "q5_multijoin_limit"): STRINGS,
-           ("core", "q7_left_outer_join"): STRINGS,
-           ("core", "q8_category_like"): STRINGS,
-           ("core", "q9_substr_group"): STRINGS}
+# the queries that carry string columns, in both join modes
+RUNS += [(suite, q, mode)
+         for suite, q in [("tpcds", "q01"), ("tpcds", "q03"),
+                          ("tpcds", "q06"), ("tpcds", "q07"),
+                          ("tpcds", "q08"), ("tpcds", "q10"),
+                          ("core", "q5_multijoin_limit"),
+                          ("core", "q7_left_outer_join"),
+                          ("core", "q8_category_like"),
+                          ("core", "q9_substr_group")]
+         for mode in ("bhj", "smj")]
+# the module the first failing stage names
+MISSING = {("tpcds", "q05"): "ops/expand.py"}
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +115,9 @@ def _same_rows(got: dict, want: dict) -> None:
         wnull = np.array([x is None for x in w], bool)
         np.testing.assert_array_equal(gnull, wnull, err_msg=k)
         g, w = g[~gnull], w[~wnull]
-        if any(isinstance(x, float) for x in w) or w.dtype.kind == "f":
+        if any(isinstance(x, (bytes, str)) for x in w):
+            assert list(g) == list(w), k
+        elif any(isinstance(x, float) for x in w) or w.dtype.kind == "f":
             np.testing.assert_allclose(g.astype(np.float64),
                                        w.astype(np.float64), rtol=1e-12,
                                        err_msg=k)

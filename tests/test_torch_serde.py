@@ -228,18 +228,3 @@ def test_serde_time_is_counted():
     S.deserialize_batch_host(S.serialize_batch(tb), tb.schema)
     assert metrics.SERDE_NS["encode"] > enc
     assert metrics.SERDE_NS["decode"] > dec
-
-
-def test_string_columns_raise_by_name():
-    """String colblocks need string storage: writing a string column and
-    reading a JAX frame that holds one both raise, naming exprs/strings.py."""
-    ts = TT.Schema([TT.Field("s", TT.STRING)])
-    tb = ColumnBatch(ts, [Column(TT.STRING, torch.zeros(4, dtype=torch.int8))],
-                     torch.tensor(4, dtype=torch.int32), 4)
-    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
-        S.serialize_batch(tb)
-    js = JT.Schema([JT.Field("s", JT.STRING)])
-    jb = JBatch.from_numpy({"s": np.array([b"ab", b"", b"xyz"], object)}, js)
-    jframe = JS.serialize_batch(jb)
-    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
-        S.deserialize_batch_host(jframe, ts)

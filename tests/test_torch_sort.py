@@ -224,12 +224,3 @@ def test_slice_batch_matches_jax(start, count):
     j = jcommon.slice_batch(jb, start, count)
     assert t.capacity == j.capacity
     _assert_same(t, j)
-
-
-def test_concat_rejects_string_columns():
-    from blaze_tpu_torch.columnar.types import Field, Schema, STRING
-
-    _, tb = _pair(80, ["INT32"])
-    with pytest.raises(NotImplementedError, match="exprs/strings.py"):
-        common.concat_batches([tb], Schema([Field("s", STRING),
-                                            Field("rid", TT.INT32)]))

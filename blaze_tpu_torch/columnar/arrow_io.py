@@ -15,10 +15,14 @@ only a batch shorter than its capacity bucket pays a host copy for the
 padding. Every other column goes through pyarrow's fill_null and one
 upload.
 
-List, map and struct columns wait for the nested storage of
-columnar/batch.py, and decimal with precision > 18 for columnar/int128.py:
-they raise NotImplementedError naming that module, and never convert
-quietly.
+List, large_list, map and struct columns convert recursively: a list's
+offsets (rebased to 0) go up as int32 and its values become the element
+column, with a capacity of their bucket; a map is a list of its
+(key, value) entry structs; a struct's fields become its children, each
+carrying the struct's nulls too (`StructArray.flatten`). The JAX package
+takes lists in and lists out. Decimal with precision > 18 waits for
+columnar/int128.py: it raises NotImplementedError naming that module,
+and never converts quietly.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import torch
 
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, StringData, bucket_capacity, bucket_width,
-    require_dense_kind, strings_to_host,
+    Column, ColumnBatch, ListData, StringData, StructData, _column_to_host,
+    bucket_capacity, bucket_width, require_dense_kind, strings_to_host,
 )
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 
@@ -183,6 +187,8 @@ def column_from_arrow(arr, dtype: T.DataType, cap: int,
         arr = arr.cast(arr.type.value_type)
     require_dense_kind(dtype)
     n = len(arr)
+    if dtype.is_nested:
+        return _nested_from_arrow(arr, dtype, cap, dev)
     if dtype.kind == T.TypeKind.NULL:
         return Column(dtype, torch.zeros((cap,), dtype=dtype.torch_dtype(),
                                          device=dev),
@@ -222,6 +228,27 @@ def column_from_arrow(arr, dtype: T.DataType, cap: int,
     return Column(dtype, _upload(vals, cap, dev), validity).normalized()
 
 
+def _nested_from_arrow(arr: pa.Array, dtype: T.DataType, cap: int,
+                       dev: torch.device) -> Column:
+    n = len(arr)
+    validity = (_upload(np.asarray(arr.is_valid()), cap, dev)
+                if arr.null_count else None)
+    if dtype.kind == T.TypeKind.STRUCT:
+        kids = [column_from_arrow(a, f.dtype, cap, dev)
+                for a, f in zip(arr.flatten(), dtype.fields)]
+        return Column(dtype, StructData(kids), validity)
+    # list, large_list and map: offsets with the array's slice applied,
+    # the values between the first and the last offset
+    offs = np.asarray(arr.offsets, np.int64)
+    flat = arr.values.slice(int(offs[0]), int(offs[-1] - offs[0]))
+    offsets = np.full((cap + 1,), offs[-1] - offs[0], np.int32)
+    offsets[:n + 1] = offs - offs[0]
+    elems = column_from_arrow(flat, T.storage_element(dtype),
+                              bucket_capacity(len(flat)), dev)
+    return Column(dtype, ListData(torch.from_numpy(offsets).to(dev), elems),
+                  validity)
+
+
 def batch_from_arrow(rb: pa.RecordBatch, capacity: Optional[int] = None,
                      schema: Optional[T.Schema] = None,
                      device: DeviceLike = None) -> ColumnBatch:
@@ -255,6 +282,10 @@ def batch_to_arrow(batch: ColumnBatch) -> pa.RecordBatch:
         require_dense_kind(f.dtype, f.name)
         valid = to_host(c.valid_mask()[:n]).numpy()
         at = dtype_to_arrow(f.dtype)
+        if f.dtype.is_nested:
+            # lists, dicts and tuples, as to_numpy gives them
+            arrays.append(pa.array(_column_to_host(c, n), at))
+            continue
         if c.is_string:
             vals = strings_to_host(c, n, valid)
             if f.dtype.kind == T.TypeKind.STRING:

@@ -1,7 +1,8 @@
 """Device-resident columnar batches with static (bucketed) shapes.
 
 Port of blaze_tpu/columnar/batch.py for dense (numeric, boolean, date,
-timestamp, compact decimal) and string/binary columns. A batch is:
+timestamp, compact decimal), string/binary and nested (list, map, struct)
+columns. A batch is:
 
   * a static `capacity` (bucketed power of two),
   * a `num_rows` 0-d int32 tensor on the batch's device: rows
@@ -10,14 +11,20 @@ timestamp, compact decimal) and string/binary columns. A batch is:
   * one `Column` per field: dense tensor + optional bool validity tensor;
     strings/binary are fixed-width uint8 matrices (capacity, W) + int32
     lengths (`StringData`), or int32 codes into a small dictionary of that
-    form (`DictData`), with W bucketed as well.
+    form (`DictData`), with W bucketed as well; a list is int32 offsets
+    (capacity + 1) into a flat element column with its own (bucketed)
+    capacity (`ListData`), a map the list of its (key, value) structs,
+    and a struct one row-aligned child column per field (`StructData`).
 
 Invariants ops may rely on (the same as the JAX package's):
   * invalid slots among LIVE rows contain the dtype's zero (see
     `Column.normalized`); string bytes past a row's length are zero;
   * padding rows (>= num_rows) have UNSPECIFIED content — any op that
     reduces or sorts full-capacity tensors MUST mask with `row_mask()`;
-  * `validity is None` means all live rows valid.
+  * `validity is None` means all live rows valid;
+  * list and struct columns are not normalized: a null list row may hold
+    elements, and a struct's validity is its own level's, beside its
+    children's.
 
 The device is fixed where a batch is made (`from_numpy`,
 `from_host_arrays`, `empty`): `device=None` means CUDA, and construction
@@ -32,7 +39,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from blaze_tpu_torch.columnar.types import DataType, Schema, TypeKind
+from blaze_tpu_torch.columnar.types import (
+    DataType, Schema, TypeKind, storage_element,
+)
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 
@@ -129,30 +138,65 @@ class DictData:
         return self.dict_lengths[self.codes.long()]
 
 
+@dataclasses.dataclass
+class ListData:
+    """list<T> storage: row i's elements are [offsets[i], offsets[i+1]) of
+    a flat element column, which has its own (bucketed) capacity. Rows
+    past num_rows have length 0 where this package builds the column.
+    Arrow's offsets and child, with static capacities."""
+
+    offsets: torch.Tensor  # int32 (capacity + 1,), monotone
+    elements: "Column"     # flat element column
+
+    @property
+    def capacity(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def lengths(self) -> torch.Tensor:
+        return self.offsets[1:] - self.offsets[:-1]
+
+
+@dataclasses.dataclass
+class StructData:
+    """struct<...> storage: one row-aligned child Column per field. A map
+    has no container of its own: it is list<struct<key, value>>
+    (types.storage_element), so the list machinery covers maps."""
+
+    children: List["Column"]
+
+    @property
+    def capacity(self) -> int:
+        return self.children[0].capacity
+
+    @property
+    def device(self) -> torch.device:
+        return self.children[0].device
+
+
 def require_dense_kind(dtype: DataType, name: str = "") -> None:
     """Raise for a column kind the port's batches cannot hold yet, naming
-    the module that will carry it."""
-    where = None
-    if dtype.is_nested:
-        where = "the nested storage of columnar/batch.py"
-    elif dtype.wide_decimal:
-        where = "columnar/int128.py"
-    if where is not None:
+    the module that will carry it: wide decimals (precision > 18)."""
+    if dtype.wide_decimal:
         raise NotImplementedError(
-            f"{dtype} column {name!r} needs {where}, not yet ported")
+            f"{dtype} column {name!r} needs columnar/int128.py, not yet "
+            "ported")
 
 
 @dataclasses.dataclass
 class Column:
     dtype: DataType
-    data: Union[torch.Tensor, StringData, DictData]
+    data: Union[torch.Tensor, StringData, DictData, ListData, StructData]
     validity: Optional[torch.Tensor] = None  # bool (capacity,); None = all valid
 
     @property
     def capacity(self) -> int:
-        if isinstance(self.data, (StringData, DictData)):
-            return self.data.capacity
-        return self.data.shape[0]
+        if isinstance(self.data, torch.Tensor):
+            return self.data.shape[0]
+        return self.data.capacity
 
     @property
     def is_string(self) -> bool:
@@ -161,6 +205,14 @@ class Column:
     @property
     def is_dict(self) -> bool:
         return isinstance(self.data, DictData)
+
+    @property
+    def is_list(self) -> bool:
+        return isinstance(self.data, ListData)
+
+    @property
+    def is_struct(self) -> bool:
+        return isinstance(self.data, StructData)
 
     @property
     def device(self) -> torch.device:
@@ -174,8 +226,9 @@ class Column:
 
     def normalized(self) -> "Column":
         """Zero out data in invalid slots (canonical form for hash, sort
-        and serde)."""
-        if self.validity is None:
+        and serde). List and struct columns are left as they are, as in
+        the JAX package."""
+        if self.validity is None or self.is_list or self.is_struct:
             return self
         v = self.validity
         if self.is_dict:
@@ -200,13 +253,21 @@ class Column:
              index_valid: Optional[torch.Tensor] = None) -> "Column":
         """Gather rows by index (clamped into the capacity). Rows whose
         `index_valid` is False become null (the outer joins' null
-        extension)."""
+        extension).
+
+        A list column keeps its element capacity: right for permutations
+        and subsets (sort, filter, limit); a gather that repeats rows
+        (a join's fan-out) sizes its element storage with `take_rows`."""
         idx = indices.clamp(0, self.capacity - 1)
         v = self.validity[idx] if self.validity is not None else None
         if index_valid is not None:
             v = index_valid if v is None else (v & index_valid)
         d = self.data
-        if self.is_dict:
+        if self.is_list:
+            data = _list_take(d, idx)
+        elif self.is_struct:
+            data = StructData([ch.take(idx) for ch in d.children])
+        elif self.is_dict:
             # codes only: the column stays encoded through filter, sort,
             # join and limit
             data = DictData(d.codes[idx], d.dict_bytes, d.dict_lengths)
@@ -230,7 +291,9 @@ class ColumnBatch:
               device: DeviceLike = None) -> "ColumnBatch":
         dev = resolve_device(device)
         cap = capacity or bucket_capacity(0)
-        cols = [_zero_column(f, cap, dev) for f in schema]
+        for f in schema:
+            require_dense_kind(f.dtype, f.name)
+        cols = [_zero_column(f.dtype, cap, dev) for f in schema]
         return ColumnBatch(schema, cols, _rows(0, dev), cap)
 
     @staticmethod
@@ -238,8 +301,9 @@ class ColumnBatch:
                    capacity: Optional[int] = None,
                    validity: Optional[Dict[str, np.ndarray]] = None,
                    device: DeviceLike = None) -> "ColumnBatch":
-        """numpy (or a list of str/bytes for strings) per field -> batch
-        on `device` (None = the CUDA card).
+        """numpy (or a list of str/bytes for strings; of lists, dicts or
+        tuples for list, map and struct fields) per field -> batch on
+        `device` (None = the CUDA card).
 
         Object arrays holding None mark those rows null, as in the JAX
         package."""
@@ -250,23 +314,8 @@ class ColumnBatch:
         for f in schema:
             require_dense_kind(f.dtype, f.name)
             v_np = None if validity is None else validity.get(f.name)
-            if f.dtype.is_string_like:
-                cols.append(_strings_to_column(f.dtype, data[f.name], cap,
-                                               v_np, dev))
-                continue
-            arr = np.asarray(data[f.name])
-            if v_np is None and arr.dtype == object:
-                v_np = np.array([v is not None for v in arr], bool)
-                arr = np.array([v if v is not None else 0 for v in arr])
-            out = np.zeros((cap,), f.dtype.np_dtype())
-            out[:n] = arr.astype(f.dtype.np_dtype())
-            v = None
-            if v_np is not None:
-                vp = np.zeros((cap,), bool)
-                vp[:n] = np.asarray(v_np, bool)[:n]
-                v = torch.from_numpy(vp).to(dev)
-            cols.append(Column(f.dtype, torch.from_numpy(out).to(dev),
-                               v).normalized())
+            cols.append(_host_to_column(f.dtype, data[f.name], cap, v_np,
+                                        dev))
         return ColumnBatch(schema, cols, _rows(n, dev), cap)
 
     @staticmethod
@@ -287,6 +336,10 @@ class ColumnBatch:
         cols = []
         for f, (data, valid) in zip(schema, arrays):
             require_dense_kind(f.dtype, f.name)
+            if f.dtype.is_nested:
+                raise TypeError(
+                    f"column {f.name}: from_host_arrays takes dense and "
+                    "string fields; nested ones come from from_numpy")
             v = None
             if valid is not None:
                 v = torch.from_numpy(np.array(valid, bool, copy=True,
@@ -320,17 +373,9 @@ class ColumnBatch:
                             device=self.device) < self.num_rows
 
     def shape_key(self) -> tuple:
-        """Shape signature (capacity, per-column dtype and validity)."""
-        parts: list = [self.capacity]
-        for c in self.columns:
-            if c.is_dict:
-                parts.append(("d", c.data.width, c.data.dict_capacity,
-                              c.validity is not None))
-            elif c.is_string:
-                parts.append(("s", c.data.width, c.validity is not None))
-            else:
-                parts.append((str(c.data.dtype), c.validity is not None))
-        return tuple(parts)
+        """Shape signature (capacity, per-column layout and validity)."""
+        return (self.capacity,) + tuple(_col_shape_key(c)
+                                        for c in self.columns)
 
     # ---- transforms ----
     def with_columns(self, schema: Schema,
@@ -373,20 +418,113 @@ class ColumnBatch:
         if cached is not None:
             return cached
         n = int(self.num_rows)
-        out: Dict[str, np.ndarray] = {}
-        for f, c in zip(self.schema, self.columns):
-            valid = c.valid_mask()[:n].cpu().numpy()
-            if c.is_string:
-                out[f.name] = strings_to_host(c, n, valid)
-                continue
-            d = c.data[:n].cpu().numpy()
-            if valid.all():
-                out[f.name] = d
-            else:
-                o = d.astype(object)
-                o[~valid] = None
-                out[f.name] = o
-        return out
+        return {f.name: _column_to_host(c, n)
+                for f, c in zip(self.schema, self.columns)}
+
+
+def _column_to_host(c: Column, n: int):
+    """The first n rows of a column as `ColumnBatch.to_numpy` gives them:
+    lists as lists, maps as dicts, structs as tuples, None where null."""
+    valid = c.valid_mask()[:n].cpu().numpy()
+    if c.is_list:
+        offs = c.data.offsets[:n + 1].cpu().numpy()
+        elems = _column_to_host(c.data.elements, int(offs[n]) if n else 0)
+        pack = dict if c.dtype.kind == TypeKind.MAP else list
+        return [pack(elems[offs[i]:offs[i + 1]]) if valid[i] else None
+                for i in range(n)]
+    if c.is_struct:
+        kids = [_column_to_host(ch, n) for ch in c.data.children]
+        return [tuple(k[i] for k in kids) if valid[i] else None
+                for i in range(n)]
+    if c.is_string:
+        return strings_to_host(c, n, valid)
+    d = c.data[:n].cpu().numpy()
+    if valid.all():
+        return d
+    o = d.astype(object)
+    o[~valid] = None
+    return o
+
+
+def _col_shape_key(c: Column) -> tuple:
+    if c.is_list:
+        return ("l", c.data.elements.capacity,
+                _col_shape_key(c.data.elements), c.validity is not None)
+    if c.is_struct:
+        return ("t", tuple(_col_shape_key(ch) for ch in c.data.children),
+                c.validity is not None)
+    if c.is_dict:
+        return ("d", c.data.width, c.data.dict_capacity,
+                c.validity is not None)
+    if c.is_string:
+        return ("s", c.data.width, c.validity is not None)
+    return (str(c.data.dtype), c.validity is not None)
+
+
+def map_tensors(c: Column, fn) -> Column:
+    """`c` with `fn` applied to each of its tensors (data, lengths,
+    offsets, validity), children and elements included."""
+    d = c.data
+    if c.is_list:
+        data = ListData(fn(d.offsets), map_tensors(d.elements, fn))
+    elif c.is_struct:
+        data = StructData([map_tensors(ch, fn) for ch in d.children])
+    elif c.is_dict:
+        data = DictData(fn(d.codes), fn(d.dict_bytes), fn(d.dict_lengths))
+    elif c.is_string:
+        data = StringData(fn(d.bytes), fn(d.lengths))
+    else:
+        data = fn(d)
+    return Column(c.dtype, data,
+                  None if c.validity is None else fn(c.validity))
+
+
+def _list_take(ld: ListData, idx: torch.Tensor,
+               ecap: Optional[int] = None) -> ListData:
+    """Gather list rows: offsets rebuilt from the gathered lengths, the
+    referenced element ranges compacted to the front of an element
+    storage of capacity `ecap` (default: the input's)."""
+    from blaze_tpu_torch.ops.segment import element_rows
+
+    lens = ld.lengths()[idx]
+    new_off = torch.cat([lens.new_zeros(1),
+                         torch.cumsum(lens, 0, dtype=torch.int32)])
+    ecap = ld.elements.capacity if ecap is None else ecap
+    _, row, within, live = element_rows(new_off, idx.shape[0], ecap)
+    src = ld.offsets[idx[row]].to(torch.int64) + within
+    src = torch.where(live, src, torch.zeros_like(src))
+    gather = take_rows if ecap != ld.elements.capacity else Column.take
+    return ListData(new_off, gather(ld.elements, src))
+
+
+def has_list(dtype: DataType) -> bool:
+    """Whether a column of `dtype` holds list storage at any depth."""
+    if dtype.kind in (TypeKind.LIST, TypeKind.MAP):
+        return True
+    return dtype.kind == TypeKind.STRUCT and any(
+        has_list(f.dtype) for f in dtype.fields)
+
+
+def take_rows(c: Column, indices: torch.Tensor,
+              index_valid: Optional[torch.Tensor] = None) -> Column:
+    """`Column.take` for a gather that may repeat rows (a join's fan-out):
+    a list column's element storage, at any depth, is sized to the
+    gathered elements, one host pull of their count a list column. The
+    JAX package refuses joins over list columns instead."""
+    if not has_list(c.dtype):
+        return c.take(indices, index_valid=index_valid)
+    from blaze_tpu_torch.runtime.metrics import to_host
+
+    idx = indices.clamp(0, c.capacity - 1)
+    v = c.validity[idx] if c.validity is not None else None
+    if index_valid is not None:
+        v = index_valid if v is None else (v & index_valid)
+    if c.is_struct:
+        data = StructData([take_rows(ch, idx) for ch in c.data.children])
+    else:
+        total = int(to_host(c.data.lengths()[idx].sum()))
+        data = _list_take(c.data, idx, bucket_capacity(total))
+    return Column(c.dtype, data, v)
 
 
 def strings_to_host(c: Column, n: int, valid: np.ndarray) -> list:
@@ -405,17 +543,77 @@ def strings_to_host(c: Column, n: int, valid: np.ndarray) -> list:
     return [bytes(b[i, :ln[i]]) if valid[i] else None for i in range(n)]
 
 
-def _zero_column(f, cap: int, dev: torch.device) -> Column:
-    require_dense_kind(f.dtype, f.name)
-    if f.dtype.is_string_like:
-        return Column(f.dtype, StringData(
+def _zero_column(dtype: DataType, cap: int, dev: torch.device) -> Column:
+    if dtype.is_string_like:
+        return Column(dtype, StringData(
             torch.zeros((cap, bucket_width(1)), dtype=torch.uint8,
                         device=dev),
             torch.zeros((cap,), dtype=torch.int32, device=dev)))
-    return Column(f.dtype, torch.zeros(
-        (cap,), dtype=f.dtype.torch_dtype(), device=dev),
+    if dtype.kind in (TypeKind.LIST, TypeKind.MAP):
+        return Column(dtype, ListData(
+            torch.zeros((cap + 1,), dtype=torch.int32, device=dev),
+            _zero_column(storage_element(dtype), bucket_capacity(0), dev)))
+    if dtype.kind == TypeKind.STRUCT:
+        return Column(dtype, StructData(
+            [_zero_column(f.dtype, cap, dev) for f in dtype.fields]))
+    return Column(dtype, torch.zeros(
+        (cap,), dtype=dtype.torch_dtype(), device=dev),
         torch.zeros((cap,), dtype=torch.bool, device=dev)
-        if f.dtype.kind == TypeKind.NULL else None)
+        if dtype.kind == TypeKind.NULL else None)
+
+
+def _pad_validity(validity_np, n: int, cap: int, dev: torch.device
+                  ) -> Optional[torch.Tensor]:
+    if validity_np is None:
+        return None
+    vp = np.zeros((cap,), bool)
+    vp[:n] = np.asarray(validity_np, bool)[:n]
+    return torch.from_numpy(vp).to(dev)
+
+
+def _host_to_column(dtype: DataType, raw, cap: int, validity_np,
+                    dev: torch.device) -> Column:
+    """Host values of one field -> a column of capacity `cap` (the JAX
+    package's `_host_to_column`). A list or map field takes a list of
+    lists (of dicts or (key, value) pairs for a map) or None; a struct
+    field a list of tuples, dicts or None."""
+    if dtype.is_string_like:
+        return _strings_to_column(dtype, raw, cap, validity_np, dev)
+    if dtype.is_nested:
+        vals = list(raw)
+        if validity_np is None and any(v is None for v in vals):
+            validity_np = np.array([v is not None for v in vals], bool)
+        n = len(vals)
+        if dtype.kind == TypeKind.STRUCT:
+            kids = [_host_to_column(
+                f.dtype, [None if v is None else v.get(f.name)
+                          if isinstance(v, dict) else v[fi] for v in vals],
+                cap, None, dev) for fi, f in enumerate(dtype.fields)]
+            return Column(dtype, StructData(kids),
+                          _pad_validity(validity_np, n, cap, dev))
+        if dtype.kind == TypeKind.MAP:
+            vals = [[] if v is None else list(v.items())
+                    if isinstance(v, dict) else list(v) for v in vals]
+        else:
+            vals = [[] if v is None else list(v) for v in vals]
+        offsets = np.zeros((cap + 1,), np.int32)
+        offsets[1:n + 1] = np.cumsum([len(v) for v in vals])
+        offsets[n + 1:] = offsets[n]
+        flat = [x for v in vals for x in v]
+        elems = _host_to_column(storage_element(dtype), flat,
+                                bucket_capacity(len(flat)), None, dev)
+        return Column(dtype, ListData(torch.from_numpy(offsets).to(dev),
+                                      elems),
+                      _pad_validity(validity_np, n, cap, dev))
+    arr = np.asarray(raw)
+    n = arr.shape[0]
+    if validity_np is None and arr.dtype == object:
+        validity_np = np.array([v is not None for v in arr], bool)
+        arr = np.array([v if v is not None else 0 for v in arr])
+    out = np.zeros((cap,), dtype.np_dtype())
+    out[:n] = arr.astype(dtype.np_dtype())
+    return Column(dtype, torch.from_numpy(out).to(dev),
+                  _pad_validity(validity_np, n, cap, dev)).normalized()
 
 
 def _strings_to_column(dtype: DataType, raw, cap: int,
@@ -435,14 +633,9 @@ def _strings_to_column(dtype: DataType, raw, cap: int,
     for i, v in enumerate(vals):
         mat[i, :len(v)] = np.frombuffer(v, np.uint8)
         lens[i] = len(v)
-    v = None
-    if validity_np is not None:
-        vp = np.zeros((cap,), bool)
-        vp[:n] = np.asarray(validity_np, bool)[:n]
-        v = torch.from_numpy(vp).to(dev)
     return Column(dtype, StringData(torch.from_numpy(mat).to(dev),
                                     torch.from_numpy(lens).to(dev)),
-                  v).normalized()
+                  _pad_validity(validity_np, n, cap, dev)).normalized()
 
 
 def _rows(n, device: torch.device) -> torch.Tensor:

@@ -16,6 +16,9 @@ Colblock:
   string/binary: u32 total | n x u32 lengths | concatenated bytes
   string/binary (dict): u32 0xFFFFFFFF | u32 K | u32 dict_total |
                         K x u32 dict_lengths | dict bytes | n x u32 codes
+  list/map: u32 total | n x u32 lengths | the element colblock of
+            `total` rows (a map's elements are its (key, value) structs)
+  struct: one colblock per field, n rows each
   null column: nothing
 
 The dict form (conf.dict_encode_strings) writes each distinct string of a
@@ -23,8 +26,8 @@ slice once plus per-row codes; code 0 is always the empty string. A slice
 past conf.dict_max_cardinality distinct strings, or where the dict form is
 not smaller, is written plain. A column that is already a dictionary
 (`DictData`) ships its dictionary and the slice's codes as they are, and
-decodes back into one. The list and struct colblocks of the JAX module
-need nested storage and raise, written or read.
+decodes back into one. List offsets are int32 on the device and int64
+on the host; a struct keeps one validity a level.
 
 `to_host` pulls a batch to the host in ONE device->host copy (all columns
 packed into one byte tensor, counted in metrics.HOST_PULLS); `HostBatch`
@@ -75,25 +78,28 @@ except ModuleNotFoundError:  # pragma: no cover - environment-dependent
     zstandard = _ZstdShim()
 
 from blaze_tpu_torch.columnar.batch import ColumnBatch
-from blaze_tpu_torch.columnar.types import DataType, Schema, TypeKind
+from blaze_tpu_torch.columnar.types import (
+    DataType, Schema, TypeKind, storage_element,
+)
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike
 from blaze_tpu_torch.runtime import metrics
 
 MAGIC = b"BTB1"
 DICT_SENTINEL = 0xFFFFFFFF  # an impossible plain string `total`
-NESTED_MISSING = "list and struct colblocks need nested storage (the " \
-    "nested storage of columnar/batch.py), not yet ported"
 
 
 @dataclasses.dataclass
 class _HostCol:
-    kind: str                        # "num" | "str" | "dict" | "null"
+    kind: str                        # num | str | dict | list | struct | null
     data: Optional[np.ndarray]       # (n,) values, bool as uint8 when
                                      # pulled | (n, W) bytes | dict: (K, W)
     validity: Optional[np.ndarray]   # (n,) bool, None = all valid
     lengths: Optional[np.ndarray] = None  # str: (n,) | dict: (K,) int32
     codes: Optional[np.ndarray] = None    # dict: (n,) int32 codes
+    offsets: Optional[np.ndarray] = None  # list: (n + 1,) int64 from 0
+    child: Optional["_HostCol"] = None    # list: the element column
+    children: Optional[List["_HostCol"]] = None  # struct: field columns
 
 
 @dataclasses.dataclass
@@ -114,12 +120,12 @@ class HostBatch:
         comp = zstandard.ZstdCompressor(level=conf.zstd_level).compress(raw)
         frame = MAGIC + struct.pack("<II", len(raw), len(comp)) + comp
         metrics.SERDE_NS["encode"] += time.perf_counter_ns() - t0
+        metrics.SERDE_BYTES["raw"] += len(raw)
+        metrics.SERDE_BYTES["frames"] += len(frame)
         return frame
 
 
 def _check_host_kind(dtype: DataType) -> None:
-    if dtype.is_nested:
-        raise NotImplementedError(f"{dtype} column: {NESTED_MISSING}")
     if dtype.wide_decimal:
         raise NotImplementedError(
             f"{dtype} column: wide-decimal storage (exprs/wide_decimal.py), "
@@ -188,8 +194,17 @@ def _write_col(out, c: _HostCol, lo: int, hi: int) -> None:
             pos = np.arange(b.shape[1])[None, :] < lens[:, None]
             out.write(b[pos].tobytes())
         return
-    if c.kind != "num":
-        raise NotImplementedError(NESTED_MISSING)
+    if c.kind == "list":
+        lens = (c.offsets[lo + 1:hi + 1] - c.offsets[lo:hi]).astype(
+            np.uint32)
+        elo, ehi = int(c.offsets[lo]), int(c.offsets[hi])
+        out.write(struct.pack("<I", ehi - elo) + lens.tobytes())
+        _write_col(out, c.child, elo, ehi)
+        return
+    if c.kind == "struct":
+        for ch in c.children:
+            _write_col(out, ch, lo, hi)
+        return
     out.write(np.ascontiguousarray(c.data[lo:hi]).tobytes())
 
 
@@ -204,26 +219,73 @@ def _np_dtype(t: torch.Tensor) -> np.dtype:
     return np.dtype(str(t.dtype).replace("torch.", ""))
 
 
+def _column_parts(c, parts: List[torch.Tensor]) -> None:
+    """Append the byte views of a column's tensors, children first-order,
+    in the order `_host_column` reads them back."""
+    d = c.data
+    if c.is_list:
+        parts.append(_bytes_of(d.offsets))
+        _column_parts(d.elements, parts)
+    elif c.is_struct:
+        for ch in d.children:
+            _column_parts(ch, parts)
+    elif c.is_dict:
+        parts += [_bytes_of(d.codes), _bytes_of(d.dict_bytes),
+                  _bytes_of(d.dict_lengths)]
+    elif c.is_string:
+        parts += [_bytes_of(d.bytes), _bytes_of(d.lengths)]
+    else:
+        parts.append(_bytes_of(d))
+    if c.validity is not None:
+        parts.append(_bytes_of(c.validity))
+
+
+def _host_column(c, dtype: DataType, n: int, take) -> _HostCol:
+    """Rows [0, n) of a column from the pulled buffer; `take(np dtype,
+    count)` reads the next part."""
+    i32, u8 = np.dtype(np.int32), np.dtype(np.uint8)
+    if c.is_list:
+        offs = take(i32, c.capacity + 1)[:n + 1].astype(np.int64)
+        child = _host_column(c.data.elements, c.data.elements.dtype,
+                             int(offs[n]) if n else 0, take)
+        hc = _HostCol("list", None, None, offsets=offs, child=child)
+    elif c.is_struct:
+        hc = _HostCol("struct", None, None, children=[
+            _host_column(ch, f.dtype, n, take)
+            for ch, f in zip(c.data.children, dtype.fields)])
+    elif c.is_dict:
+        d = c.data
+        codes = take(i32, c.capacity)[:n]
+        dmat = take(u8, d.dict_capacity * d.width).reshape(
+            d.dict_capacity, d.width)
+        dlens = take(i32, d.dict_capacity)
+        hc = _HostCol("dict", dmat, None, dlens, codes)
+    elif c.is_string:
+        w = c.data.width
+        mat = take(u8, c.capacity * w).reshape(c.capacity, w)[:n]
+        hc = _HostCol("str", mat, None, take(i32, c.capacity)[:n])
+    else:
+        data = take(_np_dtype(c.data), c.capacity)[:n]
+        null = dtype.kind == TypeKind.NULL
+        hc = _HostCol("null" if null else "num", None if null else data,
+                      None)
+    if c.validity is not None:
+        hc.validity = take(np.dtype(bool), c.capacity)[:n]
+    return hc
+
+
 def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
                  ) -> Tuple[HostBatch, List[np.ndarray]]:
     """Pull `batch` (and `extra` tensors on its device) to the host in ONE
-    device->host copy: every column, its validity, the extras and the row
+    device->host copy: every column, its validity (children and list
+    elements included, at their capacities), the extras and the row
     count are packed into one byte tensor first, then viewed back per
     part on the host."""
     for f in batch.schema:
         _check_host_kind(f.dtype)
     parts: List[torch.Tensor] = []
     for c in batch.columns:
-        if c.is_dict:
-            d = c.data
-            parts += [_bytes_of(d.codes), _bytes_of(d.dict_bytes),
-                      _bytes_of(d.dict_lengths)]
-        elif c.is_string:
-            parts += [_bytes_of(c.data.bytes), _bytes_of(c.data.lengths)]
-        else:
-            parts.append(_bytes_of(c.data))
-        if c.validity is not None:
-            parts.append(_bytes_of(c.validity))
+        _column_parts(c, parts)
     parts.extend(_bytes_of(e) for e in extra)
     parts.append(_bytes_of(batch.num_rows.to(torch.int64).reshape(1)))
     buf = metrics.to_host(torch.cat(parts)).numpy()
@@ -236,28 +298,8 @@ def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
         off += count * dtype.itemsize
         return arr
 
-    i32, u8 = np.dtype(np.int32), np.dtype(np.uint8)
-    cols = []
-    for f, c in zip(batch.schema, batch.columns):
-        if c.is_dict:
-            d = c.data
-            codes = take(i32, c.capacity)[:n]
-            dmat = take(u8, d.dict_capacity * d.width).reshape(
-                d.dict_capacity, d.width)
-            dlens = take(i32, d.dict_capacity)
-            hc = _HostCol("dict", dmat, None, dlens, codes)
-        elif c.is_string:
-            w = c.data.width
-            mat = take(u8, c.capacity * w).reshape(c.capacity, w)[:n]
-            hc = _HostCol("str", mat, None, take(i32, c.capacity)[:n])
-        else:
-            data = take(_np_dtype(c.data), c.capacity)[:n]
-            hc = _HostCol("null" if f.dtype.kind == TypeKind.NULL else "num",
-                          None if f.dtype.kind == TypeKind.NULL else data,
-                          None)
-        if c.validity is not None:
-            hc.validity = take(np.dtype(bool), c.capacity)[:n]
-        cols.append(hc)
+    cols = [_host_column(c, f.dtype, n, take)
+            for f, c in zip(batch.schema, batch.columns)]
     extras = [take(_np_dtype(e), e.numel()).reshape(tuple(e.shape))
               for e in extra]
     return HostBatch(batch.schema, cols, n), extras
@@ -270,12 +312,16 @@ def to_host(batch: ColumnBatch) -> HostBatch:
 
 def host_batch_nbytes(hb: HostBatch) -> int:
     """Host footprint of a pulled batch."""
-    total = 0
-    for c in hb.cols:
-        for arr in (c.data, c.validity, c.lengths, c.codes):
-            if arr is not None:
-                total += arr.nbytes
-    return total
+    return sum(_host_nbytes(c) for c in hb.cols)
+
+
+def _host_nbytes(c: _HostCol) -> int:
+    total = sum(arr.nbytes for arr in (c.data, c.validity, c.lengths,
+                                       c.codes, c.offsets)
+                if arr is not None)
+    if c.child is not None:
+        total += _host_nbytes(c.child)
+    return total + sum(_host_nbytes(ch) for ch in c.children or ())
 
 
 def serialize_batch(batch: ColumnBatch) -> bytes:
@@ -336,6 +382,16 @@ def _decode_col_host(fp: BinaryIO, dtype: DataType, n: int) -> _HostCol:
         return _HostCol("null", None, validity if validity is not None
                         else np.zeros((n,), bool))
     _check_host_kind(dtype)
+    if dtype.kind in (TypeKind.LIST, TypeKind.MAP):
+        (total,) = struct.unpack("<I", _read_exact(fp, 4))
+        lens = np.frombuffer(_read_exact(fp, 4 * n), np.uint32)
+        offs = np.zeros((n + 1,), np.int64)
+        np.cumsum(lens, out=offs[1:])
+        child = _decode_col_host(fp, storage_element(dtype), total)
+        return _HostCol("list", None, validity, offsets=offs, child=child)
+    if dtype.kind == TypeKind.STRUCT:
+        return _HostCol("struct", None, validity, children=[
+            _decode_col_host(fp, f.dtype, n) for f in dtype.fields])
     if dtype.is_string_like:
         (total,) = struct.unpack("<I", _read_exact(fp, 4))
         if total == DICT_SENTINEL:

@@ -16,8 +16,14 @@ the torch dtype each lands in on the device:
   string/binary         columnar/batch.StringData: uint8 (cap, W) + int32
                         lengths, or DictData: int32 codes into a small
                         dictionary of that form
+  list<T>               columnar/batch.ListData: int32 offsets (cap + 1,)
+                        into a flat element column of its own capacity
+  map<K, V>             list<struct<key, value>> (`storage_element`)
+  struct<...>           columnar/batch.StructData: one row-aligned child
+                        column per field
 
-Nested and wide-decimal columns are carried through the plan's types but
+Nested columns have no dense dtype: `torch_dtype()` raises for them.
+Wide decimals (precision > 18) are carried through the plan's types but
 have no device storage in the port yet.
 """
 
@@ -194,3 +200,14 @@ def map_of(key: DataType, value: DataType) -> DataType:
 
 def struct_of(fields) -> DataType:
     return DataType(TypeKind.STRUCT, fields=tuple(fields))
+
+
+def storage_element(dtype: DataType) -> DataType:
+    """Element dtype of the flat storage under a LIST or MAP column.
+
+    A MAP column is stored as list<struct<key, value>> (Arrow's map layout),
+    so its storage element is the entry struct, not the value type."""
+    if dtype.kind == TypeKind.MAP:
+        return struct_of([Field("key", dtype.key, nullable=False),
+                          Field("value", dtype.element)])
+    return dtype.element

@@ -1,13 +1,16 @@
 """Expression compiler: IR -> torch column functions.
 
-Port of blaze_tpu/exprs/compiler.py for the dense and string kinds:
-columns, literals, casts, arithmetic and comparisons, Kleene AND/OR, NOT,
-IS [NOT] NULL, negation, IF, CASE WHEN and [NOT] IN, the string
-predicates (StartsWith/EndsWith/Contains), LIKE and the scalar functions
-of exprs/functions.py. A compiled expression is
+Port of blaze_tpu/exprs/compiler.py for the dense, string and nested
+kinds: columns, literals (a nested one only null, as in the JAX package),
+casts, arithmetic and comparisons, Kleene AND/OR, NOT, IS [NOT] NULL,
+negation, IF, CASE WHEN and [NOT] IN, the string predicates
+(StartsWith/EndsWith/Contains), LIKE, the scalar functions of
+exprs/functions.py, and struct and map access (GetStructField,
+GetIndexedField, GetMapValue, NamedStruct). A compiled expression is
 `fn(batch: ColumnBatch) -> Column`, evaluated eagerly on the batch's
 device; null semantics are Spark's (strict nulls for most ops, Kleene
-AND/OR). Every other expression kind raises NotImplementedError naming it.
+AND/OR). The decimal, UDF and subquery kinds raise NotImplementedError
+naming the module they wait for.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, StringData, bucket_width,
+    Column, ColumnBatch, StringData, StructData, _zero_column, bucket_width,
 )
 from blaze_tpu_torch.columnar.types import BOOLEAN, DataType, FLOAT64
 from blaze_tpu_torch.exprs import ir
@@ -133,8 +136,108 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
         from blaze_tpu_torch.exprs.functions import compile_function
 
         return compile_function(expr, schema)
+    if isinstance(expr, ir.GetStructField):
+        c = compile_expr(expr.child, schema)
+        i = expr.index
+
+        def run_gsf(b):
+            col = c(b)
+            child = col.data.children[i]
+            v = None
+            if col.validity is not None or child.validity is not None:
+                v = col.valid_mask() & child.valid_mask()
+            return Column(child.dtype, child.data, v)
+
+        return run_gsf
+    if isinstance(expr, ir.GetIndexedField):
+        return _compile_get_indexed(expr, schema)
+    if isinstance(expr, ir.GetMapValue):
+        return _compile_get_map_value(expr, schema)
+    if isinstance(expr, ir.NamedStruct):
+        val_fns = [compile_expr(v, schema) for v in expr.values]
+        rt = expr.result_type
+        return lambda b: Column(rt, StructData([fn(b) for fn in val_fns]),
+                                None)
+    module = _MODULE_OF.get(type(expr), "exprs/compiler.py")
     raise NotImplementedError(
-        f"expression {type(expr).__name__} (exprs/compiler.py) not yet ported")
+        f"expression {type(expr).__name__} ({module}) not yet ported")
+
+
+# the modules the expression kinds still to port wait for
+_MODULE_OF = {ir.MakeDecimal: "exprs/wide_decimal.py",
+              ir.UnscaledValue: "exprs/wide_decimal.py",
+              ir.CheckOverflow: "exprs/wide_decimal.py",
+              ir.UdfWrapper: "spark/hive_udf.py",
+              ir.ScalarSubquery: "spark/fallback.py"}
+
+
+def _compile_get_indexed(expr: ir.GetIndexedField, schema) -> CompiledExpr:
+    """Spark GetArrayItem: a 0-based element gather; a negative or
+    out-of-range index gives null (ref get_indexed_field.rs). A null index
+    makes every row null while keeping the element dtype."""
+    c = compile_expr(expr.child, schema)
+    i = -1 if expr.index.value is None else int(expr.index.value)
+
+    def run(b: ColumnBatch) -> Column:
+        col = c(b)
+        ld = col.data
+        ok = col.valid_mask() & (i >= 0) & (ld.lengths() > i)
+        src = (ld.offsets[:-1].to(torch.int64) + i).clamp(
+            0, ld.elements.capacity - 1)
+        elem = ld.elements.take(torch.where(ok, src, torch.zeros_like(src)))
+        v = ok if elem.validity is None else (elem.validity & ok)
+        return Column(elem.dtype, elem.data, v)
+
+    return run
+
+
+def _compile_get_map_value(expr: ir.GetMapValue, schema) -> CompiledExpr:
+    """map[key]: the literal key matched against each row's entries
+    (stored as list<struct<key, value>>, types.storage_element), the first
+    match's value gathered; no match gives null (ref get_map_value.rs). A
+    null key gives null in every row."""
+    from blaze_tpu_torch.ops.segment import element_rows
+
+    c = compile_expr(expr.child, schema)
+    key_lit = expr.map_key
+    lit = _compile_literal(ir.Literal(key_lit.dtype, key_lit.value))
+
+    def run(b: ColumnBatch) -> Column:
+        mcol = c(b)
+        ld = mcol.data
+        kcol, vcol = ld.elements.data.children
+        ecap, cap, dev = kcol.capacity, mcol.capacity, mcol.device
+        if key_lit.value is None:
+            none = torch.zeros((cap,), dtype=torch.int64, device=dev)
+            return Column(vcol.dtype, vcol.take(none).data,
+                          torch.zeros((cap,), dtype=torch.bool, device=dev))
+        slot, row, _, in_row = element_rows(ld.offsets, cap, ecap)
+        in_row = in_row & (slot >= ld.offsets[row])
+        key = lit(_Rows(ecap, dev))
+        if kcol.is_string:
+            match = S.equals(kcol.data, key.data)
+        else:
+            match = kcol.data == key.data
+        hit = in_row & match & kcol.valid_mask()
+        # the first matching entry of each row: a scatter-min of the slot
+        idx = torch.full((cap + 1,), ecap, dtype=torch.int64, device=dev)
+        idx.scatter_reduce_(0, torch.where(hit, row, cap),
+                            torch.where(hit, slot, ecap), "amin",
+                            include_self=True)
+        idx = idx[:cap]
+        ok = (idx < ecap) & mcol.valid_mask()
+        val = vcol.take(idx.clamp(0, ecap - 1))
+        v = ok if val.validity is None else (val.validity & ok)
+        return Column(vcol.dtype, val.data, v)
+
+    return run
+
+
+class _Rows:
+    """The capacity and device of a batch, all a literal reads."""
+
+    def __init__(self, capacity: int, device) -> None:
+        self.capacity, self.device = capacity, device
 
 
 def const_string(value: bytes, cap: int, device) -> StringData:
@@ -150,7 +253,17 @@ def const_string(value: bytes, cap: int, device) -> StringData:
 
 def _compile_literal(expr: ir.Literal) -> CompiledExpr:
     dt, v = expr.dtype, expr.value
-    if dt.is_nested or dt.is_decimal:
+    if dt.is_nested and v is None:
+        # a null list, map or struct: empty storage, every row invalid
+        def run_null(b: ColumnBatch) -> Column:
+            z = _zero_column(dt, b.capacity, b.device)
+            return Column(dt, z.data, torch.zeros(
+                (b.capacity,), dtype=torch.bool, device=b.device))
+
+        return run_null
+    if dt.is_nested:
+        raise TypeError(f"a {dt} literal has no device form (only null)")
+    if dt.is_decimal:
         raise NotImplementedError(f"{dt} literals not yet ported")
     if dt.is_string_like:
         raw = b"" if v is None else (

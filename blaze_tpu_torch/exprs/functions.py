@@ -3,7 +3,8 @@
 Port of blaze_tpu/exprs/functions.py. The registry holds every name of
 the JAX package's (the tagging pass reads `is_supported`, so plans tag and
 stage bytes come out as the JAX package's), but only `substring`/`substr`
-run here, over `strings.substring`. Compiling any other registered name
+(over `strings.substring`) and `make_array` run here. Compiling any other
+registered name
 raises NotImplementedError naming this module; a name outside the
 registry raises as unsupported, as in the JAX package.
 """
@@ -93,3 +94,33 @@ def _substr(cols, batch, expr):
         length = torch.full((batch.capacity,), c.data.width,
                             dtype=torch.int32, device=batch.device)
     return Column(c.dtype, S.substring(c.data, start, length), _strict(cols))
+
+
+@register("make_array")
+def _make_array(cols, batch, expr):
+    """Spark array(...): a list of k elements in every row (ref
+    spark_make_array.rs): offsets step by k, element i*k + j is argument
+    j of row i, and each element keeps its argument's validity."""
+    from blaze_tpu_torch.columnar import types as T
+    from blaze_tpu_torch.columnar.batch import ListData, StringData
+
+    k = len(cols)
+    if k == 0:
+        raise NotImplementedError("make_array() with no args")
+    cap, dev = batch.capacity, batch.device
+    offsets = torch.arange(cap + 1, dtype=torch.int32, device=dev) * k
+    if cols[0].is_string:
+        w = max(c.data.width for c in cols)
+        datas = [S.ensure_width(StringData(c.data.bytes, c.data.lengths), w)
+                 for c in cols]
+        data = StringData(
+            torch.stack([d.bytes for d in datas], 1).reshape(cap * k, w),
+            torch.stack([d.lengths for d in datas], 1).reshape(cap * k))
+    else:
+        data = torch.stack([c.data for c in cols], 1).reshape(cap * k)
+    valid = None
+    if any(c.validity is not None for c in cols):
+        valid = torch.stack([c.valid_mask() for c in cols],
+                            1).reshape(cap * k)
+    elem = Column(cols[0].dtype, data, valid)
+    return Column(T.list_of(cols[0].dtype), ListData(offsets, elem), None)

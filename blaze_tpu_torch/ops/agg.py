@@ -13,9 +13,11 @@ runs matching partial(+final) pairs without any of this.
 The functions sum, count, avg, min, max, first and first_ignores_null run
 over the dense column kinds in the modes PARTIAL, PARTIAL_MERGE and FINAL;
 group keys, min, max, first and first_ignores_null also take strings.
-Left out, each raising NotImplementedError naming its module:
-collect_list/collect_set (list storage, columnar/batch.py ListData) and
-wide-decimal sum/avg/min/max (exprs/wide_decimal.py). Over the memory budget, collapsed state spills to
+collect_list and collect_set keep their state as a list column
+(columnar/batch.py ListData) over dense and string values; a group whose
+values are all null collects an empty list, not null. Left out, raising
+NotImplementedError naming its module: wide-decimal sum/avg/min/max
+(exprs/wide_decimal.py). Over the memory budget, collapsed state spills to
 host files (runtime/memory.SpillFile) and merges back at the end. The JAX
 module's jit cache and compile-service shape rungs have no counterpart:
 PyTorch runs each step eagerly.
@@ -30,7 +32,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from blaze_tpu_torch.columnar import types as T
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, ListData, bucket_capacity,
+)
 from blaze_tpu_torch.columnar.types import DataType, Field, Schema, TypeKind
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import resolve_device
@@ -44,7 +48,8 @@ from blaze_tpu_torch.ops.basic import infer_dtype
 from blaze_tpu_torch.ops.common import concat_batches
 from blaze_tpu_torch.ops.sort import truncate
 from blaze_tpu_torch.ops.sort_keys import (
-    SortSpec, pack_keys, sort_batch, sort_permutation, string_words,
+    SortSpec, encode_column, pack_keys, sort_batch, sort_permutation,
+    string_words,
 )
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.metrics import to_host
@@ -61,7 +66,7 @@ class AggMode(enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class AggCall:
     """One aggregate expression (ref pb.AggFunction, blaze.proto:123-133)."""
-    fn: str  # sum|avg|count|min|max|first|first_ignores_null
+    fn: str  # sum|avg|count|min|max|first|first_ignores_null|collect_*
     inputs: Tuple[ir.Expr, ...]
     dtype: DataType          # Spark result dtype (planner-provided)
     name: str
@@ -152,6 +157,102 @@ def _minmax_string(call: AggCall, x: Column, layout, fn: str
     has = seg.seg_any(valid, layout)
     return [Column(call.dtype, picked.data, None),
             Column(T.BOOLEAN, has, None)]
+
+
+def _first_occurrence(x: Column, gid_key: torch.Tensor) -> torch.Tensor:
+    """True at the first row of each distinct (gid, value) pair: rows
+    ordered by (gid, value) with a stable sort, run starts marked, the
+    marks scattered back to the rows. Rows whose gid_key is the 2^30
+    sentinel never mark. Values are equal as Spark's set is: NaN equals
+    NaN, -0.0 equals 0.0, strings by all their bytes and their length.
+    collect_set's dedup (ref collect_set.rs's per-group HashSet; the JAX
+    package sorts the same pairs with one variadic sort)."""
+    if x.is_list or x.is_struct:
+        # the planner rejects collect_set over nested values
+        # (converters._check_agg_call)
+        raise NotImplementedError(
+            "collect_set over nested value types is not supported")
+    cap = x.capacity
+    everyone = torch.ones((cap,), dtype=torch.bool, device=x.device)
+    keys = [(gid_key, 31)] + encode_column(
+        Column(x.dtype, x.data, None), True, True, everyone,
+        max_string_words=None)
+    words = pack_keys(keys)
+    perm = sort_permutation(words)
+    neq = torch.zeros((cap,), dtype=torch.bool, device=x.device)
+    for w in words:
+        ws = w[perm]
+        neq = neq | (ws != torch.roll(ws, 1))
+    if cap:
+        neq[0] = True
+    first = neq & (gid_key[perm] < (1 << 30))
+    out = torch.zeros_like(first)
+    out[perm] = first
+    return out
+
+
+def _stable_front(keep: torch.Tensor) -> torch.Tensor:
+    """Row order with the kept rows first, each part in its own order."""
+    return torch.sort((~keep).to(torch.uint8), stable=True).indices
+
+
+def _offsets_of(lens: torch.Tensor) -> torch.Tensor:
+    return torch.cat([lens.new_zeros(1),
+                      torch.cumsum(lens, 0, dtype=torch.int32)])
+
+
+def _collect_raw(call: AggCall, x: Column, layout, dedup: bool
+                 ) -> List[Column]:
+    """collect_list / collect_set over raw rows (already in group order):
+    each group's kept values, nulls dropped (and repeats, for a set),
+    compacted to the front of the element storage in row order; a
+    group's list is its slice (ref agg/collect_list.rs, collect_set.rs)."""
+    valid = x.valid_mask() & layout.row_mask
+    keep = valid
+    if dedup:
+        gid_key = torch.where(valid, layout.gid,
+                              torch.full_like(layout.gid, 1 << 30))
+        keep = keep & _first_occurrence(x, gid_key)
+    lens = seg.seg_sum(keep.to(torch.int32), layout, torch.ones_like(keep))
+    lens = torch.where(layout.group_mask, lens, torch.zeros_like(lens))
+    dt = collect_state_dtype(call)
+    elems = x.take(_stable_front(keep))
+    return [Column(dt, ListData(_offsets_of(lens),
+                                Column(dt.element, elems.data, None)),
+                   None)]
+
+
+def _collect_merge(call: AggCall, lcol: Column, layout, dedup: bool
+                   ) -> List[Column]:
+    """Merge collect states (rows in group order): the rows' lists laid
+    end to end are the groups' element runs; a set drops the repeats
+    across its rows, keeping each value's first place."""
+    dt = collect_state_dtype(call)
+    ld = lcol.data
+    cap, ecap = layout.row_mask.shape[0], ld.elements.capacity
+    lens_r = torch.where(layout.row_mask & lcol.valid_mask(), ld.lengths(),
+                         torch.zeros_like(ld.lengths()))
+    _, row, within, live = seg.element_rows(_offsets_of(lens_r), cap, ecap)
+    src = (ld.offsets[row].to(torch.int64) + within).clamp(0, ecap - 1)
+    elems = ld.elements.take(torch.where(live, src, torch.zeros_like(src)))
+    elems = Column(dt.element, elems.data, None)
+    egid = torch.where(live, layout.gid[row],
+                       torch.full_like(row, 1 << 30))
+    if dedup:
+        keep = live & _first_occurrence(elems, egid)
+        elems = Column(dt.element, elems.take(_stable_front(keep)).data,
+                       None)
+        glens = torch.zeros((cap + 1,), dtype=torch.int32,
+                            device=lcol.device)
+        glens.index_add_(0, torch.where(keep, egid, cap),
+                         keep.to(torch.int32))
+        glens = glens[:cap]
+    else:
+        glens = seg.seg_sum(lens_r, layout,
+                            torch.ones_like(layout.row_mask))
+        glens = torch.where(layout.group_mask, glens,
+                            torch.zeros_like(glens))
+    return [Column(dt, ListData(_offsets_of(glens), elems), None)]
 
 
 class _AggState(M.MemConsumer):
@@ -317,10 +418,6 @@ class AggExec(Operator):
     def _check_supported(self) -> None:
         """Raise, before any input is read, for the parts not ported."""
         for call in self.aggs:
-            if call.fn in ("collect_list", "collect_set"):
-                raise NotImplementedError(
-                    f"{call.fn}: its state is a list column (columnar/"
-                    "batch.py ListData), not yet ported")
             if call.dtype.wide_decimal and call.fn != "count":
                 raise NotImplementedError(
                     f"{call.fn} over {call.dtype}: wide-decimal state "
@@ -455,6 +552,8 @@ class AggExec(Operator):
             val, has = seg.seg_first(x.data, layout, valid, ignores_null=True)
             return [Column(call.dtype, val, None),
                     Column(T.BOOLEAN, has, None)]
+        if fn in ("collect_list", "collect_set"):
+            return _collect_raw(call, x, layout, fn == "collect_set")
         raise NotImplementedError(f"agg function {fn}")
 
     def _merge_state(self, sb: ColumnBatch, layout, ngroups: int
@@ -501,6 +600,9 @@ class AggExec(Operator):
                 (v,), ok = _first_by_index([cols[0]], layout, cols[1].data)
                 out += [Column(cols[0].dtype, v.data, None),
                         Column(T.BOOLEAN, ok, None)]
+            elif fn in ("collect_list", "collect_set"):
+                out.extend(_collect_merge(call, cols[0], layout,
+                                          fn == "collect_set"))
             else:
                 raise NotImplementedError(fn)
         return out
@@ -538,6 +640,10 @@ class AggExec(Operator):
         if fn == "first":
             return Column(call.dtype, scols[0].data,
                           scols[1].data & scols[2].data)
+        if fn in ("collect_list", "collect_set"):
+            # Spark: a group with nothing collected gets an EMPTY list,
+            # not null; the state's list is the result
+            return scols[0]
         raise NotImplementedError(fn)
 
     def _empty_global_result(self, device) -> ColumnBatch:

@@ -1,12 +1,14 @@
 """Shared operator utilities: batch concatenation and slicing.
 
 Port of `concat_batches` and `slice_batch` from blaze_tpu/ops/common.py
-(ref: concat_batches in datafusion-ext-commons lib.rs:33-61) for the dense
-and string column kinds the port's batches hold. String columns of
-different width buckets are padded to the widest first, and dictionary
-columns come out expanded, as in the JAX package. `adaptive_target_bytes` sizes
-the IPC reader's macro-batches, and `adaptive_batch_rows` (over
-`schema_row_bytes`) the Parquet scan's.
+(ref: concat_batches in datafusion-ext-commons lib.rs:33-61) for every
+column kind the port's batches hold. String columns of different width
+buckets are padded to the widest first, and dictionary columns come out
+expanded, as in the JAX package. A list column's elements concatenate
+the same way one level down, into an element storage of the bucket of
+their total; a struct's children concatenate row-aligned.
+`adaptive_target_bytes` sizes the IPC reader's macro-batches, and
+`adaptive_batch_rows` (over `schema_row_bytes`) the Parquet scan's.
 
 The JAX versions run as one jitted program per (schema, shapes) so as to
 pay one dispatch instead of one per column on a remote-attached chip;
@@ -20,9 +22,10 @@ from typing import List, Optional
 import torch
 
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, StringData, bucket_capacity, require_dense_kind,
+    Column, ColumnBatch, ListData, StringData, StructData, bucket_capacity,
+    require_dense_kind,
 )
-from blaze_tpu_torch.columnar.types import Schema, TypeKind
+from blaze_tpu_torch.columnar.types import Schema, TypeKind, storage_element
 from blaze_tpu_torch.exprs import strings as S
 from blaze_tpu_torch.runtime.metrics import to_host
 
@@ -41,7 +44,9 @@ def concat_batches(batches: List[ColumnBatch],
 
     Materialization point: the row counts come to the host in one pull
     (the JAX package reads them one batch at a time), because the output
-    capacity depends on their total. Padding rows are zeros."""
+    capacity depends on their total; a list column pulls its parts'
+    element counts too, one pull a nesting level. Padding rows are zeros
+    (empty lists)."""
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
     schema = schema or batches[0].schema
@@ -50,26 +55,50 @@ def concat_batches(batches: List[ColumnBatch],
     counts = to_host(torch.stack([b.num_rows for b in batches])).tolist()
     total = sum(counts)
     cap = bucket_capacity(total)
-    pad = cap - total
-    cols = []
-    for ci, field in enumerate(schema.fields):
-        parts = [b.columns[ci] for b in batches]
-        if parts[0].is_string:
-            w = max(p.data.width for p in parts)
-            datas = [S.ensure_width(StringData(p.data.bytes, p.data.lengths),
-                                    w) for p in parts]
-            data = StringData(_cat_rows([d.bytes for d in datas], counts, pad),
-                              _cat_rows([d.lengths for d in datas], counts,
-                                        pad))
-        else:
-            data = _cat_rows([p.data for p in parts], counts, pad)
-        valid = None
-        if any(p.validity is not None for p in parts):
-            valid = _cat_rows([p.valid_mask() for p in parts], counts, pad)
-        cols.append(Column(field.dtype, data, valid))
+    cols = [_concat_column([b.columns[ci] for b in batches], counts,
+                           cap - total, field.dtype)
+            for ci, field in enumerate(schema.fields)]
     return ColumnBatch(schema, cols,
                        torch.tensor(total, dtype=torch.int32,
                                     device=batches[0].device), cap)
+
+
+def _concat_column(parts: List[Column], counts: List[int], pad: int,
+                   dtype) -> Column:
+    """The first counts[i] rows of each part, then `pad` zero rows."""
+    valid = None
+    if any(p.validity is not None for p in parts):
+        valid = _cat_rows([p.valid_mask() for p in parts], counts, pad)
+    if parts[0].is_struct:
+        kids = [_concat_column([p.data.children[i] for p in parts], counts,
+                               pad, f.dtype)
+                for i, f in enumerate(dtype.fields)]
+        return Column(dtype, StructData(kids), valid)
+    if parts[0].is_list:
+        # the element ranges of rows [0, n) start at 0 (ListData's
+        # offsets[0] is 0 wherever the port builds one)
+        ends = to_host(torch.stack([p.data.offsets[n].to(torch.int64)
+                                    for p, n in zip(parts, counts)]))
+        ecounts = ends.tolist()
+        etotal = sum(ecounts)
+        elems = _concat_column([p.data.elements for p in parts], ecounts,
+                               bucket_capacity(etotal) - etotal,
+                               storage_element(dtype))
+        offs, base = [parts[0].data.offsets.new_zeros(1)], 0
+        for p, n, e in zip(parts, counts, ecounts):
+            offs.append(p.data.offsets[1:n + 1] + base)
+            base += e
+        offs.append(offs[0].new_full((pad,), base))
+        return Column(dtype, ListData(torch.cat(offs), elems), valid)
+    if parts[0].is_string:
+        w = max(p.data.width for p in parts)
+        datas = [S.ensure_width(StringData(p.data.bytes, p.data.lengths), w)
+                 for p in parts]
+        data = StringData(_cat_rows([d.bytes for d in datas], counts, pad),
+                          _cat_rows([d.lengths for d in datas], counts, pad))
+    else:
+        data = _cat_rows([p.data for p in parts], counts, pad)
+    return Column(dtype, data, valid)
 
 
 def schema_row_bytes(schema: Schema) -> int:

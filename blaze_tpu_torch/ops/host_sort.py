@@ -1,7 +1,8 @@
 """Host-side (numpy) row-encoded sort keys, run merge, and host batches.
 
 Port of blaze_tpu/ops/host_sort.py for the dense and string column kinds
-(plain and dictionary). Spilled sort
+(plain and dictionary); host batches also concatenate and upload list
+and struct columns, and take structs. Spilled sort
 runs live in host files as serde frames, so their k-way merge runs on the
 host, as the reference's LoserTree over spilled cursors does
 (datafusion-ext-commons loser_tree.rs:1-118, sort_exec.rs:419-475), and
@@ -28,14 +29,14 @@ import numpy as np
 import torch
 
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, DictData, StringData, bucket_capacity,
-    bucket_dict_rows, bucket_width,
+    Column, ColumnBatch, DictData, ListData, StringData, StructData,
+    bucket_capacity, bucket_dict_rows, bucket_width, has_list,
 )
 from blaze_tpu_torch.columnar.serde import HostBatch, _HostCol
 # one count serves both names: the JAX package's host_nbytes and
 # host_batch_nbytes differ only on string and dictionary columns
 from blaze_tpu_torch.columnar.serde import host_batch_nbytes as host_nbytes
-from blaze_tpu_torch.columnar.types import Schema, TypeKind
+from blaze_tpu_torch.columnar.types import Schema, TypeKind, storage_element
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 from blaze_tpu_torch.ops.sort_keys import DEFAULT_MAX_STRING_WORDS, SortSpec
 
@@ -139,15 +140,18 @@ def sort_perm(hb: HostBatch, specs: Sequence[SortSpec]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def host_supported(schema: Schema) -> bool:
-    """Whether every column has a host form here: the dense and string
-    kinds. The JAX package also keeps structs host-side; nested storage
-    is not ported."""
-    return not any(f.dtype.is_nested or f.dtype.wide_decimal
+    """Whether the host sort, merge and take hold every column: all kinds
+    but lists and maps at any depth, whose rows are not sliceable one by
+    one here (as in the JAX package), and wide decimals."""
+    return not any(has_list(f.dtype) or f.dtype.wide_decimal
                    for f in schema.fields)
 
 
 def _col_take(c: _HostCol, idx: np.ndarray) -> _HostCol:
     v = c.validity[idx] if c.validity is not None else None
+    if c.kind == "struct":
+        return _HostCol("struct", None, v,
+                        children=[_col_take(ch, idx) for ch in c.children])
     if c.kind == "dict":
         # codes only; the dictionary is shared
         return _HostCol("dict", c.data, v, c.lengths, c.codes[idx])
@@ -210,6 +214,17 @@ def _col_concat(parts: List[_HostCol], rows: List[int]) -> _HostCol:
         return _HostCol("null", None, v)
     if parts[0].kind in ("str", "dict"):
         return _string_concat(parts, rows, v)
+    if parts[0].kind == "struct":
+        return _HostCol("struct", None, v, children=[
+            _col_concat([p.children[i] for p in parts], rows)
+            for i in range(len(parts[0].children))])
+    if parts[0].kind == "list":
+        ends = [int(p.offsets[-1]) for p in parts]
+        bases = np.cumsum([0] + ends[:-1])
+        offs = np.concatenate([np.zeros(1, np.int64)] + [
+            p.offsets[1:] + b for p, b in zip(parts, bases)])
+        return _HostCol("list", None, v, offsets=offs, child=_col_concat(
+            [p.child for p in parts], ends))
     return _HostCol("num", np.concatenate([p.data for p in parts]), v)
 
 
@@ -222,6 +237,94 @@ def host_concat(parts: List[HostBatch]) -> HostBatch:
     return HostBatch(parts[0].schema, cols, sum(rows))
 
 
+def _layout(c: _HostCol, dtype, n: int, cap: int, alloc) -> tuple:
+    """The parts of a column of capacity `cap` in the upload buffer:
+    (column, dtype, rows, capacity, part ids, validity id or None, child
+    layouts)."""
+    kids = []
+    if c.kind == "dict":
+        K = c.data.shape[0]
+        w = bucket_width(max(int(c.lengths.max()) if K else 1, 1))
+        kcap = bucket_dict_rows(max(K, 1))
+        ids = [alloc(np.int32, (cap,)), alloc(np.uint8, (kcap, w)),
+               alloc(np.int32, (kcap,))]
+    elif c.kind == "str":
+        w = bucket_width(max(int(c.lengths.max()) if n else 1, 1))
+        ids = [alloc(np.uint8, (cap, w)), alloc(np.int32, (cap,))]
+    elif c.kind == "list":
+        ids = [alloc(np.int32, (cap + 1,))]
+        ne = int(c.offsets[n])
+        kids = [_layout(c.child, storage_element(dtype), ne,
+                        bucket_capacity(ne), alloc)]
+    elif c.kind == "struct":
+        ids = []
+        kids = [_layout(ch, f.dtype, n, cap, alloc)
+                for ch, f in zip(c.children, dtype.fields)]
+    elif c.kind == "null":
+        ids = []
+    else:
+        ids = [alloc(dtype.np_dtype(), (cap,))]
+    vid = (alloc(np.bool_, (cap,))
+           if c.kind == "null" or c.validity is not None else None)
+    return c, dtype, n, cap, ids, vid, kids
+
+
+def _fill(lay: tuple, host) -> None:
+    """Rows [0, n) of a column into its parts of the host buffer. Invalid
+    rows of dense and string columns are zeroed (the batch invariant; a
+    dictionary row's code 0 is the empty string)."""
+    c, _, n, _, ids, vid, kids = lay
+    rows = []
+    if c.kind == "dict":
+        K = c.data.shape[0]
+        rows = [host(ids[0])[:n]]
+        rows[0][:] = c.codes
+        db = host(ids[1])
+        cw = min(db.shape[1], c.data.shape[1])
+        db[:K, :cw] = c.data[:, :cw]
+        host(ids[2])[:K] = c.lengths
+    elif c.kind == "str":
+        rows = [host(ids[0])[:n], host(ids[1])[:n]]
+        cw = min(rows[0].shape[1], c.data.shape[1])
+        rows[0][:, :cw] = c.data[:, :cw]
+        rows[1][:] = c.lengths
+    elif c.kind == "list":
+        offs = host(ids[0])
+        offs[:n + 1] = c.offsets[:n + 1]
+        offs[n + 1:] = c.offsets[n]
+    elif c.kind == "num":
+        rows = [host(ids[0])[:n]]
+        rows[0][:] = c.data
+    if vid is not None:
+        host(vid)[:n] = c.validity if c.validity is not None else False
+        for r in rows:
+            r[~c.validity] = 0
+    for k in kids:
+        _fill(k, host)
+
+
+def _build(lay: tuple, view) -> Column:
+    c, dtype, _, cap, ids, vid, kids = lay
+    valid = None if vid is None else view(vid, torch.bool)
+    if c.kind == "dict":
+        data = DictData(view(ids[0], torch.int32), view(ids[1], torch.uint8),
+                        view(ids[2], torch.int32))
+    elif c.kind == "str":
+        data = StringData(view(ids[0], torch.uint8),
+                          view(ids[1], torch.int32))
+    elif c.kind == "list":
+        data = ListData(view(ids[0], torch.int32),
+                        _build(kids[0], view))
+    elif c.kind == "struct":
+        data = StructData([_build(k, view) for k in kids])
+    elif c.kind == "null":
+        data = torch.zeros((cap,), dtype=torch.int8,
+                           device=valid.device)
+    else:
+        data = view(ids[0], dtype.torch_dtype())
+    return Column(dtype, data, valid)
+
+
 def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
                    device: DeviceLike = None) -> ColumnBatch:
     """A host batch onto `device` (None: the CUDA card) in ONE host->device
@@ -229,118 +332,82 @@ def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
     in one byte buffer, uploaded, and viewed back per column. Invalid
     slots are zeroed first (the batch invariant). A string column's width
     is the bucket of its longest row; a dictionary keeps its entries in a
-    `bucket_dict_rows` table. The copy is a plain
-    blocking one: `non_blocking` from unpinned numpy memory may read the
-    buffer after it is freed."""
+    `bucket_dict_rows` table; a list's elements take the bucket of their
+    count. The copy is a plain blocking one: `non_blocking` from unpinned
+    numpy memory may read the buffer after it is freed."""
     dev = resolve_device(device)
     n = hb.num_rows
     cap = capacity or bucket_capacity(n)
-    # each column's parts, (offset, np dtype, shape) in one byte buffer,
-    # padded to the capacity; offsets are 8-byte aligned
-    views, size = [], 0
-    for f, c in zip(hb.schema.fields, hb.cols):
-        if c.kind == "dict":
-            K = c.data.shape[0]
-            w = bucket_width(max(int(c.lengths.max()) if K else 1, 1))
-            kcap = bucket_dict_rows(max(K, 1))
-            parts = [(np.int32, (cap,)), (np.uint8, (kcap, w)),
-                     (np.int32, (kcap,))]
-        elif c.kind == "str":
-            w = bucket_width(max(int(c.lengths.max()) if n else 1, 1))
-            parts = [(np.uint8, (cap, w)), (np.int32, (cap,))]
-        else:
-            parts = [(f.dtype.np_dtype(), (cap,))]
-        if c.kind == "null" or c.validity is not None:
-            parts.append((np.bool_, (cap,)))
-        vs = []
-        for t, shape in parts:
-            t = np.dtype(t)
-            vs.append((size, t, shape))
-            size += -(-int(np.prod(shape)) * t.itemsize // 8) * 8
-        views.append(vs)
+    # (offset, np dtype, shape) of each part; offsets are 8-byte aligned
+    views: list = []
+    size = 0
+
+    def alloc(t, shape) -> int:
+        nonlocal size
+        t = np.dtype(t)
+        views.append((size, t, shape))
+        size += -(-int(np.prod(shape)) * t.itemsize // 8) * 8
+        return len(views) - 1
+
+    lays = [_layout(c, f.dtype, n, cap, alloc)
+            for f, c in zip(hb.schema.fields, hb.cols)]
     buf = np.zeros((size,), np.uint8)
 
-    def host(v):
-        off, t, shape = v
+    def host(i):
+        off, t, shape = views[i]
         return buf[off:off + int(np.prod(shape)) * t.itemsize].view(
             t).reshape(shape)
 
-    for c, vs in zip(hb.cols, views):
-        # rows [0, n) of each per-row part; invalid ones are zeroed below
-        # (the batch invariant; a dictionary row's code 0 is the empty
-        # string)
-        if c.kind == "dict":
-            K = c.data.shape[0]
-            rows = [host(vs[0])[:n]]
-            rows[0][:] = c.codes
-            db = host(vs[1])
-            cw = min(db.shape[1], c.data.shape[1])
-            db[:K, :cw] = c.data[:, :cw]
-            host(vs[2])[:K] = c.lengths
-        elif c.kind == "str":
-            rows = [host(vs[0])[:n], host(vs[1])[:n]]
-            cw = min(rows[0].shape[1], c.data.shape[1])
-            rows[0][:, :cw] = c.data[:, :cw]
-            rows[1][:] = c.lengths
-        elif c.kind != "null":
-            rows = [host(vs[0])[:n]]
-            rows[0][:] = c.data
-        if c.validity is not None:
-            host(vs[-1])[:n] = c.validity
-            if c.kind != "null":
-                for r in rows:
-                    r[~c.validity] = 0
+    for lay in lays:
+        _fill(lay, host)
     flat = torch.from_numpy(buf).to(dev)
 
-    def dev_view(v, tdt):
-        off, t, shape = v
+    def view(i, tdt):
+        off, t, shape = views[i]
         return flat[off:off + int(np.prod(shape)) * t.itemsize].view(
             tdt).reshape(shape)
 
-    cols = []
-    for f, c, vs in zip(hb.schema.fields, hb.cols, views):
-        valid = (dev_view(vs[-1], torch.bool)
-                 if c.kind == "null" or c.validity is not None else None)
-        if c.kind == "dict":
-            data = DictData(dev_view(vs[0], torch.int32),
-                            dev_view(vs[1], torch.uint8),
-                            dev_view(vs[2], torch.int32))
-        elif c.kind == "str":
-            data = StringData(dev_view(vs[0], torch.uint8),
-                              dev_view(vs[1], torch.int32))
-        else:
-            data = dev_view(vs[0], f.dtype.torch_dtype())
-        cols.append(Column(f.dtype, data, valid))
+    cols = [_build(lay, view) for lay in lays]
     return ColumnBatch(hb.schema, cols,
                        torch.tensor(n, dtype=torch.int32, device=dev), cap)
+
+
+def _pylike(c: _HostCol, dtype, n: int):
+    """Rows [0, n) of a host column as `ColumnBatch.to_numpy` gives them."""
+    valid = c.validity if c.validity is not None else np.ones((n,), bool)
+    if c.kind == "null":
+        return np.full((n,), None, object)
+    if c.kind in ("str", "dict"):
+        c = _dict_expand(c)
+        return [bytes(c.data[i, :c.lengths[i]]) if valid[i] else None
+                for i in range(n)]
+    if c.kind == "list":
+        offs = c.offsets
+        elems = _pylike(c.child, storage_element(dtype), int(offs[n]))
+        pack = dict if dtype.kind == TypeKind.MAP else list
+        return [pack(elems[offs[i]:offs[i + 1]]) if valid[i] else None
+                for i in range(n)]
+    if c.kind == "struct":
+        kids = [_pylike(ch, f.dtype, n)
+                for ch, f in zip(c.children, dtype.fields)]
+        return [tuple(k[i] for k in kids) if valid[i] else None
+                for i in range(n)]
+    d = np.asarray(c.data[:n]).astype(dtype.np_dtype(), copy=False)
+    if valid.all():
+        return d
+    o = d.astype(object)
+    o[~valid] = None
+    return o
 
 
 def host_to_pylike(hb: HostBatch) -> dict:
     """`ColumnBatch.to_numpy()`'s dict from a host batch: numpy per field,
     an object array with None for nulls where a column has any, strings
-    as a list of bytes or None. The
-    ordered collect hands it to the driver without a second device pull."""
-    out = {}
-    n = hb.num_rows
-    for f, c in zip(hb.schema.fields, hb.cols):
-        if c.kind == "null":
-            out[f.name] = np.full((n,), None, object)
-            continue
-        if c.kind in ("str", "dict"):
-            c = _dict_expand(c)
-            valid = (c.validity if c.validity is not None
-                     else np.ones((n,), bool))
-            out[f.name] = [bytes(c.data[i, :c.lengths[i]]) if valid[i]
-                           else None for i in range(n)]
-            continue
-        d = np.asarray(c.data[:n]).astype(f.dtype.np_dtype(), copy=False)
-        if c.validity is None or c.validity.all():
-            out[f.name] = d
-        else:
-            o = d.astype(object)
-            o[~c.validity] = None
-            out[f.name] = o
-    return out
+    as a list of bytes or None, lists, maps and structs as lists, dicts
+    and tuples. The ordered collect hands it to the driver without a
+    second device pull."""
+    return {f.name: _pylike(c, f.dtype, hb.num_rows)
+            for f, c in zip(hb.schema.fields, hb.cols)}
 
 
 # ---------------------------------------------------------------------------

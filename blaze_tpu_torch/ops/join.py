@@ -31,7 +31,11 @@ in a "disable" key so they cannot share a run across sides. Float keys
 match as the sort encoding orders them: NaN equals NaN and -0.0 equals
 0.0. String keys are encoded at their full width (join equality is exact;
 only ORDER BY keys stop at 64 bytes), and the match phase pads both sides
-to one word count, so sides of different width buckets agree.
+to one word count, so sides of different width buckets agree. List,
+map and struct payload columns go through the expansion's gathers with
+`batch.take_rows`, which sizes a list's element storage to the repeated
+rows (one host read a list column); the JAX package refuses joins over
+list columns.
 
 Naming below is probe/build: SMJ probes with the LEFT child streaming
 against the materialized right; BHJ probes with the stream side against
@@ -50,7 +54,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from blaze_tpu_torch.columnar import types as T
-from blaze_tpu_torch.columnar.batch import Column, ColumnBatch, bucket_capacity
+from blaze_tpu_torch.columnar.batch import (
+    Column, ColumnBatch, bucket_capacity, take_rows,
+)
 from blaze_tpu_torch.columnar.types import Field, Schema
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.exprs import ir
@@ -325,9 +331,6 @@ class HashJoinLikeExec(Operator):
         self.existence_name = existence_name
         lf = list(left.schema.fields)
         rf = list(right.schema.fields)
-        for f in lf + rf:
-            if f.dtype.kind == T.TypeKind.LIST:
-                raise NotImplementedError("join over list columns")
         self._schema = Schema(_output_fields(join_type, lf, rf,
                                              existence_name))
 
@@ -555,9 +558,8 @@ class HashJoinLikeExec(Operator):
         pidx, bidx, bvalid, num = expand_pairs(
             start, cnt, out_cap, emit_unmatched,
             probe_mask=probe.row_mask())
-        pcols = [c.take(pidx) for c in probe.columns]
-        bcols = [c.take(bidx, index_valid=bvalid)
-                 for c in build_sorted.columns]
+        pcols = [take_rows(c, pidx) for c in probe.columns]
+        bcols = [take_rows(c, bidx, bvalid) for c in build_sorted.columns]
         cols = (pcols + bcols) if probe_is_left else (bcols + pcols)
         return (ColumnBatch(schema, cols, num, out_cap), pidx, bidx, bvalid,
                 total)
@@ -781,8 +783,8 @@ class BroadcastNestedLoopJoinExec(Operator):
         matched)."""
         out_cap = bucket_capacity(total)
         pidx, bidx, _, num = expand_pairs(start, cnt, out_cap, False)
-        lcols = [c.take(pidx) for c in ls.columns]
-        rcols = [c.take(bidx) for c in rs.columns]
+        lcols = [take_rows(c, pidx) for c in ls.columns]
+        rcols = [take_rows(c, bidx) for c in rs.columns]
         pair_schema = Schema(list(ls.schema.fields) + list(rs.schema.fields))
         out = ColumnBatch(pair_schema, lcols + rcols, num, out_cap)
         if self.condition is not None:

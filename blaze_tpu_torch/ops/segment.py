@@ -4,9 +4,9 @@ Port of blaze_tpu/ops/segment.py (group_starts, GroupLayout, group_layout
 and the per-group reductions). Rows are first sorted by their grouping key
 (ops/sort_keys.py); then group boundaries come from neighbour equality,
 group ids from a cumulative sum, and every per-group reduction is a
-scatter into the group slots [0, num_groups). The list and window helpers
-of the JAX module (`element_rows`, `segmented_scan`) wait for the list and
-window slices.
+scatter into the group slots [0, num_groups). `segmented_scan` and
+`segmented_cumsum` are the window's running values, and `element_rows`
+maps list element slots back to their rows.
 
 Two places differ from the JAX code, neither in what they compute:
 
@@ -32,7 +32,7 @@ CUDA; integer sums, counts and row indices are exact.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -49,7 +49,14 @@ def _col_neighbor_eq(col: Column) -> torch.Tensor:
     and the lengths."""
     valid = col.valid_mask()
     vprev = torch.roll(valid, 1)
-    if col.is_string:
+    if col.is_struct:
+        # rows are equal when every child is (validity included)
+        data_eq = torch.ones_like(valid)
+        for ch in col.data.children:
+            data_eq = data_eq & _col_neighbor_eq(ch)
+        if data_eq.shape[0]:
+            data_eq[0] = True
+    elif col.is_string:
         b, ln = col.data.bytes, col.data.lengths
         pos = torch.arange(b.shape[1], dtype=torch.int32, device=b.device)
         in_len = pos[None, :] < ln[:, None]
@@ -118,6 +125,75 @@ def group_layout(batch: ColumnBatch, key_indices: Sequence[int]
     end_idx = torch.where(group_mask, end_idx, torch.zeros_like(end_idx))
     return GroupLayout(starts, gid, num_groups, start_idx, end_idx, mask,
                        group_mask, spare)
+
+
+def segmented_scan(values: torch.Tensor, starts: torch.Tensor,
+                   combine: Callable[[torch.Tensor, torch.Tensor],
+                                     torch.Tensor]) -> torch.Tensor:
+    """Inclusive scan of `combine` restarting at each segment start.
+
+    The JAX package runs `lax.associative_scan` over (flag, value) pairs.
+    Here the same pairs go through a log-step doubling scan: in round d
+    each slot combines with the slot 2^d before it unless a start lies in
+    between, ceil(log2(n)) rounds of `torch.where` over a shifted copy.
+    Every associative `combine` gives the JAX package's result; float
+    sums add in a different order, so they agree within rounding."""
+    out, flag = values, starts
+    n, d = values.shape[0], 1
+    row = torch.arange(n, device=values.device)
+    while d < n:
+        # slots below d have no partner this round and keep their pair
+        prev = torch.cat([out[:d], out[:-d]])
+        pflag = torch.cat([torch.zeros_like(flag[:d]), flag[:-d]])
+        out = torch.where(flag | (row < d), out, combine(prev, out))
+        flag = flag | pflag
+        d <<= 1
+    return out
+
+
+def segmented_cumsum(values: torch.Tensor, starts: torch.Tensor
+                     ) -> torch.Tensor:
+    """Segmented running sum of an integer tensor: the running total less
+    the total before the segment's start, exact in wrapping int64 (never
+    for floats: a large segment's sum would cancel the small one after
+    it)."""
+    if values.dtype.is_floating_point:
+        raise TypeError("segmented_cumsum is exact only for integers")
+    run = torch.cumsum(values.to(torch.int64), 0)
+    before = run - values.to(torch.int64)
+    return (run - before[last_marked(starts)]).to(values.dtype)
+
+
+def last_marked(mask: torch.Tensor) -> torch.Tensor:
+    """For each row, the index of the last row at or before it where
+    `mask` is set (0 before the first): a cumulative count names each
+    marked row's slot, the marked rows scatter their index there, and
+    every row gathers its count's slot. (`torch.cummax` over the marked
+    indices gives the same; on an H100 it took 29% of a window stage's
+    device time, chip_smoke.py's runner_nested profile.)"""
+    n = mask.shape[0]
+    row = torch.arange(n, device=mask.device)
+    slot = torch.cumsum(mask.to(torch.int64), 0) - 1
+    pos = torch.zeros((n + 1,), dtype=torch.int64, device=mask.device)
+    pos.scatter_(0, torch.where(mask, slot, n), row)
+    return torch.where(slot >= 0, pos[slot.clamp(min=0)], 0)
+
+
+def element_rows(offsets: torch.Tensor, cap: int, ecap: int):
+    """Map flat element slots back to their owning rows.
+
+    `offsets` is a monotone (>= cap + 1,) offset tensor. Returns (slot,
+    row, within, live), int64 and bool (ecap,): for element slot e, the
+    row whose range holds it, its position in that range, and whether it
+    is below the total element count. Rows past the last are clamped to
+    cap - 1, as the JAX package's `searchsorted(side="right")` is."""
+    dev = offsets.device
+    slot = torch.arange(ecap, dtype=torch.int64, device=dev)
+    ends = offsets[1:cap + 1].to(torch.int64).contiguous()
+    row = torch.searchsorted(ends, slot, right=True).clamp(0, cap - 1)
+    within = slot - offsets[row].to(torch.int64)
+    live = slot < offsets[cap].to(torch.int64)
+    return slot, row, within, live
 
 
 def _seg_ids(layout: GroupLayout, extra_mask=None) -> torch.Tensor:

@@ -6,7 +6,8 @@ stable multi-word key sort of ops/sort_keys.py; the fetch-limited path
 folds a bounded top-k over the stream, so unbounded inputs never
 materialize. Over the memory budget, `ExternalSorter` spills sorted runs to
 host files (runtime/memory.SpillFile) and merges them on the host
-(ops/host_sort.merge_sorted_host).
+(ops/host_sort.merge_sorted_host); runs holding list columns merge on the
+device (`_merge_runs_device`), as in the JAX package.
 
 The JAX package's `sorted_batch_jit` is `sort_keys.sort_batch` here,
 without its jit cache and compile-service shape rung: PyTorch runs
@@ -18,9 +19,11 @@ from __future__ import annotations
 import time
 from typing import List, Optional, Sequence
 
+import torch
+
 from blaze_tpu_torch.columnar import serde
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, StringData, bucket_capacity,
+    Column, ColumnBatch, ListData, StringData, StructData, bucket_capacity,
 )
 from blaze_tpu_torch.columnar.types import Schema
 from blaze_tpu_torch.config import conf
@@ -28,7 +31,7 @@ from blaze_tpu_torch.ops.base import (
     BatchStream, ExecContext, Operator, count_stream,
 )
 from blaze_tpu_torch.ops.common import concat_batches
-from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+from blaze_tpu_torch.ops.sort_keys import SortSpec, batch_sort_keys, sort_batch
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.metrics import to_host
 
@@ -40,14 +43,24 @@ def truncate(batch: ColumnBatch, limit: int) -> ColumnBatch:
     n = batch.num_rows.clamp(max=limit)
     if cap >= batch.capacity:
         return batch.with_num_rows(n)
-    cols = [Column(c.dtype,
-                   # a dictionary column comes out expanded, as in the
-                   # JAX package
-                   StringData(c.data.bytes[:cap], c.data.lengths[:cap])
-                   if c.is_string else c.data[:cap],
-                   None if c.validity is None else c.validity[:cap])
-            for c in batch.columns]
-    return ColumnBatch(batch.schema, cols, n, cap)
+    return ColumnBatch(batch.schema, [_head_rows(c, cap)
+                                      for c in batch.columns], n, cap)
+
+
+def _head_rows(c: Column, cap: int) -> Column:
+    """The first `cap` rows of a column: a dictionary column comes out
+    expanded and a list keeps its element storage, as in the JAX
+    package."""
+    v = None if c.validity is None else c.validity[:cap]
+    if c.is_list:
+        data = ListData(c.data.offsets[:cap + 1], c.data.elements)
+    elif c.is_struct:
+        data = StructData([_head_rows(ch, cap) for ch in c.data.children])
+    elif c.is_string:
+        data = StringData(c.data.bytes[:cap], c.data.lengths[:cap])
+    else:
+        data = c.data[:cap]
+    return Column(c.dtype, data, v)
 
 
 class ExternalSorter(M.MemConsumer):
@@ -129,16 +142,14 @@ class ExternalSorter(M.MemConsumer):
         """k-way merge of the spilled runs on the host: the runs are host
         files, so their frames are merged with numpy memcmp keys and each
         merged macro-batch, sized inside the budget class that forced the
-        spill, is uploaded once. The JAX package keeps a device-dispatch
-        merge (`_merge_runs_device`) for the schemas the host merge does
-        not hold, list columns, whose storage is not ported."""
+        spill, is uploaded once. Schemas with list columns, whose rows the
+        host merge does not slice, merge on the device
+        (`_merge_runs_device`), as in the JAX package."""
         from blaze_tpu_torch.ops import host_sort
 
         if not host_sort.host_supported(self.schema):
-            raise NotImplementedError(
-                "merging spilled sort runs of list or struct columns "
-                "(ExternalSorter._merge_runs_device) needs their storage "
-                "(the nested storage of columnar/batch.py), not yet ported")
+            yield from self._merge_runs_device()
+            return
         t0 = time.perf_counter_ns()
         emit = int(max(self.manager.total // 4, 1 << 20))
         iters = [r.read_host() for r in self.runs]
@@ -149,6 +160,67 @@ class ExternalSorter(M.MemConsumer):
             t0 = time.perf_counter_ns()
         self.merge_ns += time.perf_counter_ns() - t0
 
+    def _head_key(self, batch: ColumnBatch) -> tuple:
+        """The sort key words of a batch's first row, as Python ints (one
+        host pull)."""
+        keys = batch_sort_keys(batch, self.specs)
+        return tuple(to_host(torch.stack([k[0].to(torch.int64)
+                                          for k in keys])).tolist())
+
+    def _split_leq(self, pool: ColumnBatch, bound: tuple):
+        """(rows whose key is <= bound, the rest), each compacted."""
+        keys = batch_sort_keys(pool, self.specs)
+        le = torch.zeros((pool.capacity,), dtype=torch.bool,
+                         device=pool.device)
+        eq = torch.ones_like(le)
+        for word, b in zip(keys, bound):
+            le = le | (eq & (word < b))
+            eq = eq & (word == b)
+        mask = le | eq
+        return pool.compact(mask), pool.compact(~mask)
+
+    def _merge_runs_device(self):
+        """The JAX package's device merge: a pool of the carried rows and
+        the run whose head key is least is sorted, and every row up to
+        the least head key among the other runs' next batches (and that
+        run's own next) is emitted; the rest carries. Each pulled batch's
+        head key is read once (one pull), and each round pulls the pool's
+        row count."""
+        t0 = time.perf_counter_ns()
+        streams = [iter(r.read(device=self.device)) for r in self.runs]
+
+        def pull(i):
+            b = next(streams[i], None)
+            return None if b is None else (b, self._head_key(b))
+
+        current = [pull(i) for i in range(len(streams))]
+        carry: Optional[ColumnBatch] = None
+        while True:
+            active = [i for i, c in enumerate(current) if c is not None]
+            if not active:
+                if carry is not None and _rows(carry):
+                    self.merge_ns += time.perf_counter_ns() - t0
+                    yield carry
+                break
+            i_min = min(active, key=lambda i: current[i][1])
+            parts = ([carry] if carry is not None and _rows(carry)
+                     else [])
+            parts.append(current[i_min][0])
+            pool = sort_batch(parts[0] if len(parts) == 1 else
+                              concat_batches(parts, self.schema), self.specs)
+            current[i_min] = pull(i_min)
+            bounds = [current[i][1] for i in active
+                      if current[i] is not None]
+            if not bounds:
+                emit, carry = pool, None
+            else:
+                emit, carry = self._split_leq(pool, min(bounds))
+            if _rows(emit):
+                self.merge_ns += time.perf_counter_ns() - t0
+                yield emit
+                t0 = time.perf_counter_ns()
+        self.merge_ns += time.perf_counter_ns() - t0
+
     def abort(self) -> None:
         """Idempotent cleanup, also the error path. Closing the runs never
         masks the error being unwound (close_all_quietly)."""
@@ -156,6 +228,10 @@ class ExternalSorter(M.MemConsumer):
         self.pending, self.pending_bytes = [], 0
         runs, self.runs = self.runs, []
         M.close_all_quietly(runs, "sort spill run")
+
+
+def _rows(batch: ColumnBatch) -> int:
+    return int(to_host(batch.num_rows))
 
 
 class SortExec(Operator):

@@ -2,18 +2,12 @@
 
 Port of blaze_tpu/plan/from_proto.py (ref: blaze-serde from_proto.rs:
 121-793, lib.rs:191-535). The same `TaskDefinition` bytes decode in both
-packages: plan_pb2.py is the JAX package's generated module, copied. Types
-and scalars decode in full; expressions decode for the kinds the port's
-compiler handles, IN lists, CASE, IF, scalar functions, string predicates
-and LIKE included; plan nodes decode for
-the arms of the ported operators — ffi_reader, filter, projection, agg,
-rename_columns, sort (with its fetch limit), limit, union,
-empty_partitions, coalesce_batches, shuffle_writer, rss_shuffle_writer,
-ipc_writer, ipc_reader, sort_merge_join, broadcast_join,
-broadcast_nested_loop_join, parquet_scan, parquet_sink and debug. Every
-other expression kind or plan node (windows, expand, generate) raises
-NotImplementedError naming it, and the module that will run it where one
-is known.
+packages: plan_pb2.py is the JAX package's generated module, copied.
+Every arm the JAX decoder decodes decodes here: types and scalars, every
+expression kind (the compiler raises, naming its module, for the decimal,
+UDF and subquery kinds it does not run yet), and every plan node,
+expand, window and generate included. An arm neither decodes (an unset
+node, the `row_num` expression) raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -26,12 +20,14 @@ from blaze_tpu_torch.ops import basic as B
 from blaze_tpu_torch.ops.agg import AggCall, AggExec, AggMode
 from blaze_tpu_torch.ops import shuffle as S
 from blaze_tpu_torch.ops.base import Operator
+from blaze_tpu_torch.ops.expand import ExpandExec, GenerateExec
 from blaze_tpu_torch.ops.join import (
     BroadcastJoinExec, BroadcastNestedLoopJoinExec, JoinKey, JoinType,
     SortMergeJoinExec,
 )
 from blaze_tpu_torch.ops.sort import SortExec
 from blaze_tpu_torch.ops.sort_keys import SortSpec
+from blaze_tpu_torch.ops.window import WindowCall, WindowExec
 from blaze_tpu_torch.plan import plan_pb2 as pb
 
 # ---------------------------------------------------------------------------
@@ -204,6 +200,38 @@ def decode_expr(p: pb.ExprNode) -> ir.Expr:
         lk = p.like
         return ir.Like(decode_expr(lk.child), bytes(lk.pattern),
                        bytes(lk.escape) or b"\\")
+    if which == "get_struct_field":
+        g = p.get_struct_field
+        return ir.GetStructField(decode_expr(g.child), g.index)
+    if which == "get_indexed_field":
+        g = p.get_indexed_field
+        return ir.GetIndexedField(decode_expr(g.child),
+                                  decode_scalar(g.index))
+    if which == "get_map_value":
+        g = p.get_map_value
+        return ir.GetMapValue(decode_expr(g.child), decode_scalar(g.key))
+    if which == "named_struct":
+        g = p.named_struct
+        return ir.NamedStruct(tuple(g.names),
+                              tuple(decode_expr(v) for v in g.values),
+                              decode_dtype(g.result_type))
+    if which == "make_decimal":
+        m = p.make_decimal
+        return ir.MakeDecimal(decode_expr(m.child), m.precision, m.scale)
+    if which == "unscaled_value":
+        return ir.UnscaledValue(decode_expr(p.unscaled_value))
+    if which == "check_overflow":
+        c = p.check_overflow
+        return ir.CheckOverflow(decode_expr(c.child), c.precision, c.scale)
+    if which == "udf_wrapper":
+        u = p.udf_wrapper
+        return ir.UdfWrapper(u.resource_id, decode_dtype(u.return_type),
+                             u.nullable,
+                             tuple(decode_expr(x) for x in u.params))
+    if which == "scalar_subquery":
+        s = p.scalar_subquery
+        return ir.ScalarSubquery(s.resource_id, decode_dtype(s.return_type),
+                                 s.nullable)
     raise NotImplementedError(f"expression kind {which}")
 
 
@@ -238,14 +266,6 @@ _AGG_FN = {
     pb.AGG_AVG: "avg", pb.AGG_COUNT: "count", pb.AGG_FIRST: "first",
     pb.AGG_FIRST_IGNORES_NULL: "first_ignores_null",
     pb.AGG_COLLECT_LIST: "collect_list", pb.AGG_COLLECT_SET: "collect_set",
-}
-
-# plan nodes that decode in the JAX package but wait for a module of the
-# port: the decoder raises naming it
-_NODE_MODULE = {
-    "expand": "ops/expand.py",
-    "generate": "ops/expand.py",
-    "window": "ops/window.py",
 }
 
 _AGG_MODE = {
@@ -368,9 +388,36 @@ def decode_plan(p: pb.PlanNode) -> Operator:
                                fs_resource_id=n.fs_resource_id or None,
                                row_group_rows=n.row_group_rows or None,
                                props={kv.key: kv.value for kv in n.props})
-    if which in _NODE_MODULE:
-        raise NotImplementedError(
-            f"plan node {which} ({_NODE_MODULE[which]}) not yet ported")
+    if which == "expand":
+        child = decode_plan(n.input)
+        return ExpandExec(child, [[decode_expr(e) for e in pl.exprs]
+                                  for pl in n.projections],
+                          decode_schema(n.schema))
+    if which == "window":
+        child = decode_plan(n.input)
+        calls = []
+        for w in n.window_exprs:
+            if w.WhichOneof("fn") == "builtin":
+                name = {pb.WIN_ROW_NUMBER: "row_number", pb.WIN_RANK: "rank",
+                        pb.WIN_DENSE_RANK: "dense_rank"}[w.builtin]
+                calls.append(WindowCall(name, (),
+                                        decode_dtype(w.result_type), w.name))
+            else:
+                a = w.agg
+                calls.append(WindowCall(
+                    _AGG_FN[a.fn], tuple(decode_expr(x) for x in a.args),
+                    decode_dtype(a.result_type), w.name))
+        return WindowExec(child, calls,
+                          [decode_expr(e) for e in n.partition_by],
+                          [_sort_spec(t, child.schema) for t in n.order_by])
+    if which == "generate":
+        child = decode_plan(n.input)
+        pos = {pb.GenerateNode.EXPLODE: False,
+               pb.GenerateNode.POS_EXPLODE: True}[n.kind]
+        return GenerateExec(child, decode_expr(n.child_expr),
+                            list(n.required_columns),
+                            list(n.generator_output_names),
+                            pos=pos, outer=n.outer)
     raise NotImplementedError(f"plan node {which}")
 
 

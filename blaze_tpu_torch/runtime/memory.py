@@ -329,18 +329,26 @@ class SpillFile:
 def batch_nbytes(batch: ColumnBatch) -> int:
     """Device bytes of a batch (capacity-based, validity included); reads
     shapes only, never the device."""
-    total = 0
-    for c in batch.columns:
-        d = c.data
-        if c.is_dict:
-            # the encoded form: codes and the small dictionary, not the
-            # expanded (capacity, width) matrix
-            total += (4 * d.codes.shape[0] + d.dict_bytes.numel()
-                      + 4 * d.dict_lengths.shape[0])
-        elif c.is_string:
-            total += d.bytes.numel() + 4 * d.lengths.shape[0]
-        else:
-            total += d.numel() * d.element_size()
-        if c.validity is not None:
-            total += c.validity.numel()
+    return sum(_col_nbytes(c) for c in batch.columns)
+
+
+def _col_nbytes(c) -> int:
+    """A list column counts its offsets and its element storage at the
+    element capacity, so collect state is charged against the budget."""
+    d = c.data
+    if c.is_dict:
+        # the encoded form: codes and the small dictionary, not the
+        # expanded (capacity, width) matrix
+        total = (4 * d.codes.shape[0] + d.dict_bytes.numel()
+                 + 4 * d.dict_lengths.shape[0])
+    elif c.is_string:
+        total = d.bytes.numel() + 4 * d.lengths.shape[0]
+    elif c.is_list:
+        total = 4 * d.offsets.shape[0] + _col_nbytes(d.elements)
+    elif c.is_struct:
+        total = sum(_col_nbytes(ch) for ch in d.children)
+    else:
+        total = d.numel() * d.element_size()
+    if c.validity is not None:
+        total += c.validity.numel()
     return total

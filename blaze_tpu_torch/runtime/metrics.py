@@ -20,6 +20,10 @@ HOST_PULLS = 0
 # unpack) of columnar/serde.py since import; the JAX package's monitor
 # counts the same windows as serde_encode / serde_decode
 SERDE_NS = {"encode": 0, "decode": 0}
+# bytes of the frames encoded since import: the payload before compression
+# ("raw") and the frames as written ("frames"); the JAX package's monitor
+# counts the same pair as serde copied / moved
+SERDE_BYTES = {"raw": 0, "frames": 0}
 
 
 def to_host(t):

@@ -44,7 +44,7 @@ import torch
 
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, DictData, StringData, bucket_capacity,
+    Column, ColumnBatch, StringData, bucket_capacity, map_tensors,
     require_dense_kind,
 )
 from blaze_tpu_torch.columnar.types import TypeKind
@@ -205,17 +205,9 @@ def _rebuild(root: Operator, source: Operator,
 def _meta_like(b: ColumnBatch) -> ColumnBatch:
     """Shape-and-dtype twin of `b` on the meta device (no data)."""
     def t(x):
-        return None if x is None else torch.empty_like(x, device="meta")
+        return torch.empty_like(x, device="meta")
 
-    def data(c):
-        if c.is_dict:
-            return DictData(t(c.data.codes), t(c.data.dict_bytes),
-                            t(c.data.dict_lengths))
-        if c.is_string:
-            return StringData(t(c.data.bytes), t(c.data.lengths))
-        return t(c.data)
-
-    cols = [Column(c.dtype, data(c), t(c.validity)) for c in b.columns]
+    cols = [map_tensors(c, t) for c in b.columns]
     return ColumnBatch(b.schema, cols, t(b.num_rows), b.capacity)
 
 
@@ -314,6 +306,10 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
     and the columns concatenate once."""
     for f in root.schema.fields:  # before draining the source
         require_dense_kind(f.dtype, f.name)
+        if f.dtype.is_nested:
+            # compacting list storage across batches: the streaming path,
+            # as in the JAX package
+            return None
     batches = list(source.execute(ctx))
     ctx.check_running()
     if not batches:

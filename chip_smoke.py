@@ -69,7 +69,9 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 row group each (SF100's row counts cut 2.1x, 2.1x, 17x;
                 widths and key domains kept: 2 M customers, 5% null date
                 and customer keys; store_sales at spark/tpcds.py's full
-                width of 12 columns), and phase 16's dimension tables
+                width of 12 columns), phase 16's dimension tables and
+                one store_returns file of 2^21 rows (SF100's 28.8 M cut
+                13.7x)
  13. tpcds_q02  q02 (spark/tpcds.py:367, BHJ mode): a broadcast stage of
                 date_dim, 16 map tasks of Union(scan ws, scan cs) ->
                 BroadcastJoin -> the dense partial agg by (d_year, d_qoy)
@@ -106,9 +108,19 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 against numpy (strings and counts exact, sums and
                 averages rtol 1e-9), once timed, and one q07 map task
                 profiled (device busy, idle share, top operations)
+ 17. runner_nested  tpcds.py's q05 (a ROLLUP: ExpandExec) and q01 over
+                phase 12's store_sales files and its store_returns file
+                (2^21 rows), then this script's NESTED_QUERIES: q51_store
+                (TPC-DS q51's store arm, a WindowExec of running sums and
+                ranks over 3.1 M daily item totals), basket_items
+                (collect_list, posexplode) and basket_stores (collect_set,
+                explode), all BHJ through run_plan; each against numpy
+                (names, ids, ranks and counts exact, sums rtol 1e-9; the
+                window's row count and rank sums exact), once timed, and
+                q51_store's window stage profiled
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-16 have run_plan convert and decode
+decode_task_definition; phases 15-17 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -613,6 +625,8 @@ def _reset_counts() -> None:
     metrics.HOST_PULLS = 0
     for k in metrics.SERDE_NS:
         metrics.SERDE_NS[k] = 0
+    for k in metrics.SERDE_BYTES:
+        metrics.SERDE_BYTES[k] = 0
 
 
 def _timed_reps(plan, packed, ncols, reps=PATH_REPS):
@@ -1477,6 +1491,10 @@ def _fact_file(seed, table, i, path, dd, dims):
         cols = {name: cols[name] for name in SS_COLUMNS}
         out.update(_string_partials(date, dvalid, cust, cvalid, price, host,
                                     dd, dims))
+        t0 = time.perf_counter()
+        out.update(_nested_partials(date, dvalid, cust, cvalid, price, host,
+                                    dd))
+        out["nested_s"] = time.perf_counter() - t0
     pq.write_table(pa.table(cols), path, row_group_size=n,
                    compression="snappy")
     idx = date[dvalid] - DATE_SK0
@@ -1637,6 +1655,121 @@ def _string_partials(date, dvalid, cust, cvalid, price, host, dd, dims):
     return out
 
 
+# store_returns (spark/tpcds.py's SR): one file of 2^21 rows (SF100 holds
+# 28,795,080, a 13.7x cut), values drawn as tpcds.py's generate_tables
+# draws them: return dates on the sales window, customers on
+# [1, 2,000,000], stores on SF100's 402, amounts in cents on [0, 300),
+# 4% null
+SR_ROWS = 1 << 21
+STORES = dict(SS_DIMS)["store"]
+Q01_STATE_TN = 0       # store i (0-based) is in _STATES[i % 4]; "TN" is 0
+Q51_YEAR = 2000
+NESTED_TOP = 100
+
+
+def _distinct(a: np.ndarray) -> np.ndarray:
+    """The sorted distinct values of an integer array, by a sort. numpy
+    2.3's `np.unique` hashes integers, and on the card's host it made the
+    oracles of `tpcds_data` take 18.3 s where this takes 2.7 s (the
+    phase's `nested_oracle_s`)."""
+    s = np.sort(a)
+    return s[np.r_[True, s[1:] != s[:-1]]] if len(s) else s
+
+
+def _nested_partials(date, dvalid, cust, cvalid, price, host, dd):
+    """One store_sales file's share of runner_nested's answers: q05's
+    per-store ss_ext_sales_price sums; q51's (item, day of 2000) keys with
+    ss_sales_price in integer cents and its validity; basket_items' per
+    customer row counts and ss_item_sk sums (index 0: the null customer);
+    basket_stores' distinct (customer, store) pair keys (customer 0: the
+    null customer)."""
+    item, store = host["item"], host["store"]
+    day = np.where(dvalid, date - DATE_SK0, 0)
+    m = dvalid & (dd["d_year"][day] == Q51_YEAR)
+    first = np.searchsorted(dd["d_year"], Q51_YEAR)
+    sp, sp_ok = host["sp"]
+    c0 = np.where(cvalid, cust, 0)
+    return {
+        "q05_sales": np.bincount(store, weights=price,
+                                 minlength=STORES + 1),
+        "q51": (item[m] * 366 + (day[m] - first),
+                np.rint(sp[m] * 100).astype(np.int64), sp_ok[m]),
+        "items": (np.bincount(c0, minlength=CUSTOMERS + 1),
+                  np.bincount(c0, weights=item, minlength=CUSTOMERS + 1)),
+        "pairs": _distinct(c0 * (STORES + 1) + store),
+    }
+
+
+def _store_returns(seed, path, dd) -> dict:
+    """Write store_returns; returns q05's per-store sr_return_amt sums and
+    q01's answer: the customer keys of the first NESTED_TOP rows by
+    c_customer_id (customers whose 2000 returns at a store exceed 1.2x
+    that store's average customer total, at stores in TN)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng([seed, 77])
+    n = SR_ROWS
+    date = rng.integers(SALES_SK[0], SALES_SK[1] + 1, n)
+    cust = rng.integers(1, CUSTOMERS + 1, n)
+    store = rng.integers(1, STORES + 1, n)
+    amt = np.round(rng.random(n) * 300, 2)
+    ok = rng.random(n) >= 0.04
+    pq.write_table(pa.table({
+        "sr_returned_date_sk": pa.array(date),
+        "sr_customer_sk": pa.array(cust), "sr_store_sk": pa.array(store),
+        "sr_return_amt": pa.array(amt, mask=~ok)}), path,
+        row_group_size=n, compression="snappy")
+    m = dd["d_year"][date - DATE_SK0] == 2000
+    key = cust[m] * (STORES + 1) + store[m]
+    keys, inv = np.unique(key, return_inverse=True)
+    tot = np.bincount(inv, weights=np.where(ok[m], amt[m], 0.0))
+    has = np.bincount(inv, weights=ok[m]) > 0   # sum is null otherwise
+    kst = keys % (STORES + 1)
+    avg = (np.bincount(kst[has], weights=tot[has], minlength=STORES + 1)
+           / np.maximum(np.bincount(kst[has], minlength=STORES + 1), 1))
+    hit = has & (tot > avg[kst] * 1.2) & ((kst - 1) % 4 == Q01_STATE_TN)
+    q01 = np.sort(keys[hit] // (STORES + 1))[:NESTED_TOP]
+    return {"q05_returns": np.bincount(store[ok], weights=amt[ok],
+                                       minlength=STORES + 1),
+            "q01": q01}
+
+
+def _nested_oracles(parts: dict) -> dict:
+    """The nested queries' answers from the files' partials. q51: each
+    (item, day) group's sales sum in cents (null where every price is),
+    the running sum per item by day, the top NESTED_TOP rows by (running
+    sum desc nulls last, item, day) as (item, date key, cents), and the
+    window's row count and sums of row_number and dense_rank over every
+    row (the keys are unique, so rank = dense_rank = row_number)."""
+    keys = np.concatenate([k for k, _, _ in parts["q51"]])
+    cents = np.concatenate([c for _, c, _ in parts["q51"]])
+    ok = np.concatenate([v for _, _, v in parts["q51"]])
+    groups, inv = np.unique(keys, return_inverse=True)
+    gsum = np.bincount(inv, weights=np.where(ok, cents, 0)).astype(np.int64)
+    gok = np.bincount(inv, weights=ok) > 0
+    item = groups // 366
+    start = np.r_[True, item[1:] != item[:-1]]
+    seg = np.cumsum(start) - 1
+    first = np.nonzero(start)[0]
+    run = np.cumsum(np.where(gok, gsum, 0))
+    base = np.r_[0, run][first]
+    cume = run - base[seg]
+    nvalid = np.cumsum(gok)
+    cume_ok = (nvalid - np.r_[0, nvalid][first][seg]) > 0
+    rn = np.arange(len(groups)) - first[seg] + 1
+    order = np.lexsort((groups % 366, item, -cume, ~cume_ok))[:NESTED_TOP]
+    dd0 = DATE_SK0 + np.searchsorted(_date_dim()["d_year"], Q51_YEAR)
+    return {
+        "q51": {"item": item[order], "date": groups[order] % 366 + dd0,
+                "cents": cume[order], "rows": len(groups),
+                "sum_rn": int(rn.sum()), "sum_dr": int(rn.sum())},
+        "basket_items": parts["items"],
+        "basket_stores": np.bincount(
+            _distinct(np.concatenate(parts["pairs"])) % (STORES + 1),
+            minlength=STORES + 1),
+    }
+
 
 def write_tpcds(work_dir, seed=TPCDS_SEED):
     """date_dim, the dimension tables of the string queries and the fact
@@ -1654,6 +1787,15 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
     tables, dims = _dim_tables(seed)
     _write_dims(tables, work_dir, paths)
     del tables
+    paths["store_returns"] = os.path.join(work_dir, "store_returns.parquet")
+    t0 = time.perf_counter()
+    nested = _store_returns(seed, paths["store_returns"], dd)
+    nested["store_returns_s"] = time.perf_counter() - t0
+    nested["nested_partials_s"] = 0.0
+    parts = {"q51": [], "pairs": [],
+             "items": [np.zeros(CUSTOMERS + 1, np.int64),
+                       np.zeros(CUSTOMERS + 1)]}
+    q05_sales = np.zeros(STORES + 1)
     jobs = []
     for table, nfiles in TPCDS_FILES.items():
         paths[table] = [os.path.join(work_dir, f"{table}_{i:03d}.parquet")
@@ -1670,6 +1812,13 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                 lambda j: _fact_file(seed, j[0], j[1], j[2], dd, dims),
                 jobs)):
             q09 += part.get("q09", 0)
+            if "q51" in part:
+                nested["nested_partials_s"] += part["nested_s"]
+                q05_sales += part["q05_sales"]
+                parts["q51"].append(part["q51"])
+                parts["pairs"].append(part["pairs"])
+                parts["items"][0] += part["items"][0]
+                parts["items"][1] += part["items"][1]
             for q in ("q03", "q06", "q07", "q08"):
                 if q in part:
                     acc = strings.get(q)
@@ -1683,7 +1832,10 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                 acc = q04[(table, y)]
                 acc[0] += np.bincount(c, weights=p, minlength=CUSTOMERS + 1)
                 acc[1] += np.bincount(c, minlength=CUSTOMERS + 1)
-    return paths, dict(strings, q02=q02, q04=q04, q09=q09)
+    t0 = time.perf_counter()
+    nested.update(_nested_oracles(parts), q05_sales=q05_sales,
+                  nested_oracle_s=time.perf_counter() - t0)
+    return paths, dict(strings, q02=q02, q04=q04, q09=q09, **nested)
 
 
 def _q02_oracle(orc):
@@ -2218,16 +2370,19 @@ RUNNER_INFO = ("file_stages", "broadcast_stages", "map_tasks_run",
 
 
 def _runner_plan(q, paths, mode="bhj"):
-    """spark/tpcds.py's own plan of q over the Parquet files. Its query
-    function names one file a table; each scan then lists every file of
-    its table, as Spark's scan does. Operators and expressions stay
-    tpcds.py's."""
+    """spark/tpcds.py's own plan of q (or this script's NESTED_QUERIES
+    plan) over the Parquet files. Its query function names one file a
+    table; each scan then lists every file of its table, as Spark's scan
+    does. Operators and expressions stay the query function's."""
     from blaze_tpu_torch.spark import tpcds
 
     files = {t: v if isinstance(v, list) else [v] for t, v in paths.items()}
     first = {t: v[0] for t, v in files.items()}
     owner = {v: t for t, v in first.items()}
-    plan, _ = tpcds.QUERIES[q](first, None, mode)
+    if q in NESTED_QUERIES:
+        plan = NESTED_QUERIES[q](tpcds, first, mode)
+    else:
+        plan, _ = tpcds.QUERIES[q](first, None, mode)
 
     def widen(p):
         if p.kind == "FileSourceScanExec":
@@ -2259,6 +2414,7 @@ def _runner_run(q, paths, work_dir, check) -> dict:
     plan = _runner_plan(q, paths)  # plans are single-use
     info = {}
     _reset_counts()
+    spills = memory.get_manager().spill_count
     t0 = time.perf_counter()
     out = run_plan(plan, work_dir=os.path.join(work_dir, "runner", q),
                    run_info=info)
@@ -2266,12 +2422,15 @@ def _runner_run(q, paths, work_dir, check) -> dict:
     wall = time.perf_counter() - t0
     check(out)
     return dict({k: info[k] for k in RUNNER_INFO}, wall_s=wall, rows=rows,
+                spills=memory.get_manager().spill_count - spills,
                 launches=mxu_agg.KERNEL_LAUNCHES,
                 host_pulls=metrics.HOST_PULLS,
                 # io_time_ns: Arrow to device, host conversion plus copies
                 scan_to_device_s=info["io_time_ns"] / 1e9,
                 serde_encode_s=metrics.SERDE_NS["encode"] / 1e9,
-                serde_decode_s=metrics.SERDE_NS["decode"] / 1e9)
+                serde_decode_s=metrics.SERDE_NS["decode"] / 1e9,
+                serde_raw_bytes=metrics.SERDE_BYTES["raw"],
+                serde_frame_bytes=metrics.SERDE_BYTES["frames"])
 
 
 def _same_rows(got, want, what):
@@ -2431,8 +2590,8 @@ def phase_runner_strings(paths, orc, work_dir) -> dict:
     checked against numpy, then once timed; one q07 map task profiled.
 
     q10 (its BHJ plan broadcasts whole web_sales and catalog_sales
-    relations through zlib) and q01 (store_returns, which this script
-    does not write) are left to tests/test_torch_runner.py on the CPU."""
+    relations through zlib) is left to tests/test_torch_runner.py on the
+    CPU; q01 runs in runner_nested."""
     res = {"phase": "runner_strings", "mode": "bhj"}
     for q, check in STRING_QUERIES.items():
         first = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
@@ -2449,19 +2608,316 @@ def phase_runner_strings(paths, orc, work_dir) -> dict:
     return res
 
 
+def q51_store_plan(tp, paths, mode="bhj"):
+    """TPC-DS q51's store arm (TPC-DS v2 specification, query 51): the
+    daily store sales of each item in 2000 and their running total.
+    store_sales joins date_dim (d_year = 2000, broadcast in BHJ mode); a
+    partial aggregate of sum(ss_sales_price) by (ss_item_sk,
+    ss_sold_date_sk); an exchange on ss_item_sk (4 partitions) and the
+    final aggregate; a WindowExec partitioned by ss_item_sk and ordered by
+    ss_sold_date_sk with sum(sales) as cume_sales, row_number, rank and
+    dense_rank; a top NESTED_TOP by (cume_sales DESC, item, date). q51's
+    frame is ROWS UNBOUNDED PRECEDING and the port has the RANGE frame to
+    the current peer group: they agree here, because (item, date) is
+    unique after the aggregate. The window sorts its own input, so the
+    plan carries no SortExec below it. `tp` is a spark/tpcds.py module
+    (either package's), whose helpers and schemas build the plan."""
+    P, T, ir, col = tp.P, tp.T, tp.ir, tp.col
+    ss = P.scan(tp.SS, [(paths["store_sales"], [])])
+    dd = P.filter_(P.scan(tp.DD, [(paths["date_dim"], [])]),
+                   ir.Binary(ir.BinOp.EQ, col("d_year"),
+                             tp.lit(Q51_YEAR)))
+    j = tp._join(ss, dd, [col("ss_sold_date_sk")], [col("d_date_sk")],
+                 "inner", T.Schema(tp._fields(tp.SS, tp.DD)), mode)
+    names = ["ss_item_sk", "ss_sold_date_sk"]
+    keys = [T.Field(n, T.INT64) for n in names]
+    aggs = [tp._sum("ss_sales_price", "sales")]
+    partial = P.hash_agg(j, "partial", [col(n) for n in names], names,
+                         aggs, T.Schema(keys))
+    x = P.shuffle_exchange(partial, [col("ss_item_sk")], 4)
+    final = P.hash_agg(x, "final", [col(n) for n in names], names, aggs,
+                       T.Schema(keys + [T.Field("sales", T.FLOAT64)]))
+    calls = [tp._sum("sales", "cume_sales")] + [
+        {"fn": fn, "args": [], "dtype": T.INT32, "name": fn}
+        for fn in ("row_number", "rank", "dense_rank")]
+    win = P.window(final, calls, [col("ss_item_sk")],
+                   [(col("ss_sold_date_sk"), True, True)],
+                   T.Schema(list(final.schema.fields) + [
+                       T.Field("cume_sales", T.FLOAT64)] + [
+                       T.Field(c["name"], T.INT32, False)
+                       for c in calls[1:]]))
+    srt = P.sort(win, [(col("cume_sales"), False, False),
+                       (col("ss_item_sk"), True, True),
+                       (col("ss_sold_date_sk"), True, True)])
+    return P.limit(srt, NESTED_TOP, True)
+
+
+def basket_plan(tp, paths, mode="bhj", kind="items"):
+    """A customer-basket query (the market-basket and sessionization
+    pattern of Spark SQL): store_sales grouped by ss_customer_sk into a
+    list of its items (`kind` "items": collect_list(ss_item_sk), partial
+    -> exchange on the customer (4) -> final, so the list state crosses
+    the serde), exploded with its positions (posexplode, the customer
+    kept) and counted back per customer: count(pos), sum(item), max(pos).
+    `kind` "stores": the set of each customer's stores
+    (collect_set(ss_store_sk)), exploded, and count(1) per store through
+    a second exchange. The null customer is a group of its own."""
+    P, T, ir, col = tp.P, tp.T, tp.ir, tp.col
+    ss = P.scan(tp.SS, [(paths["store_sales"], [])])
+    items = kind == "items"
+    lst = T.list_of(T.INT64)
+    cust = [T.Field("ss_customer_sk", T.INT64)]
+    agg = [{"fn": "collect_list" if items else "collect_set",
+            "args": [col("ss_item_sk" if items else "ss_store_sk")],
+            "dtype": lst, "name": "basket"}]
+    partial = P.hash_agg(ss, "partial", [col("ss_customer_sk")],
+                         ["ss_customer_sk"], agg, T.Schema(cust))
+    x = P.shuffle_exchange(partial, [col("ss_customer_sk")], 4)
+    baskets = P.hash_agg(x, "final", [col("ss_customer_sk")],
+                         ["ss_customer_sk"], agg,
+                         T.Schema(cust + [T.Field("basket", lst)]))
+    if not items:
+        gen = P.generate(baskets, col("basket"), [], ["store"], False,
+                         False, T.Schema([T.Field("store", T.INT64)]))
+        one = [{"fn": "count", "args": [ir.Literal(T.INT32, 1)],
+                "dtype": T.INT64, "name": "customers"}]
+        out = tp._two_phase_agg(gen, [col("store")], ["store"], one,
+                                [T.Field("store", T.INT64)])
+        return P.sort(out, [(col("store"), True, True)])
+    gen = P.generate(baskets, col("basket"), [0], ["pos", "item"], True,
+                     False, T.Schema(cust + [T.Field("pos", T.INT32, False),
+                                             T.Field("item", T.INT64)]))
+    counts = [{"fn": "count", "args": [col("pos")], "dtype": T.INT64,
+               "name": "n"},
+              {"fn": "sum", "args": [col("item")], "dtype": T.INT64,
+               "name": "item_sum"},
+              {"fn": "max", "args": [col("pos")], "dtype": T.INT32,
+               "name": "max_pos"}]
+    # the explode keeps the customer partitioning: no second exchange
+    p2 = P.hash_agg(gen, "partial", [col("ss_customer_sk")],
+                    ["ss_customer_sk"], counts, T.Schema(cust))
+    return P.hash_agg(p2, "final", [col("ss_customer_sk")],
+                      ["ss_customer_sk"], counts, T.Schema(cust + [
+                          T.Field("n", T.INT64), T.Field("item_sum", T.INT64),
+                          T.Field("max_pos", T.INT32)]))
+
+
+NESTED_QUERIES = {
+    "q51_store": q51_store_plan,
+    "basket_items": basket_plan,
+    "basket_stores": lambda tp, paths, mode="bhj": basket_plan(
+        tp, paths, mode, "stores"),
+}
+
+
+def check_q05(out, orc):
+    """q05: every store's sales and returns, then the ROLLUP's grand
+    total (a null name, grouping id 1): names and ids exact, sums rtol
+    1e-9."""
+    names = sorted(f"Store#{i}".encode() for i in range(1, STORES + 1))
+    idx = [int(n[6:]) for n in names]
+    sales, rets = orc["q05_sales"], orc["q05_returns"]
+    _check_rows(out.to_numpy(), {
+        "s_store_name": names + [None],
+        "spark_grouping_id": [0] * STORES + [1],
+        "total_sales": list(sales[idx]) + [sales.sum()],
+        "total_returns": list(rets[idx]) + [rets.sum()]}, "q05",
+        ("total_sales", "total_returns"))
+
+
+def check_q01(out, orc):
+    """q01: the first 100 customer ids, in order, exact."""
+    _check_rows(out.to_numpy(), {"c_customer_id": [
+        f"AAAA{int(c):012d}".encode() for c in orc["q01"]]}, "q01")
+
+
+def check_q51(out, orc, window=None):
+    """q51_store: the top rows' items, dates and ranks exact (the keys are
+    unique, so rank and dense_rank are the row number), running sums rtol
+    1e-9 against the exact sums in cents; with `window` (the window's own
+    counts), its row count and sums of row_number and dense_rank exact."""
+    w = orc["q51"]
+    d = out.to_numpy()
+    _require(len(d["ss_item_sk"]) == NESTED_TOP,
+             f"q51_store: {len(d['ss_item_sk'])} rows")
+    _require(list(d["ss_item_sk"]) == list(w["item"])
+             and list(d["ss_sold_date_sk"]) == list(w["date"]),
+             "q51_store: the top rows' keys differ")
+    np.testing.assert_allclose(np.asarray(d["cume_sales"], np.float64),
+                               w["cents"] / 100.0, rtol=1e-9,
+                               err_msg="q51_store: cume_sales")
+    _require(list(d["rank"]) == list(d["row_number"]) == list(
+        d["dense_rank"]), "q51_store: ranks differ from row numbers")
+    if window is not None:
+        got = (window["rows"], window["sum_rn"], window["sum_dr"])
+        _require(got == (w["rows"], w["sum_rn"], w["sum_dr"]),
+                 f"q51_store: window counts {got}")
+
+
+def check_basket_items(out, orc):
+    """basket_items: per customer (the null customer too), count(pos) and
+    sum(item) equal numpy's row count and item sum, and max(pos) is the
+    count less one."""
+    cnt, sums = orc["basket_items"]
+    d = out.to_numpy()
+    keys = np.array([0 if k is None else k for k in d["ss_customer_sk"]],
+                    np.int64)
+    want = np.nonzero(cnt)[0]
+    order = np.argsort(keys)
+    _require(np.array_equal(keys[order], want),
+             f"basket_items: {len(keys)} customers, want {len(want)}")
+    n = np.asarray(d["n"], np.int64)[order]
+    _require(np.array_equal(n, cnt[want]), "basket_items: counts")
+    _require(np.array_equal(np.asarray(d["item_sum"], np.int64)[order],
+                            sums[want].astype(np.int64)),
+             "basket_items: item sums")
+    _require(np.array_equal(np.asarray(d["max_pos"], np.int64)[order],
+                            n - 1), "basket_items: max(pos)")
+
+
+def check_basket_stores(out, orc):
+    """basket_stores: each store's distinct customers (the null customer
+    one of them), exact, by store."""
+    want = orc["basket_stores"]
+    stores = np.nonzero(want)[0]
+    _check_rows(out.to_numpy(), {"store": list(stores),
+                                 "customers": list(want[stores])},
+                "basket_stores")
+
+
+class _WindowCounts:
+    """Around one run: every WindowExec's output rows and its sums of
+    row_number and dense_rank (device sums, pulled once at the end), and
+    the window operators' spill counts."""
+
+    def __enter__(self):
+        from blaze_tpu_torch.ops.window import WindowExec
+
+        self.cls, self.real = WindowExec, WindowExec._compute
+        self.ops, self.parts = set(), []
+        real, ops, parts = self.real, self.ops, self.parts
+
+        def compute(op, sb):
+            out = real(op, sb)
+            ops.add(op)
+            live = out.row_mask()
+            names = out.schema.names()
+            parts.append(torch.stack([live.sum()] + [
+                torch.where(live, out.columns[names.index(c)].data, 0).sum()
+                .to(torch.int64) for c in ("row_number", "dense_rank")]))
+            return out
+
+        WindowExec._compute = compute
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._compute = self.real
+
+    def result(self) -> dict:
+        tot = (torch.stack(self.parts).sum(0).cpu().tolist()
+               if self.parts else [0, 0, 0])
+        return {"rows": tot[0], "sum_rn": tot[1], "sum_dr": tot[2],
+                "spill_count": sum(op.metrics["spill_count"]
+                                   for op in self.ops)}
+
+
+def _profiled_result_stage(q, paths, work_dir) -> dict:
+    """One more run of q with its result stage (the one that runs the
+    window) under torch.profiler: the stage's wall time, device busy time,
+    idle share and top device operations."""
+    from blaze_tpu_torch.spark import local_runner
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    real = local_runner._run_result_stage
+    prof = {}
+
+    def profiled(*args):
+        t0 = time.perf_counter()
+        rows, busy_ms = _device_profile(lambda: prof.setdefault(
+            "ret", real(*args)))
+        wall = time.perf_counter() - t0
+        prof.update(stage_wall_s=wall, device_busy_ms=busy_ms,
+                    idle_share=1.0 - busy_ms / (wall * 1e3),
+                    device_ops=sum(r[2] for r in rows), top=_top(rows, 15))
+        return prof["ret"]
+
+    local_runner._run_result_stage = profiled
+    try:
+        run_plan(_runner_plan(q, paths),
+                 work_dir=os.path.join(work_dir, "runner", q + "_prof"))
+    finally:
+        local_runner._run_result_stage = real
+    prof.pop("ret", None)
+    return prof
+
+
+class _Out:
+    """A result already on the host, as `check_*` reads it."""
+
+    def __init__(self, rows: dict) -> None:
+        self._rows = rows
+
+    def to_numpy(self) -> dict:
+        return self._rows
+
+
+NESTED_CHECKS = {"q05": check_q05, "q01": check_q01,
+                 "q51_store": check_q51, "basket_items": check_basket_items,
+                 "basket_stores": check_basket_stores}
+
+
+def phase_runner_nested(paths, orc, work_dir) -> dict:
+    """The slice of nested columns and the last three plan nodes, through
+    run_plan in BHJ mode as runner_tpcds runs its queries: tpcds.py's q05
+    (its ROLLUP is an ExpandExec over store_sales and store_returns joined
+    to store) and q01 (store_returns, the per-store average self-join, the
+    customer join and a top 100), then this script's q51_store (a
+    WindowExec over 3.1 M daily item totals), basket_items (collect_list,
+    posexplode) and basket_stores (collect_set, explode). Each once
+    checked against numpy (q51_store's window also by its own row count
+    and rank sums), then once timed; the result stage of q51_store, which
+    runs the window, profiled."""
+    res = {"phase": "runner_nested", "mode": "bhj"}
+    for q, check in NESTED_CHECKS.items():
+        counts = _WindowCounts()
+        with counts:
+            first = _runner_run(q, paths, work_dir,
+                                lambda out: check(out, orc))
+        if q == "q51_store":
+            first["window"] = counts.result()
+            check_q51(_Out(first["rows"]), orc, first["window"])
+        timed = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
+        _require(timed["launches"] == first["launches"],
+                 f"{q}: launches moved between runs")
+        first["result_rows"] = len(next(iter(first.pop("rows").values())))
+        first["checked_s"] = first.pop("wall_s")
+        res[q] = dict(first, timed_s=timed["wall_s"],
+                      stages=_runner_stages(q, paths))
+    res["q51_store"]["window_stage_profile"] = _profiled_result_stage(
+        "q51_store", paths, work_dir)
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
     paths, orc = write_tpcds(work_dir, seed)
-    files = [paths["date_dim"]] + [paths[t] for t in DIM_ROWS] + \
-        [p for t in TPCDS_FILES for p in paths[t]]
+    files = [paths["date_dim"], paths["store_returns"]] + [
+        paths[t] for t in DIM_ROWS] + [p for t in TPCDS_FILES
+                                       for p in paths[t]]
     _emit({"phase": "tpcds_data", "seconds": time.perf_counter() - t0,
            "seed": seed, "date_dim_rows": DATE_DIM_ROWS,
            "dim_rows": DIM_ROWS,
-           "fact_rows": {t: n * FACT_FILE_ROWS
-                         for t, n in TPCDS_FILES.items()},
+           "fact_rows": dict({t: n * FACT_FILE_ROWS
+                              for t, n in TPCDS_FILES.items()},
+                             store_returns=SR_ROWS),
            "files": len(files),
-           "bytes": sum(os.path.getsize(p) for p in files)})
+           "bytes": sum(os.path.getsize(p) for p in files),
+           # host time of runner_nested's oracles (the partials summed
+           # over the writer threads)
+           "nested_oracle_s": {k: orc[k] for k in (
+               "store_returns_s", "nested_partials_s", "nested_oracle_s")}})
     return paths, orc
 
 
@@ -2497,6 +2953,7 @@ def main(argv=None) -> int:
         q04 = phase_tpcds_q04(paths, orc, work_dir)
         runner = phase_runner_tpcds(paths, orc, work_dir, q02, q04)
         phase_runner_strings(paths, orc, work_dir)
+        nested = phase_runner_nested(paths, orc, work_dir)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -2510,6 +2967,8 @@ def main(argv=None) -> int:
         "shuffle_q06_launches": shuffle["launches"],
         "tpcds_q02_launches": q02["launches_per_rep"],
         "runner_q02_launches": runner["q02"]["launches"],
+        "runner_nested_launches": {q: nested[q]["launches"]
+                                   for q in NESTED_CHECKS},
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -2,9 +2,10 @@
 against its plain torch version, bench.py's q06 plan through it at test
 size, and the later paths (general aggregation, sort, hash, partition sort,
 serde, spill, joins, the Parquet scan, CASE and IN, the string functions
-and a dictionary column's serde round trip, and spark/tpcds.py's q02, q03,
-q07, q08 and q09 through run_plan) on the card against the port's own CPU
-route.
+and a dictionary column's serde round trip, spark/tpcds.py's q02, q03,
+q07, q08 and q09 through run_plan, and the nested slice: segmented scans,
+list take and concatenation, collect_list/collect_set, a window and a
+generate batch) on the card against the port's own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -719,3 +720,169 @@ def test_dict_serde_round_trip_onto_card(cuda, monkeypatch):
         assert torch.equal(a.cpu(), b)
     assert serde.serialize_batch(on_card) == serde.serialize_batch(on_cpu)
     assert on_card.to_numpy()["s"] == cpu.to_numpy()["s"]
+
+
+def test_segmented_scan_on_card_matches_cpu(cuda):
+    """The window's doubling scan over sum, fmin, max and or, and the
+    integer segmented_cumsum, on the card against the CPU route (float
+    sums: the same association on both, so bit for bit)."""
+    from blaze_tpu_torch.ops import segment as S
+
+    rng = np.random.default_rng(21)
+    n = (1 << 18) + 17
+    starts = torch.from_numpy(rng.random(n) < 0.01)
+    x = torch.from_numpy(rng.choice([np.nan, 1.0, -3.5, 2.25, np.inf], n)
+                         * rng.random(n))
+    ints = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n))
+    bits = torch.from_numpy(rng.random(n) < 0.1)
+    cases = [(ints, lambda a, b: a + b), (x, lambda a, b: a + b),
+             (x, torch.fmin), (x, torch.maximum), (bits, lambda a, b: a | b)]
+    for v, op in cases:
+        want = S.segmented_scan(v, starts, op)
+        got = S.segmented_scan(v.cuda(), starts.cuda(), op).cpu()
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+        assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(S.segmented_cumsum(ints.cuda(), starts.cuda()).cpu(),
+                       S.segmented_cumsum(ints, starts))
+
+
+def _nested_batch(dev, n=4000, seed=22):
+    """Lists of int64 and of strings (null rows, empty rows, null
+    elements) and a struct, from seeded host values."""
+    from blaze_tpu_torch.columnar import types as TT
+
+    rng = np.random.default_rng(seed)
+    xs = [None if rng.random() < 0.1 else
+          [None if rng.random() < 0.1 else int(v)
+           for v in rng.integers(-99, 99, int(rng.integers(0, 6)))]
+          for _ in range(n)]
+    ls = [None if rng.random() < 0.1 else
+          ["w" * int(k) for k in rng.integers(0, 9, int(rng.integers(0, 4)))]
+          for _ in range(n)]
+    st = [None if rng.random() < 0.1 else (int(k), "s" * int(k % 5))
+          for k in rng.integers(0, 50, n)]
+    schema = TT.Schema([
+        TT.Field("id", TT.INT64), TT.Field("xs", TT.list_of(TT.INT64)),
+        TT.Field("ls", TT.list_of(TT.STRING)),
+        TT.Field("st", TT.struct_of([TT.Field("a", TT.INT64),
+                                     TT.Field("b", TT.STRING)]))])
+    return ColumnBatch.from_numpy(
+        {"id": rng.permutation(n).astype(np.int64), "xs": xs, "ls": ls,
+         "st": st}, schema, device=dev)
+
+
+def test_list_take_and_concat_on_card_match_cpu(cuda):
+    """List and struct columns through a permutation (a sort), a subset
+    (a filter), a concatenation and the serde, on the card against the
+    CPU route."""
+    from blaze_tpu_torch.columnar import serde
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs.compiler import compile_expr
+    from blaze_tpu_torch.ops.common import concat_batches
+    from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = _nested_batch(dev)
+        keep = compile_expr(ir.Binary(ir.BinOp.GT, ir.col("id"),
+                                      ir.lit(1500)), b.schema)(b)
+        parts = [sort_batch(b, [SortSpec(0)]), b.compact(keep.data),
+                 _nested_batch(dev, 77, 23)]
+        cat = concat_batches(parts)
+        out[dev] = (cat.to_numpy(), serde.serialize_batch(cat))
+    assert out["cuda"][1] == out["cpu"][1]
+    assert repr(out["cuda"][0]) == repr(out["cpu"][0])
+
+
+def test_collect_on_card_matches_cpu(cuda):
+    """collect_list and collect_set (ints, floats with NaN and -0.0,
+    strings) through PARTIAL -> PARTIAL_MERGE -> FINAL with repeated
+    collapses, on the card against the CPU route, element order
+    included."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.ops import agg
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.basic import MemorySourceExec
+
+    rng = np.random.default_rng(24)
+    schema = TT.Schema([TT.Field("k", TT.INT64), TT.Field("v", TT.INT64),
+                        TT.Field("f", TT.FLOAT64), TT.Field("s", TT.STRING)])
+    datas = []
+    for n in (3000, 2100):
+        datas.append(({"k": rng.integers(0, 300, n),
+                       "v": rng.integers(0, 40, n),
+                       "f": rng.choice([np.nan, 0.0, -0.0, 1.5, 2.0], n),
+                       "s": ["s" * int(j) for j in rng.integers(0, 9, n)]},
+                      {c: rng.random(n) > 0.2 for c in "kvfs"}))
+    calls = [agg.AggCall(fn, (ir.col(c),),
+                         TT.list_of(schema.field(c).dtype), f"{fn}_{c}")
+             for fn in ("collect_list", "collect_set") for c in "vfs"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        node = MemorySourceExec([ColumnBatch.from_numpy(
+            d, schema, validity=v, device=dev) for d, v in datas], schema)
+        for mode in ("PARTIAL", "PARTIAL_MERGE", "FINAL"):
+            node = agg.AggExec(node, [ir.col("k")], ["k"], calls,
+                               getattr(agg.AggMode, mode),
+                               collapse_threshold=2000)
+        out[dev] = collect(node, ExecContext(device=dev)).to_numpy()
+    assert repr(out["cuda"]) == repr(out["cpu"])
+
+
+def test_window_and_generate_on_card_match_cpu(cuda):
+    """A window batch (row_number, rank, dense_rank, count, int and float
+    sums, avg, min, max, by partition and order with ties, nulls and NaN)
+    and a generate batch (posexplode outer with a struct riding along) on
+    the card against the CPU route: integers and ranks exact, float sums
+    within 1e-12 x the frame's running sum of |x|."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.ops.base import ExecContext
+    from blaze_tpu_torch.ops.basic import MemorySourceExec
+    from blaze_tpu_torch.ops.expand import GenerateExec
+    from blaze_tpu_torch.ops.sort_keys import SortSpec
+    from blaze_tpu_torch.ops.window import WindowCall, WindowExec
+
+    rng = np.random.default_rng(25)
+    n = 20_000
+    v = rng.choice([np.nan, 1.5, -2.25, 7.0, 1e6], n) * rng.random(n)
+    vv = rng.random(n) > 0.2
+    data = {"g": rng.integers(0, 40, n), "o": rng.integers(0, 50, n),
+            "v": v, "i": rng.integers(-9, 9, n).astype(np.int32),
+            "a": np.where(vv & ~np.isnan(v), np.abs(v), 0.0)}
+    valid = {"g": rng.random(n) > 0.05, "o": rng.random(n) > 0.05, "v": vv}
+    schema = TT.Schema([TT.Field("g", TT.INT64), TT.Field("o", TT.INT64),
+                        TT.Field("v", TT.FLOAT64), TT.Field("i", TT.INT32),
+                        TT.Field("a", TT.FLOAT64)])
+    calls = [WindowCall("row_number", (), TT.INT32, "rn"),
+             WindowCall("rank", (), TT.INT32, "rk"),
+             WindowCall("dense_rank", (), TT.INT32, "dr"),
+             WindowCall("count", (ir.col("v"),), TT.INT64, "c"),
+             WindowCall("sum", (ir.col("i"),), TT.INT32, "si"),
+             WindowCall("min", (ir.col("v"),), TT.FLOAT64, "mn"),
+             WindowCall("max", (ir.col("v"),), TT.FLOAT64, "mx"),
+             WindowCall("sum", (ir.col("v"),), TT.FLOAT64, "s"),
+             WindowCall("avg", (ir.col("v"),), TT.FLOAT64, "av"),
+             WindowCall("sum", (ir.col("a"),), TT.FLOAT64, "sa")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = ColumnBatch.from_numpy(data, schema, validity=valid, device=dev)
+        w = WindowExec(MemorySourceExec([b], schema), calls, [ir.col("g")],
+                       [SortSpec(1)])
+        nb = _nested_batch(dev)
+        g = GenerateExec(MemorySourceExec([nb], nb.schema), ir.col("xs"),
+                         [0, 3], ["pos", "x"], pos=True, outer=True)
+        ctx = ExecContext(device=dev)
+        out[dev] = (collect(w, ctx).to_numpy(), collect(g, ctx).to_numpy())
+    (gw, gg), (ww, wg) = out["cuda"], out["cpu"]
+    assert repr(gg) == repr(wg)
+    bound = np.asarray(ww["sa"], np.float64) * 1e-12 + 1e-300
+    for k in ww:
+        gv = np.array([np.nan if x is None else x for x in gw[k]], float)
+        wv = np.array([np.nan if x is None else x for x in ww[k]], float)
+        assert np.array_equal(np.isnan(gv), np.isnan(wv)), k
+        tol = bound if k in ("s", "sa", "av") else 0.0
+        ok = ~np.isnan(wv)
+        assert (np.abs(gv - wv)[ok] <= np.broadcast_to(tol, wv.shape)[ok]
+                ).all(), k

@@ -229,32 +229,34 @@ def test_batches_of_different_shapes_raise(small):
 
 @pytest.mark.parametrize("arm", ["sort", "union", "limit", "parquet_scan"])
 def test_undecodable_node_raises(arm):
-    """A plan node the port does not decode raises naming it. sort, union
-    and limit decode now: below each of them sits a window node, which
-    still does not, so the error names the window. parquet_scan decodes
-    too: its pruning predicate is a struct field access, an expression
-    kind the port does not decode yet, so the error names that."""
+    """A plan node the port does not decode raises naming it. Every arm
+    the JAX decoder decodes decodes in the port, so what is left is a node
+    with no arm set (below sort, union and limit: "plan node None") and
+    the `row_num` expression, which neither package decodes (parquet_scan's
+    pruning predicate)."""
     node = tpb.PlanNode()
     getattr(node, arm).SetInParent()
     if arm != "parquet_scan":
         inner = (node.union.inputs.add() if arm == "union"
                  else getattr(node, arm).input)
-        inner.window.SetInParent()
+        inner.Clear()
     else:
-        node.parquet_scan.pruning_predicates.add(
-        ).get_struct_field.SetInParent()
+        node.parquet_scan.pruning_predicates.add().row_num.SetInParent()
     td = tpb.TaskDefinition()
     td.plan.CopyFrom(node)
-    name = ("expression kind get_struct_field" if arm == "parquet_scan"
-            else "plan node window")
+    name = ("expression kind row_num" if arm == "parquet_scan"
+            else "plan node None")
     with pytest.raises(NotImplementedError, match=name):
         decode_task_definition(td.SerializeToString())
 
 
 def test_ffi_reader_rejects_arrow_batches():
-    """Arrow RecordBatches are ingested (columnar/arrow_io.py), string
-    columns included; one with a column kind the port cannot hold yet is
-    rejected, naming the module that will carry it."""
+    """Arrow RecordBatches are ingested (columnar/arrow_io.py), string and
+    list columns included; one with a column kind the port cannot hold
+    yet (a wide decimal) is rejected, naming the module that will carry
+    it."""
+    import decimal
+
     import pyarrow as pa
 
     from blaze_tpu_torch.ops.base import ExecContext
@@ -263,11 +265,20 @@ def test_ffi_reader_rejects_arrow_batches():
     schema = TT.Schema([TT.Field("a", TT.INT32),
                         TT.Field("l", TT.list_of(TT.INT32))])
     rb = pa.record_batch([pa.array([1, 2], pa.int32()),
-                          pa.array([[1], None])], names=["a", "l"])
+                          pa.array([[1], None], pa.list_(pa.int32()))],
+                         names=["a", "l"])
     rid = resources.register(lambda: iter([rb]))
-    op = FfiReaderExec(schema, rid)
-    with pytest.raises(NotImplementedError, match="nested storage"):
-        list(op.execute(ExecContext(device="cpu")))
+    out = list(FfiReaderExec(schema, rid).execute(ExecContext(device="cpu")))
+    assert [None if v is None else list(v)
+            for v in out[0].to_numpy()["l"]] == [[1], None]
+    wide = TT.Schema([TT.Field("a", TT.INT32),
+                      TT.Field("d", TT.decimal(30, 2))])
+    rb = pa.record_batch([pa.array([1], pa.int32()),
+                          pa.array([decimal.Decimal("1.5")],
+                                   pa.decimal128(30, 2))], names=["a", "d"])
+    rid = resources.register(lambda: iter([rb]))
+    with pytest.raises(NotImplementedError, match="columnar/int128.py"):
+        list(FfiReaderExec(wide, rid).execute(ExecContext(device="cpu")))
     strs = TT.Schema([TT.Field("a", TT.INT32), TT.Field("s", TT.STRING)])
     rb = pa.record_batch([pa.array([1, 2], pa.int32()),
                           pa.array(["x", None])], names=["a", "s"])

@@ -12,14 +12,15 @@ within rtol 1e-12), each package's answer must pass its validator's
 routes (`stage_compiled`, `stage_fallbacks`; the JAX package counts
 neither per query, so the test tallies its metric updates).
 
-The query the port cannot run yet (q05's ROLLUP) must raise
-NotImplementedError naming the missing module, and so must what the
-port's runner leaves out: a
+Every plan arm the JAX decoder decodes must decode in the port. What the
+port's runner leaves out must raise NotImplementedError naming the
+missing module: a
 NeverConvert subtree (the row interpreter, spark/fallback.py), the mesh
 exchange, and every conf knob that would switch on an unported module.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from blaze_tpu.spark import validator as jvalidator
 from blaze_tpu.spark.local_runner import run_plan as jrun_plan
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs.ir import col as ir_col
 from blaze_tpu_torch.plan import decode_plan
 from blaze_tpu_torch.spark import plan_model as P
@@ -52,9 +54,11 @@ RUNS = [("tpcds", "q02", "bhj"), ("tpcds", "q02", "smj"),
         ("core", "q4_repartition_sort", "bhj"),
         ("core", "q6_semi_join", "bhj"),
         ("core", "q6_semi_join", "smj")]
-# the queries that carry string columns, in both join modes
+# the queries that carry string columns, and q05's ROLLUP (an Expand), in
+# both join modes
 RUNS += [(suite, q, mode)
          for suite, q in [("tpcds", "q01"), ("tpcds", "q03"),
+                          ("tpcds", "q05"),
                           ("tpcds", "q06"), ("tpcds", "q07"),
                           ("tpcds", "q08"), ("tpcds", "q10"),
                           ("core", "q5_multijoin_limit"),
@@ -62,8 +66,6 @@ RUNS += [(suite, q, mode)
                           ("core", "q8_category_like"),
                           ("core", "q9_substr_group")]
          for mode in ("bhj", "smj")]
-# the module the first failing stage names
-MISSING = {("tpcds", "q05"): "ops/expand.py"}
 
 
 @pytest.fixture(scope="module")
@@ -158,29 +160,95 @@ def test_tables_match_jax(tables):
             assert frames[name].equals(jframes[name]), (suite, name)
 
 
-@pytest.mark.parametrize("suite,q", sorted(MISSING))
-def test_unported_query_raises_naming_module(tables, tmp_path, suite, q):
-    port, _ = CATALOGUES[suite]
-    (paths, frames), _ = tables[suite]
-    plan, _ = port.QUERIES[q](paths, frames, "bhj")
-    with pytest.raises(NotImplementedError, match=MISSING[(suite, q)]):
-        run_plan(plan, num_partitions=4, work_dir=str(tmp_path),
-                 device="cpu")
+def _plan_arms(p) -> set:
+    """The plan-node arms of a PlanNode tree."""
+    from blaze_tpu_torch.plan import plan_pb2 as pb
+
+    which = p.WhichOneof("node")
+    if which is None:
+        return set()
+    arms = {which}
+    for fd, value in getattr(p, which).ListFields():
+        if fd.message_type is pb.PlanNode.DESCRIPTOR:
+            for k in ([value] if isinstance(value, pb.PlanNode) else value):
+                arms |= _plan_arms(k)
+    return arms
 
 
-def test_rollup_stage_names_expand(tables):
-    """q05's ROLLUP converts (an `expand` node), and its stage's decode
-    names ops/expand.py."""
-    (paths, frames), _ = tables["tpcds"]
-    plan, _ = tpcds.QUERIES["q05"](paths, frames, "bhj")
-    apply_strategy(plan)
-    named = []
-    for stage in plan_stages(plan, default_partitions=4):
-        try:
-            decode_plan(stage.plan)
-        except NotImplementedError as e:
-            named.append(str(e))
-    assert any("ops/expand.py" in m for m in named), named
+def _window_and_generate(paths) -> list:
+    """A window over store_sales (row_number and a running sum by store,
+    ordered by date) and an explode of make_array(item, customer)."""
+    scan = _scan_ss(paths)
+    w_schema = T.Schema(list(tpcds.SS.fields) + [
+        T.Field("rn", T.INT32, False), T.Field("run", T.FLOAT64)])
+    win = P.window(scan, [
+        {"fn": "row_number", "args": [], "dtype": T.INT32, "name": "rn"},
+        {"fn": "sum", "args": [ir_col("ss_net_profit")], "dtype": T.FLOAT64,
+         "name": "run"}],
+        [ir_col("ss_store_sk")], [(ir_col("ss_sold_date_sk"), True, True)],
+        w_schema)
+    lst = T.list_of(T.INT64)
+    arr = P.project(scan, [ir_col("ss_store_sk"),
+                           ir.ScalarFn("make_array",
+                                       (ir_col("ss_item_sk"),
+                                        ir_col("ss_customer_sk")), lst)],
+                    ["ss_store_sk", "xs"],
+                    T.Schema([T.Field("ss_store_sk", T.INT64),
+                              T.Field("xs", lst)]))
+    gen = P.generate(arr, ir_col("xs"), [0], ["pos", "x"], True, False,
+                     T.Schema([T.Field("ss_store_sk", T.INT64),
+                               T.Field("pos", T.INT32, False),
+                               T.Field("x", T.INT64)]))
+    return [win, gen]
+
+
+def test_every_plan_arm_decodes(tables):
+    """The port's decoder refuses no plan or expression arm that
+    blaze_tpu/plan/from_proto.py decodes: the stage plans of both
+    catalogues in both join modes (q05's expand among them) and a window
+    and a generate plan decode whole, and every arm the JAX decoder names,
+    set alone, fails (if at all) on its missing parts, never on itself."""
+    import inspect
+
+    from blaze_tpu.plan import from_proto as jfp
+    from blaze_tpu_torch.plan import plan_pb2 as pb
+    from blaze_tpu_torch.plan.from_proto import decode_expr
+    from blaze_tpu_torch.spark import converters
+
+    seen = set()
+    for suite, (port, _) in CATALOGUES.items():
+        (paths, frames), _ = tables[suite]
+        for q in port.QUERIES:
+            for mode in ("bhj", "smj"):
+                plan, _ = port.QUERIES[q](paths, frames, mode)
+                apply_strategy(plan)
+                for stage in plan_stages(plan, default_partitions=4):
+                    decode_plan(stage.plan)
+                    seen |= _plan_arms(stage.plan)
+    (paths, _), _ = tables["tpcds"]
+    for node in _window_and_generate(paths):
+        p = converters.try_convert(node)
+        decode_plan(p)
+        seen |= _plan_arms(p)
+    assert {"expand", "window", "generate"} <= seen, sorted(seen)
+
+    plan_arms = set(re.findall(r'which == "(\w+)"',
+                               inspect.getsource(jfp.decode_plan)))
+    expr_arms = set(re.findall(r'which == "(\w+)"',
+                               inspect.getsource(jfp.decode_expr)))
+    assert {"expand", "window", "generate"} <= plan_arms
+    for arms, msg, decode, make in (
+            (plan_arms, "plan node", decode_plan, pb.PlanNode),
+            (expr_arms, "expression kind", decode_expr, pb.ExprNode)):
+        for arm in arms:
+            node = make()
+            getattr(node, arm).SetInParent()
+            try:
+                decode(node)
+            except NotImplementedError as e:
+                assert f"{msg} {arm}" not in str(e), arm
+            except (KeyError, ValueError, IndexError, TypeError):
+                pass  # an empty arm's fields are not a plan
 
 
 def _scan_ss(paths):

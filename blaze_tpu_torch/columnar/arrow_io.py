@@ -4,7 +4,9 @@ Port of blaze_tpu/columnar/arrow_io.py (ref: the JVM<->native Arrow
 boundary, ArrowFFIStreamImportIterator / ArrowFFIExportIterator and the
 FFI stream export in blaze/src/rt.rs:76-80) for the column kinds the
 port's batches hold: bool, the int kinds, f32/f64, date, timestamp,
-decimal with precision <= 18 (unscaled int64), and string, large_string,
+decimal with precision <= 18 (unscaled int64) and above it (two int64
+limb planes: the 16-byte little-endian Arrow value is the (lo, hi) word
+pair, columnar/int128.py), and string, large_string,
 binary, large_binary and dictionary-of-string columns, which become
 fixed-width byte matrices (`StringData`). Validity comes from the Arrow
 bitmap, and sliced arrays (a non-zero offset) are honoured.
@@ -20,9 +22,7 @@ offsets (rebased to 0) go up as int32 and its values become the element
 column, with a capacity of their bucket; a map is a list of its
 (key, value) entry structs; a struct's fields become its children, each
 carrying the struct's nulls too (`StructArray.flatten`). The JAX package
-takes lists in and lists out. Decimal with precision > 18 waits for
-columnar/int128.py: it raises NotImplementedError naming that module,
-and never converts quietly.
+takes lists in and lists out.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import torch
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
     Column, ColumnBatch, ListData, StringData, StructData, _column_to_host,
-    bucket_capacity, bucket_width, require_dense_kind, strings_to_host,
+    bucket_capacity, bucket_width, strings_to_host,
 )
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 
@@ -185,7 +185,6 @@ def column_from_arrow(arr, dtype: T.DataType, cap: int,
         arr = arr.combine_chunks()
     if pa.types.is_dictionary(arr.type):
         arr = arr.cast(arr.type.value_type)
-    require_dense_kind(dtype)
     n = len(arr)
     if dtype.is_nested:
         return _nested_from_arrow(arr, dtype, cap, dev)
@@ -216,6 +215,13 @@ def column_from_arrow(arr, dtype: T.DataType, cap: int,
         # int64 word is the unscaled value for precision <= 18
         words = np.frombuffer(d.buffers()[1], np.int64, count=2 * n,
                               offset=d.offset * 16)
+        if dtype.wide_decimal:
+            # the (lo, hi) word pairs are the two limb planes
+            hi, lo = (Column(T.INT64, _upload(np.ascontiguousarray(w), cap,
+                                              dev))
+                      for w in (words[1::2], words[0::2]))
+            return Column(dtype, StructData([hi, lo]),
+                          validity).normalized()
         vals = words[0::2]
     elif dtype.kind == T.TypeKind.TIMESTAMP:
         vals = np.asarray(arr.cast(pa.timestamp("us")).fill_null(0),
@@ -253,11 +259,8 @@ def batch_from_arrow(rb: pa.RecordBatch, capacity: Optional[int] = None,
                      schema: Optional[T.Schema] = None,
                      device: DeviceLike = None) -> ColumnBatch:
     """An Arrow RecordBatch as a batch on `device` (None: the CUDA card):
-    one upload a column. Every column's kind is checked before the first
-    upload."""
+    one upload a column."""
     schema = schema or schema_from_arrow(rb.schema)
-    for f in schema:
-        require_dense_kind(f.dtype, f.name)
     dev = resolve_device(device)
     cap = capacity or bucket_capacity(rb.num_rows)
     cols = [column_from_arrow(rb.column(i), f.dtype, cap, dev)
@@ -271,6 +274,16 @@ def _validity_bitmap(valid: np.ndarray) -> pa.Buffer:
     return pa.py_buffer(np.packbits(valid, bitorder="little").tobytes())
 
 
+def _decimal_array(at: pa.DataType, n: int, words: np.ndarray,
+                   valid: np.ndarray) -> pa.Array:
+    """A decimal128 array from its (n, 2) int64 (lo, hi) words."""
+    bitmap = None if valid.all() else _validity_bitmap(valid)
+    return pa.Array.from_buffers(
+        at, n, [bitmap, pa.py_buffer(np.ascontiguousarray(
+            words, np.int64).tobytes())],
+        null_count=int(n - valid.sum()))
+
+
 def batch_to_arrow(batch: ColumnBatch) -> pa.RecordBatch:
     """The live rows of `batch` as an Arrow RecordBatch (one device->host
     copy a column)."""
@@ -279,7 +292,6 @@ def batch_to_arrow(batch: ColumnBatch) -> pa.RecordBatch:
     n = int(to_host(batch.num_rows))
     arrays: List[pa.Array] = []
     for f, c in zip(batch.schema, batch.columns):
-        require_dense_kind(f.dtype, f.name)
         valid = to_host(c.valid_mask()[:n]).numpy()
         at = dtype_to_arrow(f.dtype)
         if f.dtype.is_nested:
@@ -293,17 +305,22 @@ def batch_to_arrow(batch: ColumnBatch) -> pa.RecordBatch:
                         for v in vals]
             arrays.append(pa.array(vals, at))
             continue
+        if f.dtype.wide_decimal:
+            # the planes as 16-byte little-endian (lo, hi) word pairs
+            hi, lo = (to_host(ch.data[:n]).numpy()
+                      for ch in c.data.children)
+            words = np.stack([np.where(valid, lo, 0),
+                              np.where(valid, hi, 0)], axis=1)
+            arrays.append(_decimal_array(at, n, words, valid))
+            continue
         d = to_host(c.data[:n]).numpy()
         if f.dtype.kind == T.TypeKind.NULL:
             arrays.append(pa.nulls(n))
         elif f.dtype.is_decimal:
             # unscaled int64 -> 16-byte two's complement (sign-extended)
             d = np.where(valid, d, 0).astype(np.int64)
-            words = np.stack([d, d >> 63], axis=1).tobytes()
-            bitmap = None if valid.all() else _validity_bitmap(valid)
-            arrays.append(pa.Array.from_buffers(
-                at, n, [bitmap, pa.py_buffer(words)],
-                null_count=int(n - valid.sum())))
+            arrays.append(_decimal_array(at, n, np.stack([d, d >> 63],
+                                                         axis=1), valid))
         else:
             arrays.append(pa.array(d, type=at,
                                    mask=None if valid.all() else ~valid))

@@ -1,8 +1,8 @@
 """Device-resident columnar batches with static (bucketed) shapes.
 
-Port of blaze_tpu/columnar/batch.py for dense (numeric, boolean, date,
-timestamp, compact decimal), string/binary and nested (list, map, struct)
-columns. A batch is:
+Port of blaze_tpu/columnar/batch.py for every column kind it holds: dense
+(numeric, boolean, date, timestamp, compact decimal), wide decimal,
+string/binary and nested (list, map, struct). A batch is:
 
   * a static `capacity` (bucketed power of two),
   * a `num_rows` 0-d int32 tensor on the batch's device: rows
@@ -14,7 +14,9 @@ columns. A batch is:
     form (`DictData`), with W bucketed as well; a list is int32 offsets
     (capacity + 1) into a flat element column with its own (bucketed)
     capacity (`ListData`), a map the list of its (key, value) structs,
-    and a struct one row-aligned child column per field (`StructData`).
+    and a struct one row-aligned child column per field (`StructData`);
+    a wide decimal (precision > 18) is a `StructData` of two int64 limb
+    planes, hi and lo (types.wide_decimal_storage, columnar/int128.py).
 
 Invariants ops may rely on (the same as the JAX package's):
   * invalid slots among LIVE rows contain the dtype's zero (see
@@ -34,13 +36,15 @@ raises when there is none. Everything downstream follows the tensors.
 from __future__ import annotations
 
 import dataclasses
+import decimal
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from blaze_tpu_torch.columnar import int128 as i128
 from blaze_tpu_torch.columnar.types import (
-    DataType, Schema, TypeKind, storage_element,
+    INT64, DataType, Schema, TypeKind, storage_element,
 )
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike, resolve_device
@@ -177,15 +181,6 @@ class StructData:
         return self.children[0].device
 
 
-def require_dense_kind(dtype: DataType, name: str = "") -> None:
-    """Raise for a column kind the port's batches cannot hold yet, naming
-    the module that will carry it: wide decimals (precision > 18)."""
-    if dtype.wide_decimal:
-        raise NotImplementedError(
-            f"{dtype} column {name!r} needs columnar/int128.py, not yet "
-            "ported")
-
-
 @dataclasses.dataclass
 class Column:
     dtype: DataType
@@ -227,10 +222,17 @@ class Column:
     def normalized(self) -> "Column":
         """Zero out data in invalid slots (canonical form for hash, sort
         and serde). List and struct columns are left as they are, as in
-        the JAX package."""
-        if self.validity is None or self.is_list or self.is_struct:
+        the JAX package; a wide decimal's two planes are zeroed."""
+        if self.validity is None or self.is_list:
             return self
         v = self.validity
+        if self.dtype.wide_decimal:
+            return Column(self.dtype, StructData(
+                [Column(ch.dtype, torch.where(v, ch.data,
+                                              torch.zeros_like(ch.data)))
+                 for ch in self.data.children]), v)
+        if self.is_struct:
+            return self
         if self.is_dict:
             # entry 0 is the empty string, so nulling a row rewrites its
             # code; the dictionary stays shared
@@ -291,8 +293,6 @@ class ColumnBatch:
               device: DeviceLike = None) -> "ColumnBatch":
         dev = resolve_device(device)
         cap = capacity or bucket_capacity(0)
-        for f in schema:
-            require_dense_kind(f.dtype, f.name)
         cols = [_zero_column(f.dtype, cap, dev) for f in schema]
         return ColumnBatch(schema, cols, _rows(0, dev), cap)
 
@@ -312,7 +312,6 @@ class ColumnBatch:
         cap = capacity or bucket_capacity(n)
         cols = []
         for f in schema:
-            require_dense_kind(f.dtype, f.name)
             v_np = None if validity is None else validity.get(f.name)
             cols.append(_host_to_column(f.dtype, data[f.name], cap, v_np,
                                         dev))
@@ -335,11 +334,11 @@ class ColumnBatch:
                 f"{len(arrays)} arrays for a {len(schema)}-field schema")
         cols = []
         for f, (data, valid) in zip(schema, arrays):
-            require_dense_kind(f.dtype, f.name)
-            if f.dtype.is_nested:
+            if f.dtype.is_nested or f.dtype.wide_decimal:
                 raise TypeError(
                     f"column {f.name}: from_host_arrays takes dense and "
-                    "string fields; nested ones come from from_numpy")
+                    "string fields; nested and wide-decimal ones come from "
+                    "from_numpy")
             v = None
             if valid is not None:
                 v = torch.from_numpy(np.array(valid, bool, copy=True,
@@ -426,6 +425,11 @@ def _column_to_host(c: Column, n: int):
     """The first n rows of a column as `ColumnBatch.to_numpy` gives them:
     lists as lists, maps as dicts, structs as tuples, None where null."""
     valid = c.valid_mask()[:n].cpu().numpy()
+    if c.dtype.wide_decimal:
+        # the unscaled values as Python ints, as the JAX package gives them
+        hi, lo = (ch.data[:n].cpu().numpy() for ch in c.data.children)
+        return [v if ok else None
+                for v, ok in zip(i128.ints_from_np(hi, lo), valid)]
     if c.is_list:
         offs = c.data.offsets[:n + 1].cpu().numpy()
         elems = _column_to_host(c.data.elements, int(offs[n]) if n else 0)
@@ -544,6 +548,10 @@ def strings_to_host(c: Column, n: int, valid: np.ndarray) -> list:
 
 
 def _zero_column(dtype: DataType, cap: int, dev: torch.device) -> Column:
+    if dtype.wide_decimal:
+        return Column(dtype, StructData(
+            [Column(INT64, torch.zeros((cap,), dtype=torch.int64,
+                                       device=dev)) for _ in range(2)]))
     if dtype.is_string_like:
         return Column(dtype, StringData(
             torch.zeros((cap, bucket_width(1)), dtype=torch.uint8,
@@ -576,7 +584,10 @@ def _host_to_column(dtype: DataType, raw, cap: int, validity_np,
     """Host values of one field -> a column of capacity `cap` (the JAX
     package's `_host_to_column`). A list or map field takes a list of
     lists (of dicts or (key, value) pairs for a map) or None; a struct
-    field a list of tuples, dicts or None."""
+    field a list of tuples, dicts or None; a wide decimal field a list of
+    Python Decimals, unscaled ints or None."""
+    if dtype.wide_decimal:
+        return _wide_to_column(dtype, raw, cap, validity_np, dev)
     if dtype.is_string_like:
         return _strings_to_column(dtype, raw, cap, validity_np, dev)
     if dtype.is_nested:
@@ -613,6 +624,27 @@ def _host_to_column(dtype: DataType, raw, cap: int, validity_np,
     out = np.zeros((cap,), dtype.np_dtype())
     out[:n] = arr.astype(dtype.np_dtype())
     return Column(dtype, torch.from_numpy(out).to(dev),
+                  _pad_validity(validity_np, n, cap, dev)).normalized()
+
+
+def _wide_to_column(dtype: DataType, raw, cap: int,
+                    validity_np: Optional[np.ndarray],
+                    dev: torch.device) -> Column:
+    """Decimals (scaled by the type's scale) or unscaled ints -> a
+    normalized limb-plane column (the JAX package's wide arm of
+    `_host_to_column`)."""
+    vals = list(raw)
+    if validity_np is None and any(v is None for v in vals):
+        validity_np = np.array([v is not None for v in vals], bool)
+    ints = [0 if v is None else int(v.scaleb(dtype.scale))
+            if isinstance(v, decimal.Decimal) else int(v) for v in vals]
+    n = len(ints)
+    planes = []
+    for p in i128.np_from_ints(ints):
+        full = np.zeros((cap,), np.int64)
+        full[:n] = p
+        planes.append(Column(INT64, torch.from_numpy(full).to(dev)))
+    return Column(dtype, StructData(planes),
                   _pad_validity(validity_np, n, cap, dev)).normalized()
 
 

@@ -18,7 +18,8 @@ Colblock:
                         K x u32 dict_lengths | dict bytes | n x u32 codes
   list/map: u32 total | n x u32 lengths | the element colblock of
             `total` rows (a map's elements are its (key, value) structs)
-  struct: one colblock per field, n rows each
+  struct: one colblock per field, n rows each (a wide decimal: its hi
+          and lo int64 planes, types.wide_decimal_storage)
   null column: nothing
 
 The dict form (conf.dict_encode_strings) writes each distinct string of a
@@ -79,7 +80,7 @@ except ModuleNotFoundError:  # pragma: no cover - environment-dependent
 
 from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.columnar.types import (
-    DataType, Schema, TypeKind, storage_element,
+    DataType, Schema, TypeKind, storage_element, struct_fields,
 )
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike
@@ -123,13 +124,6 @@ class HostBatch:
         metrics.SERDE_BYTES["raw"] += len(raw)
         metrics.SERDE_BYTES["frames"] += len(frame)
         return frame
-
-
-def _check_host_kind(dtype: DataType) -> None:
-    if dtype.wide_decimal:
-        raise NotImplementedError(
-            f"{dtype} column: wide-decimal storage (exprs/wide_decimal.py), "
-            "not yet ported")
 
 
 def _dict_encode_slice(b: np.ndarray, lens: np.ndarray):
@@ -252,7 +246,7 @@ def _host_column(c, dtype: DataType, n: int, take) -> _HostCol:
     elif c.is_struct:
         hc = _HostCol("struct", None, None, children=[
             _host_column(ch, f.dtype, n, take)
-            for ch, f in zip(c.data.children, dtype.fields)])
+            for ch, f in zip(c.data.children, struct_fields(dtype))])
     elif c.is_dict:
         d = c.data
         codes = take(i32, c.capacity)[:n]
@@ -281,8 +275,6 @@ def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
     elements included, at their capacities), the extras and the row
     count are packed into one byte tensor first, then viewed back per
     part on the host."""
-    for f in batch.schema:
-        _check_host_kind(f.dtype)
     parts: List[torch.Tensor] = []
     for c in batch.columns:
         _column_parts(c, parts)
@@ -381,7 +373,6 @@ def _decode_col_host(fp: BinaryIO, dtype: DataType, n: int) -> _HostCol:
     if dtype.kind == TypeKind.NULL:
         return _HostCol("null", None, validity if validity is not None
                         else np.zeros((n,), bool))
-    _check_host_kind(dtype)
     if dtype.kind in (TypeKind.LIST, TypeKind.MAP):
         (total,) = struct.unpack("<I", _read_exact(fp, 4))
         lens = np.frombuffer(_read_exact(fp, 4 * n), np.uint32)
@@ -389,9 +380,9 @@ def _decode_col_host(fp: BinaryIO, dtype: DataType, n: int) -> _HostCol:
         np.cumsum(lens, out=offs[1:])
         child = _decode_col_host(fp, storage_element(dtype), total)
         return _HostCol("list", None, validity, offsets=offs, child=child)
-    if dtype.kind == TypeKind.STRUCT:
+    if dtype.kind == TypeKind.STRUCT or dtype.wide_decimal:
         return _HostCol("struct", None, validity, children=[
-            _decode_col_host(fp, f.dtype, n) for f in dtype.fields])
+            _decode_col_host(fp, f.dtype, n) for f in struct_fields(dtype)])
     if dtype.is_string_like:
         (total,) = struct.unpack("<I", _read_exact(fp, 4))
         if total == DICT_SENTINEL:

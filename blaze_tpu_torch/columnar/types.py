@@ -21,10 +21,12 @@ the torch dtype each lands in on the device:
   map<K, V>             list<struct<key, value>> (`storage_element`)
   struct<...>           columnar/batch.StructData: one row-aligned child
                         column per field
+  decimal(p>18, s)      columnar/batch.StructData of two int64 planes,
+                        hi (signed) and lo (unsigned): hi * 2^64 + u64(lo)
+                        (`wide_decimal_storage`, columnar/int128.py)
 
-Nested columns have no dense dtype: `torch_dtype()` raises for them.
-Wide decimals (precision > 18) are carried through the plan's types but
-have no device storage in the port yet.
+Nested columns and wide decimals have no dense dtype: `torch_dtype()`
+raises for them.
 """
 
 from __future__ import annotations
@@ -124,7 +126,8 @@ class DataType:
     def torch_dtype(self) -> torch.dtype:
         if self.kind not in _TORCH_DTYPES or self.wide_decimal:
             raise NotImplementedError(
-                f"type {self} has no dense device dtype in the port yet")
+                f"type {self} has no dense device dtype (its storage is "
+                "nested or two limb planes)")
         return _TORCH_DTYPES[self.kind]
 
     def np_dtype(self) -> np.dtype:
@@ -200,6 +203,22 @@ def map_of(key: DataType, value: DataType) -> DataType:
 
 def struct_of(fields) -> DataType:
     return DataType(TypeKind.STRUCT, fields=tuple(fields))
+
+
+def wide_decimal_storage(dtype: DataType) -> DataType:
+    """Physical storage of a decimal(p>18) column: struct<hi:int64,
+    lo:int64> limb planes, value = hi * 2^64 + u64(lo) (columnar/int128.py,
+    the engine's Decimal128; ref: arrow-rs i128 unscaled storage)."""
+    assert dtype.wide_decimal
+    return struct_of([Field("hi", INT64, nullable=False),
+                      Field("lo", INT64, nullable=False)])
+
+
+def struct_fields(dtype: DataType) -> Tuple[Field, ...]:
+    """The fields of a StructData column's children: a struct's own, or a
+    wide decimal's two limb planes."""
+    return (wide_decimal_storage(dtype).fields if dtype.wide_decimal
+            else dtype.fields)
 
 
 def storage_element(dtype: DataType) -> DataType:

@@ -1,15 +1,18 @@
 """Expression compiler: IR -> torch column functions.
 
-Port of blaze_tpu/exprs/compiler.py for the dense, string and nested
-kinds: columns, literals (a nested one only null, as in the JAX package),
-casts, arithmetic and comparisons, Kleene AND/OR, NOT, IS [NOT] NULL,
-negation, IF, CASE WHEN and [NOT] IN, the string predicates
-(StartsWith/EndsWith/Contains), LIKE, the scalar functions of
-exprs/functions.py, and struct and map access (GetStructField,
+Port of blaze_tpu/exprs/compiler.py for the dense, decimal, string and
+nested kinds: columns, literals (a nested one only null, as in the JAX
+package; a wide decimal one as its two limb planes), casts, arithmetic
+(decimal arithmetic at the planned result type, wide through
+exprs/wide_decimal.py), the bitwise and shift ops, comparisons, Kleene
+AND/OR, NOT, IS [NOT] NULL, negation, IF, CASE WHEN and [NOT] IN, the
+string predicates (StartsWith/EndsWith/Contains), LIKE, the scalar
+functions of exprs/functions.py, MakeDecimal, UnscaledValue and
+CheckOverflow, and struct and map access (GetStructField,
 GetIndexedField, GetMapValue, NamedStruct). A compiled expression is
 `fn(batch: ColumnBatch) -> Column`, evaluated eagerly on the batch's
 device; null semantics are Spark's (strict nulls for most ops, Kleene
-AND/OR). The decimal, UDF and subquery kinds raise NotImplementedError
+AND/OR). The UDF and scalar-subquery kinds raise NotImplementedError
 naming the module they wait for.
 """
 
@@ -21,13 +24,19 @@ from typing import Callable, Optional
 
 import torch
 
+from blaze_tpu_torch.columnar import int128 as i128
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, StringData, StructData, _zero_column, bucket_width,
+    Column, ColumnBatch, StringData, StructData, _zero_column,
 )
-from blaze_tpu_torch.columnar.types import BOOLEAN, DataType, FLOAT64
+from blaze_tpu_torch.columnar.types import (
+    BOOLEAN, FLOAT64, INT64, DataType, TypeKind,
+)
 from blaze_tpu_torch.exprs import ir
 from blaze_tpu_torch.exprs import strings as S
-from blaze_tpu_torch.exprs.cast import cast_column
+from blaze_tpu_torch.exprs import wide_decimal as W
+from blaze_tpu_torch.exprs.cast import (
+    _and_valid, cast_column, check_overflow, const_string,
+)
 
 CompiledExpr = Callable[[ColumnBatch], Column]
 
@@ -91,6 +100,8 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
 
         def run_neg(b):
             col = c(b)
+            if col.dtype.wide_decimal:
+                return W.negate(col)
             return Column(col.dtype, -col.data, col.validity)
 
         return run_neg
@@ -136,6 +147,28 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
         from blaze_tpu_torch.exprs.functions import compile_function
 
         return compile_function(expr, schema)
+    if isinstance(expr, ir.MakeDecimal):
+        c = compile_expr(expr.child, schema)
+        dt = DataType(TypeKind.DECIMAL, precision=expr.precision,
+                      scale=expr.scale)
+
+        def run_make(b):
+            col = c(b)
+            return Column(dt, col.data.to(torch.int64), col.validity)
+
+        return run_make
+    if isinstance(expr, ir.UnscaledValue):
+        c = compile_expr(expr.child, schema)
+
+        def run_unscaled(b):
+            col = c(b)
+            return Column(INT64, col.data.to(torch.int64), col.validity)
+
+        return run_unscaled
+    if isinstance(expr, ir.CheckOverflow):
+        c = compile_expr(expr.child, schema)
+        p, s = expr.precision, expr.scale
+        return lambda b: check_overflow(c(b), p, s)
     if isinstance(expr, ir.GetStructField):
         c = compile_expr(expr.child, schema)
         i = expr.index
@@ -164,10 +197,7 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
 
 
 # the modules the expression kinds still to port wait for
-_MODULE_OF = {ir.MakeDecimal: "exprs/wide_decimal.py",
-              ir.UnscaledValue: "exprs/wide_decimal.py",
-              ir.CheckOverflow: "exprs/wide_decimal.py",
-              ir.UdfWrapper: "spark/hive_udf.py",
+_MODULE_OF = {ir.UdfWrapper: "spark/hive_udf.py",
               ir.ScalarSubquery: "spark/fallback.py"}
 
 
@@ -240,17 +270,6 @@ class _Rows:
         self.capacity, self.device = capacity, device
 
 
-def const_string(value: bytes, cap: int, device) -> StringData:
-    """`value` in every one of `cap` rows."""
-    mat = torch.zeros((cap, bucket_width(max(len(value), 1))),
-                      dtype=torch.uint8, device=device)
-    if value:
-        mat[:, :len(value)] = torch.tensor(list(value), dtype=torch.uint8,
-                                           device=device)
-    return StringData(mat, torch.full((cap,), len(value), dtype=torch.int32,
-                                      device=device))
-
-
 def _compile_literal(expr: ir.Literal) -> CompiledExpr:
     dt, v = expr.dtype, expr.value
     if dt.is_nested and v is None:
@@ -263,8 +282,20 @@ def _compile_literal(expr: ir.Literal) -> CompiledExpr:
         return run_null
     if dt.is_nested:
         raise TypeError(f"a {dt} literal has no device form (only null)")
-    if dt.is_decimal:
-        raise NotImplementedError(f"{dt} literals not yet ported")
+    if dt.wide_decimal:
+        # the limb words split on the host: the value may pass int64
+        hi, lo = (int(p[0]) for p in i128.np_from_ints(
+            [0 if v is None else int(v)]))
+
+        def run_wide(b: ColumnBatch) -> Column:
+            cap, dev = b.capacity, b.device
+            valid = (torch.zeros((cap,), dtype=torch.bool, device=dev)
+                     if v is None else None)
+            return W.build(dt, *(torch.full((cap,), w, dtype=torch.int64,
+                                            device=dev) for w in (hi, lo)),
+                           valid)
+
+        return run_wide
     if dt.is_string_like:
         raw = b"" if v is None else (
             v.encode() if isinstance(v, str) else bytes(v))
@@ -315,6 +346,15 @@ def _compile_binary(expr: ir.Binary, schema) -> CompiledExpr:
 
 
 def _compare(lc: Column, rc: Column, op: ir.BinOp) -> Column:
+    if lc.dtype.wide_decimal or rc.dtype.wide_decimal:
+        lt, eq, gt = W.compare(lc, rc)
+        res = {ir.BinOp.EQ: eq, ir.BinOp.NEQ: ~eq, ir.BinOp.LT: lt,
+               ir.BinOp.LE: lt | eq, ir.BinOp.GT: gt, ir.BinOp.GE: gt | eq,
+               ir.BinOp.EQ_NULLSAFE: eq}[op]
+        if op == ir.BinOp.EQ_NULLSAFE:
+            lv, rv = lc.valid_mask(), rc.valid_mask()
+            return Column(BOOLEAN, (~lv & ~rv) | (lv & rv & res), None)
+        return Column(BOOLEAN, res, _strict(lc, rc))
     if lc.is_string or rc.is_string:
         lt, eq = S.compare(lc.data, rc.data)
         res = {ir.BinOp.EQ: eq, ir.BinOp.NEQ: ~eq, ir.BinOp.LT: lt,
@@ -351,14 +391,6 @@ def _strict(*cols: Column):
     return v
 
 
-def _and_valid(a, b):
-    if a is None:
-        return b
-    if b is None:
-        return a
-    return a & b
-
-
 def _promote(lc: Column, rc: Column):
     ld, rd = lc.data, rc.data
     if ld.dtype != rd.dtype:
@@ -393,11 +425,9 @@ def _compile_kleene(lf, rf, op) -> CompiledExpr:
 
 def _arith(lc: Column, rc: Column, op: ir.BinOp,
            result_type: Optional[DataType]) -> Column:
-    if lc.dtype.is_decimal or rc.dtype.is_decimal:
-        raise NotImplementedError(
-            "decimal arithmetic (exprs/compiler.py _decimal_arith) not yet "
-            "ported")
     validity = _strict(lc, rc)
+    if lc.dtype.is_decimal or rc.dtype.is_decimal:
+        return _decimal_arith(lc, rc, op, result_type, validity)
     ld, rd = _promote(lc, rc)
     out_dt = result_type or (lc.dtype if lc.dtype.is_numeric else rc.dtype)
     if op == ir.BinOp.ADD:
@@ -422,7 +452,90 @@ def _arith(lc: Column, rc: Column, op: ir.BinOp,
         res = torch.fmod(ld, safe)
         return Column(out_dt, torch.where(zero, torch.zeros_like(res), res),
                       _and_valid(validity, ~zero))
-    raise NotImplementedError(f"arith op {op} not yet ported")
+    if op in _BITWISE:
+        return Column(out_dt, _BITWISE[op](ld, rd), validity)
+    if op in (ir.BinOp.SHIFT_LEFT, ir.BinOp.SHIFT_RIGHT):
+        return Column(out_dt, _shift(ld, rd, op == ir.BinOp.SHIFT_LEFT),
+                      validity)
+    raise NotImplementedError(f"arith op {op}")
+
+
+_BITWISE = {ir.BinOp.BIT_AND: torch.bitwise_and,
+            ir.BinOp.BIT_OR: torch.bitwise_or,
+            ir.BinOp.BIT_XOR: torch.bitwise_xor}
+
+
+def _shift(ld: torch.Tensor, rd: torch.Tensor, left: bool) -> torch.Tensor:
+    """XLA's shift semantics, which the JAX package's `<<` and `>>` have:
+    a count outside [0, bits) shifts every bit out (0, or the sign's fill
+    for a right shift). torch shifts by such counts differently on the CPU
+    and on CUDA, so the count is clamped into range and the out-of-range
+    rows are set apart."""
+    bits = torch.iinfo(ld.dtype).bits
+    out_of_range = (rd < 0) | (rd >= bits)
+    n = rd.clamp(0, bits - 1)
+    if left:
+        return torch.where(out_of_range, 0, ld << n).to(ld.dtype)
+    fill = torch.where(ld < 0, -1, 0).to(ld.dtype)
+    return torch.where(out_of_range, fill, ld >> n)
+
+
+def _decimal_arith(lc: Column, rc: Column, op: ir.BinOp,
+                   result_type: Optional[DataType], validity) -> Column:
+    """Unscaled int64 decimal arithmetic at the result type the plan gives
+    (ref NativeConverters.scala:599-676, the decimal special cases); a
+    wide operand or result goes through exprs/wide_decimal.py."""
+    if (lc.dtype.wide_decimal or rc.dtype.wide_decimal
+            or (result_type is not None and result_type.wide_decimal)):
+        if result_type is None or not result_type.is_decimal:
+            raise NotImplementedError(
+                "wide decimal arithmetic needs a planned result type")
+        return W.arith(lc, rc, op, result_type, validity)
+    ls = lc.dtype.scale if lc.dtype.is_decimal else 0
+    rs = rc.dtype.scale if rc.dtype.is_decimal else 0
+    ld = lc.data.to(torch.int64)
+    rd = rc.data.to(torch.int64)
+    if result_type is None or not result_type.is_decimal:
+        # a plausible result type where the plan gave none
+        if op in (ir.BinOp.ADD, ir.BinOp.SUB):
+            scale = max(ls, rs)
+        elif op == ir.BinOp.MUL:
+            scale = ls + rs
+        else:
+            scale = max(6, ls + rs + 1)
+        result_type = DataType(TypeKind.DECIMAL, precision=18, scale=scale)
+    out_s = result_type.scale
+    if op in (ir.BinOp.ADD, ir.BinOp.SUB):
+        lu = ld * (10 ** max(out_s - ls, 0))
+        ru = rd * (10 ** max(out_s - rs, 0))
+        res = lu + ru if op == ir.BinOp.ADD else lu - ru
+        return Column(result_type, res, validity)
+    if op == ir.BinOp.MUL:
+        prod = ld * rd  # at scale ls + rs
+        ds = out_s - (ls + rs)
+        if ds >= 0:
+            return Column(result_type, prod * (10 ** ds), validity)
+        return Column(result_type, _div_half_up(prod, 10 ** (-ds)),
+                      validity)
+    if op == ir.BinOp.DIV:
+        zero = rd == 0
+        safe = torch.where(zero, 1, rd)
+        # q = l / r at out_s: (ld * 10^(out_s + rs - ls)) / rd, HALF_UP
+        shift = out_s + rs - ls
+        num = ld * (10 ** max(shift, 0))
+        den = safe * (10 ** max(-shift, 0))
+        q = torch.sign(num) * torch.sign(den) * _div_half_up(
+            torch.abs(num), torch.abs(den))
+        return Column(result_type, torch.where(zero, 0, q),
+                      _and_valid(validity, ~zero))
+    raise NotImplementedError(f"decimal op {op}")
+
+
+def _div_half_up(x: torch.Tensor, div) -> torch.Tensor:
+    """x / div rounded HALF_UP on the magnitude, with x's sign (div > 0)."""
+    q = torch.abs(x) // div
+    r = torch.abs(x) % div
+    return torch.sign(x) * (q + (2 * r >= div).to(q.dtype))
 
 
 def _compile_case(branches, otherwise, schema) -> CompiledExpr:

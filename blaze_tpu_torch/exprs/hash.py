@@ -28,7 +28,9 @@ and so does this module.
     up to the row's length, the 0-3 tail bytes mixed one at a time as
     SIGNED bytes
 
-Wide-decimal hashing waits for exprs/wide_decimal.py and raises.
+  * decimal(p>18) (two limb planes): hashUnsafeBytes over the minimal
+    big-endian two's-complement bytes of the unscaled value (Java's
+    BigInteger.toByteArray), as JVM Spark hashes such a decimal
 """
 
 from __future__ import annotations
@@ -133,17 +135,41 @@ def _canonical_float(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
 
 
+def _hash_wide_decimal(col: Column, seed: Seed) -> torch.Tensor:
+    """Spark's hash of a decimal with precision > 18: murmur3 over the
+    MINIMAL big-endian two's-complement bytes of the unscaled BigInteger
+    (leading sign-filler bytes stripped while one sign bit stays), built
+    as a (cap, 16) byte matrix and a length per row for `hash_bytes`."""
+    hi, lo = (ch.data for ch in col.data.children)
+    # the big-endian 16 bytes
+    shifts = torch.arange(56, -8, -8, device=hi.device)
+    be = torch.cat([(w[:, None] >> shifts) & 0xFF for w in (hi, lo)],
+                   dim=1).to(torch.uint8)
+    filler = torch.where(hi < 0, 0xFF, 0).to(torch.uint8)
+    # a leading byte drops while it is the filler AND the next byte's
+    # sign bit matches, so the bytes kept still encode the sign
+    nxt = torch.cat([be[:, 1:], be[:, -1:]], dim=1)
+    droppable = (be == filler[:, None]) & (
+        (nxt >> 7) == (filler[:, None] >> 7))
+    # the length of the leading run of droppable bytes, at most 15
+    run = torch.cumprod(droppable.to(torch.int32), dim=1)
+    strip = run.sum(dim=1).clamp(max=15)
+    idx = (torch.arange(16, device=hi.device)[None, :]
+           + strip[:, None]).clamp(max=15)
+    aligned = torch.gather(be, 1, idx)
+    return hash_bytes(StringData(aligned, (16 - strip).to(torch.int32)),
+                      seed)
+
+
 def hash_column(col: Column, seed: Seed,
                 row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chainable per-column hash: null (or padding) rows keep `seed`."""
     k = col.dtype.kind
-    if col.dtype.wide_decimal:
-        raise NotImplementedError(
-            f"hash of {col.dtype} (_hash_wide_decimal) needs wide-decimal "
-            "storage (exprs/wide_decimal.py), not yet ported")
     cap = col.capacity
     if col.is_string:
         h = hash_bytes(col.data, seed)
+    elif col.dtype.wide_decimal:
+        h = _hash_wide_decimal(col, seed)
     elif k in (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32, TypeKind.DATE,
              TypeKind.BOOLEAN):
         h = hash_int32(col.data.to(torch.int32), seed)

@@ -15,10 +15,13 @@ over the dense column kinds in the modes PARTIAL, PARTIAL_MERGE and FINAL;
 group keys, min, max, first and first_ignores_null also take strings.
 collect_list and collect_set keep their state as a list column
 (columnar/batch.py ListData) over dense and string values; a group whose
-values are all null collects an empty list, not null. Left out, raising
-NotImplementedError naming its module: wide-decimal sum/avg/min/max
-(exprs/wide_decimal.py). Over the memory budget, collapsed state spills to
-host files (runtime/memory.SpillFile) and merges back at the end. The JAX
+values are all null collects an empty list, not null. Sum, avg, min and
+max over wide decimals (precision > 18) keep limb-plane state
+(exprs/wide_decimal.py): an input rescaled into the state's scale with
+`rescale_checked`, then segmented limb sums or min/max; a sum that
+overflows is null, as in Spark non-ANSI. Over the memory budget,
+collapsed state spills to host files (runtime/memory.SpillFile) and
+merges back at the end. The JAX
 module's jit cache and compile-service shape rungs have no counterpart:
 PyTorch runs each step eagerly.
 """
@@ -31,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from blaze_tpu_torch.columnar import int128 as i128
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
     Column, ColumnBatch, ListData, bucket_capacity,
@@ -39,6 +43,7 @@ from blaze_tpu_torch.columnar.types import DataType, Field, Schema, TypeKind
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import resolve_device
 from blaze_tpu_torch.exprs import ir
+from blaze_tpu_torch.exprs import wide_decimal as W
 from blaze_tpu_torch.exprs.compiler import compile_expr, cse_scope
 from blaze_tpu_torch.ops import segment as seg
 from blaze_tpu_torch.ops.base import (
@@ -157,6 +162,43 @@ def _minmax_string(call: AggCall, x: Column, layout, fn: str
     has = seg.seg_any(valid, layout)
     return [Column(call.dtype, picked.data, None),
             Column(T.BOOLEAN, has, None)]
+
+
+def _acc_wide_sum(fn: str, sd: DataType, x: Column, valid: torch.Tensor,
+                  layout) -> List[Column]:
+    """Partial sum or avg state of a wide decimal: the input rescaled to
+    the state's scale (a row that WRAPS in the upscale poisons its group,
+    Spark's overflow to null: a wrapped residue would defeat the sum's
+    overflow shadow), then limb sums; sum keeps a nonempty flag, avg the
+    count."""
+    live = valid & layout.row_mask
+    h, l, rok = i128.rescale_checked(*W.planes(x), sd.scale - x.dtype.scale)
+    sh, sl, ok = W.seg_sum_wide(h, l, live, layout, seg)
+    ok = ok & ~seg.seg_any(live & ~rok, layout)
+    cnt = seg.seg_count(valid, layout)
+    if fn == "sum":
+        return [W.build(sd, sh, sl, ok), Column(T.BOOLEAN, cnt > 0, None)]
+    return [W.build(sd, sh, sl, ok), Column(T.INT64, cnt, None)]
+
+
+def _minmax_wide(dtype: DataType, x: Column, live: torch.Tensor, layout,
+                 fn: str) -> List[Column]:
+    mh, ml, has = W.seg_minmax_wide(*W.planes(x), live, layout, seg,
+                                    fn == "min")
+    return [W.build(dtype, mh, ml, None), Column(T.BOOLEAN, has, None)]
+
+
+def _merge_sum_wide(cols: List[Column], layout) -> List[Column]:
+    """Re-sum wide partial sums: empty partials add nothing, and an
+    overflowed partial that contributes poisons its group (a null
+    result)."""
+    state, ne_col = cols[0], cols[1]
+    ne = ne_col.data & layout.row_mask
+    h, l = (torch.where(ne, p, 0) for p in W.planes(state))
+    sh, sl, ok = W.seg_sum_wide(h, l, ne, layout, seg)
+    group_ok = ~seg.seg_any(~(state.valid_mask() | ~ne), layout)
+    return [W.build(state.dtype, sh, sl, ok & group_ok),
+            Column(T.BOOLEAN, seg.seg_any(ne, layout), None)]
 
 
 def _first_occurrence(x: Column, gid_key: torch.Tensor) -> torch.Tensor:
@@ -416,12 +458,8 @@ class AggExec(Operator):
 
     # ---- execution ----
     def _check_supported(self) -> None:
-        """Raise, before any input is read, for the parts not ported."""
+        """Raise, before any input is read, for calls with no meaning."""
         for call in self.aggs:
-            if call.dtype.wide_decimal and call.fn != "count":
-                raise NotImplementedError(
-                    f"{call.fn} over {call.dtype}: wide-decimal state "
-                    "(exprs/wide_decimal.py), not yet ported")
             if call.dtype.is_string_like and call.fn in ("sum", "avg"):
                 raise TypeError(f"{call.fn} over {call.dtype}")
 
@@ -524,6 +562,8 @@ class AggExec(Operator):
             else:
                 sd = (call.dtype if call.dtype.kind == TypeKind.DECIMAL
                       else T.FLOAT64)
+            if sd.wide_decimal:
+                return _acc_wide_sum(fn, sd, x, valid, layout)
             data = x.data.to(sd.torch_dtype())
             s = seg.seg_sum(torch.where(valid, data, torch.zeros_like(data)),
                             layout, valid)
@@ -534,6 +574,9 @@ class AggExec(Operator):
         if fn in ("min", "max"):
             if x.is_string:
                 return _minmax_string(call, x, layout, fn)
+            if call.dtype.wide_decimal:
+                return _minmax_wide(call.dtype, x, valid & layout.row_mask,
+                                    layout, fn)
             red = seg.seg_min if fn == "min" else seg.seg_max
             val, has = red(x.data, layout, valid)
             return [Column(call.dtype, val, None),
@@ -569,6 +612,14 @@ class AggExec(Operator):
             if fn == "count":
                 out.append(Column(T.INT64, seg.seg_sum(cols[0].data, layout,
                                                        ones), None))
+            elif fn in ("sum", "avg") and cols[0].dtype.wide_decimal:
+                if fn == "sum":
+                    out += _merge_sum_wide(cols, layout)
+                    continue
+                everyone = Column(T.BOOLEAN, ones, None)
+                scol, _ = _merge_sum_wide([cols[0], everyone], layout)
+                out += [scol, Column(T.INT64, seg.seg_sum(
+                    cols[1].data, layout, ones), None)]
             elif fn == "sum":
                 zero = torch.zeros_like(cols[0].data)
                 s = seg.seg_sum(torch.where(cols[1].data, cols[0].data, zero),
@@ -581,6 +632,10 @@ class AggExec(Operator):
                                seg.seg_sum(cols[0].data, layout, ones), None),
                         Column(T.INT64,
                                seg.seg_sum(cols[1].data, layout, ones), None)]
+            elif fn in ("min", "max") and cols[0].dtype.wide_decimal:
+                out += _minmax_wide(cols[0].dtype, cols[0],
+                                    cols[1].data & layout.row_mask, layout,
+                                    fn)
             elif fn in ("min", "max") and cols[0].is_string:
                 out.extend(_minmax_string(
                     call, Column(cols[0].dtype, cols[0].data, cols[1].data),
@@ -624,8 +679,21 @@ class AggExec(Operator):
         if fn == "count":
             return scols[0]
         if fn == "sum":
+            if scols[0].dtype.wide_decimal:
+                # Spark nulls a sum beyond the result precision; the
+                # segment shadow only catches magnitudes past 1.5e38
+                h, l = W.planes(scols[0])
+                ok = (scols[1].data & scols[0].valid_mask()
+                      & i128.in_precision(h, l, call.dtype.precision))
+                return Column(call.dtype, scols[0].data, ok)
             return Column(scols[0].dtype, scols[0].data, scols[1].data)
         if fn == "avg":
+            if call.dtype.wide_decimal:
+                h, l = W.planes(scols[0])
+                cnt = scols[1].data
+                qh, ql, ok = W.div_by_count(h, l, cnt, call.dtype, 0)
+                return W.build(call.dtype, qh, ql,
+                               (cnt > 0) & ok & scols[0].valid_mask())
             s, cnt = scols[0].data, scols[1].data
             ok = cnt > 0
             if call.dtype.kind == TypeKind.DECIMAL:

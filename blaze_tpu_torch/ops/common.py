@@ -6,7 +6,8 @@ column kind the port's batches hold. String columns of different width
 buckets are padded to the widest first, and dictionary columns come out
 expanded, as in the JAX package. A list column's elements concatenate
 the same way one level down, into an element storage of the bucket of
-their total; a struct's children concatenate row-aligned.
+their total; a struct's children, and a wide decimal's two limb planes,
+concatenate row-aligned.
 `adaptive_target_bytes` sizes the IPC reader's macro-batches, and
 `adaptive_batch_rows` (over `schema_row_bytes`) the Parquet scan's.
 
@@ -23,9 +24,10 @@ import torch
 
 from blaze_tpu_torch.columnar.batch import (
     Column, ColumnBatch, ListData, StringData, StructData, bucket_capacity,
-    require_dense_kind,
 )
-from blaze_tpu_torch.columnar.types import Schema, TypeKind, storage_element
+from blaze_tpu_torch.columnar.types import (
+    Schema, TypeKind, storage_element, struct_fields,
+)
 from blaze_tpu_torch.exprs import strings as S
 from blaze_tpu_torch.runtime.metrics import to_host
 
@@ -50,8 +52,6 @@ def concat_batches(batches: List[ColumnBatch],
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
     schema = schema or batches[0].schema
-    for f in schema.fields:
-        require_dense_kind(f.dtype, f.name)
     counts = to_host(torch.stack([b.num_rows for b in batches])).tolist()
     total = sum(counts)
     cap = bucket_capacity(total)
@@ -72,7 +72,7 @@ def _concat_column(parts: List[Column], counts: List[int], pad: int,
     if parts[0].is_struct:
         kids = [_concat_column([p.data.children[i] for p in parts], counts,
                                pad, f.dtype)
-                for i, f in enumerate(dtype.fields)]
+                for i, f in enumerate(struct_fields(dtype))]
         return Column(dtype, StructData(kids), valid)
     if parts[0].is_list:
         # the element ranges of rows [0, n) start at 0 (ListData's
@@ -151,8 +151,6 @@ def slice_batch(batch: ColumnBatch, start: int, count: int) -> ColumnBatch:
     """Live rows [start, start+count) into a fresh batch of capacity
     bucket_capacity(count); no host pull (the row count stays on the
     device)."""
-    for f in batch.schema.fields:
-        require_dense_kind(f.dtype, f.name)
     cap = bucket_capacity(count)
     idx = torch.arange(cap, dtype=torch.int64, device=batch.device) + start
     n = (batch.num_rows - start).clamp(0, count)

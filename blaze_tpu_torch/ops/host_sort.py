@@ -1,8 +1,8 @@
 """Host-side (numpy) row-encoded sort keys, run merge, and host batches.
 
-Port of blaze_tpu/ops/host_sort.py for the dense and string column kinds
-(plain and dictionary); host batches also concatenate and upload list
-and struct columns, and take structs. Spilled sort
+Port of blaze_tpu/ops/host_sort.py for the dense, wide-decimal and string
+column kinds (plain and dictionary); host batches also concatenate and
+upload list and struct columns, and take structs. Spilled sort
 runs live in host files as serde frames, so their k-way merge runs on the
 host, as the reference's LoserTree over spilled cursors does
 (datafusion-ext-commons loser_tree.rs:1-118, sort_exec.rs:419-475), and
@@ -28,6 +28,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from blaze_tpu_torch.columnar import int128 as i128
 from blaze_tpu_torch.columnar.batch import (
     Column, ColumnBatch, DictData, ListData, StringData, StructData,
     bucket_capacity, bucket_dict_rows, bucket_width, has_list,
@@ -36,7 +37,9 @@ from blaze_tpu_torch.columnar.serde import HostBatch, _HostCol
 # one count serves both names: the JAX package's host_nbytes and
 # host_batch_nbytes differ only on string and dictionary columns
 from blaze_tpu_torch.columnar.serde import host_batch_nbytes as host_nbytes
-from blaze_tpu_torch.columnar.types import Schema, TypeKind, storage_element
+from blaze_tpu_torch.columnar.types import (
+    Schema, TypeKind, storage_element, struct_fields,
+)
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 from blaze_tpu_torch.ops.sort_keys import DEFAULT_MAX_STRING_WORDS, SortSpec
 
@@ -67,11 +70,17 @@ def _f32_total_order(x: np.ndarray) -> np.ndarray:
     return np.where(neg, ~u, u ^ _I32_MIN)
 
 
-def _value_parts(c: _HostCol, kind: TypeKind) -> List[np.ndarray]:
+def _value_parts(c: _HostCol, kind: TypeKind, wide: bool
+                 ) -> List[np.ndarray]:
     """Big-endian byte planes whose concatenated order is the ascending
     value order (ops/sort_keys.encode_column, case by case)."""
     if kind == TypeKind.NULL:
         return []
+    if wide:
+        # the signed hi plane, then the lo plane read unsigned
+        hi, lo = (ch.data.astype(np.int64) for ch in c.children)
+        return [_be((hi ^ _I64_MIN).view(np.uint64)),
+                _be(lo.view(np.uint64))]
     if kind in (TypeKind.STRING, TypeKind.BINARY):
         # the device key's 8-word prefix, then the length
         w = DEFAULT_MAX_STRING_WORDS * 8
@@ -117,11 +126,7 @@ def encode_keys(hb: HostBatch, specs: Sequence[SortSpec]) -> np.ndarray:
             planes.append(flag.reshape(-1, 1))
         else:
             valid = None
-        if f.dtype.wide_decimal:
-            raise NotImplementedError(
-                "host sort keys of wide decimals need wide-decimal storage "
-                "(exprs/wide_decimal.py), not yet ported")
-        for p in _value_parts(c, f.dtype.kind):
+        for p in _value_parts(c, f.dtype.kind, f.dtype.wide_decimal):
             if valid is not None:
                 p = np.where(valid[:, None], p, np.uint8(0))
             planes.append(p if spec.asc else ~p)
@@ -142,9 +147,8 @@ def sort_perm(hb: HostBatch, specs: Sequence[SortSpec]) -> np.ndarray:
 def host_supported(schema: Schema) -> bool:
     """Whether the host sort, merge and take hold every column: all kinds
     but lists and maps at any depth, whose rows are not sliceable one by
-    one here (as in the JAX package), and wide decimals."""
-    return not any(has_list(f.dtype) or f.dtype.wide_decimal
-                   for f in schema.fields)
+    one here (as in the JAX package)."""
+    return not any(has_list(f.dtype) for f in schema.fields)
 
 
 def _col_take(c: _HostCol, idx: np.ndarray) -> _HostCol:
@@ -259,7 +263,7 @@ def _layout(c: _HostCol, dtype, n: int, cap: int, alloc) -> tuple:
     elif c.kind == "struct":
         ids = []
         kids = [_layout(ch, f.dtype, n, cap, alloc)
-                for ch, f in zip(c.children, dtype.fields)]
+                for ch, f in zip(c.children, struct_fields(dtype))]
     elif c.kind == "null":
         ids = []
     else:
@@ -317,6 +321,9 @@ def _build(lay: tuple, view) -> Column:
                         _build(kids[0], view))
     elif c.kind == "struct":
         data = StructData([_build(k, view) for k in kids])
+        if dtype.wide_decimal:
+            # the planes carry no validity of their own to zero them
+            return Column(dtype, data, valid).normalized()
     elif c.kind == "null":
         data = torch.zeros((cap,), dtype=torch.int8,
                            device=valid.device)
@@ -377,6 +384,10 @@ def _pylike(c: _HostCol, dtype, n: int):
     valid = c.validity if c.validity is not None else np.ones((n,), bool)
     if c.kind == "null":
         return np.full((n,), None, object)
+    if dtype.wide_decimal:
+        hi, lo = (ch.data[:n].astype(np.int64) for ch in c.children)
+        return [v if ok else None
+                for v, ok in zip(i128.ints_from_np(hi, lo), valid)]
     if c.kind in ("str", "dict"):
         c = _dict_expand(c)
         return [bytes(c.data[i, :c.lengths[i]]) if valid[i] else None

@@ -36,7 +36,7 @@ from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.arrow_io import (
     batch_from_arrow, batch_to_arrow, schema_to_arrow,
 )
-from blaze_tpu_torch.columnar.batch import ColumnBatch, require_dense_kind
+from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.columnar.types import Field, Schema
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.exprs import ir
@@ -133,10 +133,6 @@ class ParquetScanExec(Operator):
 
     def execute(self, ctx: ExecContext) -> BatchStream:
         from blaze_tpu_torch.ops.common import adaptive_batch_rows
-
-        # a column the port cannot hold fails the scan before any read
-        for f in self._schema:
-            require_dense_kind(f.dtype, f.name)
 
         def gen():
             batch_rows = self.batch_rows or adaptive_batch_rows(

@@ -115,10 +115,15 @@ def encode_column(col: Column, asc: bool, nulls_first: bool,
         flag = valid if nulls_first else ~valid
         keys.append((flag.to(torch.int64), 1))
     k = col.dtype.kind
-    if col.dtype.is_nested or col.dtype.wide_decimal:
-        raise NotImplementedError(
-            f"sort keys of {col.dtype} need nested or wide-decimal storage "
-            "(columnar/batch.py, exprs/wide_decimal.py), not yet ported")
+    if col.dtype.wide_decimal:
+        # the limb planes: hi in signed order, then lo in unsigned order
+        # (sign-flipped into a signed word)
+        hi, lo = (ch.data for ch in col.data.children)
+        keys.append(_directed(hi, 64, valid, asc))
+        keys.append(_directed(lo ^ _I64_MIN, 64, valid, asc))
+        return keys
+    if col.dtype.is_nested:
+        raise TypeError(f"no sort keys for {col.dtype}")
     if k == TypeKind.NULL:
         return keys
     if col.is_string:

@@ -44,8 +44,8 @@ import torch
 
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import (
-    Column, ColumnBatch, StringData, bucket_capacity, map_tensors,
-    require_dense_kind,
+    Column, ColumnBatch, StringData, StructData, bucket_capacity,
+    map_tensors,
 )
 from blaze_tpu_torch.columnar.types import TypeKind
 from blaze_tpu_torch.config import conf
@@ -305,7 +305,6 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
     compile-service batch-count rung; here the chain runs batch by batch
     and the columns concatenate once."""
     for f in root.schema.fields:  # before draining the source
-        require_dense_kind(f.dtype, f.name)
         if f.dtype.is_nested:
             # compacting list storage across batches: the streaming path,
             # as in the JAX package
@@ -339,6 +338,10 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
                                     w) for p in parts]
             data = StringData(torch.cat([d.bytes for d in datas]),
                               torch.cat([d.lengths for d in datas]))
+        elif parts[0].is_struct:  # a wide decimal's two limb planes
+            data = StructData([Column(ch.dtype, torch.cat(
+                [p.data.children[k].data for p in parts]))
+                for k, ch in enumerate(parts[0].data.children)])
         else:
             data = torch.cat([p.data for p in parts])
         cols.append(Column(f.dtype, data, valid))

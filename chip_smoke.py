@@ -71,7 +71,11 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 and customer keys; store_sales at spark/tpcds.py's full
                 width of 12 columns), phase 16's dimension tables and
                 one store_returns file of 2^21 rows (SF100's 28.8 M cut
-                13.7x)
+                13.7x); and from the same draws the decimal copies of
+                the three fact tables (web_sales_dec, catalog_sales_dec,
+                store_sales_dec): the same rows and columns, every price
+                or amount column an Arrow decimal128(7,2), TPC-DS v2's
+                type, of the cents drawn
  13. tpcds_q02  q02 (spark/tpcds.py:367, BHJ mode): a broadcast stage of
                 date_dim, 16 map tasks of Union(scan ws, scan cs) ->
                 BroadcastJoin -> the dense partial agg by (d_year, d_qoy)
@@ -118,9 +122,23 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 (names, ids, ranks and counts exact, sums rtol 1e-9; the
                 window's row count and rank sums exact), once timed, and
                 q51_store's window stage profiled
+ 18. runner_decimal  this script's DECIMAL_QUERIES over the decimal
+                copies, in the form Spark 3.3's optimizer gives them
+                (DecimalAggregates, DecimalPrecision), BHJ through
+                run_plan: q02_dec (tpcds.py's q02 summing
+                UnscaledValue(price) on the dense path, as many launches
+                as runner_tpcds q02), q04_dec (q04 with decimal(17,2)
+                year totals and the growth test t_w2 / t_w1 > t_s2 / t_s1
+                in decimal(37,20), a wide division) and q03_rev (q03 as a
+                revenue report: sum of quantity x price as decimal(28,2),
+                wide agg state and sort key, and avg(price) as Spark
+                plans it); each exact against numpy's integers (q03_rev's
+                average within one unit of its sixth place), once timed,
+                and q04_dec's result stage profiled with its 128-step
+                divisions counted
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-17 have run_plan convert and decode
+decode_task_definition; phases 15-18 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -204,6 +222,9 @@ TOP_N = 100
 MAP_TASKS = 8
 SHUFFLE_PARTITIONS = 200
 SHUFFLE_REPS = 2     # timed reps of each shuffle phase after its checked run
+# shuffle_general's, cut to one so that the script keeps its time with
+# runner_decimal (PERF.md section 4)
+SHUFFLE_GENERAL_REPS = 1
 # the spill phase: budgets that force the agg state of one map task of the
 # general shuffle, and the sort input of the chain stage's rows, to spill
 SPILL_AGG_BUDGET = 64 << 20
@@ -646,13 +667,15 @@ def _timed_reps(plan, packed, ncols, reps=PATH_REPS):
     return times
 
 
-def _device_profile(fn):
+def _device_profile(fn, cpu=True):
     """One call of fn under torch.profiler: (rows, busy_ms), rows being
-    (device us, name, launches) by kernel, most time first."""
+    (device us, name, launches) by kernel, most time first. cpu=False
+    traces the device alone: the same kernel rows at about a third of the
+    profiler's cost over a stage of 10^5 launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         fn()
     rows = []
     for e in prof.key_averages():
@@ -1301,7 +1324,7 @@ def phase_shuffle_general(general, work_dir) -> dict:
     _check_general(got, *general["oracle"])
     state_rows = sum(p.children[0].metrics["output_rows"] for p in plans)
     reps = [_shuffle_rep(maps, reduces, outputs, ncols, got)
-            for _ in range(SHUFFLE_REPS)]
+            for _ in range(SHUFFLE_GENERAL_REPS)]
     res = _shuffle_summary("shuffle_general", checked, reps, maps,
                            reduces)
     res.update(groups=int(got[0]), partial_state_rows=state_rows,
@@ -1431,6 +1454,31 @@ def _date_dim():
             "d_moy": moy, "d_qoy": ((moy - 1) // 3 + 1).astype(np.int32)}
 
 
+# the decimal copies of the fact tables (runner_decimal): the same rows,
+# every price or amount column a decimal(7,2), TPC-DS v2's type for them
+DEC_TABLES = {t: t + "_dec" for t in ("web_sales", "catalog_sales",
+                                      "store_sales")}
+DEC_PRICE = (7, 2)
+DEC_COLS = {"ss_list_price": "lp", "ss_sales_price": "sp",
+            "ss_coupon_amt": "ca", "ss_net_profit": "np"}
+
+
+def _dec_array(cents, valid=None):
+    """An Arrow decimal128(7,2) array of these unscaled cents (nulls where
+    `valid` is False), built from its 16-byte little-endian words."""
+    import pyarrow as pa
+
+    cents = np.where(valid, cents, 0) if valid is not None else cents
+    words = np.stack([cents, cents >> 63], axis=1).astype(np.int64)
+    bitmap = None
+    if valid is not None and not valid.all():
+        bitmap = pa.py_buffer(np.packbits(valid, bitorder="little"))
+    return pa.Array.from_buffers(
+        pa.decimal128(*DEC_PRICE), len(cents),
+        [bitmap, pa.py_buffer(words.tobytes())],
+        null_count=0 if bitmap is None else int((~valid).sum()))
+
+
 def _store_sales_rest(rng, n, price):
     """The store_sales columns beyond date, customer and price, drawn after
     them from the same generator with spark/tpcds.py's distributions
@@ -1453,6 +1501,7 @@ def _store_sales_rest(rng, n, price):
     qty = rng.integers(1, 101, n).astype(np.int32)
     qvalid = rng.random(n) >= 0.04
     cols["ss_quantity"] = pa.array(qty, mask=~qvalid)
+    host["qty"] = (qty, qvalid)
     cols.update(ss_list_price=cents("lp", 250), ss_sales_price=cents("sp", 200),
                 ss_coupon_amt=cents("ca", 40),
                 ss_net_profit=cents("np", 300, -100))
@@ -1463,13 +1512,16 @@ def _store_sales_rest(rng, n, price):
     return cols, q09, host
 
 
-def _fact_file(seed, table, i, path, dd, dims):
-    """Write file i of a fact table; returns what the oracles need of it:
-    q02's (year, quarter) sums and counts for web and catalog sales, for
-    web and store sales the (customer, price) rows of 1999 and 2000, and
-    for store sales q09's bucket counts and sums and the string queries'
-    partial aggregates (`_string_partials`). store_sales is written
-    at spark/tpcds.py's full width (SS), the other tables with the three
+def _fact_file(seed, table, i, path, dd, dims, dec_path):
+    """Write file i of a fact table and, at `dec_path`, its decimal copy
+    (the same rows, each price or amount column a decimal(7,2) of the
+    cents drawn here); returns what the oracles need of it: q02's (year,
+    quarter) sums (in dollars and in exact cents) and counts for web and
+    catalog sales, for web and store sales the (customer, price, cents)
+    rows of 1999 and 2000, and for store sales q09's bucket counts and
+    sums, the string queries' partial aggregates (`_string_partials`) and
+    q03_rev's (`_decimal_partials`). store_sales is written at
+    spark/tpcds.py's full width (SS), the other tables with the three
     columns the queries read."""
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -1480,35 +1532,69 @@ def _fact_file(seed, table, i, path, dd, dims):
     dvalid = rng.random(n) >= TPCDS_NULL_SHARE
     cust = rng.integers(1, CUSTOMERS + 1, n)
     cvalid = rng.random(n) >= TPCDS_NULL_SHARE
-    price = rng.integers(0, 30_000, n) / 100.0
+    cents = rng.integers(0, 30_000, n)
+    price = cents / 100.0
     dcol, ccol, pcol = FACT_COLS[table]
     cols = {dcol: pa.array(date, mask=~dvalid),
             ccol: pa.array(cust, mask=~cvalid), pcol: pa.array(price)}
+    dec = {pcol: _dec_array(cents)}
     out = {}
     if table == "store_sales":
         rest, out["q09"], host = _store_sales_rest(rng, n, price)
         cols.update(rest)
         cols = {name: cols[name] for name in SS_COLUMNS}
+        for name, key in DEC_COLS.items():
+            v, ok = host[key]
+            dec[name] = _dec_array(np.rint(v * 100).astype(np.int64), ok)
         out.update(_string_partials(date, dvalid, cust, cvalid, price, host,
                                     dd, dims))
+        out["q03_rev"] = _decimal_partials(date, dvalid, host, dd, dims)
         t0 = time.perf_counter()
         out.update(_nested_partials(date, dvalid, cust, cvalid, price, host,
                                     dd))
         out["nested_s"] = time.perf_counter() - t0
     pq.write_table(pa.table(cols), path, row_group_size=n,
                    compression="snappy")
+    # a decimal of precision <= 9 as INT32, as Spark's Parquet writer
+    # stores it (pyarrow's default is a 16-byte FIXED_LEN_BYTE_ARRAY)
+    pq.write_table(pa.table({k: dec.get(k, v) for k, v in cols.items()}),
+                   dec_path, row_group_size=n, compression="snappy",
+                   store_decimal_as_integer=True)
     idx = date[dvalid] - DATE_SK0
-    year, p = dd["d_year"][idx], price[dvalid]
+    year, p, pc = dd["d_year"][idx], price[dvalid], cents[dvalid]
     if table != "store_sales":
         slot = year.astype(np.int64) * 4 + dd["d_qoy"][idx] - 1
         out["q02"] = (np.bincount(slot, weights=p, minlength=2101 * 4),
                       np.bincount(slot, minlength=2101 * 4))
+        # float64 weights add integer cents exactly below 2^53
+        out["q02_cents"] = np.bincount(slot, weights=pc,
+                                       minlength=2101 * 4)
     if table != "catalog_sales":
         c = cust[dvalid]
         ok = cvalid[dvalid]
-        out["q04"] = {y: (c[ok & (year == y)], p[ok & (year == y)])
-                      for y in (1999, 2000)}
+        out["q04"] = {y: (c[ok & (year == y)], p[ok & (year == y)],
+                          pc[ok & (year == y)]) for y in (1999, 2000)}
     return out
+
+
+def _decimal_partials(date, dvalid, host, dd, dims):
+    """One store_sales file's share of q03_rev's answer, per year (d_moy =
+    11, i_manufact_id = 28): the revenue sum(quantity * sales price) in
+    cents over rows where both are set, its row count, and the sum and
+    count of the sales price in cents (the average's)."""
+    day = np.where(dvalid, date - DATE_SK0, 0)
+    m = dvalid & (dd["d_moy"][day] == 11) & dims["manufact28"][host["item"]]
+    yr = dd["d_year"][day][m] - 1900
+    qty, qok = host["qty"]
+    sp, sok = host["sp"]
+    spc = np.rint(sp * 100).astype(np.int64)[m]
+    both = qok[m] & sok[m]
+    rev = np.zeros(202, np.int64)
+    np.add.at(rev, yr[both], qty[m][both].astype(np.int64) * spc[both])
+    ok = sok[m]
+    return [rev, np.bincount(yr[both], minlength=202),
+            np.bincount(yr[ok], weights=spc[ok], minlength=202),
+            np.bincount(yr[ok], minlength=202)]
 
 
 # the dimension tables the string queries read (runner_strings), at
@@ -1798,20 +1884,28 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
     q05_sales = np.zeros(STORES + 1)
     jobs = []
     for table, nfiles in TPCDS_FILES.items():
-        paths[table] = [os.path.join(work_dir, f"{table}_{i:03d}.parquet")
+        for t in (table, DEC_TABLES[table]):
+            paths[t] = [os.path.join(work_dir, f"{t}_{i:03d}.parquet")
                         for i in range(nfiles)]
-        jobs += [(table, i, p) for i, p in enumerate(paths[table])]
-    q02 = [np.zeros(2101 * 4), np.zeros(2101 * 4, np.int64)]
+        jobs += [(table, i, p, paths[DEC_TABLES[table]][i])
+                 for i, p in enumerate(paths[table])]
+    q02 = [np.zeros(2101 * 4), np.zeros(2101 * 4, np.int64),
+           np.zeros(2101 * 4)]
     q04 = {(t, y): [np.zeros(CUSTOMERS + 1),
-                    np.zeros(CUSTOMERS + 1, np.int64)]
+                    np.zeros(CUSTOMERS + 1, np.int64),
+                    np.zeros(CUSTOMERS + 1)]
            for t in ("store_sales", "web_sales") for y in (1999, 2000)}
+    q03_rev = [np.zeros(202, np.int64), np.zeros(202, np.int64),
+               np.zeros(202), np.zeros(202, np.int64)]
     q09 = np.zeros((len(Q09_BUCKETS), 3))
     strings = {}
     with cf.ThreadPoolExecutor(max_workers=8) as ex:
-        for (table, _, _), part in zip(jobs, ex.map(
-                lambda j: _fact_file(seed, j[0], j[1], j[2], dd, dims),
+        for (table, _, _, _), part in zip(jobs, ex.map(
+                lambda j: _fact_file(seed, j[0], j[1], j[2], dd, dims, j[3]),
                 jobs)):
             q09 += part.get("q09", 0)
+            for acc, add in zip(q03_rev, part.get("q03_rev", ())):
+                acc += add
             if "q51" in part:
                 nested["nested_partials_s"] += part["nested_s"]
                 q05_sales += part["q05_sales"]
@@ -1828,19 +1922,22 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
             if "q02" in part:
                 q02[0] += part["q02"][0]
                 q02[1] += part["q02"][1]
-            for y, (c, p) in part.get("q04", {}).items():
+                q02[2] += part["q02_cents"]
+            for y, (c, p, pc) in part.get("q04", {}).items():
                 acc = q04[(table, y)]
                 acc[0] += np.bincount(c, weights=p, minlength=CUSTOMERS + 1)
                 acc[1] += np.bincount(c, minlength=CUSTOMERS + 1)
+                acc[2] += np.bincount(c, weights=pc, minlength=CUSTOMERS + 1)
     t0 = time.perf_counter()
     nested.update(_nested_oracles(parts), q05_sales=q05_sales,
                   nested_oracle_s=time.perf_counter() - t0)
-    return paths, dict(strings, q02=q02, q04=q04, q09=q09, **nested)
+    return paths, dict(strings, q02=q02, q04=q04, q09=q09, q03_rev=q03_rev,
+                       **nested)
 
 
 def _q02_oracle(orc):
     """(d_year, d_qoy, total, n) of every quarter with sales, ordered."""
-    sums, cnts = orc["q02"]
+    sums, cnts = orc["q02"][:2]
     slots = np.nonzero(cnts)[0]
     return slots // 4, slots % 4 + 1, sums[slots], cnts[slots]
 
@@ -1852,7 +1949,7 @@ def _q04_oracle(orc):
            for name, table, year, _, _ in Q04_ARMS}
     both = np.ones(CUSTOMERS + 1, bool)
     both[0] = False
-    for _, cnt in tot.values():
+    for _, cnt, _ in tot.values():
         both &= cnt > 0
     s1, s2, w1, w2 = (tot[a][0] for a in ("s1", "s2", "w1", "w2"))
     keep = both & (s1 > 0) & (w1 > 0) & (w2 * s1 > s2 * w1)
@@ -2369,18 +2466,23 @@ RUNNER_INFO = ("file_stages", "broadcast_stages", "map_tasks_run",
                "bytes_scanned")
 
 
-def _runner_plan(q, paths, mode="bhj"):
-    """spark/tpcds.py's own plan of q (or this script's NESTED_QUERIES
-    plan) over the Parquet files. Its query function names one file a
-    table; each scan then lists every file of its table, as Spark's scan
-    does. Operators and expressions stay the query function's."""
-    from blaze_tpu_torch.spark import tpcds
+def _runner_plan(q, paths, mode="bhj", tpcds=None):
+    """spark/tpcds.py's own plan of q (or this script's NESTED_QUERIES or
+    DECIMAL_QUERIES plan) over the Parquet files. Its query function
+    names one file a table; each scan then lists every file of its table,
+    as Spark's scan does. Operators and expressions stay the query
+    function's. `tpcds` is the spark/tpcds.py module that builds the
+    plan (the port's unless given: a test passes the JAX package's)."""
+    if tpcds is None:
+        from blaze_tpu_torch.spark import tpcds
 
     files = {t: v if isinstance(v, list) else [v] for t, v in paths.items()}
     first = {t: v[0] for t, v in files.items()}
     owner = {v: t for t, v in first.items()}
     if q in NESTED_QUERIES:
         plan = NESTED_QUERIES[q](tpcds, first, mode)
+    elif q in DECIMAL_QUERIES:
+        plan = DECIMAL_QUERIES[q](tpcds, first, mode)
     else:
         plan, _ = tpcds.QUERIES[q](first, None, mode)
 
@@ -2710,6 +2812,237 @@ NESTED_QUERIES = {
 }
 
 
+def _dec_schema(tp, schema):
+    """A spark/tpcds.py fact schema as the decimal copies type it: every
+    price or amount column decimal(7,2)."""
+    T = tp.T
+    money = {"ws_ext_sales_price", "cs_ext_sales_price",
+             "ss_ext_sales_price"} | set(DEC_COLS)
+    return T.Schema([T.Field(f.name, T.decimal(*DEC_PRICE), f.nullable)
+                     if f.name in money else f for f in schema.fields])
+
+
+def q02_dec_plan(tp, paths, mode="bhj"):
+    """tpcds.py's q02 over web_sales_dec and catalog_sales_dec, typed as
+    Spark 3.3 plans it (DecimalAggregates): the partial aggregate by
+    (d_year, d_qoy) of sum(UnscaledValue(price)) and count(price), the
+    final aggregate, MakeDecimal(total, 17, 2) (the final aggregate's
+    result expression, a ProjectExec here), then the sort. The sum is an int64, so the
+    map stage keeps the dense path."""
+    P, T, ir, col = tp.P, tp.T, tp.ir, tp.col
+    dec = T.decimal(*DEC_PRICE)
+    u_schema = T.Schema([T.Field("sold_date_sk", T.INT64),
+                         T.Field("price", dec)])
+    arms = []
+    for table, schema in (("web_sales", tp.WS), ("catalog_sales", tp.CS)):
+        date, _, price = FACT_COLS[table]
+        scan = P.scan(_dec_schema(tp, schema),
+                      [(paths[DEC_TABLES[table]], [])])
+        arms.append(P.project(scan, [col(date), col(price)],
+                              ["sold_date_sk", "price"], u_schema))
+    dd = P.scan(tp.DD, [(paths["date_dim"], [])])
+    j = tp._join(P.union(arms), dd, [col("sold_date_sk")],
+                 [col("d_date_sk")], "inner",
+                 T.Schema(tp._fields(u_schema, tp.DD)), mode)
+    keys = [T.Field("d_year", T.INT32), T.Field("d_qoy", T.INT32)]
+    aggs = [{"fn": "sum", "args": [ir.UnscaledValue(col("price"))],
+             "dtype": T.INT64, "name": "total_u"},
+            {"fn": "count", "args": [col("price")], "dtype": T.INT64,
+             "name": "n"}]
+    agg = tp._two_phase_agg(j, [col("d_year"), col("d_qoy")],
+                            ["d_year", "d_qoy"], aggs, keys)
+    out = P.project(agg, [col("d_year"), col("d_qoy"),
+                          ir.MakeDecimal(col("total_u"), 17, 2), col("n")],
+                    ["d_year", "d_qoy", "total", "n"],
+                    T.Schema(keys + [T.Field("total", T.decimal(17, 2)),
+                                     T.Field("n", T.INT64)]))
+    return P.sort(out, [(col("d_year"), True, True),
+                        (col("d_qoy"), True, True)])
+
+
+def _dec_year_total(tp, paths, mode, table, year, cname, tname,
+                    positive=False):
+    """One q04 arm: the year's sum per customer as decimal(17,2)
+    (MakeDecimal over sum(UnscaledValue(price))); `positive` keeps the
+    filter `total > 0` that Spark pushes below the joins onto the
+    first-year arms."""
+    P, T, ir, col = tp.P, tp.T, tp.ir, tp.col
+    date, cust, price = FACT_COLS[table]
+    schema = _dec_schema(tp, tp.SS if table == "store_sales" else tp.WS)
+    s = P.scan(schema, [(paths[DEC_TABLES[table]], [])])
+    dd = P.filter_(P.scan(tp.DD, [(paths["date_dim"], [])]),
+                   ir.Binary(ir.BinOp.EQ, col("d_year"), tp.lit(year)))
+    j = tp._join(s, dd, [col(date)], [col("d_date_sk")], "inner",
+                 T.Schema(tp._fields(schema, tp.DD)), mode)
+    tu = tname + "_u"
+    agg = tp._two_phase_agg(j, [col(cust)], [cname], [
+        {"fn": "sum", "args": [ir.UnscaledValue(col(price))],
+         "dtype": T.INT64, "name": tu}], [T.Field(cname, T.INT64)])
+    dt = T.decimal(17, 2)
+    out = P.project(agg, [col(cname), ir.MakeDecimal(col(tu), 17, 2)],
+                    [cname, tname], T.Schema([T.Field(cname, T.INT64),
+                                              T.Field(tname, dt)]))
+    if positive:
+        out = P.filter_(out, ir.Binary(ir.BinOp.GT, col(tname),
+                                       ir.Literal(dt, 0)))
+    return out
+
+
+def q04_dec_plan(tp, paths, mode="bhj"):
+    """tpcds.py's q04 over store_sales_dec and web_sales_dec in TPC-DS
+    q04's ratio form as Spark types it: year totals are decimal(17,2),
+    `t_s1 > 0` and `t_w1 > 0` (the literal a decimal(17,2)) are pushed
+    onto their arms, and the growth test over the joined totals is
+    t_w2 / t_w1 > t_s2 / t_s1, each quotient a decimal(37,20): a wide
+    division with HALF_UP (int128.divmod_full). The JAX package's
+    wide-decimal walk takes it (delta 20, 17 + 20 <= 38)."""
+    P, T, ir, col = tp.P, tp.T, tp.ir, tp.col
+    arms = [_dec_year_total(tp, paths, mode, table, year, cname, tname,
+                            positive=year == 1999)
+            for _, table, year, cname, tname in Q04_ARMS]
+
+    def joined(a, b):
+        return T.Schema(list(a.schema.fields) + list(b.schema.fields))
+
+    j = arms[0]
+    for arm, (_, _, _, cname, _) in zip(arms[1:], Q04_ARMS[1:]):
+        j = tp._join(j, arm, [col("c1")], [col(cname)], "inner",
+                     joined(j, arm), mode)
+    q = T.decimal(37, 20)
+
+    def ratio(a, b):
+        return ir.Binary(ir.BinOp.DIV, col(a), col(b), result_type=q)
+
+    f = P.filter_(j, ir.Binary(ir.BinOp.GT, ratio("t_w2", "t_w1"),
+                               ratio("t_s2", "t_s1")))
+    proj = P.project(f, [col("c1")], ["customer_sk"],
+                     T.Schema([T.Field("customer_sk", T.INT64)]))
+    return P.limit(P.sort(proj, [(col("customer_sk"), True, True)]),
+                   Q04_TOP, True)
+
+
+def q03_rev_plan(tp, paths, mode="bhj"):
+    """A revenue report on tpcds.py's q03 (store_sales_dec joined to
+    date_dim (d_moy = 11) and item (i_manufact_id = 28), by (d_year,
+    i_brand_id, i_brand)) when no extended price is stored: the line
+    revenue sum(CheckOverflow(CAST(ss_quantity AS decimal(10,0)) *
+    ss_sales_price, 18, 2)), which Spark types decimal(28,2) so that its
+    state is wide (limb planes through the partial and final aggregates
+    and the shuffle's serde), count(ss_sales_price), and
+    avg(ss_sales_price) as Spark 3.3 plans it, CAST(avg(UnscaledValue(
+    ss_sales_price)) / 100.0 AS decimal(11,6)); ordered by (d_year,
+    revenue DESC, brand_id), a wide sort key, and cut to a top 100."""
+    P, T, ir, col = tp.P, tp.T, tp.ir, tp.col
+    ss_schema = _dec_schema(tp, tp.SS)
+    ss = P.scan(ss_schema, [(paths["store_sales_dec"], [])])
+    dd = P.filter_(P.scan(tp.DD, [(paths["date_dim"], [])]),
+                   ir.Binary(ir.BinOp.EQ, col("d_moy"), tp.lit(11)))
+    it = P.filter_(P.scan(tp.ITEM, [(paths["item"], [])]),
+                   ir.Binary(ir.BinOp.EQ, col("i_manufact_id"), tp.lit(28)))
+    j1 = tp._join(ss, dd, [col("ss_sold_date_sk")], [col("d_date_sk")],
+                  "inner", T.Schema(tp._fields(ss_schema, tp.DD)), mode)
+    j2 = tp._join(j1, it, [col("ss_item_sk")], [col("i_item_sk")], "inner",
+                  T.Schema(tp._fields(ss_schema, tp.DD, tp.ITEM)), mode)
+    line = ir.CheckOverflow(ir.Binary(
+        ir.BinOp.MUL, ir.Cast(col("ss_quantity"), T.decimal(10, 0)),
+        col("ss_sales_price"), result_type=T.decimal(18, 2)), 18, 2)
+    rev = T.decimal(28, 2)
+    aggs = [{"fn": "sum", "args": [line], "dtype": rev, "name": "revenue"},
+            {"fn": "count", "args": [col("ss_sales_price")],
+             "dtype": T.INT64, "name": "n"},
+            {"fn": "avg", "args": [ir.UnscaledValue(col("ss_sales_price"))],
+             "dtype": T.FLOAT64, "name": "avg_u"}]
+    keys = [T.Field("d_year", T.INT32), T.Field("brand_id", T.INT32),
+            T.Field("brand", T.STRING)]
+    agg = tp._two_phase_agg(j2, [col("d_year"), col("i_brand_id"),
+                                 col("i_brand")],
+                            ["d_year", "brand_id", "brand"], aggs, keys)
+    avg = ir.Cast(ir.Binary(ir.BinOp.DIV, col("avg_u"),
+                            ir.Literal(T.FLOAT64, 100.0),
+                            result_type=T.FLOAT64), T.decimal(11, 6))
+    out = P.project(agg, [col("d_year"), col("brand_id"), col("brand"),
+                          col("revenue"), col("n"), avg],
+                    ["d_year", "brand_id", "brand", "revenue", "n",
+                     "avg_price"],
+                    T.Schema(keys + [T.Field("revenue", rev),
+                                     T.Field("n", T.INT64),
+                                     T.Field("avg_price", T.decimal(11, 6))]))
+    srt = P.sort(out, [(col("d_year"), True, True),
+                       (col("revenue"), False, True),
+                       (col("brand_id"), True, True)])
+    return P.limit(srt, 100, True)
+
+
+DECIMAL_QUERIES = {"q02_dec": q02_dec_plan, "q04_dec": q04_dec_plan,
+                   "q03_rev": q03_rev_plan}
+
+
+def check_q02_dec(out, orc):
+    """q02_dec: every (year, quarter) with sales, in order; totals exact
+    in cents, counts exact."""
+    cnts, cents = orc["q02"][1], orc["q02"][2]
+    slots = np.nonzero(cnts)[0]
+    _check_rows(out.to_numpy(), {
+        "d_year": list(slots // 4), "d_qoy": list(slots % 4 + 1),
+        "total": [int(c) for c in cents[slots]],
+        "n": list(cnts[slots])}, "q02_dec")
+
+
+def _half_up_ratio(a: int, b: int, scale: int = 20) -> int:
+    """a / b at `scale` places, HALF_UP on the magnitude (a, b > 0)."""
+    q, r = divmod(a * 10 ** scale, b)
+    return q + (2 * r >= b)
+
+
+def _q04_dec_oracle(orc):
+    """The first Q04_TOP customers, ascending, whose four year totals
+    exist with t_s1 > 0 and t_w1 > 0, and whose rounded quotient t_w2 /
+    t_w1 beats t_s2 / t_s1 (Python ints, HALF_UP at 20 places)."""
+    tot = {name: orc["q04"][(table, year)]
+           for name, table, year, _, _ in Q04_ARMS}
+    both = np.ones(CUSTOMERS + 1, bool)
+    both[0] = False
+    for _, cnt, _ in tot.values():
+        both &= cnt > 0
+    s1, s2, w1, w2 = (tot[a][2].astype(np.int64)
+                      for a in ("s1", "s2", "w1", "w2"))
+    out = []
+    for c in np.nonzero(both & (s1 > 0) & (w1 > 0))[0]:
+        if _half_up_ratio(int(w2[c]), int(w1[c])) > _half_up_ratio(
+                int(s2[c]), int(s1[c])):
+            out.append(int(c))
+            if len(out) == Q04_TOP:
+                break
+    return out
+
+
+def check_q04_dec(out, orc):
+    """q04_dec: the customer ids exact and in order."""
+    _check_rows(out.to_numpy(), {"customer_sk": _q04_dec_oracle(orc)},
+                "q04_dec")
+
+
+def check_q03_rev(out, orc):
+    """q03_rev: one brand a year, by year; revenue exact in cents and
+    counts exact; the average within 1e-6 (one unit of its last place) of
+    Spark's double steps: sum / count, / 100.0, then HALF_UP at 6
+    places."""
+    rev, _, sp_sum, sp_cnt = orc["q03_rev"]
+    years = np.nonzero(sp_cnt)[0]
+    d = out.to_numpy()
+    _check_rows({k: d[k] for k in ("d_year", "brand_id", "brand", "revenue",
+                                   "n")}, {
+        "d_year": list(years + 1900), "brand_id": [28] * len(years),
+        "brand": [b"Brand#28"] * len(years),
+        "revenue": [int(r) for r in rev[years]],
+        "n": list(sp_cnt[years])}, "q03_rev")
+    avg = sp_sum[years] / sp_cnt[years] / 100.0
+    want = np.floor(avg * 1e6 + 0.5)
+    got = np.array([int(v) for v in d["avg_price"]], np.float64)
+    _require(np.abs(got - want).max() <= 1,
+             f"q03_rev: avg_price {got} against {want}")
+
+
 def check_q05(out, orc):
     """q05: every store's sales and returns, then the ROLLUP's grand
     total (a null name, grouping id 1): names and ids exact, sums rtol
@@ -2821,7 +3154,7 @@ class _WindowCounts:
                                    for op in self.ops)}
 
 
-def _profiled_result_stage(q, paths, work_dir) -> dict:
+def _profiled_result_stage(q, paths, work_dir, cpu=True) -> dict:
     """One more run of q with its result stage (the one that runs the
     window) under torch.profiler: the stage's wall time, device busy time,
     idle share and top device operations."""
@@ -2834,7 +3167,7 @@ def _profiled_result_stage(q, paths, work_dir) -> dict:
     def profiled(*args):
         t0 = time.perf_counter()
         rows, busy_ms = _device_profile(lambda: prof.setdefault(
-            "ret", real(*args)))
+            "ret", real(*args)), cpu)
         wall = time.perf_counter() - t0
         prof.update(stage_wall_s=wall, device_busy_ms=busy_ms,
                     idle_share=1.0 - busy_ms / (wall * 1e3),
@@ -2899,6 +3232,73 @@ def phase_runner_nested(paths, orc, work_dir) -> dict:
     return res
 
 
+DECIMAL_CHECKS = {"q02_dec": check_q02_dec, "q04_dec": check_q04_dec,
+                  "q03_rev": check_q03_rev}
+
+
+def _division_profile(paths, work_dir) -> dict:
+    """q04_dec's result stage (the joins of the year totals and the growth
+    filter's two decimal(37,20) divisions) under torch.profiler, device
+    activity only, as `_profiled_result_stage` gives it (its wall time
+    includes the profiler's), with the calls of the 128-step long
+    division (int128.divmod_full) and their rows counted; then one
+    division of 1024 rows alone under the profiler, whose device
+    operations are the launches of every call."""
+    from blaze_tpu_torch.columnar import int128 as i128
+
+    real = i128.divmod_full
+    seen = {"divisions": 0, "division_rows": 0}
+
+    def counted(h, *args):
+        seen["divisions"] += 1
+        seen["division_rows"] += int(h.shape[0])
+        return real(h, *args)
+
+    i128.divmod_full = counted
+    try:
+        prof = _profiled_result_stage("q04_dec", paths, work_dir, cpu=False)
+    finally:
+        i128.divmod_full = real
+    a = torch.arange(1, 1025, dtype=torch.int64, device="cuda")
+    real(a, a * 7, a * 0, a)  # warm
+    torch.cuda.synchronize()
+    rows, busy_ms = _device_profile(lambda: real(a, a * 7, a * 0, a), False)
+    per_call = sum(r[2] for r in rows)
+    return dict(prof, **seen, launches_per_division=per_call,
+                one_division_device_ms=busy_ms,
+                division_launches=seen["divisions"] * per_call)
+
+
+def phase_runner_decimal(paths, orc, work_dir, runner) -> dict:
+    """The decimal slice, through run_plan in BHJ mode as runner_tpcds
+    runs its queries, over the decimal copies of the fact tables
+    (DECIMAL_QUERIES): q02_dec (sum(UnscaledValue(price)) on the dense
+    path; its launches must equal runner_tpcds q02's), q04_dec (decimal
+    year totals and the wide-division growth test) and q03_rev (a
+    decimal(28,2) sum of quantity x price: wide agg state through the
+    serde, and a wide sort key). Each once checked against numpy's exact
+    integers, then once timed; q04_dec's result stage profiled with its
+    divisions counted."""
+    res = {"phase": "runner_decimal", "mode": "bhj"}
+    for q, check in DECIMAL_CHECKS.items():
+        first = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
+        timed = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
+        _require(timed["launches"] == first["launches"],
+                 f"{q}: launches moved between runs")
+        first["result_rows"] = len(next(iter(first.pop("rows").values())))
+        first["checked_s"] = first.pop("wall_s")
+        res[q] = dict(first, timed_s=timed["wall_s"],
+                      stages=_runner_stages(q, paths))
+    q02 = res["q02_dec"]
+    _require(q02["stage_fallbacks"] == 0
+             and q02["launches"] == runner["q02"]["launches"] > 0,
+             f"q02_dec left the dense path: {q02}")
+    res["q04_dec"]["result_stage_profile"] = _division_profile(paths,
+                                                               work_dir)
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -2906,6 +3306,7 @@ def phase_tpcds_data(work_dir, seed) -> tuple:
     files = [paths["date_dim"], paths["store_returns"]] + [
         paths[t] for t in DIM_ROWS] + [p for t in TPCDS_FILES
                                        for p in paths[t]]
+    dec_files = [p for t in TPCDS_FILES for p in paths[DEC_TABLES[t]]]
     _emit({"phase": "tpcds_data", "seconds": time.perf_counter() - t0,
            "seed": seed, "date_dim_rows": DATE_DIM_ROWS,
            "dim_rows": DIM_ROWS,
@@ -2914,6 +3315,8 @@ def phase_tpcds_data(work_dir, seed) -> tuple:
                              store_returns=SR_ROWS),
            "files": len(files),
            "bytes": sum(os.path.getsize(p) for p in files),
+           "decimal_files": len(dec_files),
+           "decimal_bytes": sum(os.path.getsize(p) for p in dec_files),
            # host time of runner_nested's oracles (the partials summed
            # over the writer threads)
            "nested_oracle_s": {k: orc[k] for k in (
@@ -2954,6 +3357,7 @@ def main(argv=None) -> int:
         runner = phase_runner_tpcds(paths, orc, work_dir, q02, q04)
         phase_runner_strings(paths, orc, work_dir)
         nested = phase_runner_nested(paths, orc, work_dir)
+        decimal = phase_runner_decimal(paths, orc, work_dir, runner)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -2969,6 +3373,8 @@ def main(argv=None) -> int:
         "runner_q02_launches": runner["q02"]["launches"],
         "runner_nested_launches": {q: nested[q]["launches"]
                                    for q in NESTED_CHECKS},
+        "runner_decimal_launches": {q: decimal[q]["launches"]
+                                    for q in DECIMAL_CHECKS},
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

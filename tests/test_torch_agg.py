@@ -258,14 +258,48 @@ def test_state_over_budget_raises_naming_serde():
     pytest.param("sum", TT.decimal(30, 2), "wide_decimal",
                  id="sum-dtype2-wide_decimal")])
 def test_unported_aggregates_raise_before_reading(fn, dtype, match):
-    _, tbs = _batches(10, [10])
-    src = B.MemorySourceExec(tbs)
-    a = agg.AggExec(src, [ir.col("k0")], ["k0"],
-                    [agg.AggCall(fn, (ir.col("x"),), dtype, "r")],
-                    agg.AggMode.PARTIAL)
-    with pytest.raises(NotImplementedError, match=match):
-        a.execute(ExecContext(device="cpu"))
-    assert src.metrics["output_batches"] == 0
+    """Wide-decimal sums used to raise before reading; now they run on
+    limb-plane state (exprs/wide_decimal.py) and equal the JAX package's
+    through PARTIAL then FINAL: exact sums, nulls, an empty group and a
+    group whose sum passes the precision (null, Spark non-ANSI)."""
+    assert agg.W.__name__.endswith(match)
+    rng = np.random.default_rng(10)
+    big = 10 ** (dtype.precision - 1)
+    jbs, tbs = [], []
+    for n in (40, 17, 33):
+        keys = rng.integers(0, 5, n)
+        vals = [int(rng.integers(-2**62, 2**62)) * int(rng.integers(1, 2**30))
+                for _ in range(n)]
+        vals = [None if (k == 4 or i % 5 == 0) else
+                (9 * big if k == 3 else v)
+                for i, (k, v) in enumerate(zip(keys, vals))]
+        data = {"k0": keys.astype(np.int32), "x": vals}
+        jbs.append(JBatch.from_numpy(data, JT.Schema(
+            [JT.Field("k0", JT.INT32), JT.Field("x", JT.decimal(
+                dtype.precision, dtype.scale))]), capacity=64))
+        tbs.append(ColumnBatch.from_numpy(data, TT.Schema(
+            [TT.Field("k0", TT.INT32), TT.Field("x", dtype)]), capacity=64,
+            device="cpu"))
+    calls = [(fn, "x", None, "r")]
+
+    def plan(pkg, bs):
+        T_, irm, A, Bm = ((TT, ir, agg, B) if pkg == "torch"
+                          else (JT, jir, jagg, JB))
+        node = Bm.MemorySourceExec(bs)
+        dt = T_.decimal(dtype.precision, dtype.scale)
+        for mode in MODES["final"]:
+            node = A.AggExec(node, [irm.col("k0")], ["k0"],
+                             [A.AggCall(f, (irm.col(c),), dt, name)
+                              for f, c, _, name in calls],
+                             getattr(A.AggMode, mode), collapse_threshold=50)
+        return node
+
+    got = _run("torch", plan("torch", tbs)).to_numpy()
+    want = _run("jax", plan("jax", jbs)).to_numpy()
+    assert list(got["k0"]) == list(want["k0"]) == [0, 1, 2, 3, 4]
+    assert got["r"] == want["r"]
+    assert got["r"][3] is None and got["r"][4] is None
+    assert all(isinstance(v, int) for v in got["r"][:3])
 
 
 # ---------------------------------------------------------------------------

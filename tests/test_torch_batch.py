@@ -39,18 +39,21 @@ def test_decimal_maps_like_jax():
 @pytest.mark.parametrize("dtype", [TT.list_of(TT.INT32),
                                    TT.decimal(38, 0)])
 def test_unported_storage_raises(dtype):
-    """Neither kind has a dense dtype. A list column has its own storage
-    (an empty batch holds empty lists); a wide decimal has none yet and
-    raises naming columnar/int128.py."""
+    """Neither kind has a dense dtype, and both have storage of their own:
+    an empty batch holds empty lists, and a wide decimal column is held
+    as its two int64 limb planes (zeros), as in the JAX package."""
     with pytest.raises(NotImplementedError):
         dtype.torch_dtype()
     schema = TT.Schema([TT.Field("x", dtype)])
+    b = ColumnBatch.empty(schema, device="cpu").with_num_rows(2)
     if dtype.is_nested:
-        b = ColumnBatch.empty(schema, device="cpu").with_num_rows(2)
         assert b.to_numpy()["x"] == [[], []]
         return
-    with pytest.raises(NotImplementedError, match="columnar/int128.py"):
-        ColumnBatch.empty(schema, device="cpu")
+    planes = b.columns[0].data.children
+    assert [p.data.dtype for p in planes] == [torch.int64, torch.int64]
+    assert b.to_numpy()["x"] == [0, 0]
+    jb = JBatch.empty(JT.Schema([JT.Field("x", JT.decimal(38, 0))]))
+    assert jb.with_num_rows(2).to_numpy()["x"] == [0, 0]
 
 
 def _schemas(seed, n):

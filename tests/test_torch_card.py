@@ -3,9 +3,12 @@ against its plain torch version, bench.py's q06 plan through it at test
 size, and the later paths (general aggregation, sort, hash, partition sort,
 serde, spill, joins, the Parquet scan, CASE and IN, the string functions
 and a dictionary column's serde round trip, spark/tpcds.py's q02, q03,
-q07, q08 and q09 through run_plan, and the nested slice: segmented scans,
+q07, q08 and q09 through run_plan, the nested slice: segmented scans,
 list take and concatenation, collect_list/collect_set, a window and a
-generate batch) on the card against the port's own CPU route.
+generate batch, and the decimal slice: 128-bit limb arithmetic, wide
+decimal arithmetic, comparison, CheckOverflow, hash, sort keys and
+segmented sum/min/max, the casts that round or parse, and the bitwise and
+shift ops) on the card against the port's own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -886,3 +889,247 @@ def test_window_and_generate_on_card_match_cpu(cuda):
         ok = ~np.isnan(wv)
         assert (np.abs(gv - wv)[ok] <= np.broadcast_to(tol, wv.shape)[ok]
                 ).all(), k
+
+
+# ---------------------------------------------------------------------------
+# decimals: columnar/int128.py, exprs/wide_decimal.py, exprs/cast.py
+# ---------------------------------------------------------------------------
+
+def _edge_ints(seed, n=4000):
+    """Python ints over the whole 128-bit range, with the edge rows: zero,
+    +-1, the int64 limbs' extremes, +-(10^38 - 1), 2^64 +- 1 and the
+    int128 extremes."""
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, -1, (1 << 63) - 1, -(1 << 63), 1 << 63, (1 << 64) - 1,
+             1 << 64, -(1 << 64), 10 ** 38 - 1, -(10 ** 38 - 1),
+             (1 << 127) - 1, -(1 << 127), 5, -5, 15, -15, 25, -25]
+    out = list(edges)
+    while len(out) < n:
+        bits = int(rng.integers(1, 127))
+        v = int(rng.integers(0, 1 << 62)) << max(bits - 62, 0)
+        out.append(v if rng.random() < 0.5 else -v)
+    return out
+
+
+def _planes_on(vals, dev):
+    from blaze_tpu_torch.columnar import int128 as i128
+
+    return tuple(torch.from_numpy(p).to(dev)
+                 for p in i128.np_from_ints(vals))
+
+
+def _card_and_cpu(fn):
+    """fn(device) on the card and on the CPU: each tensor of its results
+    equal bit for bit."""
+    got, want = fn(torch.device("cuda")), fn(torch.device("cpu"))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w), i
+
+
+def test_int128_on_card_matches_cpu(cuda):
+    """mul_i64 and mul_small (wrapping 32x32-bit partial products),
+    divmod_full (the 128-step long division, zero divisors included) and
+    rescale_checked up and down (HALF_UP at .5 ties): bit-equal on the
+    card and the CPU over the edge rows."""
+    from blaze_tpu_torch.columnar import int128 as i128
+
+    a, b = _edge_ints(1), _edge_ints(2)
+    b[:3] = [0, 0, 0]
+
+    def run(dev):
+        ah, al = _planes_on(a, dev)
+        bh, bl = _planes_on(b, dev)
+        out = [*i128.mul_i64(al, bl), *i128.mul_small(ah, al, 10 ** 9 + 7),
+               *i128.divmod_full(ah, al, bh, bl),
+               i128.cmp(ah, al, bh, bl)]
+        for delta in (20, 3, -1, -7, -19):
+            out += i128.rescale_checked(ah, al, delta)
+        return out
+
+    _card_and_cpu(run)
+
+
+def _wide_cols(dev):
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs.wide_decimal import build
+
+    vals = _edge_ints(3)
+    rng = np.random.default_rng(4)
+    narrow = rng.integers(-10 ** 17, 10 ** 17, len(vals))
+    narrow[:4] = [0, 10 ** 17, -(10 ** 17), 5]
+    valid = torch.from_numpy(rng.random(len(vals)) > 0.1).to(dev)
+    wide = build(TT.decimal(38, 4), *_planes_on(vals, dev), valid)
+    from blaze_tpu_torch.columnar.batch import Column
+
+    small = Column(TT.decimal(18, 2), torch.from_numpy(narrow).to(dev), None)
+    return wide, small
+
+
+def test_wide_arith_compare_check_overflow_on_card_match_cpu(cuda):
+    """Wide add, sub, mul and the HALF_UP division, the limb comparison
+    with unequal scales, negation and CheckOverflow, on the card against
+    the CPU."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs import wide_decimal as W
+
+    def run(dev):
+        wide, small = _wide_cols(dev)
+        out = []
+        for op, rt in ((ir.BinOp.ADD, TT.decimal(38, 4)),
+                       (ir.BinOp.SUB, TT.decimal(38, 4)),
+                       (ir.BinOp.MUL, TT.decimal(38, 6)),
+                       (ir.BinOp.DIV, TT.decimal(38, 6))):
+            c = W.arith(wide, small, op, rt, None)
+            out += [*W.planes(c), c.valid_mask()]
+        c = W.arith(small, small, ir.BinOp.DIV, TT.decimal(37, 20), None)
+        out += [*W.planes(c), c.valid_mask()]
+        out += list(W.compare(wide, small))
+        out += list(W.planes(W.negate(wide)))
+        c = W.check_overflow(wide, 20, 2, TT.decimal(20, 2))
+        out += [*W.planes(c), c.valid_mask()]
+        c = W.cast_from_wide(wide, TT.FLOAT64)
+        out += [c.data]
+        return out
+
+    _card_and_cpu(run)
+
+
+def test_wide_hash_and_sort_keys_on_card_match_cpu(cuda):
+    """The wide hash (minimal big-endian bytes through hash_bytes) and its
+    partition ids, and a sort by a wide key both ways: equal on the card
+    and the CPU."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.columnar.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import hash as H
+    from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+
+    vals = _edge_ints(5)
+    vals = [None if i % 9 == 4 else v for i, v in enumerate(vals)]
+    schema = TT.Schema([TT.Field("d", TT.decimal(38, 0)),
+                        TT.Field("i", TT.INT32)])
+    ids = np.arange(len(vals), dtype=np.int32)
+
+    def run(dev):
+        b = ColumnBatch.from_numpy({"d": vals, "i": ids}, schema,
+                                   device=dev)
+        h = H.hash_columns(b.columns[:1], row_mask=b.row_mask())
+        out = [h, H.pmod(h, 200)]
+        for asc in (True, False):
+            sb = sort_batch(b, [SortSpec(0, asc, asc)])
+            out.append(sb.columns[1].data)
+        return out
+
+    _card_and_cpu(run)
+
+
+def test_wide_segment_sums_on_card_match_cpu(cuda):
+    """seg_sum_wide (four limb sums and the overflow shadow) and
+    seg_minmax_wide over 40 groups of the edge rows: equal on the card and
+    the CPU."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.columnar.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import wide_decimal as W
+    from blaze_tpu_torch.ops import segment as seg
+    from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+
+    vals = _edge_ints(6)
+    keys = np.random.default_rng(7).integers(0, 40, len(vals)).astype(
+        np.int32)
+    schema = TT.Schema([TT.Field("k", TT.INT32),
+                        TT.Field("d", TT.decimal(38, 0))])
+
+    def run(dev):
+        b = ColumnBatch.from_numpy({"k": keys, "d": vals}, schema,
+                                   device=dev)
+        sb = sort_batch(b, [SortSpec(0)])
+        layout = seg.group_layout(sb, [0])
+        h, l = W.planes(sb.columns[1])
+        live = layout.row_mask
+        out = list(W.seg_sum_wide(h, l, live, layout, seg))
+        for is_min in (True, False):
+            out += W.seg_minmax_wide(h, l, live, layout, seg, is_min)
+        g = layout.group_mask
+        return [torch.where(g, t, torch.zeros_like(t)) for t in out]
+
+    _card_and_cpu(run)
+
+
+def test_rounding_and_parsing_casts_on_card_match_cpu(cuda):
+    """float -> decimal at .5 ties (HALF_UP as floor(x + 0.5) / ceil(x -
+    0.5)), int32/int64 bounds -> decimal, decimal rescale down, and string
+    -> int, double, decimal, date and boolean over malformed strings, and
+    date and int -> string: equal on the card and the CPU."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.columnar.batch import ColumnBatch
+    from blaze_tpu_torch.exprs.cast import cast_column
+
+    floats = np.array([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 0.125, -0.125,
+                       0.005, 1e17, -1e17, np.nan, np.inf, 123.456])
+    strs = ["42", " -7 ", "abc", "", "99999999999999999999", "+5",
+            "1.5", "-2.25e2", "1e3", ".5", "3.", "1e", "--1", "1.2.3",
+            "2001-03-04", "1969-07-20", "0001-01-01", "2023-2-9",
+            "2000-13-01", "1600-02-29", " true", "N", "yes", "0", "e5"]
+    ints = np.array([0, 1, -1, 2**31 - 1, -2**31, 2**63 - 1, -2**63,
+                     12345678901234], np.int64)
+    dates = np.array([0, -1, -719162, 11385, -165, 2932896], np.int32)
+
+    def run(dev):
+        f = ColumnBatch.from_numpy({"f": floats}, TT.Schema(
+            [TT.Field("f", TT.FLOAT64)]), device=dev).columns[0]
+        s = ColumnBatch.from_numpy({"s": strs}, TT.Schema(
+            [TT.Field("s", TT.STRING)]), device=dev).columns[0]
+        i = ColumnBatch.from_numpy({"i": ints}, TT.Schema(
+            [TT.Field("i", TT.INT64)]), device=dev).columns[0]
+        d = ColumnBatch.from_numpy({"d": dates}, TT.Schema(
+            [TT.Field("d", TT.DATE)]), device=dev).columns[0]
+        cols = [cast_column(f, TT.decimal(10, 0)),
+                cast_column(f, TT.decimal(18, 2)),
+                cast_column(i, TT.decimal(18, 0)),
+                cast_column(i, TT.decimal(10, 2)),
+                cast_column(cast_column(i, TT.INT32), TT.decimal(12, 2)),
+                cast_column(cast_column(f, TT.decimal(18, 2)),
+                            TT.decimal(18, 0))]
+        cols += [cast_column(s, t) for t in (
+            TT.INT64, TT.INT32, TT.FLOAT64, TT.decimal(12, 3), TT.DATE,
+            TT.BOOLEAN)]
+        out = []
+        for c in cols:
+            v = c.valid_mask()
+            out += [v, torch.where(v, c.data, torch.zeros_like(c.data))]
+        for c in (cast_column(d, TT.STRING), cast_column(i, TT.STRING)):
+            out += [c.data.bytes, c.data.lengths]
+        return out
+
+    _card_and_cpu(run)
+
+
+def test_bitwise_and_shift_ops_on_card_match_cpu(cuda):
+    """BIT_AND, BIT_OR, BIT_XOR, SHIFT_LEFT and SHIFT_RIGHT over int32 and
+    int64, shift counts 0 and 63 and out of range included: equal on the
+    card and the CPU."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.columnar.batch import ColumnBatch
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs.compiler import compile_expr
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    counts = rng.integers(-3, 70, n)
+    counts[:4] = [0, 63, 64, -1]
+    data = {"a": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "b": rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+            "c": counts.astype(np.int64)}
+    schema = TT.Schema([TT.Field("a", TT.INT64), TT.Field("b", TT.INT32),
+                        TT.Field("c", TT.INT64)])
+    exprs = [ir.Binary(getattr(ir.BinOp, op), ir.col(x), ir.col(y))
+             for op in ("BIT_AND", "BIT_OR", "BIT_XOR", "SHIFT_LEFT",
+                        "SHIFT_RIGHT")
+             for x, y in (("a", "c"), ("b", "c"), ("a", "b"))]
+
+    def run(dev):
+        b = ColumnBatch.from_numpy(data, schema, device=dev)
+        return [compile_expr(e, schema)(b).data for e in exprs]
+
+    _card_and_cpu(run)

@@ -186,9 +186,31 @@ def test_expression_matches_jax(batches, name):
                        ir.col("l")),
 ])
 def test_unported_expressions_raise(batches, expr):
-    _, tb = batches
-    with pytest.raises(NotImplementedError):
-        tcompile(expr(tir, TT), tb.schema)(tb)
+    """The scalar functions still to port raise, naming exprs/functions.py;
+    the casts to and from strings and decimal literal arithmetic, which
+    used to raise, now equal the JAX package's, bit for bit."""
+    jb, tb = batches
+    te = expr(tir, TT)
+    if isinstance(te, tir.ScalarFn):
+        with pytest.raises(NotImplementedError, match="exprs/functions.py"):
+            tcompile(te, tb.schema)(tb)
+        return
+    jc = jcompile(expr(jir, JT), jb.schema)(jb)
+    tc = tcompile(te, tb.schema)(tb)
+    assert repr(tc.dtype) == repr(jc.dtype)
+    live = np.arange(4096) < N
+    jv = np.asarray(jc.valid_mask()) & live
+    tv = tc.valid_mask().numpy() & live
+    np.testing.assert_array_equal(tv, jv)
+    if tc.is_string:
+        n = int(tv.sum())
+        assert n and tc.data.lengths.numpy()[tv].tolist() == \
+            np.asarray(jc.data.lengths)[jv].tolist()
+        np.testing.assert_array_equal(tc.data.bytes.numpy()[tv],
+                                      np.asarray(jc.data.bytes)[jv])
+        return
+    np.testing.assert_array_equal(tc.data.numpy()[tv],
+                                  np.asarray(jc.data)[jv])
 
 
 def test_cse_scope_evaluates_once(batches):

@@ -161,8 +161,26 @@ def test_round_robin_start_matches_jax():
 
 
 def test_string_and_wide_decimal_hashes_raise_by_module():
-    """Strings hash now (tests/test_torch_strings.py); wide decimals still
-    raise, naming their module."""
-    with pytest.raises(NotImplementedError, match="exprs/wide_decimal.py"):
-        H.hash_column(Column(TT.decimal(30, 2),
-                             torch.zeros(4, dtype=torch.int64)), 42)
+    """Strings hash (tests/test_torch_strings.py), and so do wide decimals
+    now: murmur3 over the minimal big-endian bytes of the unscaled value,
+    equal to the JAX package's bit for bit, and their partition ids too
+    (seeded values, the 128-bit extremes and the byte-length edges, nulls
+    and padding rows)."""
+    rng = np.random.default_rng(30)
+    edges = [0, 1, -1, 127, 128, -128, -129, 255, 256, -(1 << 63),
+             (1 << 63) - 1, 1 << 63, -(1 << 64), (1 << 64) - 1,
+             10 ** 38 - 1, -(10 ** 38 - 1), (1 << 127) - 1, -(1 << 127)]
+    vals = edges + [int(rng.integers(-2**62, 2**62)) * int(
+        rng.integers(1, 2**40)) for _ in range(N - len(edges))]
+    vals = [None if i % 7 == 3 else v for i, v in enumerate(vals)]
+    jb = JBatch.from_numpy({"d": vals}, JT.Schema(
+        [JT.Field("d", JT.decimal(38, 0))]), capacity=CAP)
+    tb = ColumnBatch.from_numpy({"d": vals}, TT.Schema(
+        [TT.Field("d", TT.decimal(38, 0))]), capacity=CAP, device="cpu")
+    want = np.asarray(JH.hash_columns(jb.columns, 42, jb.row_mask()))
+    got = H.hash_columns(tb.columns, 42, tb.row_mask()).numpy()
+    np.testing.assert_array_equal(got, want)
+    for P in (1, 7, 200):
+        np.testing.assert_array_equal(H.pmod(torch.from_numpy(got),
+                                             P).numpy(),
+                                      np.asarray(JH.pmod(want, P)))

@@ -251,10 +251,9 @@ def test_undecodable_node_raises(arm):
 
 
 def test_ffi_reader_rejects_arrow_batches():
-    """Arrow RecordBatches are ingested (columnar/arrow_io.py), string and
-    list columns included; one with a column kind the port cannot hold
-    yet (a wide decimal) is rejected, naming the module that will carry
-    it."""
+    """Arrow RecordBatches are ingested (columnar/arrow_io.py), string,
+    list and wide-decimal columns included: a decimal128(30, 2) column
+    comes out as its limb planes and round-trips to the same values."""
     import decimal
 
     import pyarrow as pa
@@ -277,8 +276,13 @@ def test_ffi_reader_rejects_arrow_batches():
                           pa.array([decimal.Decimal("1.5")],
                                    pa.decimal128(30, 2))], names=["a", "d"])
     rid = resources.register(lambda: iter([rb]))
-    with pytest.raises(NotImplementedError, match="columnar/int128.py"):
-        list(FfiReaderExec(wide, rid).execute(ExecContext(device="cpu")))
+    out = list(FfiReaderExec(wide, rid).execute(ExecContext(device="cpu")))
+    assert out[0].to_numpy()["d"] == [150]
+    assert out[0].columns[1].data.children[1].data[0].item() == 150
+    from blaze_tpu_torch.columnar.arrow_io import batch_to_arrow
+
+    assert batch_to_arrow(out[0]).column(1).to_pylist() == [
+        decimal.Decimal("1.50")]
     strs = TT.Schema([TT.Field("a", TT.INT32), TT.Field("s", TT.STRING)])
     rb = pa.record_batch([pa.array([1, 2], pa.int32()),
                           pa.array(["x", None])], names=["a", "s"])

@@ -343,7 +343,9 @@ _DECLARATIONS: Tuple[Knob, ...] = (
          step=1, min=1, max=8),
 
     # -- resource accounting & live metrics (runtime/monitor.py) --
-    Knob("monitor_enabled", True,
+    # the port has no runtime/monitor.py: spark/local_runner.py raises
+    # when this is set
+    Knob("monitor_enabled", False,
          doc="Byte accounting at every copy boundary with per-query/"
              "stage attribution. Off, every boundary call site is one "
              "truthiness check and all counters read 0; the always-on "

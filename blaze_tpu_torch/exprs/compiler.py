@@ -12,8 +12,8 @@ CheckOverflow, and struct and map access (GetStructField,
 GetIndexedField, GetMapValue, NamedStruct). A compiled expression is
 `fn(batch: ColumnBatch) -> Column`, evaluated eagerly on the batch's
 device; null semantics are Spark's (strict nulls for most ops, Kleene
-AND/OR). The UDF and scalar-subquery kinds raise NotImplementedError
-naming the module they wait for.
+AND/OR). The UDF wrapper crosses to a host evaluator (exprs/hostfns.py)
+and a scalar subquery reads its value from a registered provider.
 """
 
 from __future__ import annotations
@@ -191,14 +191,76 @@ def _compile_expr(expr: ir.Expr, schema) -> CompiledExpr:
         rt = expr.result_type
         return lambda b: Column(rt, StructData([fn(b) for fn in val_fns]),
                                 None)
-    module = _MODULE_OF.get(type(expr), "exprs/compiler.py")
-    raise NotImplementedError(
-        f"expression {type(expr).__name__} ({module}) not yet ported")
+    if isinstance(expr, ir.UdfWrapper):
+        return _compile_udf_wrapper(expr, schema)
+    if isinstance(expr, ir.ScalarSubquery):
+        return _compile_scalar_subquery(expr)
+    raise NotImplementedError(f"cannot compile {type(expr).__name__}")
 
 
-# the modules the expression kinds still to port wait for
-_MODULE_OF = {ir.UdfWrapper: "spark/hive_udf.py",
-              ir.ScalarSubquery: "spark/fallback.py"}
+def _compile_udf_wrapper(expr: ir.UdfWrapper, schema) -> CompiledExpr:
+    """Host evaluation of an engine-external expression.
+
+    Ref: SparkUDFWrapperExpr (spark_udf_wrapper.rs): the param columns are
+    computed natively and cross to the embedding layer, which evaluates
+    the expression row by row and returns the result array
+    (SparkUDFWrapperContext.scala:63-111). The crossing is hostfns'
+    (one pull of every param column a batch, one upload of the result).
+    The registered resource is `fn(*param_numpy_arrays, num_rows) ->
+    (values ndarray, validity ndarray | None)`; a string param crosses as
+    its (bytes, lengths) pair, every param with its validity after it.
+    """
+    import numpy as np
+
+    from blaze_tpu_torch.exprs.hostfns import host_apply
+    from blaze_tpu_torch.runtime import resources as _res
+
+    param_fns = [compile_expr(p, schema) for p in expr.params]
+    rt = expr.return_type
+    if rt.is_string_like or rt.kind in (TypeKind.LIST, TypeKind.MAP,
+                                        TypeKind.STRUCT):
+        raise NotImplementedError(
+            f"udf wrapper return type {rt} not yet supported")
+    rid = expr.resource_id
+
+    def run(b: ColumnBatch) -> Column:
+        host_args = []
+        for p in (fn(b) for fn in param_fns):
+            if p.is_string:
+                host_args += [p.data.bytes, p.data.lengths]
+            else:
+                host_args.append(p.data)
+            host_args.append(p.valid_mask())
+        host_args.append(b.num_rows.to(torch.int64).reshape(1))
+
+        def callback(*arrs):
+            vals, validity = _res.get(rid)(*arrs[:-1], int(arrs[-1][0]))
+            out_v = np.zeros((b.capacity,), rt.np_dtype())
+            out_ok = np.zeros((b.capacity,), bool)
+            n = min(len(vals), b.capacity)
+            out_v[:n] = np.asarray(vals)[:n]
+            out_ok[:n] = (True if validity is None
+                          else np.asarray(validity)[:n])
+            return out_v, out_ok
+
+        shapes = [((b.capacity,), rt.torch_dtype()),
+                  ((b.capacity,), torch.bool)]
+        vals, ok = host_apply(callback, shapes, b.device, "udf", *host_args)
+        return Column(rt, vals, ok & b.row_mask() if expr.nullable else None)
+
+    return run
+
+
+def _compile_scalar_subquery(expr: ir.ScalarSubquery) -> CompiledExpr:
+    """Ref SparkScalarSubqueryWrapperExpr: the provider resource returns
+    the (Python) scalar when evaluated; it becomes a literal column."""
+    from blaze_tpu_torch.runtime import resources as _res
+
+    def run(b: ColumnBatch) -> Column:
+        value = _res.get(expr.resource_id)()
+        return _compile_literal(ir.Literal(expr.return_type, value))(b)
+
+    return run
 
 
 def _compile_get_indexed(expr: ir.GetIndexedField, schema) -> CompiledExpr:

@@ -52,6 +52,7 @@ from blaze_tpu_torch.ops.base import (
 from blaze_tpu_torch.ops.sort_keys import permute_by_keys
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime import resources
+from blaze_tpu_torch.runtime.metrics import BRIDGE
 
 
 def _call_provider(provider, ctx: ExecContext):
@@ -506,10 +507,11 @@ class FfiReaderExec(Operator):
                                     ctx)
             for item in source:
                 ctx.check_running()
-                if isinstance(item, ColumnBatch):
-                    yield item
-                else:
-                    yield batch_from_arrow(item, schema=self._schema,
-                                           device=ctx.device)
+                if not isinstance(item, ColumnBatch):
+                    item = batch_from_arrow(item, schema=self._schema,
+                                            device=ctx.device)
+                BRIDGE["batches"] += 1
+                BRIDGE["card_batches"] += item.device.type == "cuda"
+                yield item
 
         return count_stream(self, gen())

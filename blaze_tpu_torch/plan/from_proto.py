@@ -4,9 +4,8 @@ Port of blaze_tpu/plan/from_proto.py (ref: blaze-serde from_proto.rs:
 121-793, lib.rs:191-535). The same `TaskDefinition` bytes decode in both
 packages: plan_pb2.py is the JAX package's generated module, copied.
 Every arm the JAX decoder decodes decodes here: types and scalars, every
-expression kind (the compiler raises, naming its module, for the decimal,
-UDF and subquery kinds it does not run yet), and every plan node,
-expand, window and generate included. An arm neither decodes (an unset
+expression kind, the UDF wrapper and the scalar subquery included, and
+every plan node, expand, window and generate included. An arm neither decodes (an unset
 node, the `row_num` expression) raises NotImplementedError naming it.
 """
 

@@ -26,6 +26,22 @@ SERDE_NS = {"encode": 0, "decode": 0}
 SERDE_BYTES = {"raw": 0, "frames": 0}
 
 
+# host crossings of expression evaluation since import, by kind: "hostfn"
+# (digests, CRC32, JSON: exprs/hostfns.py) and "udf" (the UDF wrapper of
+# exprs/compiler.py); each a [crossings, host ns] pair
+HOST_EVAL = {"hostfn": [0, 0], "udf": [0, 0]}
+# the FFI bridge since import: row-interpreter exports run
+# (spark/fallback.py export_iterator), rows they handed the native
+# pipeline, and host ns spent producing them; and the batches FfiReaderExec
+# handed on, with those of them that lie on the card
+BRIDGE = {"exports": 0, "rows": 0, "ns": 0, "batches": 0, "card_batches": 0}
+
+
+def note_host_eval(kind: str, ns: int) -> None:
+    HOST_EVAL[kind][0] += 1
+    HOST_EVAL[kind][1] += ns
+
+
 def to_host(t):
     """`t` on the host (a CPU tensor), counted in HOST_PULLS. The port's
     reads of device values (row counts, stage flags, probe ranges) all go

@@ -9,9 +9,12 @@ construction (`converters`), stage splitting at exchanges (`stages`),
 dynamic join selection between stages (`aqe`), the shuffle-manager
 surface (`shuffle_manager`) and the local multi-stage runner
 (`local_runner.run_plan`), with the TPC-DS and validator catalogues on
-top. Subtrees that cannot convert would run on the JAX package's row
-interpreter (spark/fallback.py), which is not ported: every route into it
-raises, naming it.
+top. The Spark-facing entry decodes `executedPlan.toJSON()` (`plan_json`,
+with the per-version `shims`, and `pyspark_ext` around a live session).
+Subtrees that cannot convert run on the row interpreter (`fallback`) and
+feed the native pipeline through the FFI bridge; registered Hive, Scala
+and Python UDFs go through `hive_udf`, and a scalar function outside the
+native registry is wrapped alone (`expr_subtree_fallback`).
 """
 
 from blaze_tpu_torch.spark.plan_model import SparkPlan

@@ -11,15 +11,12 @@ Every converter either returns a pb.PlanNode or raises — `try_convert`
 turns raises into a non-native subtree bridged with an FfiReaderNode (the
 ConvertToNativeExec analog: the embedding layer registers a row->Arrow
 export iterator under the derived resource id, ref
-ConvertToNativeBase.scala:59-98). In the JAX package that iterator is the
-row interpreter (spark/fallback.py), which the port does not have: the
-port's runner raises naming it as soon as a bridge is drained.
+ConvertToNativeBase.scala:59-98): spark/local_runner.py registers the
+row interpreter's (spark/fallback.py) export iterator under each id.
 
-Tagging needs to know which scalar functions the engine runs natively.
-The port's exprs/functions.py registers the JAX registry's names, so
-tagging decides as the JAX package decides and stage bytes do not move;
-it runs `substring`/`substr`, and compiling any other of those names
-raises there, naming exprs/functions.py.
+Tagging needs to know which scalar functions the engine runs natively:
+the port's exprs/functions.py registers the JAX registry's names, so
+tagging decides as the JAX package decides and stage bytes do not move.
 """
 
 from __future__ import annotations

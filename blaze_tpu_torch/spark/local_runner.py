@@ -20,10 +20,11 @@ around it is not ported, and each part that a caller could switch on
 raises, naming its module, rather than being skipped: the supervisor with
 its retries and resilience ladder, fault injection, the journal, history,
 monitor, trace spans, progress, the autopilot and conf overlays, the
-executor pool, the device-mesh exchange (`mesh_exchange` other than
-"off"), and the row interpreter (spark/fallback.py) behind every
-NeverConvert subtree. Query ids are a plain counter, used only as the
-resource namespace.
+executor pool and the device-mesh exchange (`mesh_exchange` other than
+"off"). Every NeverConvert subtree runs on the row interpreter
+(spark/fallback.py) on the host, and its rows enter the native pipeline
+through the FFI bridge (FfiReaderExec), uploaded to the task's device.
+Query ids are a plain counter, used only as the resource namespace.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ _LEFT_OUT = (
     ("flight_dir", "runtime/flight_recorder.py"),
     ("profile_enabled", "runtime/profiler.py"),
     ("executor_count", "runtime/executor_pool.py"),
+    ("monitor_enabled", "runtime/monitor.py"),
 )
 
 # per-task operator metrics summed into run_info: the whole-stage routes
@@ -101,7 +103,13 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     run_info: optional dict populated with execution-path counters
     ("file_stages", "broadcast_stages", "map_tasks_run", and
     `_TASK_METRICS` summed over every task), each stage's kind and host
-    wall time ("stage_s"), and the query's "query_id"."""
+    wall time ("stage_s"), the query's "query_id", and its host
+    crossings: the FFI bridge's row-interpreter exports, their rows and
+    host seconds ("fallback_exports", "bridge_rows", "bridge_s"), the
+    batches FfiReaderExec handed on and those of them on the card
+    ("bridge_batches", "bridge_card_batches"), and the
+    host-evaluated functions' and UDF wrappers' crossings and host
+    seconds ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s")."""
     if run_info is None:
         run_info = {}
     _refuse_left_out(mesh_exchange)
@@ -129,10 +137,15 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                              namespace=qid)
         exports = converters.drain_exports()
     if exports:
-        kinds = sorted({p.kind for p in exports.values()})
-        raise NotImplementedError(
-            f"NeverConvert subtree(s) {kinds} run on the row interpreter "
-            "(spark/fallback.py), not yet ported")
+        # the ConvertToNativeBase.scala:59-98 handshake: each NeverConvert
+        # subtree runs on the row interpreter and feeds FfiReaderExec
+        from blaze_tpu_torch.spark import fallback
+
+        for rid, subtree in exports.items():
+            def provider(partition, nparts, _p=subtree):
+                return fallback.export_iterator(_p, partition, nparts)
+            resources.put(rid, provider)
+    crossings = _crossings()
     work_dir = work_dir or tempfile.mkdtemp(prefix="blaze_tpu_torch_stages_")
     os.makedirs(work_dir, exist_ok=True)
 
@@ -164,10 +177,14 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
             run_info["stage_s"].append(
                 [stage.kind, time.perf_counter() - t0])
             if stage.kind == "result":
-                return out
+                return _merge_fallback_root_sort(root, out, parts)
         raise AssertionError("no result stage produced")
     finally:
+        for key, value in _crossings().items():
+            run_info[key] = run_info.get(key, 0) + value - crossings[key]
         # release the query's registry entries and shuffle files
+        for rid in exports:
+            resources.pop(rid)
         for stage in stages:
             for key in (f"{ns}shuffle:{stage.stage_id}",
                         f"{ns}shuffle:{stage.stage_id}:all",
@@ -175,6 +192,39 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                         f"{ns}broadcast_sink:{stage.stage_id}"):
                 resources.pop(key)
             shuffle_mgr.unregister_shuffle(stage.stage_id)
+
+
+def _crossings() -> Dict[str, float]:
+    """The process's host-crossing counters under their run_info names."""
+    from blaze_tpu_torch.runtime import metrics
+
+    ev, br = metrics.HOST_EVAL, metrics.BRIDGE
+    return {"fallback_exports": br["exports"], "bridge_rows": br["rows"],
+            "bridge_s": br["ns"] / 1e9, "bridge_batches": br["batches"],
+            "bridge_card_batches": br["card_batches"],
+            "hostfn_crossings": ev["hostfn"][0],
+            "hostfn_s": ev["hostfn"][1] / 1e9,
+            "udf_crossings": ev["udf"][0], "udf_s": ev["udf"][1] / 1e9}
+
+
+def _merge_fallback_root_sort(root: SparkPlan, out: ColumnBatch,
+                              parts: int) -> ColumnBatch:
+    """Ordered collect for a NeverConvert root sort: a native root sort
+    merges in _run_result_stage, but a fallback root sort ordered each
+    partition only, so merge on the row engine."""
+    if (root.kind != "SortExec" or parts <= 1
+            or root.strategy != "NeverConvert"):
+        return out
+    import pandas as pd
+
+    from blaze_tpu_torch.columnar.arrow_io import batch_from_arrow
+    from blaze_tpu_torch.spark import fallback
+
+    df = pd.DataFrame(out.to_numpy())
+    srt = SparkPlan("SortExec", root.schema, [], dict(root.attrs))
+    merged = fallback._op_sort_frame(srt, df)
+    return batch_from_arrow(fallback._to_arrow(merged, root.schema),
+                            schema=root.schema, device=out.device)
 
 
 def _input_tasks(stage: Stage, stages: List[Stage],

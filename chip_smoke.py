@@ -136,9 +136,24 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 average within one unit of its sixth place), once timed,
                 and q04_dec's result stage profiled with its 128-step
                 divisions counted
+ 19. runner_spark_json  Spark's entry: JSON_QUERIES as the TreeNode JSON
+                Spark 3.3's executedPlan.toJSON() gives (an
+                AdaptiveSparkPlanExec root with isFinalPlan, codegen and
+                columnar shells, #exprId attributes), decoded by
+                spark/plan_json.py and run through run_plan (BHJ):
+                json_q02 (tpcds.py's q02: rows equal to phase 15's q02,
+                as many accumulate launches), json_report (a brand-revenue
+                report over store_sales, item and date_dim with string,
+                date, rounding and hash functions on the card, md5 and
+                crc32 on the host) and json_udf (a string Hive UDF on the
+                row interpreter feeding the broadcast join through the FFI
+                bridge onto the card, a numeric Scala UDF crossing to the
+                host a batch, a root sort on the row interpreter); each
+                against numpy, hashlib and zlib, once timed; the bridge's
+                rows and host seconds and the host crossings reported
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-18 have run_plan convert and decode
+decode_task_definition; phases 15-19 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -2463,7 +2478,7 @@ def check_q09(out, orc):
 
 RUNNER_INFO = ("file_stages", "broadcast_stages", "map_tasks_run",
                "stage_compiled", "stage_fallbacks", "stage_s",
-               "bytes_scanned")
+               "bytes_scanned", "fallback_exports", "bridge_rows")
 
 
 def _runner_plan(q, paths, mode="bhj", tpcds=None):
@@ -2508,12 +2523,16 @@ def _runner_stages(q, paths):
             for st in plan_stages(plan, default_partitions=4)]
 
 
-def _runner_run(q, paths, work_dir, check) -> dict:
-    """One run of q through run_plan, with the counts reset before it,
-    timed to its rows on the host; `check` holds the result."""
+def _runner_run(q, paths, work_dir, check, plan=None, info_keys=RUNNER_INFO,
+                exports=False) -> dict:
+    """One run of q through run_plan on the card, with the counts reset
+    before it, timed to its rows on the host; `check` holds the result.
+    `plan` is _runner_plan's unless given (plans are single-use). Unless
+    `exports` is set, q must run wholly native: no subtree of it may run
+    on the host row interpreter and come back through the FFI bridge."""
     from blaze_tpu_torch.spark.local_runner import run_plan
 
-    plan = _runner_plan(q, paths)  # plans are single-use
+    plan = _runner_plan(q, paths) if plan is None else plan
     info = {}
     _reset_counts()
     spills = memory.get_manager().spill_count
@@ -2522,8 +2541,11 @@ def _runner_run(q, paths, work_dir, check) -> dict:
                    run_info=info)
     rows = out.to_numpy()
     wall = time.perf_counter() - t0
+    _require(exports or info["fallback_exports"] == 0,
+             f"{q}: {info['fallback_exports']} subtrees ran on the host row "
+             f"interpreter")
     check(out)
-    return dict({k: info[k] for k in RUNNER_INFO}, wall_s=wall, rows=rows,
+    return dict({k: info[k] for k in info_keys}, wall_s=wall, rows=rows,
                 spills=memory.get_manager().spill_count - spills,
                 launches=mxu_agg.KERNEL_LAUNCHES,
                 host_pulls=metrics.HOST_PULLS,
@@ -2576,6 +2598,7 @@ def phase_runner_tpcds(paths, orc, work_dir, hand_q02, hand_q04) -> dict:
     q02["hand_built_map_plus_reduce_s"] = (hand_q02["median_map_s"]
                                            + hand_q02["median_reduce_s"])
     _emit(res)
+    res["q02_rows"] = rows["q02"]    # for runner_spark_json; not printed
     return res
 
 
@@ -3299,6 +3322,611 @@ def phase_runner_decimal(paths, orc, work_dir, runner) -> dict:
     return res
 
 
+# ---- runner_spark_json: Spark 3.3 executedPlan.toJSON() through run_plan --
+
+_SQL = "org.apache.spark.sql"
+_JVM_ID = "6b1c8a3e-2f4d-4e5a-9b7c-0d1e2f3a4b5c"
+JSON_VERSION = "3.3.3"
+JSON_PARTITIONS = 4     # spark.sql.shuffle.partitions of the captured plans
+
+
+def _jx(cls, *children, **fields):
+    """A Catalyst expression tree as TreeNode JSON embeds it: its pre-order
+    node array. `cls` is relative to catalyst.expressions."""
+    node = {"class": f"{_SQL}.catalyst.expressions.{cls}",
+            "num-children": len(children), **fields}
+    return [node] + [n for c in children for n in c]
+
+
+def _jexpr_id(eid):
+    return {"product-class": f"{_SQL}.catalyst.expressions.ExprId",
+            "id": eid, "jvmId": _JVM_ID}
+
+
+def _ja(name, dtype, eid, nullable=True):
+    """AttributeReference `name#eid`."""
+    return _jx("AttributeReference", name=name, dataType=dtype,
+               nullable=nullable, metadata={}, exprId=_jexpr_id(eid),
+               qualifier=[])
+
+
+def _jl(value, dtype):
+    return _jx("Literal", value=str(value), dataType=dtype)
+
+
+def _jalias(child, name, eid, dtype=None):
+    fields = {"name": name, "exprId": _jexpr_id(eid), "qualifier": []}
+    if dtype is not None:
+        fields["dataType"] = dtype
+    return _jx("Alias", child, child=0, **fields)
+
+
+def _jbin(cls, left, right, dtype=None):
+    fields = {"left": 0, "right": 1}
+    if dtype is not None:
+        fields["dataType"] = dtype
+    return _jx(cls, left, right, **fields)
+
+
+def _jcast(child, dtype):
+    return _jx("Cast", child, child=0, dataType=dtype, ansiEnabled=False,
+               timeZoneId=["UTC"])
+
+
+def _jagg(fn, arg, mode, rid, dtype):
+    """AggregateExpression(fn(arg)) in `mode` ("Partial" or "Final")."""
+    f = _jx(f"aggregate.{fn}", arg, child=0, dataType=dtype)
+    return _jx("aggregate.AggregateExpression", f, aggregateFunction=0,
+               mode=mode, isDistinct=False, resultId=_jexpr_id(rid))
+
+
+def _jsort_order(child, ascending=True):
+    return _jx("SortOrder", child, child=0,
+               direction="Ascending" if ascending else "Descending",
+               nullOrdering="NullsFirst" if ascending else "NullsLast",
+               sameOrderExpressions=[])
+
+
+def _jp(cls, *children, **fields):
+    """A plan node and its subtrees (pre-order); `cls` relative to
+    sql.execution."""
+    node = {"class": f"{_SQL}.execution.{cls}",
+            "num-children": len(children), **fields}
+    if len(children) == 1:
+        node["child"] = 0
+    elif len(children) == 2:
+        node.update(left=0, right=1)
+    return [node] + [n for c in children for n in c]
+
+
+def _jscan(files, attrs):
+    """ColumnarToRow over a Parquet FileSourceScanExec of `files`, as a
+    codegen stage's input."""
+    scan = _jp("FileSourceScanExec", relation={
+        "location": {"rootPaths": [f"file:{p}" for p in files]},
+        "fileFormat": {"object": f"{_SQL}.execution.datasources.parquet."
+                       "ParquetFileFormat"}},
+        output=attrs, requiredSchema={"type": "struct", "fields": []},
+        partitionFilters=[], dataFilters=[], disableBucketedScan=False)
+    return _jp("InputAdapter", _jp("ColumnarToRowExec", scan))
+
+
+def _jcodegen(stage_id, child):
+    return _jp("WholeStageCodegenExec", child, codegenStageId=stage_id)
+
+
+def _jshuffle(child, keys, stage_id, partitioning="HashPartitioning"):
+    """The final plan's view of an exchange under AQE: a coalescing
+    shuffle read of a materialized shuffle query stage."""
+    part = _jx(f"plans.physical.{partitioning}", *keys,
+               numPartitions=JSON_PARTITIONS,
+               expressions=list(range(len(keys))))
+    ex = _jp("exchange.ShuffleExchangeExec", child,
+             outputPartitioning=part, shuffleOrigin={
+                 "object": f"{_SQL}.execution.exchange.ENSURE_REQUIREMENTS$"})
+    stage = _jp("adaptive.ShuffleQueryStageExec", ex, id=stage_id,
+                _canonicalized=None)
+    return _jp("InputAdapter", _jp("adaptive.AQEShuffleReadExec", stage,
+                                   partitionSpecs=[]))
+
+
+def _jbroadcast(child, stage_id):
+    ex = _jp("exchange.BroadcastExchangeExec", child, mode={
+        "product-class": f"{_SQL}.execution.joins.HashedRelationBroadcastMode"})
+    return _jp("InputAdapter", _jp("adaptive.BroadcastQueryStageExec", ex,
+                                   id=stage_id))
+
+
+def _jbhj(left, right, lkeys, rkeys):
+    return _jp("joins.BroadcastHashJoinExec", left, right, leftKeys=lkeys,
+               rightKeys=rkeys, joinType="Inner",
+               buildSide={"object": f"{_SQL}.catalyst.optimizer.BuildRight$"},
+               condition=None, isNullAwareAntiJoin=False)
+
+
+def _jhash_agg(child, keys, aggs):
+    return _jp("aggregate.HashAggregateExec", child,
+               requiredChildDistributionExpressions=None,
+               groupingExpressions=keys, aggregateExpressions=aggs,
+               aggregateAttributes=[], initialInputBufferOffset=0,
+               resultExpressions=[])
+
+
+def _jroot(child):
+    """AQE's root: the final plan."""
+    return json.dumps(_jp("adaptive.AdaptiveSparkPlanExec", child,
+                          isFinalPlan=True, isSubquery=False))
+
+
+# q02 (spark/tpcds.py:367): exprIds of the attributes the plan carries
+_Q02 = {"ws_date": 1, "ws_price": 2, "cs_date": 3, "cs_price": 4,
+        "d_date_sk": 5, "d_year": 6, "d_qoy": 7, "total": 20, "n": 21}
+
+
+def json_q02(paths) -> str:
+    """tpcds.py's q02 as Spark 3.3's final AQE plan gives it: the union of
+    web and catalog sales (each scan pruned to its date and price
+    columns), broadcast-joined with date_dim, aggregated by (d_year,
+    d_qoy) in two phases across a hash exchange, and sorted."""
+    e = _Q02
+
+    def side(table, date, price, eid_d, eid_p):
+        attrs = [_ja(date, "long", eid_d), _ja(price, "double", eid_p)]
+        return _jcodegen(1, _jp("ProjectExec", _jscan(paths[table], attrs),
+                                projectList=attrs))
+
+    union = _jp("UnionExec",
+                side("web_sales", "ws_sold_date_sk", "ws_ext_sales_price",
+                     e["ws_date"], e["ws_price"]),
+                side("catalog_sales", "cs_sold_date_sk",
+                     "cs_ext_sales_price", e["cs_date"], e["cs_price"]))
+    dd_attrs = [_ja("d_date_sk", "long", e["d_date_sk"]),
+                _ja("d_year", "integer", e["d_year"]),
+                _ja("d_qoy", "integer", e["d_qoy"])]
+    dd = _jbroadcast(_jcodegen(2, _jp(
+        "FilterExec", _jscan([paths["date_dim"]], dd_attrs),
+        condition=_jx("IsNotNull", dd_attrs[0], child=0))), 0)
+    keys = [_ja("d_year", "integer", e["d_year"]),
+            _ja("d_qoy", "integer", e["d_qoy"])]
+    price = _ja("ws_ext_sales_price", "double", e["ws_price"])
+    join = _jbhj(_jp("InputAdapter", union), dd,
+                 [_ja("ws_sold_date_sk", "long", e["ws_date"])],
+                 [dd_attrs[0]])
+    proj = _jp("ProjectExec", join, projectList=[price] + keys)
+
+    def aggs(mode):
+        return [_jagg("Sum", price, mode, e["total"], "double"),
+                _jagg("Count", price, mode, e["n"], "long")]
+
+    partial = _jcodegen(3, _jhash_agg(proj, keys, aggs("Partial")))
+    final = _jhash_agg(_jshuffle(partial, keys, 1), keys, aggs("Final"))
+    srt = _jp("SortExec", final, testSpillFrequency=0, **{"global": True},
+              sortOrder=[_jsort_order(k) for k in keys])
+    return _jroot(_jcodegen(4, srt))
+
+
+# the brand-revenue report (TPC-DS q03/q42-shaped): exprIds
+_REP = {"ss_date": 301, "ss_item": 302, "ss_list": 303, "ss_sales": 304,
+        "amt": 305, "i_item_sk": 300, "i_brand": 350, "i_brand_id": 351,
+        "i_item_id": 352, "brand_key": 310, "bucket": 311,
+        "d_date_sk": 340, "yr": 320, "rev": 330, "cnt": 331}
+REPORT_RATE = "1.07"    # the report's surcharge, as a SQL literal
+REPORT_CRC_SKIP = 1     # items whose crc32(i_item_id) % 3 is this are left out
+
+
+def json_report(paths, dayofweek=True) -> str:
+    """A brand-revenue report as Spark SQL users write it when they format
+    keys and money: store_sales ⋈ date_dim ⋈ item, November weekends only
+    (by dayofweek of the date, or with `dayofweek` False by the same day
+    computed from the key, (d_date_sk + 1) % 7 + 1, a plan the JAX
+    package's decoder also takes),
+    revenue = round(coalesce(ss_sales_price, ss_list_price, 0.0) * 1.07,
+    2) a row, grouped by brand key upper(concat_ws('-', i_brand,
+    lpad(CAST(i_brand_id AS STRING), 4, '0'))), the first hex digit of
+    md5(i_item_id) and the year of date_add(DATE '1900-01-02', d_date_sk -
+    2415022); items with crc32(i_item_id) % 3 = 1 and rows with
+    (hash(ss_item_sk, ss_sold_date_sk) & 3) = 0 left out."""
+    e = _REP
+    s_date = _ja("ss_sold_date_sk", "long", e["ss_date"])
+    s_item = _ja("ss_item_sk", "long", e["ss_item"])
+    s_list = _ja("ss_list_price", "double", e["ss_list"])
+    s_sales = _ja("ss_sales_price", "double", e["ss_sales"])
+    keep = _jx("Not", _jbin("EqualTo", _jbin(
+        "BitwiseAnd", _jx("Murmur3Hash", s_item, s_date, children=[0, 1],
+                          seed=42), _jl(3, "integer")), _jl(0, "integer")),
+        child=0)
+    amt = _jalias(_jx("Round", _jbin("Multiply", _jx(
+        "Coalesce", s_sales, s_list, _jl("0.0", "double"),
+        children=[0, 1, 2]), _jl(REPORT_RATE, "double"), "double"),
+        _jl(2, "integer"), child=0, scale=1), "amt", e["amt"], "double")
+    facts = _jp("ProjectExec", _jp("FilterExec", _jscan(
+        paths["store_sales"], [s_date, s_item, s_list, s_sales]),
+        condition=keep), projectList=[s_date, s_item, amt])
+
+    d_sk = _ja("d_date_sk", "long", e["d_date_sk"])
+    day = _jx("DateAdd", _jl(-25566, "date"), _jcast(_jbin(
+        "Subtract", d_sk, _jl(DATE_SK0, "long"), "long"), "integer"),
+        startDate=0, days=1)
+    if dayofweek:
+        dow = _jx("DayOfWeek", day, child=0)
+    else:
+        dow = _jcast(_jbin("Add", _jbin("Remainder", _jbin(
+            "Add", d_sk, _jl(1, "long"), "long"), _jl(7, "long"), "long"),
+            _jl(1, "long"), "long"), "integer")
+    weekend_nov = _jbin("And", _jbin("EqualTo", _jx("Month", day, child=0),
+                                     _jl(11, "integer")),
+                        _jx("In", dow, _jl(1, "integer"), _jl(7, "integer"),
+                            value=0, list=[1, 2]))
+    yr = _jalias(_jx("Year", day, child=0), "yr", e["yr"], "integer")
+    dates = _jbroadcast(_jcodegen(2, _jp("ProjectExec", _jp(
+        "FilterExec", _jscan([paths["date_dim"]], [d_sk]),
+        condition=weekend_nov), projectList=[d_sk, yr])), 0)
+
+    i_sk = _ja("i_item_sk", "long", e["i_item_sk"])
+    i_brand = _ja("i_brand", "string", e["i_brand"])
+    i_bid = _ja("i_brand_id", "integer", e["i_brand_id"])
+    i_id = _ja("i_item_id", "string", e["i_item_id"])
+    brand_key = _jalias(_jx("Upper", _jx(
+        "ConcatWs", _jl("-", "string"), i_brand, _jx(
+            "StringLPad", _jcast(i_bid, "string"), _jl(4, "integer"),
+            _jl("0", "string"), str=0, len=1, pad=2),
+        children=[0, 1, 2]), child=0), "brand_key", e["brand_key"],
+        "string")
+    bucket = _jalias(_jx("Substring", _jx("Md5", _jcast(i_id, "binary"),
+                                          child=0),
+                         _jl(1, "integer"), _jl(1, "integer"),
+                         str=0, pos=1, len=2), "bucket", e["bucket"],
+                     "string")
+    crc_ok = _jx("Not", _jbin("EqualTo", _jbin("Remainder", _jx(
+        "Crc32", _jcast(i_id, "binary"), child=0), _jl(3, "long"), "long"),
+        _jl(REPORT_CRC_SKIP, "long")), child=0)
+    items = _jbroadcast(_jcodegen(3, _jp("ProjectExec", _jp(
+        "FilterExec", _jscan([paths["item"]], [i_sk, i_id, i_bid, i_brand]),
+        condition=crc_ok), projectList=[i_sk, brand_key, bucket])), 1)
+
+    a_amt = _ja("amt", "double", e["amt"])
+    keys = [_ja("brand_key", "string", e["brand_key"]),
+            _ja("bucket", "string", e["bucket"]),
+            _ja("yr", "integer", e["yr"])]
+    j1 = _jbhj(facts, dates, [s_date], [d_sk])
+    j2 = _jbhj(j1, items, [s_item], [i_sk])
+    proj = _jp("ProjectExec", j2, projectList=keys + [a_amt])
+
+    def aggs(mode):
+        return [_jagg("Sum", a_amt, mode, e["rev"], "double"),
+                _jagg("Count", _jl(1, "integer"), mode, e["cnt"],
+                      "long")]
+
+    partial = _jcodegen(4, _jhash_agg(proj, keys, aggs("Partial")))
+    final = _jhash_agg(_jshuffle(partial, keys, 2), keys, aggs("Final"))
+    srt = _jp("SortExec", final, testSpillFrequency=0, **{"global": True},
+              sortOrder=[_jsort_order(k) for k in keys])
+    return _jroot(_jcodegen(5, srt))
+
+
+# the UDF query: exprIds, and the registered UDFs' names
+_UDF = {"i_item_sk": 400, "i_item_id": 401, "label": 410, "ss_item": 402,
+        "ss_profit": 403, "band": 405, "band_sum": 430, "cnt": 431}
+UDF_LABELS = 97          # item_label(i_item_id) = "L%02d" of the id % 97
+UDF_BAND = 50.0          # profit_band(p) = floor(p / 50)
+
+
+def _item_label(ids):
+    """Hive UDF item_label(i_item_id): 'L%02d' of the id's number % 97."""
+    return np.asarray([None if s is None else
+                       f"L{int(s[4:]) % UDF_LABELS:02d}" for s in ids],
+                      object)
+
+
+def _profit_band(profits):
+    """Scala UDF profit_band(ss_net_profit): floor(profit / 50), null for
+    null."""
+    band = np.floor(np.array(profits, np.float64) / UDF_BAND)  # None: NaN
+    return np.where(np.isnan(band), None, band)
+
+
+def _sort_key(labels):
+    """Hive UDF sort_key(label): the label's digits reversed."""
+    return np.asarray([None if s is None else s[::-1] for s in labels],
+                      object)
+
+
+def register_json_udfs() -> None:
+    from blaze_tpu_torch.spark import hive_udf
+
+    hive_udf.register_udf("item_label", _item_label, T.STRING)
+    hive_udf.register_udf("profit_band", _profit_band, T.INT64)
+    hive_udf.register_udf("sort_key", _sort_key, T.STRING)
+
+
+def json_udf(paths) -> str:
+    """Registered UDFs in a Spark plan: item_label, a HiveSimpleUDF that
+    returns a string, labels the item rows (its Project runs on the row
+    interpreter and enters the broadcast join through the FFI bridge);
+    profit_band, a ScalaUDF returning a bigint, bands ss_net_profit (it
+    stays native, crossing to the host once a batch); the labels' band
+    sums and row counts are then ordered by sort_key(label), another
+    string UDF, behind a range exchange, so the root sort runs on the row
+    interpreter and its partitions merge on the driver."""
+    e = _UDF
+    i_sk = _ja("i_item_sk", "long", e["i_item_sk"])
+    i_id = _ja("i_item_id", "string", e["i_item_id"])
+    label = _jalias(_jx("hive.HiveSimpleUDF", i_id,
+                        name="default.item_label", children=[0]),
+                    "label", e["label"], "string")
+    items = _jbroadcast(_jp("ProjectExec", _jscan([paths["item"]],
+                                                  [i_sk, i_id]),
+                            projectList=[i_sk, label]), 0)
+    s_item = _ja("ss_item_sk", "long", e["ss_item"])
+    s_profit = _ja("ss_net_profit", "double", e["ss_profit"])
+    band = _jalias(_jx("ScalaUDF", s_profit, function=None,
+                       dataType="long", children=[0],
+                       udfName=["profit_band"], nullable=True),
+                   "band", e["band"], "long")
+    facts = _jp("ProjectExec", _jscan(paths["store_sales"],
+                                      [s_item, s_profit]),
+                projectList=[s_item, band])
+    a_label = _ja("label", "string", e["label"])
+    a_band = _ja("band", "long", e["band"])
+    join = _jbhj(facts, items, [s_item], [i_sk])
+    proj = _jp("ProjectExec", join, projectList=[a_label, a_band])
+
+    def aggs(mode):
+        return [_jagg("Sum", a_band, mode, e["band_sum"], "long"),
+                _jagg("Count", _jl(1, "integer"), mode, e["cnt"],
+                      "long")]
+
+    partial = _jcodegen(1, _jhash_agg(proj, [a_label], aggs("Partial")))
+    final = _jcodegen(2, _jhash_agg(_jshuffle(partial, [a_label], 1),
+                                    [a_label], aggs("Final")))
+    key = _jx("hive.HiveSimpleUDF", a_label, name="default.sort_key",
+              children=[0])
+    ranged = _jshuffle(final, [_jsort_order(key)], 2, "RangePartitioning")
+    srt = _jp("SortExec", ranged, testSpillFrequency=0, **{"global": True},
+              sortOrder=[_jsort_order(key)])
+    return _jroot(srt)
+
+
+def _read_columns(files, names):
+    """{name: (values, valid)} of Parquet columns, read back on the host
+    for the oracles."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    t = pa.concat_tables([pq.read_table(f, columns=list(names))
+                          for f in files])
+    out = {}
+    for n in names:
+        c = t.column(n)
+        valid = ~np.asarray(c.is_null())
+        out[n] = (np.asarray(c.fill_null(0 if pa.types.is_integer(c.type)
+                                         else 0.0)
+                             if not pa.types.is_string(c.type)
+                             else c.to_pylist()), valid)
+    return out
+
+
+def _mm3_long(v: np.ndarray, seed: np.ndarray) -> np.ndarray:
+    """Spark's Murmur3 hashLong over int64 arrays with per-row uint32
+    seeds, in numpy (the oracle's own; Murmur3_x86_32.hashLong)."""
+    m = np.uint64(0xFFFFFFFF)
+
+    def rotl(x, r):
+        return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & m
+
+    def mix_k(k):
+        k = (k * np.uint64(0xCC9E2D51)) & m
+        return (rotl(k, 15) * np.uint64(0x1B873593)) & m
+
+    def mix_h(h, k):
+        h = rotl(h ^ k, 13)
+        return (h * np.uint64(5) + np.uint64(0xE6546B64)) & m
+
+    u = v.astype(np.int64).view(np.uint64)
+    h = mix_h(seed.astype(np.uint64), mix_k(u & m))
+    h = mix_h(h, mix_k(u >> np.uint64(32)))
+    h ^= np.uint64(8)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & m
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & m
+    return h ^ (h >> np.uint64(16))
+
+
+def _half_up2(x: np.ndarray) -> np.ndarray:
+    """round(x, 2) HALF_UP on doubles, in the port's float steps."""
+    y = x * 100.0
+    return np.where(y >= 0, np.floor(y + 0.5), np.ceil(y - 0.5)) / 100.0
+
+
+def json_oracles(paths) -> dict:
+    """numpy, hashlib and zlib answers of json_report and json_udf, from
+    the Parquet files read back."""
+    import hashlib
+    import zlib
+
+    items = _read_columns([paths["item"]], ("i_item_sk", "i_item_id",
+                                            "i_brand_id", "i_brand"))
+    sk = items["i_item_sk"][0]
+    n_it = int(sk.max()) + 1
+    ids = items["i_item_id"][0]
+    key = np.empty(n_it, object)
+    bucket = np.empty(n_it, object)
+    ok = np.zeros(n_it, bool)
+    for s, i, b, br in zip(sk, ids, items["i_brand_id"][0],
+                           items["i_brand"][0]):
+        raw = i.encode()
+        ok[s] = zlib.crc32(raw) % 3 != REPORT_CRC_SKIP
+        bucket[s] = hashlib.md5(raw).hexdigest()[:1].encode()
+        key[s] = f"{br}-{str(int(b)).rjust(4, '0')[:4]}".upper().encode()
+    ss = _read_columns(paths["store_sales"], (
+        "ss_sold_date_sk", "ss_item_sk", "ss_list_price", "ss_sales_price",
+        "ss_net_profit"))
+    date, dvalid = ss["ss_sold_date_sk"]
+    item = ss["ss_item_sk"][0]
+    day = np.where(dvalid, date - DATE_SK0, 0)
+    when = np.datetime64("1900-01-02") + day
+    epoch = (when - np.datetime64("1970-01-01")).astype(np.int64)
+    month = when.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    year = when.astype("datetime64[Y]").astype(np.int64) + 1970
+    dow = (epoch + 4) % 7 + 1            # Spark: 1 = Sunday
+    h = _mm3_long(date, _mm3_long(item, np.full(len(item), 42, np.uint64)))
+    keep = (dvalid & (month == 11) & ((dow == 1) | (dow == 7))
+            & ((h & np.uint64(3)) != 0) & ok[item])
+    sp, spv = ss["ss_sales_price"]
+    lp, lpv = ss["ss_list_price"]
+    amt = _half_up2(np.where(spv, sp, np.where(lpv, lp, 0.0))
+                    * float(REPORT_RATE))
+    groups = {}
+    for k, b, y, a in zip(key[item[keep]], bucket[item[keep]], year[keep],
+                          amt[keep]):
+        g = groups.setdefault((k, b, int(y)), [0.0, 0])
+        g[0] += a
+        g[1] += 1
+    report = sorted(groups.items())
+    npf, npv = ss["ss_net_profit"]
+    label = item % UDF_LABELS
+    band = np.floor(npf / UDF_BAND).astype(np.int64)
+    # the band sums are far below 2^53, so the float sums are exact
+    exact = np.rint(np.bincount(label[npv], weights=band[npv],
+                                minlength=UDF_LABELS)).astype(np.int64)
+    cnts = np.bincount(label, minlength=UDF_LABELS)
+    labels = [f"L{i:02d}".encode() for i in range(UDF_LABELS)]
+    order = sorted(range(UDF_LABELS), key=lambda i: labels[i][::-1])
+    order = [i for i in order if cnts[i]]
+    return {"report": report, "udf": [(labels[i], int(exact[i]),
+                                       int(cnts[i])) for i in order],
+            "udf_items": int(len(sk))}
+
+
+def check_json_report(out, orc):
+    """Keys and counts exact, revenue rtol 1e-9, in (brand_key, bucket,
+    year) order."""
+    d = out.to_numpy()
+    e = _REP
+    want = orc["report"]
+    cols = [f"#{e[k]}" for k in ("brand_key", "bucket", "yr", "rev", "cnt")]
+    _require(list(d) == cols, f"json_report columns {list(d)}")
+    _require(len(d[cols[0]]) == len(want) > 0,
+             f"json_report gave {len(d[cols[0]])} rows, the oracle "
+             f"{len(want)}")
+    _require(list(d[cols[0]]) == [k for (k, _, _), _ in want]
+             and list(d[cols[1]]) == [b for (_, b, _), _ in want],
+             "json_report: brand keys or buckets differ")
+    np.testing.assert_array_equal(d[cols[2]], [y for (_, _, y), _ in want])
+    np.testing.assert_array_equal(d[cols[4]], [c for _, (_, c) in want])
+    np.testing.assert_allclose(np.asarray(d[cols[3]], np.float64),
+                               [s for _, (s, _) in want], rtol=1e-9)
+
+
+def check_json_udf(out, orc):
+    """Labels, band sums and counts exact, in sort_key(label) order."""
+    d = out.to_numpy()
+    e = _UDF
+    want = orc["udf"]
+    cols = [f"#{e[k]}" for k in ("label", "band_sum", "cnt")]
+    _require(list(d) == cols, f"json_udf columns {list(d)}")
+    _require(list(d[cols[0]]) == [w[0] for w in want],
+             "json_udf: labels or their order differ")
+    np.testing.assert_array_equal(np.asarray(d[cols[1]], np.int64),
+                                  [w[1] for w in want])
+    np.testing.assert_array_equal(np.asarray(d[cols[2]], np.int64),
+                                  [w[2] for w in want])
+
+
+def check_json_q02(out, orc, runner_rows):
+    """q02 by position (the JSON plan names columns by exprId): equal to
+    runner_tpcds q02's rows and to numpy."""
+    d = out.to_numpy()
+    e = _Q02
+    got = {k: d[f"#{e[k]}"] for k in ("d_year", "d_qoy", "total", "n")}
+    years, qoys, sums, cnts = _q02_oracle(orc)
+    np.testing.assert_array_equal(got["d_year"], years)
+    np.testing.assert_array_equal(got["d_qoy"], qoys)
+    np.testing.assert_array_equal(got["n"], cnts)
+    np.testing.assert_allclose(got["total"].astype(np.float64), sums,
+                               rtol=1e-9)
+    _same_rows(got, runner_rows, "json_q02 against runner_tpcds q02")
+
+
+JSON_QUERIES = {"json_q02": json_q02, "json_report": json_report,
+                "json_udf": json_udf}
+JSON_INFO = RUNNER_INFO + ("bridge_s", "bridge_batches", "bridge_card_batches",
+                           "hostfn_crossings", "hostfn_s", "udf_crossings",
+                           "udf_s")
+
+
+def _json_plan(q, paths):
+    from blaze_tpu_torch.spark.plan_json import decode_plan_json
+
+    return decode_plan_json(JSON_QUERIES[q](paths), JSON_VERSION)
+
+
+def _json_stages(q, paths):
+    from blaze_tpu_torch.spark.convert_strategy import apply_strategy
+    from blaze_tpu_torch.spark.stages import plan_stages
+
+    plan = _json_plan(q, paths)
+    apply_strategy(plan)
+    return [(st.kind, st.num_partitions)
+            for st in plan_stages(plan, default_partitions=4)]
+
+
+def phase_runner_spark_json(paths, orc, work_dir, runner) -> dict:
+    """Spark's entry: each plan is the TreeNode JSON that Spark 3.3's
+    executedPlan.toJSON() gives (an AdaptiveSparkPlanExec root with
+    isFinalPlan, codegen and columnar shells, #exprId attributes), decoded
+    by spark/plan_json.decode_plan_json and run through run_plan on the
+    card, BHJ as Spark plans these joins at SF100: json_q02 (tpcds.py's
+    q02; its rows must equal runner_tpcds q02's and it must launch the
+    accumulate kernel as often), json_report (a brand-revenue report over
+    store_sales, item and date_dim with upper, concat_ws, lpad, coalesce,
+    round, year, month, dayofweek, date_add and hash on the card and md5
+    and crc32 on the host) and json_udf (registered UDFs: a string Hive
+    UDF on the row interpreter through the FFI bridge, a numeric Scala UDF
+    native with one host crossing a batch, a root sort on the row
+    interpreter merged on the driver). Each once checked against numpy
+    (hashlib and zlib for the host functions), then once timed."""
+    register_json_udfs()
+    t0 = time.perf_counter()
+    jorc = json_oracles(paths)
+    res = {"phase": "runner_spark_json", "mode": "bhj",
+           "spark_version": JSON_VERSION,
+           "oracle_s": time.perf_counter() - t0}
+    checks = {"json_q02": lambda out: check_json_q02(
+                  out, orc, runner["q02_rows"]),
+              "json_report": lambda out: check_json_report(out, jorc),
+              "json_udf": lambda out: check_json_udf(out, jorc)}
+    for q, check in checks.items():
+        kw = dict(info_keys=JSON_INFO, exports=q == "json_udf")
+        first = _runner_run(q, paths, work_dir, check,
+                            _json_plan(q, paths), **kw)
+        timed = _runner_run(q, paths, work_dir, check,
+                            _json_plan(q, paths), **kw)
+        _require(timed["launches"] == first["launches"],
+                 f"{q}: launches moved between runs")
+        first.pop("rows")
+        first["checked_s"] = first.pop("wall_s")
+        res[q] = dict(first, timed_s=timed["wall_s"],
+                      stages=_json_stages(q, paths))
+    q02 = res["json_q02"]
+    _require(q02["launches"] == runner["q02"]["launches"] > 0
+             and q02["stage_fallbacks"] == 0,
+             f"json_q02 left the dense path: {q02}")
+    rep = res["json_report"]
+    _require(rep["hostfn_crossings"] > 0,
+             f"json_report: host functions did not cross natively: {rep}")
+    udf = res["json_udf"]
+    _require(udf["fallback_exports"] >= 1
+             and udf["bridge_rows"] >= jorc["udf_items"]
+             and udf["bridge_card_batches"] == udf["bridge_batches"] > 0
+             and udf["udf_crossings"] > 0,
+             f"json_udf: the bridge or the UDF crossing did not run on the "
+             f"card: {udf}")
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -3358,6 +3986,7 @@ def main(argv=None) -> int:
         phase_runner_strings(paths, orc, work_dir)
         nested = phase_runner_nested(paths, orc, work_dir)
         decimal = phase_runner_decimal(paths, orc, work_dir, runner)
+        spark_json = phase_runner_spark_json(paths, orc, work_dir, runner)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -3375,6 +4004,8 @@ def main(argv=None) -> int:
                                    for q in NESTED_CHECKS},
         "runner_decimal_launches": {q: decimal[q]["launches"]
                                     for q in DECIMAL_CHECKS},
+        "runner_json_launches": {q: spark_json[q]["launches"]
+                                 for q in JSON_QUERIES},
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -5,10 +5,13 @@ serde, spill, joins, the Parquet scan, CASE and IN, the string functions
 and a dictionary column's serde round trip, spark/tpcds.py's q02, q03,
 q07, q08 and q09 through run_plan, the nested slice: segmented scans,
 list take and concatenation, collect_list/collect_set, a window and a
-generate batch, and the decimal slice: 128-bit limb arithmetic, wide
+generate batch, the decimal slice: 128-bit limb arithmetic, wide
 decimal arithmetic, comparison, CheckOverflow, hash, sort keys and
 segmented sum/min/max, the casts that round or parse, and the bitwise and
-shift ops) on the card against the port's own CPU route.
+shift ops, and the Spark-facing slice: every registered scalar function,
+the host crossings of hostfns and the UDF wrapper, and a row-interpreter
+export bridged onto the card) on the card against the port's own CPU
+route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -1133,3 +1136,141 @@ def test_bitwise_and_shift_ops_on_card_match_cpu(cuda):
         return [compile_expr(e, schema)(b).data for e in exprs]
 
     _card_and_cpu(run)
+
+
+# ---- the function library, the host crossings and the FFI bridge ----
+
+# units in the last place allowed between CUDA's libm and the CPU's: the
+# sum of each side's documented error bound against the true value (CUDA
+# C Programming Guide, double-precision functions). Every other function
+# is bitwise equal (division, sqrt and rounding are IEEE on both)
+CARD_ULPS = {"exp": 2, "ln": 2, "log": 2, "log10": 2, "log2": 2, "sin": 3,
+             "cos": 3, "tan": 3, "asin": 3, "acos": 3, "atan": 3,
+             "atan2": 3, "pow": 3, "power": 3}
+
+
+def _edge_batch(dev):
+    from blaze_tpu_torch.columnar import types as TT
+
+    from torch_function_cases import CAP, FIELDS, _table
+
+    data, validity = _table()
+    schema = TT.Schema([TT.Field(n, getattr(TT, k)) for n, k in FIELDS])
+    return ColumnBatch.from_numpy(data, schema, capacity=CAP,
+                                  validity=validity, device=dev)
+
+
+@pytest.mark.parametrize("ulps", [0, 1])
+def test_registered_functions_on_card_match_cpu(cuda, ulps):
+    """Every case of every registered scalar function (the edge rows of
+    tests/torch_function_cases.py: NaN, ±0, ±inf, a subnormal, values
+    past 2^63, INT64_MIN, dates before 1970, empty and full-width strings,
+    JSON) on the card against the CPU route: validity and integer, date
+    and string values bitwise, floats bitwise except the transcendental
+    functions, within CARD_ULPS. `ulps` 0 takes the bitwise cases, 1 the
+    others."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs.compiler import compile_expr
+
+    from torch_function_cases import CASES, N, _ulp_diff
+
+    batches = {dev: _edge_batch(dev) for dev in ("cuda", "cpu")}
+    checked = 0
+    for name, make in sorted(CASES.items()):
+        fn = name.split("[")[0]
+        if (fn in CARD_ULPS) != bool(ulps):
+            continue
+        cols = {dev: compile_expr(make(ir, TT), b.schema)(b)
+                for dev, b in batches.items()}
+        g, w = cols["cuda"], cols["cpu"]
+        assert g.data.device.type == "cuda" if not g.dtype.is_nested \
+            else True
+        rows = {dev: ColumnBatch(TT.Schema([TT.Field("o", c.dtype)]), [c],
+                                 N, c.capacity).to_numpy()["o"]
+                for dev, c in cols.items()}
+        gv, wv = list(rows["cuda"]), list(rows["cpu"])
+        assert [x is None for x in gv] == [x is None for x in wv], name
+        gv = [x for x in gv if x is not None]
+        wv = [x for x in wv if x is not None]
+        if g.dtype.is_floating:
+            diff = _ulp_diff(np.array(gv, np.float64),
+                             np.array(wv, np.float64))
+            assert diff.max(initial=0) <= CARD_ULPS.get(fn, 0), (
+                name, int(diff.max(initial=0)))
+        elif g.dtype.is_nested:
+            assert [list(map(repr, x)) for x in gv] == \
+                [list(map(repr, x)) for x in wv], name
+        else:
+            assert [repr(x) for x in gv] == [repr(x) for x in wv], name
+        checked += 1
+    assert checked > (10 if ulps else 80)
+
+
+def test_host_crossings_on_card(cuda):
+    """hostfns (md5, crc32, a JSON path) and the UDF wrapper on a card
+    batch: one pull and one upload a call, results on the card, equal to
+    the CPU route."""
+    from blaze_tpu_torch.columnar import types as TT
+    from blaze_tpu_torch.exprs import ir
+    from blaze_tpu_torch.exprs.compiler import compile_expr
+    from blaze_tpu_torch.runtime import metrics
+    from blaze_tpu_torch.spark import hive_udf
+
+    hive_udf.register_udf("card_twice", lambda v: np.asarray(
+        [None if x is None else 2 * (int(x) % 1000) for x in v], object),
+        TT.INT64)
+    exprs = [ir.ScalarFn("md5", (ir.col("s"),)),
+             ir.ScalarFn("crc32", (ir.col("s"),)),
+             ir.ScalarFn("get_json_object", (ir.col("js"),
+                                             ir.lit("$.a"))),
+             ir.UdfWrapper("udf:card_twice", TT.INT64, True,
+                           (ir.col("l"),))]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = _edge_batch(dev)
+        res = []
+        for e in exprs:
+            pulls = metrics.HOST_PULLS
+            c = compile_expr(e, b.schema)(b)
+            assert metrics.HOST_PULLS - pulls == 1, e
+            data = c.data.bytes if c.is_string else c.data
+            assert data.device.type == dev
+            res.append((data.cpu(), c.valid_mask().cpu()))
+        out[dev] = res
+    for (gd, gv), (wd, wv) in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(gv, wv)
+        assert torch.equal(gd[gv], wd[wv])
+
+
+def test_ffi_bridge_lands_on_card(cuda, tpcds_tables, tmp_path,
+                                  monkeypatch):
+    """A NeverConvert subtree (filters switched off) runs on the row
+    interpreter and enters the native pipeline through FfiReaderExec: the
+    bridged batches are on the card (run_info's bridge counts), and the
+    rows equal the CPU route's."""
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.spark import tpcds
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    monkeypatch.setattr(conf, "enable_ops", {"filter": False})
+    paths, frames = tpcds_tables
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        info = {}
+        plan, _ = tpcds.QUERIES["q03"](paths, frames, "bhj")
+        out = run_plan(plan, work_dir=str(tmp_path / dev), run_info=info,
+                       device=dev)
+        assert info["fallback_exports"] >= 1 and info["bridge_rows"] > 0
+        assert info["bridge_batches"] > 0
+        assert info["bridge_card_batches"] == (
+            info["bridge_batches"] if dev == "cuda" else 0)
+        runs[dev] = out.to_numpy()
+    got, want = runs["cuda"], runs["cpu"]
+    assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)

@@ -186,15 +186,11 @@ def test_expression_matches_jax(batches, name):
                        ir.col("l")),
 ])
 def test_unported_expressions_raise(batches, expr):
-    """The scalar functions still to port raise, naming exprs/functions.py;
-    the casts to and from strings and decimal literal arithmetic, which
-    used to raise, now equal the JAX package's, bit for bit."""
+    """Expressions that used to raise in the port: the scalar functions
+    (upper, abs), the casts to and from strings and decimal literal
+    arithmetic. Each now equals the JAX package's, bit for bit."""
     jb, tb = batches
     te = expr(tir, TT)
-    if isinstance(te, tir.ScalarFn):
-        with pytest.raises(NotImplementedError, match="exprs/functions.py"):
-            tcompile(te, tb.schema)(tb)
-        return
     jc = jcompile(expr(jir, JT), jb.schema)(jb)
     tc = tcompile(te, tb.schema)(tb)
     assert repr(tc.dtype) == repr(jc.dtype)

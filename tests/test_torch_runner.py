@@ -14,9 +14,10 @@ neither per query, so the test tallies its metric updates).
 
 Every plan arm the JAX decoder decodes must decode in the port. What the
 port's runner leaves out must raise NotImplementedError naming the
-missing module: a
-NeverConvert subtree (the row interpreter, spark/fallback.py), the mesh
-exchange, and every conf knob that would switch on an unported module.
+missing module: the mesh exchange, and every conf knob that would switch
+on an unported module. A NeverConvert subtree runs on the row
+interpreter, which raises, as the JAX package's does, for an operator or
+a function it has no body for.
 """
 
 import os
@@ -256,18 +257,21 @@ def _scan_ss(paths):
 
 
 def test_never_convert_subtree_raises(tables, tmp_path):
-    """A node no converter takes is tagged NeverConvert and would run on
-    the row interpreter: the runner raises naming it."""
+    """A node no converter takes is tagged NeverConvert and runs on the
+    row interpreter, which has no operator for this one: it raises naming
+    it, as the JAX package's interpreter does."""
     (paths, _), _ = tables["tpcds"]
     odd = P.SparkPlan("CartesianProductExec", tpcds.SS, [_scan_ss(paths)])
-    with pytest.raises(NotImplementedError, match="spark/fallback.py"):
+    with pytest.raises(NotImplementedError,
+                       match="no operator for CartesianProductExec"):
         run_plan(odd, work_dir=str(tmp_path), device="cpu")
     assert odd.strategy == "NeverConvert"
 
 
 def test_unsupported_scalar_function_raises(tables, tmp_path):
-    """A scalar function outside the native registry would be wrapped for
-    (or demote its operator to) the row interpreter."""
+    """A scalar function outside the native registry and the row
+    interpreter's table demotes its operator to the interpreter, which
+    raises naming it."""
     from blaze_tpu_torch.exprs import ir
 
     (paths, _), _ = tables["tpcds"]
@@ -275,8 +279,10 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
                      [ir.ScalarFn("soundex", (ir.col("ss_item_sk"),),
                                   T.INT64)],
                      ["x"], T.Schema([T.Field("x", T.INT64)]))
-    with pytest.raises(NotImplementedError, match="spark/fallback.py"):
+    with pytest.raises(NotImplementedError,
+                       match="no Python fallback for scalar fn soundex"):
         run_plan(proj, work_dir=str(tmp_path), device="cpu")
+    assert proj.strategy == "NeverConvert"
 
 
 @pytest.mark.parametrize("knob,value,module", [
@@ -291,6 +297,7 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
     ("flight_dir", "/nonexistent", "runtime/flight_recorder.py"),
     ("profile_enabled", True, "runtime/profiler.py"),
     ("executor_count", 2, "runtime/executor_pool.py"),
+    ("monitor_enabled", True, "runtime/monitor.py"),
 ])
 def test_left_out_modules_raise(tables, monkeypatch, tmp_path, knob, value,
                                 module):

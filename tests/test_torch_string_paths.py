@@ -498,18 +498,21 @@ def test_string_expression_matches_jax(name):
 
 
 def test_unported_string_paths_raise_naming_module():
-    """The registry's functions still to port raise NotImplementedError
-    naming exprs/functions.py; nothing converts quietly. Casts to and from
-    strings (exprs/cast.py) used to raise too and now equal the JAX
-    package's, row for row."""
+    """String paths that used to raise NotImplementedError naming their
+    module (upper and concat from exprs/functions.py, the casts to and
+    from strings from exprs/cast.py) now equal the JAX package's, row for
+    row; a name outside the registry still raises as unsupported."""
     jb, tb = pair(FIELDS, _table(0, 10))
-    for e, module in [
-            (ir.ScalarFn("upper", (ir.col("s"),), TT.STRING),
-             "exprs/functions.py"),
-            (ir.ScalarFn("concat", (ir.col("s"), ir.col("s")), TT.STRING),
-             "exprs/functions.py")]:
-        with pytest.raises(NotImplementedError, match=module):
-            tcompile(e, tb.schema)(tb)
+    for name, nargs in (("upper", 1), ("concat", 2)):
+        jc = jcompile(jir.ScalarFn(name, (jir.col("s"),) * nargs,
+                                   JT.STRING), jb.schema)(jb)
+        tc = tcompile(ir.ScalarFn(name, (ir.col("s"),) * nargs, TT.STRING),
+                      tb.schema)(tb)
+        assert_rows_equal(
+            [ColumnBatch(TT.Schema([TT.Field("o", tc.dtype)]), [tc],
+                         tb.num_rows, tb.capacity)],
+            [JBatch(JT.Schema([JT.Field("o", jc.dtype)]), [jc],
+                    jb.num_rows, jb.capacity)], ())
     for src, dst in (("s", "INT64"), ("i", "STRING")):
         jc = jcompile(jir.Cast(jir.col(src), getattr(JT, dst)),
                       jb.schema)(jb)

@@ -505,8 +505,12 @@ def test_project_division(wide_table, tmp_path):
 
 def test_division_gating_regression(wide_table, tmp_path):
     """A division whose scale alignment cannot provably fit 128 bits tags
-    NeverConvert in both packages' wide-decimal walk; the port, which has
-    no row engine, refuses it naming spark/fallback.py."""
+    NeverConvert in both packages' wide-decimal walk, so it runs on the
+    row interpreter, whose Python Decimal division raises on the table's
+    zero divisor in both packages alike (the inline JAX runner, the path
+    the port mirrors)."""
+    import decimal
+
     df, p = wide_table
 
     def make(k):
@@ -521,6 +525,9 @@ def test_division_gating_regression(wide_table, tmp_path):
         plan = make(k)
         k.apply(plan)
         assert plan.strategy == "NeverConvert"
-    with pytest.raises(NotImplementedError, match="spark/fallback.py"):
+    with pytest.raises(decimal.DivisionByZero):
+        jrun_plan(make(PKGS["jax"]), num_partitions=1,
+                  work_dir=str(tmp_path / "jax"), mesh_exchange="off")
+    with pytest.raises(decimal.DivisionByZero):
         run_plan(make(PKGS["port"]), num_partitions=1,
-                 work_dir=str(tmp_path), device="cpu")
+                 work_dir=str(tmp_path / "port"), device="cpu")

@@ -36,8 +36,10 @@ then serializes row ranges of it (`serialize(lo, hi)`), which is how the
 shuffle writer cuts one partition-sorted batch into per-partition frames.
 Decoding builds host columns (`read_batch_host`, `deserialize_batch_host`)
 and uploads them in one host->device copy onto the caller's device
-(ops/host_sort.host_to_device); `device=None` is the CUDA card. The fault
-and monitor hooks of the JAX module wait for the service slice.
+(ops/host_sort.host_to_device); `device=None` is the CUDA card. The
+fault points are the JAX module's (`serde.encode`, `device.get`,
+`serde.decode`, runtime/faults.py); its monitor hooks wait for
+runtime/monitor.py.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ from blaze_tpu_torch.columnar.types import (
 )
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike
-from blaze_tpu_torch.runtime import metrics
+from blaze_tpu_torch.runtime import faults, metrics
 
 MAGIC = b"BTB1"
 DICT_SENTINEL = 0xFFFFFFFF  # an impossible plain string `total`
@@ -111,7 +113,11 @@ class HostBatch:
     num_rows: int
 
     def serialize(self, lo: int = 0, hi: Optional[int] = None) -> bytes:
+        # the window opens before the fault point: an injected encode
+        # stall is real wall time and lands in SERDE_NS
         t0 = time.perf_counter_ns()
+        if conf.fault_injection_spec:
+            faults.inject("serde.encode")
         hi = self.num_rows if hi is None else hi
         out = io.BytesIO()
         out.write(struct.pack("<IH", max(hi - lo, 0), len(self.cols)))
@@ -120,9 +126,9 @@ class HostBatch:
         raw = out.getvalue()
         comp = zstandard.ZstdCompressor(level=conf.zstd_level).compress(raw)
         frame = MAGIC + struct.pack("<II", len(raw), len(comp)) + comp
-        metrics.SERDE_NS["encode"] += time.perf_counter_ns() - t0
-        metrics.SERDE_BYTES["raw"] += len(raw)
-        metrics.SERDE_BYTES["frames"] += len(frame)
+        metrics.bump(metrics.SERDE_NS, "encode", time.perf_counter_ns() - t0)
+        metrics.bump(metrics.SERDE_BYTES, "raw", len(raw))
+        metrics.bump(metrics.SERDE_BYTES, "frames", len(frame))
         return frame
 
 
@@ -275,6 +281,8 @@ def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
     elements included, at their capacities), the extras and the row
     count are packed into one byte tensor first, then viewed back per
     part on the host."""
+    if conf.fault_injection_spec:
+        faults.inject("device.get")
     parts: List[torch.Tensor] = []
     for c in batch.columns:
         _column_parts(c, parts)
@@ -426,13 +434,15 @@ def _decode_frame(comp, raw_len: int, schema: Schema, dctx) -> HostBatch:
     raw = (dctx or zstandard.ZstdDecompressor()).decompress(
         comp, max_output_size=raw_len)
     hb = _decode_payload(raw, schema)
-    metrics.SERDE_NS["decode"] += time.perf_counter_ns() - t0
+    metrics.bump(metrics.SERDE_NS, "decode", time.perf_counter_ns() - t0)
     return hb
 
 
 def deserialize_batch_host(buf, schema: Schema) -> HostBatch:
     """Decode one frame held in memory (bytes or a memoryview) to host
     columns."""
+    if conf.fault_injection_spec:
+        faults.inject("serde.decode")
     mv = memoryview(buf)
     if len(mv) == 0:
         raise ValueError("empty batch frame")
@@ -444,6 +454,8 @@ def read_batch_host(fp: BinaryIO, schema: Schema,
                     dctx=None) -> Optional[HostBatch]:
     """Read one frame to host columns; None at clean EOF. `dctx` lets a
     stream reader reuse one decompressor across frames."""
+    if conf.fault_injection_spec:
+        faults.inject("serde.decode")
     head = fp.read(12)
     if not head:
         return None

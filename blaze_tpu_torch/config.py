@@ -245,9 +245,7 @@ _DECLARATIONS: Tuple[Knob, ...] = (
              "Off = resource errors get plain bounded retries."),
 
     # -- task supervisor (runtime/supervisor.py) --
-    # the port has no runtime/supervisor.py: spark/local_runner.py runs
-    # tasks inline on the driver thread and raises when this is set
-    Knob("enable_supervisor", False,
+    Knob("enable_supervisor", True,
          doc="Off = the sequential runner: tasks run inline on the "
              "driver thread with retries/ladder only (no pool, watchdog, "
              "speculation)."),
@@ -324,9 +322,7 @@ _DECLARATIONS: Tuple[Knob, ...] = (
              "query) before the doctor flags it."),
 
     # -- pipelined async execution (runtime/pipeline.py) --
-    # the port has no runtime/pipeline.py: streams run serially, and
-    # spark/local_runner.py raises when this is set
-    Knob("enable_pipeline", False,
+    Knob("enable_pipeline", True,
          doc="Overlap host-side stages (parquet read+decode, serde, "
              "shuffle frame I/O, spill I/O) with device compute via a "
              "shared I/O pool behind bounded queues. False restores the "
@@ -478,10 +474,10 @@ _DECLARATIONS: Tuple[Knob, ...] = (
              ".index files at commit time and verified on every read "
              "path (server segment fetch, local shuffle reads, spill "
              "re-read). A mismatch, or an index without its footer, "
-             "raises CorruptArtifactError (quarantine and lineage "
-             "re-execution of the producing map task come with the "
-             "service slice). Off = nothing is stamped or checked, and "
-             "footer-less indexes are accepted."),
+             "quarantines the artifact and triggers lineage re-execution "
+             "of the producing map task under a fresh epoch. Off = "
+             "nothing is stamped or checked, and footer-less indexes are "
+             "accepted."),
     Knob("journal_dir", "", env="BLAZE_TPU_JOURNAL_DIR",
          doc="Write-ahead query journal directory ('' disables): one "
              "crash-atomic JSONL per query recording admission, plan "

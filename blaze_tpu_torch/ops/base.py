@@ -1,10 +1,12 @@
 """Operator protocol + execution context.
 
-Port of blaze_tpu/ops/base.py without the trace, history, progress and
-fault-injection hooks. Operators yield batches; consecutive map-like
-operators (filter/project/rename) expose a `batch_fn` that the executor
-composes into one per-batch function (runtime/executor.execute_fused),
-run eagerly on the batch's device.
+Port of blaze_tpu/ops/base.py without the history and progress hooks
+(runtime/history.py, runtime/progress.py are not ported). Operators yield
+batches; consecutive map-like operators (filter/project/rename) expose a
+`batch_fn` that the executor composes into one per-batch function
+(runtime/executor.execute_fused), run eagerly on the batch's device.
+Every operator's output stream passes `count_stream`, the batch boundary
+where the `op.<Kind>` fault point fires and the trace records the batch.
 """
 
 from __future__ import annotations
@@ -36,6 +38,11 @@ class ExecContext:
     device: DeviceLike = None
     # memory manager of the task's consumers; None is the process-wide one
     mem_manager: object = None
+    # first-commit-wins gate shared by an attempt and its speculative
+    # twin (runtime/supervisor.CommitGate); the shuffle writer claims it
+    # before publishing, so racing attempts never double-commit. None:
+    # uncontended
+    commit_gate: Optional[object] = None
 
     def check_running(self) -> None:
         if not self.is_running():
@@ -44,6 +51,12 @@ class ExecContext:
 
 class TaskKilledError(RuntimeError):
     pass
+
+
+class SpeculationLostError(TaskKilledError):
+    """This attempt lost the first-commit-wins race to its speculative
+    twin: classified "killed", never retried, never counted as an engine
+    error (the winner already produced the task's output)."""
 
 
 class Operator:
@@ -64,6 +77,13 @@ class Operator:
     def plan_key(self) -> tuple:
         return (type(self).__name__,) + tuple(c.plan_key()
                                               for c in self.children)
+
+    def name(self) -> str:
+        return type(self).__name__
+
+    def tree_string(self, indent: int = 0) -> str:
+        s = "  " * indent + self.name() + "\n"
+        return s + "".join(c.tree_string(indent + 1) for c in self.children)
 
 
 class MapLikeOp(Operator):
@@ -95,19 +115,39 @@ class MapLikeOp(Operator):
 
 
 def count_stream(op: Operator, stream: BatchStream) -> BatchStream:
-    """Wrap a stream updating the operator's baseline metrics. The row
-    count stays a device tensor until someone reads the metric, so the
-    stream never waits on the card."""
-    rows = []
+    """Wrap a stream updating the operator's baseline metrics.
+
+    The batch boundary is also where the `op.<Kind>` fault point fires
+    (runtime/faults.py) and, with conf.trace_enabled, where the trace
+    records the batch and its rows (runtime/trace.on_batch); off, each
+    costs one truthiness check. With tracing off the row count stays a
+    device tensor until someone reads the metric, so the stream never
+    waits on the card; with it on, each batch's count is read."""
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.runtime import faults, trace
+
+    fault_point = "op." + op.name()
+    rows, counted = [], 0
     try:
         for batch in stream:
+            if conf.fault_injection_spec:
+                faults.inject(fault_point)
+            if conf.trace_enabled:
+                n = int(to_host(batch.num_rows))
+                trace.on_batch(op, n)
+                counted += n
+            else:
+                rows.append(batch.num_rows)
             op.metrics.add("output_batches", 1)
-            rows.append(batch.num_rows)
             yield batch
     finally:
         if rows:
-            op.metrics.add("output_rows",
-                           int(to_host(torch.stack(rows).sum())))  # one pull
+            counted += int(to_host(torch.stack(rows).sum()))  # one pull
+        op.metrics.add("output_rows", counted)
+        # deterministic teardown: when the consumer abandons the stream
+        # (kill, speculation loss, downstream error) a pipelined source
+        # (runtime/pipeline.PrefetchStream) must quiesce its producer and
+        # release its reservations now, not at GC time
         close = getattr(stream, "close", None)
         if close is not None:
             close()

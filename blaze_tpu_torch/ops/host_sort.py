@@ -342,6 +342,12 @@ def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
     `bucket_dict_rows` table; a list's elements take the bucket of their
     count. The copy is a plain blocking one: `non_blocking` from unpinned
     numpy memory may read the buffer after it is freed."""
+    from blaze_tpu_torch.config import conf
+
+    if conf.fault_injection_spec:
+        from blaze_tpu_torch.runtime import faults
+
+        faults.inject("device.put")
     dev = resolve_device(device)
     n = hb.num_rows
     cap = capacity or bucket_capacity(n)

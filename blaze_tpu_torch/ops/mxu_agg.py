@@ -42,6 +42,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from blaze_tpu_torch import kernels
+from blaze_tpu_torch.runtime.metrics import COUNTER_LOCK
 
 CHUNK_BITS = 8
 I64_CHUNKS = 8          # full int64 (|v| < 2^62; sums exact within 2^53)
@@ -208,12 +209,15 @@ def _chain_call(acc, keys, valid, words, recipe, rng: int):
     def launch():
         global KERNEL_LAUNCHES
         err = lib.mxu_accumulate_into(*args)
-        for name, c in zip(CHAIN_LAUNCHES, launched):
-            CHAIN_LAUNCHES[name] += c
+        # pool threads launch at once: the counts go under the lock
+        with COUNTER_LOCK:
+            for name, c in zip(CHAIN_LAUNCHES, launched):
+                CHAIN_LAUNCHES[name] += c
+            if err == 0:
+                KERNEL_LAUNCHES += 1
         if err != 0:
             raise RuntimeError("mxu_accumulate launch failed: "
                                + lib.mxu_accumulate_error(err).decode())
-        KERNEL_LAUNCHES += 1
 
     launch.keep = (scratch, word_ptrs, launched, acc, keys, valid, words)
     return launch

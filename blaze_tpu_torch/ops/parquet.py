@@ -10,11 +10,9 @@ pyarrow decodes the pages on the host, as arrow-rs does on the CPU in the
 reference; each decoded Arrow batch goes to `ctx.device` in one copy a
 column (columnar/arrow_io.py). Row groups whose min/max statistics prove
 a pushed predicate false are skipped before any data page is read
-(`row_groups_pruned`). The JAX package wraps the scan in
-runtime/pipeline.prefetch, so that the next batch decodes while the
-device works on this one; here the scan reads inline, which is what the
-JAX package does with pipelining off (the prefetch waits for
-runtime/pipeline.py).
+(`row_groups_pruned`). The scan runs under runtime/pipeline.prefetch: the
+next batch is read, decoded and uploaded on an I/O thread while the
+device works on this one (inline with conf.enable_pipeline off).
 
 The sink writes the same files as the JAX package's sink: the same rows,
 the same row groups, under the same names, and yields the same one stats
@@ -163,7 +161,12 @@ class ParquetScanExec(Operator):
                         self.metrics.add("bytes_scanned", rb.nbytes)
                         yield batch
 
-        return count_stream(self, gen())
+        from blaze_tpu_torch.runtime import memory as M, pipeline
+
+        # the next macro-batch's read, decode and upload run on the I/O
+        # pool while downstream computes on this one
+        return count_stream(self, pipeline.prefetch(
+            gen(), ctx=ctx, manager=M.get_manager(ctx), name="parquet_scan"))
 
     def _select_row_groups(self, pf) -> List[int]:
         if not self.pruning_predicates:

@@ -17,12 +17,13 @@ inside a partition), and the sorted batch comes to the host in one pull
 together with the per-partition counts, to be cut into per-partition
 frames.
 
-Left out: the C++ map-output writer of the JAX package (native/, which
-writes the same bytes), and threaded pipelining. The JAX package overlaps
-frame compression and the read-side decode with device work through
-runtime/pipeline.py (`Sink`, `prefetch`); here both run inline, which is
-what the JAX package does with pipelining off. FfiReaderExec takes
-pyarrow RecordBatches through columnar/arrow_io.py.
+The writer hands each pulled batch to a `pipeline.Sink`, whose one I/O
+worker cuts and compresses the frames while the device partitions the
+next batch; the reader decodes frames ahead through `pipeline.prefetch`
+(runtime/pipeline.py). Both run inline with conf.enable_pipeline off, and
+the bytes are the same either way. Left out: the C++ map-output writer of
+the JAX package (native/, which writes the same bytes). FfiReaderExec
+takes pyarrow RecordBatches through columnar/arrow_io.py.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from blaze_tpu_torch.ops.base import (
 from blaze_tpu_torch.ops.sort_keys import permute_by_keys
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime import resources
-from blaze_tpu_torch.runtime.metrics import BRIDGE
+from blaze_tpu_torch.runtime.metrics import BRIDGE, bump
 
 
 def _call_provider(provider, ctx: ExecContext):
@@ -192,9 +193,28 @@ class ShuffleWriterExec(Operator):
         os.makedirs(out_dir, exist_ok=True)
         # reclaim dead writers' .inprogress. temps before producing our own
         artifacts.sweep_orphans([out_dir])
+        from blaze_tpu_torch.ops.host_sort import host_nbytes
+        from blaze_tpu_torch.runtime import pipeline
+
         P = self.partitioning.num_partitions
         rep = _Repartitioner(self.partitioning, self.schema, ctx)
         state = _WriterBuffers(P, M.get_manager(ctx))
+
+        def write_out(job):
+            # the pool-side half of the map task: cut the partition-sorted
+            # host batch into per-partition frames (compress) and push
+            # them. The sink has one worker, so push order is submit order
+            hb, offs = job
+            for p in range(P):
+                if offs[p + 1] > offs[p]:
+                    state.push(p, serde.serialize_slice(
+                        hb, int(offs[p]), int(offs[p + 1])))
+
+        # batch i's compress and write overlap batch i+1's partitioning;
+        # inline (serial) with pipelining off
+        sink = pipeline.Sink(write_out, ctx=ctx, manager=M.get_manager(ctx),
+                             name="shuffle_write")
+        committed = False
         try:
             for batch in execute_stage_or_plan(self.children[0], ctx):
                 ctx.check_running()
@@ -206,17 +226,21 @@ class ShuffleWriterExec(Operator):
                         "shuffle_logical_bytes",
                         M.batch_nbytes(batch) * hb.num_rows
                         // max(batch.capacity, 1))
-                    for p in range(P):
-                        if offs[p + 1] > offs[p]:
-                            state.push(p, serde.serialize_slice(
-                                hb, int(offs[p]), int(offs[p + 1])))
+                    sink.submit((hb, offs), host_nbytes(hb))
+            # drain every pending frame (re-raising a pool-side error)
+            # before the commit reads the buffers
+            sink.close()
             with self.metrics.timer():
                 # crash-atomic: stage temps, fsync, rename data-then-index
                 lengths = artifacts.commit_shuffle_pair(
-                    state.commit, self.data_path, self.index_path)
+                    state.commit, self.data_path, self.index_path,
+                    gate=ctx.commit_gate)
             self.metrics.add("shuffle_bytes_written", int(sum(lengths)))
             self.metrics.add("spill_count", state.spill_chunks)
+            committed = True
         finally:
+            if not committed:
+                sink.abort()
             state.close()
         return iter(())
 
@@ -399,8 +423,17 @@ class IpcReaderExec(Operator):
                     self.num_partitions != ctx.num_partitions:
                 eff_ctx = dataclasses.replace(
                     ctx, num_partitions=self.num_partitions)
+            from blaze_tpu_torch.runtime import pipeline
+
             source = _call_provider(resources.get(self.resource_id),
                                     eff_ctx)
+            # read-side readahead: the provider's fetch and decompress
+            # (shuffle_manager.get_reader_host decoding frames) run ahead
+            # on the I/O pool, charged against the budget, while this
+            # thread coalesces and uploads the current macro-batch
+            source = pipeline.prefetch(source, ctx=ctx,
+                                       manager=M.get_manager(ctx),
+                                       name="shuffle_read")
             target = adaptive_target_bytes(M.get_manager(ctx))
             pending: list = []
             pending_bytes = 0
@@ -510,8 +543,8 @@ class FfiReaderExec(Operator):
                 if not isinstance(item, ColumnBatch):
                     item = batch_from_arrow(item, schema=self._schema,
                                             device=ctx.device)
-                BRIDGE["batches"] += 1
-                BRIDGE["card_batches"] += item.device.type == "cuda"
+                bump(BRIDGE, "batches", 1)
+                bump(BRIDGE, "card_batches", int(item.device.type == "cuda"))
                 yield item
 
         return count_stream(self, gen())

@@ -1,7 +1,9 @@
 """Per-task execution: pipeline fusion, collect, and the fetch entry.
 
-Port of the collect subset of blaze_tpu/runtime/executor.py, and of
-`execute_stage_or_plan`, the entry of the shuffle writers. Maximal
+Port of blaze_tpu/runtime/executor.py: the collect subset,
+`execute_stage_or_plan` (the entry of the shuffle writers) and
+`run_task_with_resilience`, the retry / degrade / fallback ladder every
+supervised task runs under (runtime/supervisor.py). Maximal
 chains of map-like operators run as one composed per-batch function,
 eagerly on the batch's device (PyTorch has no compiled-program cache to
 keep small, so there is no jit cache here). `collect` first tries the
@@ -22,6 +24,152 @@ from blaze_tpu_torch.ops.base import (
 )
 from blaze_tpu_torch.ops.common import concat_batches
 from blaze_tpu_torch.runtime.metrics import to_host
+
+
+def run_task_with_resilience(attempt: Callable[[], object], *,
+                             what: str = "task",
+                             run_info: Optional[dict] = None,
+                             fallback: Optional[Callable[[], object]] = None,
+                             ctx: Optional[ExecContext] = None,
+                             deadline: Optional[float] = None,
+                             on_error: Optional[Callable] = None):
+    """Drive one task attempt through the resilience ladder.
+
+    `attempt` must be a FULL re-runnable unit of work (decode plan ->
+    execute -> commit): every operator here rebuilds its state per
+    attempt and artifact commits are crash-atomic (runtime/artifacts.py),
+    so re-running after a failure is safe — the Spark task-retry model,
+    executed in-engine.
+
+    Policy by error category (faults.classify):
+      retryable  bounded retries (conf.max_task_retries) with exponential
+                 backoff + jitter (faults.backoff_ms)
+      resource   the degradation ladder (conf.enable_degradation_ladder):
+                 rung 1 halves conf.target_batch_bytes for the remaining
+                 attempts, rung 2 forces a MemManager release (self-spill
+                 of every consumer), rung 3 reroutes the task to
+                 `fallback` (the CPU row interpreter in the local runner).
+                 Ladder off => treated as plain retryable.
+      plan/fatal relayed immediately (original exception type preserved)
+      killed     relayed immediately, never counted as an engine error
+
+    Rungs and retries are recorded in the process-global resilience
+    telemetry and, when given, in `run_info` ("retries", "degradations",
+    "degraded.<rung>", "ladder_rung", "errors.<category>").
+
+    `deadline` (time.monotonic seconds, from the supervisor's
+    task/query budgets): backoff sleeps are CLAMPED to the remaining
+    budget, and a retryable failure with no budget left is reclassified
+    to faults.DeadlineError instead of sleeping past the deadline.
+
+    `on_error(exc, category)` is invoked for every classified failure
+    except "killed" — the supervisor's per-operator circuit breaker
+    counts failures through it."""
+    import time as _time
+
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.runtime import faults, memory, trace
+
+    retries = 0
+    hang_relaunches = 0
+    rung = 0
+    saved_target = None
+    try:
+        while True:
+            try:
+                return attempt()
+            except Exception as e:  # noqa: BLE001 — classify-and-decide
+                cat = faults.classify(e)
+                if cat == "killed":
+                    raise
+                faults.note_error(cat, run_info)
+                trace.event("task_error", what=what, category=cat,
+                            error=type(e).__name__)
+                if on_error is not None:
+                    try:
+                        on_error(e, cat)
+                    except Exception:  # noqa: BLE001 — observer only
+                        pass
+                ladder = cat == "resource" and conf.enable_degradation_ladder
+                if ladder:
+                    if rung == 0:
+                        rung = 1
+                        saved_target = conf.target_batch_bytes
+                        conf.target_batch_bytes = max(saved_target // 2,
+                                                      1 << 20)
+                        faults.note_degradation("halve_batch", run_info)
+                        trace.event("ladder_rung", what=what, rung=1,
+                                    action="halve_batch")
+                        _note_rung(run_info, rung)
+                        continue
+                    if rung == 1:
+                        rung = 2
+                        memory.get_manager(ctx).release(1 << 62)
+                        faults.note_degradation("force_spill", run_info)
+                        trace.event("ladder_rung", what=what, rung=2,
+                                    action="force_spill")
+                        _note_rung(run_info, rung)
+                        continue
+                    if rung == 2 and fallback is not None:
+                        rung = 3
+                        faults.note_degradation("fallback", run_info)
+                        trace.event("ladder_rung", what=what, rung=3,
+                                    action="fallback")
+                        _note_rung(run_info, rung)
+                        return fallback()
+                elif isinstance(e, faults.HungError) and \
+                        hang_relaunches < conf.max_task_retries:
+                    # a watchdog kill-on-suspicion, not a failure: its
+                    # own relaunch budget (a false-positive hang must
+                    # not drain the error-retry budget) and no backoff
+                    # sleep — but never relaunch past the deadline
+                    if deadline is not None and \
+                            _time.monotonic() >= deadline:
+                        trace.event("deadline_exceeded", what=what,
+                                    during="hang_relaunch")
+                        raise faults.DeadlineError(
+                            f"{what}: hang-relaunch budget exhausted by "
+                            f"deadline (after {hang_relaunches} "
+                            f"relaunches)") from e
+                    faults.note_retry(run_info)
+                    hang_relaunches += 1
+                    trace.event("hang_relaunch", what=what,
+                                n=hang_relaunches)
+                    continue
+                elif cat in ("retryable", "resource") and \
+                        retries < conf.max_task_retries:
+                    sleep_s = faults.backoff_ms(retries) / 1000.0
+                    if deadline is not None:
+                        remaining = deadline - _time.monotonic()
+                        if remaining <= 0:
+                            trace.event("deadline_exceeded", what=what,
+                                        during="retry")
+                            raise faults.DeadlineError(
+                                f"{what}: retry budget exhausted by "
+                                f"deadline (after {retries} retries)"
+                            ) from e
+                        sleep_s = min(sleep_s, remaining)
+                    faults.note_retry(run_info)
+                    retries += 1
+                    trace.event("retry", what=what, n=retries,
+                                category=cat,
+                                backoff_ms=round(sleep_s * 1000, 2))
+                    faults._sleep(sleep_s)
+                    continue
+                raise faults.ensure_classified(e) from e
+    finally:
+        if saved_target is not None:
+            # restore-to-max: with concurrent tasks two ladders can
+            # interleave their save/restore — taking the max keeps a
+            # degraded (halved) target from outliving the query even if
+            # the saves raced
+            conf.target_batch_bytes = max(conf.target_batch_bytes,
+                                          saved_target)
+
+
+def _note_rung(run_info: Optional[dict], rung: int) -> None:
+    if run_info is not None:
+        run_info["ladder_rung"] = max(run_info.get("ladder_rung", 0), rung)
 
 
 def _fused_chain(op: MapLikeOp) -> tuple:

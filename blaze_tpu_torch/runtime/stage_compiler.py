@@ -224,6 +224,12 @@ def try_run_stage(root: Operator, ctx: ExecContext,
     group count and run either way."""
     if not conf.enable_stage_compiler:
         return None
+    if conf.fault_injection_spec:
+        # the whole-stage path bypasses the streaming operators' batch
+        # boundaries: chaos specs get the same "op" point here
+        from blaze_tpu_torch.runtime import faults
+
+        faults.inject("op." + type(root).__name__)
     m = _match(root)
     if m is None:
         if not chain_ok:

@@ -1,0 +1,632 @@
+"""Structured query tracing: a correlated span/event log and its Chrome
+trace export.
+
+Port of blaze_tpu/runtime/trace.py, the recording half. The supervisor
+retries, degrades, speculates, kills and reroutes tasks; this module
+records every such decision as a structured record with correlation ids:
+
+  TraceLog    process-global, locked, BOUNDED ring of records
+              (conf.trace_buffer_events; overflow drops the oldest and
+              counts it in `dropped`). Monotonic and wall timestamps come
+              from injectable clocks, so tests pin exact durations.
+
+  spans       `with span(kind, **attrs):` records one "span" with its
+              begin and duration; id kwargs (query_id/stage_id/task_id/
+              attempt_id) also become thread-local CONTEXT inherited by
+              every record opened inside. The supervisor copies the
+              driver's context into its pool and speculation threads, and
+              the pipeline into its I/O threads.
+
+  events      `event(kind, **attrs)` records a point: retries, ladder
+              rungs, heartbeat misses, deadline kills, speculation
+              launch/win/loss, breaker trips, fault injections, spills.
+
+  histograms  named process-global `metrics.Histogram`s (log2 buckets):
+              batch_rows, task_latency_us, shuffle_write_bytes.
+
+  export      export_chrome_trace(): Chrome/Perfetto trace-event JSON,
+              one row per task, spans nested under stages.
+
+Everything is gated on `conf.trace_enabled`: off, span() returns a shared
+no-op context manager and event() returns after one truthiness check.
+`profiled_span` captures the device timeline with torch.profiler under
+`conf.profiler_dir`. The JAX module's EXPLAIN ANALYZE report, run ledger
+and per-query export (`explain_analyze`, `build_run_record`,
+`export_run_ledger`, `rotate_export_dir`, `export_query`) reach modules
+the port does not have yet (doctor, profiler, compile_service,
+autoscaler), so `conf.trace_export_dir` stays refused by the runner.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.runtime.metrics import Histogram
+
+# correlation-id keys: hoisted out of attrs onto the record top level and
+# inherited by nested records through the thread-local context stack
+ID_KEYS = ("query_id", "tenant_id", "stage_id", "task_id", "attempt_id")
+
+_ctx = threading.local()
+_qid_seq = itertools.count(1)
+
+
+def new_query_id() -> str:
+    """Process-unique query correlation id (pid-tagged so ledger lines
+    from different drivers sharing a trace dir never collide)."""
+    return f"q{os.getpid()}-{next(_qid_seq)}"
+
+
+def _ctx_stack() -> List[Dict[str, Any]]:
+    s = getattr(_ctx, "stack", None)
+    if s is None:
+        s = _ctx.stack = []
+    return s
+
+
+def current_context() -> Dict[str, Any]:
+    """Merged correlation ids active on THIS thread (innermost wins).
+    The supervisor snapshots this on the driver thread and replays it
+    inside pool/speculative threads (trace.context(**snap))."""
+    merged: Dict[str, Any] = {}
+    for d in _ctx_stack():
+        merged.update(d)
+    return merged
+
+
+# thread ident -> merged correlation ids, mirrored by context() while
+# conf.profile_enabled: the sampling profiler's daemon thread cannot
+# read another thread's threading.local stack, so the push/pop sites
+# publish the merged ids here for it to join against
+# sys._current_frames(). Empty (and never written) while profiling is
+# off — the mirror costs one truthiness check per push/pop.
+_live_ctx: Dict[int, Dict[str, Any]] = {}
+
+
+@contextlib.contextmanager
+def context(**ids):
+    """Push correlation ids for records opened inside the block."""
+    stack = _ctx_stack()
+    stack.append({k: v for k, v in ids.items() if v is not None})
+    if conf.profile_enabled:
+        _live_ctx[threading.get_ident()] = current_context()
+    try:
+        yield
+    finally:
+        stack.pop()
+        if conf.profile_enabled:
+            ident = threading.get_ident()
+            if stack:
+                _live_ctx[ident] = current_context()
+            else:
+                _live_ctx.pop(ident, None)
+
+
+class TraceLog:
+    """Bounded, lock-protected span/event log.
+
+    `clock` returns monotonic nanoseconds (ordering + durations), `wall`
+    epoch nanoseconds (cross-process correlation); both injectable so
+    tests pin exact timings. Capacity is re-read from
+    conf.trace_buffer_events per append unless fixed at construction."""
+
+    def __init__(self, capacity: Optional[int] = None,
+                 clock: Optional[Callable[[], int]] = None,
+                 wall: Optional[Callable[[], int]] = None) -> None:
+        self._lock = threading.Lock()
+        self._buf: deque = deque()
+        self._capacity = capacity
+        self.clock = clock or time.monotonic_ns
+        self.wall = wall or time.time_ns
+        self.dropped = 0
+
+    def _cap(self) -> int:
+        if self._capacity is not None:
+            return max(int(self._capacity), 1)
+        return max(int(conf.trace_buffer_events), 1)
+
+    def append(self, rec: Dict[str, Any]) -> None:
+        cap = self._cap()
+        with self._lock:
+            while len(self._buf) >= cap:
+                self._buf.popleft()
+                self.dropped += 1
+            self._buf.append(rec)
+
+    def snapshot(self) -> List[Dict[str, Any]]:
+        """Records oldest-first (copies of the list, records shared)."""
+        with self._lock:
+            return list(self._buf)
+
+    def drain(self) -> List[Dict[str, Any]]:
+        """Pop and return every buffered record (oldest-first). The
+        executor-side telemetry shipper uses this so records buffer in
+        the bounded ring between ships and leave exactly once; the
+        `dropped` counter is cumulative and survives the drain."""
+        with self._lock:
+            out = list(self._buf)
+            self._buf.clear()
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._buf.clear()
+            self.dropped = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+
+TRACE = TraceLog()
+
+# -- declared record-kind registries -----------------------------------------
+# Every event/span kind emitted anywhere in the engine, declared up front:
+# exporters and trend tooling key on these strings, so an ad-hoc kind is a
+# silent contract break. tools/blazelint's registry-sync checker verifies
+# every `trace.event(...)`/`trace.span(...)` literal (and the static prefix
+# of dynamic names like f"compile_{event}") resolves here, and flags
+# registered-but-never-emitted kinds as stale. Add the kind HERE in the
+# same change that introduces the call site.
+
+EVENT_KINDS = (
+    "admission_admitted",   # service: query granted a run slot
+    "admission_parked",     # service: query queued behind a full pool
+    "admission_rejected",   # service: load shed (queue full / deadline)
+    "artifact_commit",      # runtime/artifacts.py: first-commit-wins publish
+    "artifact_corrupt",     # artifacts: read-path checksum mismatch
+    "artifact_quarantined", # artifacts: corrupt file renamed .quarantine
+    "autopilot_apply",      # local_runner: stored overlay applied to a
+                            # fingerprinted query at admission
+    "autopilot_explore",    # autopilot: canary proposed / canary win
+    "autopilot_promote",    # autopilot: canary graduated to settled
+    "autopilot_rollback",   # autopilot: canary reverted + quarantined
+                            # (regression verdict or inconclusive)
+    "batch",                # ops/base.count_stream batch boundary
+    "breaker_trip",         # supervisor: per-operator circuit breaker
+    "compile_compiled",     # compile_service: fresh XLA compilation
+    "compile_hit",          # compile_service: persistent-cache hit
+    "compile_miss",         # compile_service: persistent-cache miss
+    "capacity_changed",     # service: admission capacity recomputed on
+                            # executor-pool membership change
+    "control_reconnect",    # executor_pool: worker resumed its control
+                            # session after a transport blip (no death)
+    "deadline_exceeded",    # executor: task/query budget exhausted
+    "deadline_kill",        # supervisor: budget exhausted mid-attempt
+    "degrade",              # executor: resilience-ladder rung taken
+    "dict_decode",          # serde: dictionary string column expanded
+                            # at the result-merge edge
+    "dict_encode",          # serde: string column shipped as
+                            # (dictionary, codes) instead of raw bytes
+    "driver_failover",      # standby: warm standby fenced the dead
+                            # primary's lease and took over the fleet
+    "driver_recovery",      # journal: recovery scan replayed a journal
+    "epoch_fenced",         # artifacts.EpochFence: stale attempt rejected
+    "executor_adopted",     # executor_pool: rebound listener adopted a
+                            # surviving worker via its resume handshake
+    "executor_death",       # supervisor/pool: executor process declared dead
+    "executor_drain",       # executor_pool: seat gracefully decommissioned
+                            # (drain completed; not a death)
+    "executor_spawn",       # executor_pool: worker process launched
+    "executor_task_requeued",  # executor_pool: displaced/failed task re-queued
+    "fault_injected",       # faults.inject: armed point fired
+    "flight_capture",       # flight_recorder: incident dossier written
+    "hang_detected",        # supervisor watchdog: heartbeat stale
+    "hang_relaunch",        # supervisor: killed attempt relaunched
+    "journal_replay",       # local_runner: committed stage reused from
+                            # a recovered write-ahead journal
+    "ladder_rung",          # executor: degradation ladder transition
+    "lease_expired",        # executor_pool worker: driver unreachable past
+                            # executor_death_ms; self-fenced (exit 17)
+    "lease_fenced",         # standby: a stale primary saw a higher lease
+                            # epoch on renew and stood down
+    "mem_release",          # memory: reservation released by sweep
+    "orphan_sweep",         # artifacts: stale attempt files removed
+    "partition_suspected",  # executor_pool: control conn broken but the
+                            # process looks alive — reconnect window open
+    "pipeline_stats",       # pipeline: per-stream close statistics
+    "profile_export",       # profiler: per-query collapsed-stack +
+                            # speedscope files committed
+    "profile_merge",        # profiler: executor folded-stack deltas
+                            # federated into the driver table
+    "progress_snapshot",    # monitor endpoints: live progress scraped
+    "queue_depth",          # pipeline: sampler queue-depth reading
+    "resource_leak",        # monitor: leaked reservation/stream detected
+    "retry",                # executor: retryable failure retried
+    "scale_down",           # autoscaler: idlest seat drained out
+                            # (evidence: utilization, idle ticks)
+    "scale_up",             # autoscaler: seat spawned (evidence: parked
+                            # arrivals / SLO burn / utilization)
+    "shuffle_conn_dropped", # shuffle_server: client connection dropped
+                            # mid-request (reset/torn frame/CRC mismatch)
+    "shuffle_mmap_fetch",   # shuffle_server client: partition served as
+                            # zero-copy mmap views (no socket stream)
+    "slo_burn",             # service: tenant SLO budget burning hot
+    "speculation_launch",   # supervisor: straggler twin launched
+    "speculation_loss",     # supervisor: attempt lost the commit race
+    "speculation_win",      # supervisor: speculative twin won
+    "spill",                # memory: spill file written
+    "spill_pages_flush",    # memory: spill page pool flushed
+    "stream_batch",         # streaming: micro-batch merged into the
+                            # stream's aggregation state
+    "stream_checkpoint",    # streaming: offsets+state+epoch made durable
+                            # in one crash-atomic journal record
+    "stream_resume",        # streaming: state restored from the last
+                            # committed checkpoint after a crash/takeover
+    "task_abandoned",       # supervisor: attempt abandoned post-kill
+    "task_error",           # supervisor: classified attempt failure
+    "telemetry_recovered",  # executor_pool: dead worker's sidecar-spilled
+                            # ring tail ingested (records marked truncated)
+    "telemetry_shipped",    # executor_pool: batched executor telemetry
+                            # frame federated into the driver ring
+    "tenant_over_quota",    # memory: tenant ceiling hit, self-spilling
+    "whole_stage_attempt",  # stage_compiler: fused single-dispatch try
+    "whole_stage_fallback", # stage_compiler: fused path bailed out
+    "whole_stage_groups",   # stage_compiler: dense-agg group stats
+)
+
+SPAN_KINDS = (
+    "profile",       # trace.profiled_span: device profiler capture
+    "query",         # local_runner: one per query
+    "stage",         # executor: shuffle-map/broadcast/result stage
+    "task_attempt",  # supervisor: one per (task, attempt)
+)
+
+# run-record wire format (ledger lines + history records). Bump on
+# shape changes; readers treat a MISSING field as version 1 (PR-9-era
+# lines predate the stamp) and must keep loading old lines.
+SCHEMA_VERSION = 2
+
+# -- named histogram registry ------------------------------------------------
+
+_hist_lock = threading.Lock()
+_HISTS: Dict[str, Histogram] = {}
+
+
+def histogram(name: str) -> Histogram:
+    h = _HISTS.get(name)
+    if h is None:
+        with _hist_lock:
+            h = _HISTS.setdefault(name, Histogram(name))
+    return h
+
+
+def record_value(name: str, value: int) -> None:
+    """Record into a named histogram when tracing is enabled."""
+    if conf.trace_enabled:
+        histogram(name).record(value)
+
+
+def histograms_snapshot(reset: bool = False) -> Dict[str, dict]:
+    with _hist_lock:
+        hists = dict(_HISTS)
+        if reset:
+            _HISTS.clear()
+    return {k: h.snapshot() for k, h in hists.items() if h.count}
+
+
+def reset_histograms() -> None:
+    with _hist_lock:
+        _HISTS.clear()
+
+
+def reset() -> None:
+    """Clear the global log + histograms (test/bench isolation)."""
+    TRACE.reset()
+    reset_histograms()
+
+
+# -- recording ---------------------------------------------------------------
+
+
+def _base_record(rtype: str, kind: str, attrs: Dict[str, Any]
+                 ) -> Dict[str, Any]:
+    rec: Dict[str, Any] = {"type": rtype, "kind": kind}
+    rec.update(current_context())
+    for k in ID_KEYS:
+        if k in attrs:
+            v = attrs.pop(k)
+            if v is not None:
+                rec[k] = v
+    rec["thread"] = threading.current_thread().name
+    if attrs:
+        rec["attrs"] = attrs
+    return rec
+
+
+def event(kind: str, **attrs) -> None:
+    """Record a point event (no-op unless conf.trace_enabled).
+
+    Correlation ids come from the thread context; explicit id kwargs
+    (query_id=..., task_id=...) override it — watchdog-thread callers
+    pass them directly since they run outside any task context."""
+    if not conf.trace_enabled:
+        return
+    log = TRACE
+    rec = _base_record("event", kind, attrs)
+    rec["ts"] = log.clock()
+    rec["wall"] = log.wall()
+    log.append(rec)
+
+
+class _Span:
+    """Live span handle: `attrs` may be mutated (or set()) before exit —
+    the stage spans learn their transport only after the mesh attempt."""
+
+    __slots__ = ("kind", "attrs", "ids", "t0", "wall0", "_cm", "error")
+
+    def __init__(self, kind: str, ids: Dict[str, Any],
+                 attrs: Dict[str, Any]) -> None:
+        self.kind = kind
+        self.ids = ids
+        self.attrs = attrs
+        self.error: Optional[str] = None
+        self.t0 = 0
+        self.wall0 = 0
+        self._cm = None
+
+    def set(self, **kw) -> "_Span":
+        self.attrs.update(kw)
+        return self
+
+
+class _NullSpan:
+    """Shared disabled-path span: enter/exit/set are no-ops."""
+
+    __slots__ = ()
+    attrs: Dict[str, Any] = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **kw):
+        return self
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _SpanCM:
+    __slots__ = ("span",)
+
+    def __init__(self, span: _Span) -> None:
+        self.span = span
+
+    def __enter__(self) -> _Span:
+        sp = self.span
+        sp.t0 = TRACE.clock()
+        sp.wall0 = TRACE.wall()
+        cm = context(**sp.ids)
+        cm.__enter__()
+        sp._cm = cm
+        return sp
+
+    def __exit__(self, etype, exc, tb) -> bool:
+        sp = self.span
+        log = TRACE
+        dur = log.clock() - sp.t0
+        sp._cm.__exit__(etype, exc, tb)
+        rec = _base_record("span", sp.kind, dict(sp.attrs))
+        rec.update({k: v for k, v in sp.ids.items() if v is not None})
+        rec["ts"] = sp.t0
+        rec["wall"] = sp.wall0
+        rec["dur"] = dur
+        if exc is not None:
+            rec["error"] = f"{type(exc).__name__}: {exc}"[:200]
+        elif sp.error:
+            rec["error"] = sp.error
+        log.append(rec)
+        return False
+
+
+def span(kind: str, **attrs):
+    """Context manager recording a span (one record at exit, with begin
+    timestamp + duration). Id kwargs double as context for the block:
+
+        with span("stage", stage_id=3, stage_kind="shuffle_map") as sp:
+            ...                       # children inherit stage_id=3
+            sp.set(transport="mesh")  # attrs may be refined before exit
+    """
+    if not conf.trace_enabled:
+        return _NULL_SPAN
+    ids = {k: attrs.pop(k) for k in ID_KEYS if k in attrs}
+    return _SpanCM(_Span(kind, ids, attrs))
+
+
+@contextlib.contextmanager
+def profiled_span(name: str = "query"):
+    """Device-profiler capture as a trace span: records a "profile" span
+    in the ring and, when conf.profiler_dir is set, wraps the block in a
+    torch.profiler capture (CPU and, where present, CUDA activity) with a
+    `record_function(name)` range, writing a Chrome trace into
+    profiler_dir so the device timeline lands next to the engine spans.
+    The capture honours profiler_dir even with tracing off."""
+    with span("profile", scope=name) as sp:
+        if not conf.profiler_dir:
+            yield sp
+            return
+        import torch
+
+        sp.set(profiler_dir=conf.profiler_dir)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(conf.profiler_dir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function(name):
+                yield sp
+        prof.export_chrome_trace(os.path.join(
+            conf.profiler_dir,
+            f"{name}_{os.getpid()}_{next(_profile_seq)}.json"))
+
+
+_profile_seq = itertools.count(1)
+
+
+def on_batch(op, rows: int) -> None:
+    """Batch-boundary hook (ops/base.count_stream — the same place the
+    heartbeat/kill check lives, so the hot path gains no new check
+    points): batch-size histogram + one trace event per batch."""
+    histogram("batch_rows").record(rows)
+    event("batch", op=op.name(), rows=rows)
+
+
+def query_records(query_id: str,
+                  records: Optional[Iterable[dict]] = None) -> List[dict]:
+    """Records correlated to one query (plus globals recorded with no
+    query id inside its window — compile/spill events from helper
+    threads keep their ids when context was present, so uncorrelated
+    records are rare and excluded)."""
+    recs = TRACE.snapshot() if records is None else list(records)
+    return [r for r in recs if r.get("query_id") == query_id]
+
+
+# -- cross-process federation (executor telemetry -> driver ring) ------------
+
+
+def ingest_remote(records: Iterable[dict], *, exec_id: str,
+                  pid: Optional[int] = None, offset_ns: int = 0,
+                  truncated: bool = False) -> int:
+    """Federate executor-side trace records into the driver's ring.
+
+    Each record's monotonic `ts` is rebased by the executor's estimated
+    clock offset (handshake echo, runtime/executor_pool.py) so merged
+    exports order driver and executor spans on one timeline, and the
+    record is stamped with the shipping executor ("exec", "exec_pid").
+    `truncated=True` marks records recovered from a dead worker's
+    sidecar spill — the span stream ended mid-flight. Returns the count
+    ingested; malformed entries are skipped, never fatal."""
+    if not conf.trace_enabled:
+        return 0
+    n = 0
+    off = int(offset_ns)
+    for rec in records:
+        if not isinstance(rec, dict) or "kind" not in rec:
+            continue
+        r = dict(rec)
+        try:
+            r["ts"] = int(r.get("ts", 0)) + off
+        except (TypeError, ValueError):
+            continue
+        r["exec"] = exec_id
+        if pid is not None:
+            r["exec_pid"] = pid
+        if truncated:
+            r["truncated"] = True
+        TRACE.append(r)
+        n += 1
+    return n
+
+
+def ingest_histograms(snaps: Dict[str, dict]) -> None:
+    """Merge executor-shipped histogram snapshots (bucket-count deltas)
+    into the driver's named histograms — task_latency_us etc. then cover
+    pooled and in-process work in one distribution."""
+    if not conf.trace_enabled or not snaps:
+        return
+    for name, s in snaps.items():
+        if not isinstance(s, dict):
+            continue
+        tmp = Histogram(str(name))
+        counts = list(s.get("counts") or ())[:Histogram.N_BUCKETS]
+        counts += [0] * (Histogram.N_BUCKETS - len(counts))
+        tmp.counts = [int(c) for c in counts]
+        tmp.count = int(s.get("count") or 0)
+        tmp.total = int(s.get("total") or 0)
+        tmp.vmin = s.get("min")
+        tmp.vmax = s.get("max")
+        if tmp.count:
+            histogram(str(name)).merge(tmp)
+
+
+# -- exporter 1: Chrome/Perfetto trace-event JSON ----------------------------
+
+
+def export_chrome_trace(path: str,
+                        records: Optional[Iterable[dict]] = None) -> dict:
+    """Write records as Chrome trace-event JSON (load in Perfetto /
+    chrome://tracing, next to the torch.profiler traces from
+    conf.profiler_dir).
+
+    Row model: one process per query — plus, for federated runs, one
+    process per (query, executor): executor-shipped records carry an
+    "exec" stamp (ingest_remote) and render on their own pid row named
+    "blaze_tpu <qid> [execN]", timestamps already rebased onto the
+    driver clock so the merged timeline is one trace. Within a process,
+    one row (tid) per task — spans nest by time on their row, so
+    task-attempt spans sit under their stage's span on the driver row
+    timeline. "X" complete events carry spans; instant events ("i")
+    carry points; metadata events name the rows. Returns
+    {"events": n, "path": path}."""
+    recs = TRACE.snapshot() if records is None else list(records)
+    pids: Dict[tuple, int] = {}
+    tids: Dict[tuple, int] = {}
+    events: List[dict] = []
+
+    def pid_of(rec) -> int:
+        q = str(rec.get("query_id", "-"))
+        ex = rec.get("exec")
+        key = (q, ex)
+        if key not in pids:
+            pids[key] = len(pids) + 1
+            name = f"blaze_tpu {q}" if ex is None else \
+                f"blaze_tpu {q} [{ex}]"
+            events.append({"ph": "M", "name": "process_name",
+                           "pid": pids[key], "tid": 0,
+                           "args": {"name": name}})
+        return pids[key]
+
+    def tid_of(rec, pid: int) -> int:
+        row = rec.get("task_id")
+        label = str(row) if row is not None else "driver"
+        key = (pid, label)
+        if key not in tids:
+            tids[key] = 1 if row is None else len(tids) + 2
+            events.append({"ph": "M", "name": "thread_name",
+                           "pid": pid, "tid": tids[key],
+                           "args": {"name": label}})
+        return tids[key]
+
+    for rec in recs:
+        pid = pid_of(rec)
+        tid = tid_of(rec, pid)
+        args = {k: rec[k] for k in ID_KEYS if k in rec}
+        args.update(rec.get("attrs") or {})
+        if rec.get("error"):
+            args["error"] = rec["error"]
+        if rec.get("exec"):
+            args["exec"] = rec["exec"]
+            if rec.get("exec_pid") is not None:
+                args["exec_pid"] = rec["exec_pid"]
+        if rec.get("truncated"):
+            args["truncated"] = True
+        ev = {"name": rec["kind"], "cat": rec["type"],
+              "ts": rec["ts"] / 1000.0, "pid": pid, "tid": tid,
+              "args": args}
+        if rec["type"] == "span":
+            ev["ph"] = "X"
+            ev["dur"] = max(rec.get("dur", 0), 1) / 1000.0
+        else:
+            ev["ph"] = "i"
+            ev["s"] = "t"
+        events.append(ev)
+
+    doc = {"traceEvents": events, "displayTimeUnit": "ms",
+           "otherData": {"dropped_events": TRACE.dropped}}
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return {"events": len(events), "path": path}

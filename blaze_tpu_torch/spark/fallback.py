@@ -429,11 +429,20 @@ def export_iterator(plan: SparkPlan, partition: int,
     """Execute the subtree for one task partition; yield Arrow batches
     (what the registered ArrowFFIExportIterator yields in the reference).
     The export, its rows and its host time count in `metrics.BRIDGE`."""
+    from blaze_tpu_torch.spark.converters import bridge_schema
+
+    yield export_batch(plan, partition, num_partitions, bridge_schema(plan))
+
+
+def export_batch(plan: SparkPlan, partition: int, num_partitions: int,
+                 schema: T.Schema) -> pa.RecordBatch:
+    """The subtree's rows for one task partition as one Arrow batch of
+    `schema`. Every route onto the row interpreter goes through here, so
+    `metrics.BRIDGE` counts each export, its rows and its host time."""
     import time
 
     from blaze_tpu_torch.config import conf as _conf
     from blaze_tpu_torch.runtime import metrics
-    from blaze_tpu_torch.spark.converters import bridge_schema
 
     if _conf.monitor_enabled:
         # the JAX package counts the export's bytes in runtime/monitor.py
@@ -442,11 +451,11 @@ def export_iterator(plan: SparkPlan, partition: int,
             "not yet ported")
     t0 = time.perf_counter_ns()
     df = _execute(plan, partition, num_partitions)
-    rb = _to_arrow(df, bridge_schema(plan))
-    metrics.BRIDGE["exports"] += 1
-    metrics.BRIDGE["rows"] += rb.num_rows
-    metrics.BRIDGE["ns"] += time.perf_counter_ns() - t0
-    yield rb
+    rb = _to_arrow(df, schema)
+    metrics.bump(metrics.BRIDGE, "exports", 1)
+    metrics.bump(metrics.BRIDGE, "rows", rb.num_rows)
+    metrics.bump(metrics.BRIDGE, "ns", time.perf_counter_ns() - t0)
+    return rb
 
 
 _ARROW_TYPES = {
@@ -465,9 +474,14 @@ def _to_arrow(df: pd.DataFrame, schema: T.Schema) -> pa.RecordBatch:
         col = df.iloc[:, i] if i < df.shape[1] else pd.Series([])
         at = _ARROW_TYPES.get(f.dtype.kind)
         if at is None:  # decimal / timestamp etc.
-            arrays.append(pa.array(col.to_numpy()))
+            arr = pa.array(col.to_numpy())
         else:
-            arrays.append(pa.array(col.to_numpy(), type=at, from_pandas=True))
+            arr = pa.array(col.to_numpy(), type=at, from_pandas=True)
+        if isinstance(arr, pa.ChunkedArray):
+            # pyarrow hands an empty float column converted to a string
+            # type back as a ChunkedArray, which a RecordBatch refuses
+            arr = arr.combine_chunks()
+        arrays.append(arr)
         names.append(f.name)
     return pa.RecordBatch.from_arrays(arrays, names=names)
 
@@ -595,6 +609,10 @@ def _merge_collected(series, dedup: bool):
     return vals
 
 
+# the agg state column suffixes of ops/agg.state_fields
+_STATE_PARTS = ("sum", "nonempty", "count", "val", "has", "valid", "list")
+
+
 def _op_agg(plan: SparkPlan, part: int, nparts: int) -> pd.DataFrame:
     """Grouped aggregation matching the native agg state contract
     (ops/agg.py state_fields) so a fallback partial agg can feed a native
@@ -610,6 +628,17 @@ def _op_agg(plan: SparkPlan, part: int, nparts: int) -> pd.DataFrame:
         # NativeAggBase): the original grouping exprs reference pre-shuffle
         # columns that no longer exist — bind positionally instead
         df = df.rename(columns=dict(zip(df.columns[:len(gnames)], gnames)))
+        if not len(df):
+            # an empty shuffle partition comes back with the reader's
+            # SparkPlan columns, which name no agg state: give the
+            # state columns the groupby below reads, empty
+            from blaze_tpu_torch.ops.agg import AGG_BUF_PREFIX
+
+            for i in range(len(plan.attrs["aggs"])):
+                for part in _STATE_PARTS:
+                    name = f"{AGG_BUF_PREFIX}.{i}.{part}"
+                    if name not in df.columns:
+                        df[name] = pd.Series([], dtype=object)
     # GLOBAL aggregate (no grouping): synthesize one constant group —
     # Spark emits exactly one row even over empty input, so guarantee a
     # row exists for the synthetic group
@@ -1025,6 +1054,27 @@ _NUMPY_DTYPES = {
 }
 
 
+def _decimal_div(l, r, scale: int) -> pd.Series:
+    """Spark's decimal division off ANSI mode: NULL where either side is
+    NULL or the divisor is zero, else the quotient rounded HALF_UP to the
+    result scale (DecimalPrecision's `divide` result type)."""
+    ls, rs = pd.Series(l), pd.Series(r)
+    if len(ls) != len(rs):
+        ls, rs = ((ls.repeat(len(rs)).reset_index(drop=True), rs)
+                  if len(ls) == 1 else
+                  (ls, rs.repeat(len(ls)).reset_index(drop=True)))
+    quantum = decimal.Decimal(1).scaleb(-scale)
+    ctx = decimal.Context(prec=80, rounding=decimal.ROUND_HALF_UP)
+    out = []
+    for a, b in zip(ls.tolist(), rs.tolist()):
+        if a is None or b is None or pd.isna(a) or pd.isna(b) or b == 0:
+            out.append(None)
+        else:
+            out.append(ctx.divide(decimal.Decimal(a), decimal.Decimal(b))
+                       .quantize(quantum, context=ctx))
+    return pd.Series(out, index=ls.index, dtype=object)
+
+
 def _eval(e: ir.Expr, df: pd.DataFrame):
     if isinstance(e, ir.Literal):
         return e.value
@@ -1038,6 +1088,9 @@ def _eval(e: ir.Expr, df: pd.DataFrame):
             return pd.Series(l).astype(bool) & pd.Series(r).astype(bool)
         if e.op == ir.BinOp.OR:
             return pd.Series(l).astype(bool) | pd.Series(r).astype(bool)
+        if (e.op == ir.BinOp.DIV and e.result_type is not None
+                and e.result_type.kind == T.TypeKind.DECIMAL):
+            return _decimal_div(l, r, e.result_type.scale)
         return _BINOPS[e.op](l, r)
     if isinstance(e, ir.Not):
         return ~pd.Series(_eval(e.child, df)).astype(bool)

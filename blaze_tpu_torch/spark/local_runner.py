@@ -1,10 +1,10 @@
 """Local multi-stage execution: the test/standalone stand-in for Spark.
 
-Port of blaze_tpu/spark/local_runner.py without the service layer. Ref
-topology: SURVEY.md §3.3 — in deployment, Spark schedules stages and
-moves shuffle blocks; this runner executes the same per-task native plans
-(stages.plan_stages output) in dependency order in one process, wiring
-the resource registry exactly the way the JVM shim would:
+Port of blaze_tpu/spark/local_runner.py. Ref topology: SURVEY.md §3.3 —
+in deployment, Spark schedules stages and moves shuffle blocks; this
+runner executes the same per-task native plans (stages.plan_stages
+output) in dependency order in one process, wiring the resource registry
+exactly the way the JVM shim would:
 
   map stage    : one task per upstream partition; each commits
                  <dir>/shuffle_<S>_<M>.data/.index through the
@@ -13,24 +13,34 @@ the resource registry exactly the way the JVM shim would:
                  all map outputs' partition-p segments (the MapStatus fetch)
   broadcast    : one collect task; "broadcast:<S>" replays its frames
 
-Tasks run one after another on the driver's thread, each from a fresh
-decode of its plan, on `device` (None: the CUDA card). That is the JAX
-package's path with `enable_supervisor` off. What the JAX package hangs
-around it is not ported, and each part that a caller could switch on
-raises, naming its module, rather than being skipped: the supervisor with
-its retries and resilience ladder, fault injection, the journal, history,
-monitor, trace spans, progress, the autopilot and conf overlays, the
-executor pool and the device-mesh exchange (`mesh_exchange` other than
-"off"). Every NeverConvert subtree runs on the row interpreter
-(spark/fallback.py) on the host, and its rows enter the native pipeline
-through the FFI bridge (FfiReaderExec), uploaded to the task's device.
-Query ids are a plain counter, used only as the resource namespace.
+Every stage's tasks run under a per-query `Supervisor`
+(runtime/supervisor.py): a pool of conf.max_concurrent_tasks threads, the
+retry / degrade / row-interpreter ladder of
+executor.run_task_with_resilience, the watchdog, speculation and the
+per-operator circuit breaker. Off (conf.enable_supervisor False), tasks
+run inline on the driver thread under the same ladder. Scans, shuffle
+writes and reads and spill reads pipeline through runtime/pipeline.py.
+Each query is a "query" span in the trace (runtime/trace.py), and with
+conf.journal_dir set a write-ahead journal (runtime/journal.py) records
+its admission, plan, stage commits and completion; a restarted driver
+reuses a crashed query's verified stage commits. Tasks run on `device`
+(None: the CUDA card). Every NeverConvert subtree runs on the row
+interpreter (spark/fallback.py) on the host, and its rows enter the
+native pipeline through the FFI bridge (FfiReaderExec).
+
+What the JAX package hangs around this that is not yet ported raises,
+naming its module, when a caller switches it on: the history store,
+progress, the autopilot and its conf overlays, the flight recorder, the
+profiler, the trace exporters (conf.trace_export_dir), the executor pool
+(with its `_run_shuffle_stage_pooled`), the monitor and the device-mesh
+exchange (`mesh_exchange` other than "off").
 """
 
 from __future__ import annotations
 
-import itertools
+import base64
 import os
+import sys
 import tempfile
 import threading
 import time
@@ -41,10 +51,17 @@ from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike, resolve_device
 from blaze_tpu_torch.ops.base import ExecContext, Operator
 from blaze_tpu_torch.ops.common import concat_batches
-from blaze_tpu_torch.plan import decode_plan
+from blaze_tpu_torch.plan import decode_plan, fingerprint_plan
 from blaze_tpu_torch.plan import plan_pb2 as pb
-from blaze_tpu_torch.runtime import artifacts, resources
-from blaze_tpu_torch.runtime.executor import execute_plan
+from blaze_tpu_torch.plan.fingerprint import fingerprint_query
+from blaze_tpu_torch.runtime import (
+    artifacts, faults, journal, pipeline, resources, trace,
+)
+from blaze_tpu_torch.runtime import supervisor as supervisor_mod
+from blaze_tpu_torch.runtime.executor import (
+    execute_plan, run_task_with_resilience,
+)
+from blaze_tpu_torch.runtime.supervisor import Supervisor, TaskSpec
 from blaze_tpu_torch.spark import converters
 from blaze_tpu_torch.spark.aqe import (
     _all_partitions_resource, apply_dynamic_join_selection,
@@ -57,21 +74,18 @@ from blaze_tpu_torch.spark.stages import Stage, local_resource_id, plan_stages
 # Conversion critical section: converters._pending_exports is a process
 # global, so [discard stale, convert, drain] must be atomic per query.
 _convert_lock = threading.Lock()
-_query_ids = itertools.count()
 
 # conf knobs that would switch on a module the port does not have
 _LEFT_OUT = (
-    ("enable_supervisor", "runtime/supervisor.py"),
-    ("enable_pipeline", "runtime/pipeline.py"),
-    ("trace_enabled", "runtime/trace.py"),
     ("history_dir", "runtime/history.py"),
-    ("journal_dir", "runtime/journal.py"),
     ("progress_enabled", "runtime/progress.py"),
     ("autopilot_enabled", "runtime/autopilot.py"),
     ("flight_dir", "runtime/flight_recorder.py"),
     ("profile_enabled", "runtime/profiler.py"),
     ("executor_count", "runtime/executor_pool.py"),
     ("monitor_enabled", "runtime/monitor.py"),
+    ("trace_export_dir",
+     "the trace exporters of runtime/trace.py (export_query)"),
 )
 
 # per-task operator metrics summed into run_info: the whole-stage routes
@@ -101,33 +115,70 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     result batch, on `device` (None: the CUDA card).
 
     run_info: optional dict populated with execution-path counters
-    ("file_stages", "broadcast_stages", "map_tasks_run", and
-    `_TASK_METRICS` summed over every task), each stage's kind and host
-    wall time ("stage_s"), the query's "query_id", and its host
-    crossings: the FFI bridge's row-interpreter exports, their rows and
-    host seconds ("fallback_exports", "bridge_rows", "bridge_s"), the
+    ("file_stages", "broadcast_stages", "map_tasks_run",
+    "recovered_stages", and `_TASK_METRICS` summed over every task), each
+    stage's kind and host wall time ("stage_s"), the query's "query_id",
+    the resilience counters of the ladder and the supervisor ("retries",
+    "degradations", "degraded.<rung>", "ladder_rung", "errors.<category>",
+    "task_fallbacks", "breaker_trips", "hangs_detected",
+    "speculations_launched", "speculations_won", "faults_injected", ...),
+    the pipeline's ("pipeline_streams", "pipeline_live_streams"), and its
+    host crossings: the FFI bridge's row-interpreter exports, their rows
+    and host seconds ("fallback_exports", "bridge_rows", "bridge_s"), the
     batches FfiReaderExec handed on and those of them on the card
-    ("bridge_batches", "bridge_card_batches"), and the
-    host-evaluated functions' and UDF wrappers' crossings and host
-    seconds ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s")."""
+    ("bridge_batches", "bridge_card_batches"), and the host-evaluated
+    functions' and UDF wrappers' crossings and host seconds
+    ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s").
+
+    With conf.trace_enabled the whole run is a "query" span in the trace
+    (runtime/trace.py), and every stage and task below inherits its
+    query_id."""
     if run_info is None:
         run_info = {}
     _refuse_left_out(mesh_exchange)
     dev = resolve_device(device)
-    run_info["query_id"] = (run_info.get("query_id")
-                            or f"q{os.getpid()}-{next(_query_ids)}")
-    for key in (("file_stages", "broadcast_stages", "map_tasks_run")
-                + _TASK_METRICS):
+    qid = run_info.get("query_id") or trace.new_query_id()
+    run_info["query_id"] = qid
+    for key in (("file_stages", "broadcast_stages", "map_tasks_run",
+                 "recovered_stages") + _TASK_METRICS):
         run_info.setdefault(key, 0)
     run_info.setdefault("stage_s", [])
-    return _run_plan_inner(root, num_partitions, work_dir, run_info, dev)
+    # write-ahead journal: the admission record opens this query's
+    # crash-recovery log (no-op with journal_dir unset); the terminal
+    # record in the finally below settles it
+    jnl = journal.journal_for(qid)
+    if jnl is not None:
+        jnl.admitted()
+    try:
+        # correlation ids pushed whether or not tracing is on (a cheap
+        # stack push): pool threads replay them per task
+        with trace.context(query_id=qid):
+            with trace.profiled_span("run_plan"):
+                with trace.span("query", query_id=qid,
+                                num_partitions=num_partitions,
+                                mesh_exchange=mesh_exchange):
+                    return _run_plan_inner(root, num_partitions, work_dir,
+                                           run_info, dev, jnl)
+    finally:
+        if jnl is not None:
+            # a journal with a complete line never enters a replay
+            exc = sys.exc_info()[1]
+            jnl.complete("failed" if exc is not None else "ok",
+                         error=type(exc).__name__ if exc is not None
+                         else "")
 
 
 def _run_plan_inner(root: SparkPlan, num_partitions: int,
                     work_dir: Optional[str], run_info: Dict,
-                    device) -> ColumnBatch:
+                    device, jnl) -> ColumnBatch:
     # task setup reclaims dead writers' leftover spill files
     artifacts.sweep_orphans([conf.spill_dir])
+    # driver-crash recovery: replay incomplete journals once per process;
+    # verified stage commits land in the resume map each shuffle-map
+    # stage consults below
+    journal.ensure_recovery_scan()
+    telemetry_before = faults.TELEMETRY.snapshot()
+    pipeline_before = pipeline.TELEMETRY.snapshot()
     qid = run_info["query_id"]
     ns = f"{qid}/"
     with _convert_lock:
@@ -146,6 +197,18 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                 return fallback.export_iterator(_p, partition, nparts)
             resources.put(rid, provider)
     crossings = _crossings()
+    if jnl is not None:
+        # the plan record pins what this journal is a log OF: the
+        # pre-AQE query fingerprint and the stage skeleton (per-stage
+        # fingerprints, the resume keys, ride each stage_commit)
+        jnl.plan(fingerprint=fingerprint_query([fingerprint_plan(s.plan)
+                                                for s in stages]),
+                 num_partitions=num_partitions,
+                 stages=[{"stage_id": s.stage_id, "kind": s.kind,
+                          "num_partitions": s.num_partitions,
+                          "plan_proto": base64.b64encode(
+                              s.plan.SerializeToString()).decode()}
+                         for s in stages])
     work_dir = work_dir or tempfile.mkdtemp(prefix="blaze_tpu_torch_stages_")
     os.makedirs(work_dir, exist_ok=True)
 
@@ -153,6 +216,9 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
     # AQE statistics: completed shuffles' total bytes + partition counts
     shuffle_bytes: Dict[int, int] = {}
     shuffle_parts: Dict[int, int] = {}
+    # the query's worker pool, watchdog, speculation and circuit breaker;
+    # off, each stage runs inline on this thread
+    sup = Supervisor(run_info, device=device)
     try:
         for stage in stages:
             t0 = time.perf_counter()
@@ -161,17 +227,49 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
             if shuffle_bytes:
                 apply_dynamic_join_selection(stage.plan, shuffle_bytes,
                                              shuffle_parts)
+            # the executed (post-AQE) shape's fingerprint: the journal's
+            # resume key and the stage span's attribute
+            fp = (fingerprint_plan(stage.plan)
+                  if conf.trace_enabled or jnl is not None else None)
             if stage.kind == "shuffle_map":
                 shuffle_parts[stage.stage_id] = stage.num_partitions
-                shuffle_bytes[stage.stage_id] = _run_shuffle_stage(
-                    stage, stages, shuffle_mgr, run_info, ns, device)
-                run_info["file_stages"] += 1
+                with trace.context(stage_id=stage.stage_id), \
+                        trace.span("stage", stage_id=stage.stage_id,
+                                   stage_kind="shuffle_map",
+                                   fingerprint=fp,
+                                   tasks=_input_tasks(stage, stages)) as sp:
+                    logical = None
+                    if jnl is not None and fp:
+                        # a crashed driver's verified stage commit for
+                        # this fingerprint: reuse it, no map task runs
+                        logical = _resume_shuffle_stage(
+                            stage, stages, shuffle_mgr, fp, jnl, run_info,
+                            ns, device)
+                        if logical is not None:
+                            sp.set(transport="journal", bytes=logical)
+                    if logical is None:
+                        logical = _run_shuffle_stage(
+                            stage, stages, shuffle_mgr, sup, run_info, ns,
+                            device, jnl=jnl, fp=fp)
+                        run_info["file_stages"] += 1
+                        sp.set(transport="file", bytes=logical)
+                    shuffle_bytes[stage.stage_id] = logical
             elif stage.kind == "broadcast":
-                _run_broadcast_stage(stage, stages, run_info, ns, device)
+                with trace.context(stage_id=stage.stage_id), \
+                        trace.span("stage", stage_id=stage.stage_id,
+                                   stage_kind="broadcast",
+                                   fingerprint=fp, tasks=1):
+                    _run_broadcast_stage(stage, stages, sup, run_info, ns,
+                                         device)
                 run_info["broadcast_stages"] += 1
             else:
                 parts = _input_tasks(stage, stages, fallback=num_partitions)
-                out = _run_result_stage(stage, parts, run_info, device)
+                with trace.context(stage_id=stage.stage_id), \
+                        trace.span("stage", stage_id=stage.stage_id,
+                                   stage_kind="result",
+                                   fingerprint=fp, tasks=parts):
+                    out = _run_result_stage(stage, parts, sup, run_info,
+                                            device)
             # a stage ends in host reads (commits, frames, the collect),
             # so the host clock covers its device work
             run_info["stage_s"].append(
@@ -180,6 +278,16 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                 return _merge_fallback_root_sort(root, out, parts)
         raise AssertionError("no result stage produced")
     finally:
+        sup.close()
+        faults.run_info_delta(telemetry_before, run_info)
+        # the query's pipelined streams and sinks, and the ones still
+        # open (0 once every task stream is torn down)
+        after = pipeline.TELEMETRY.snapshot()
+        run_info["pipeline_streams"] = (
+            after.get("streams_opened", 0) + after.get("sinks_opened", 0)
+            - pipeline_before.get("streams_opened", 0)
+            - pipeline_before.get("sinks_opened", 0))
+        run_info["pipeline_live_streams"] = pipeline.live_streams()
         for key, value in _crossings().items():
             run_info[key] = run_info.get(key, 0) + value - crossings[key]
         # release the query's registry entries and shuffle files
@@ -209,11 +317,21 @@ def _crossings() -> Dict[str, float]:
 
 def _merge_fallback_root_sort(root: SparkPlan, out: ColumnBatch,
                               parts: int) -> ColumnBatch:
-    """Ordered collect for a NeverConvert root sort: a native root sort
-    merges in _run_result_stage, but a fallback root sort ordered each
-    partition only, so merge on the row engine."""
-    if (root.kind != "SortExec" or parts <= 1
-            or root.strategy != "NeverConvert"):
+    """Ordered collect for a NeverConvert root sort or limit: a native
+    root merges in _run_result_stage, but a fallback root ordered and
+    limited each partition only, so merge on the row engine: sort the
+    partitions' rows again (the sort under a root limit, if any) and
+    apply the root limit."""
+    lim = None
+    srt = root
+    if root.kind in ("GlobalLimitExec", "LocalLimitExec"):
+        lim = root.attrs["limit"]
+        srt = root.children[0]
+        while srt.kind == "LocalLimitExec":
+            lim = min(lim, srt.attrs["limit"])
+            srt = srt.children[0]
+    if parts <= 1 or root.strategy != "NeverConvert" or (
+            lim is None and root.kind != "SortExec"):
         return out
     import pandas as pd
 
@@ -221,9 +339,12 @@ def _merge_fallback_root_sort(root: SparkPlan, out: ColumnBatch,
     from blaze_tpu_torch.spark import fallback
 
     df = pd.DataFrame(out.to_numpy())
-    srt = SparkPlan("SortExec", root.schema, [], dict(root.attrs))
-    merged = fallback._op_sort_frame(srt, df)
-    return batch_from_arrow(fallback._to_arrow(merged, root.schema),
+    if srt.kind == "SortExec":
+        df = fallback._op_sort_frame(
+            SparkPlan("SortExec", root.schema, [], dict(srt.attrs)), df)
+    if lim is not None:
+        df = df.head(lim).reset_index(drop=True)
+    return batch_from_arrow(fallback._to_arrow(df, root.schema),
                             schema=root.schema, device=out.device)
 
 
@@ -249,39 +370,223 @@ def _note_metrics(op: Operator, run_info: Dict) -> None:
 
 
 def _run_shuffle_stage(stage: Stage, stages: List[Stage], shuffle_mgr,
-                       run_info: Dict, ns: str, device) -> int:
+                       sup: Supervisor, run_info: Dict, ns: str, device,
+                       jnl=None, fp=None) -> int:
     """Runs the map tasks through the shuffle manager (register ->
     per-task writer slot -> commit MapStatus -> reduce-side reader
     resource); returns the stage's total LOGICAL output bytes
-    (uncompressed, live rows only — the AQE statistic)."""
+    (uncompressed, live rows only — the AQE statistic).
+
+    Each map task is a re-runnable resilience unit: the writer's
+    crash-atomic commit means a failed attempt left no final files, so a
+    retry runs again. A speculative twin and its primary arbitrate the
+    publish through the context's commit gate. The ladder's last rung
+    re-runs the task's map subtree (stage.source) on the row interpreter,
+    feeding the native shuffle writer through an ipc_reader: the
+    committed files have the same format either way."""
     ntasks = _input_tasks(stage, stages)
     # the reader schema is the writer's input schema
     reader_schema = decode_plan(stage.plan.shuffle_writer.input).schema
     handle = shuffle_mgr.register_shuffle(
         stage.stage_id, stage.num_partitions, reader_schema)
-    logical = 0
+    op_kinds = stage.op_kinds()
+    specs: List[TaskSpec] = []
+    slots = []
     for task in range(ntasks):
         node = pb.PlanNode()
         node.CopyFrom(stage.plan)
         slot = shuffle_mgr.get_writer(handle, task)
         node.shuffle_writer.data_file = slot.data_path
         node.shuffle_writer.index_file = slot.index_path
-        op = decode_plan(node)  # fresh operator state per task
-        list(execute_plan(op, ExecContext(partition=task,
-                                          num_partitions=ntasks,
-                                          device=device)))
+
+        def attempt(ctx, node=node):
+            op = decode_plan(node)  # fresh operator state per attempt
+            list(execute_plan(op, ctx))
+            return op
+
+        fb = (None if stage.source is None else
+              lambda node=node, task=task: _fallback_shuffle_task(
+                  stage, node, task, ntasks, device))
+        specs.append(TaskSpec(
+            what=f"shuffle_map[{stage.stage_id}:{task}]",
+            attempt_fn=attempt, partition=task, num_partitions=ntasks,
+            fallback_fn=fb, op_kinds=op_kinds))
+        slots.append(slot)
+    ops = sup.run_tasks(("shuffle", stage.stage_id), specs)
+    logical = 0
+    for task, (op, slot) in enumerate(zip(ops, slots)):
         _note_metrics(op, run_info)
-        logical += op.metrics["shuffle_logical_bytes"]
+        written = op.metrics["shuffle_logical_bytes"]
+        trace.record_value("shuffle_write_bytes", written)
+        logical += written
+        _register_slot_repair(stage, slot, task, ntasks, run_info, device)
         slot.commit()
     run_info["map_tasks_run"] += ntasks
+    if jnl is not None and fp:
+        jnl.stage_commit(stage.stage_id, fp, logical,
+                         _journal_outputs(slots))
     resources.put(f"{ns}shuffle:{stage.stage_id}",
                   lambda partition: shuffle_mgr.get_reader_host(handle,
                                                                 partition))
     return logical
 
 
-def _run_broadcast_stage(stage: Stage, stages: List[Stage], run_info: Dict,
-                         ns: str, device) -> List[bytes]:
+# repair attempts are epoch-stamped off this fence, so a re-run map output
+# never collides with its quarantined predecessor's name
+_repair_fence = artifacts.EpochFence()
+
+
+def _journal_outputs(slots) -> List[dict]:
+    """stage_commit payload: each map output's committed paths, epoch
+    and whole-file digest (the recovery scan's cross-check)."""
+    outs = []
+    for slot in slots:
+        crc = None
+        try:
+            _raw, meta = artifacts.read_index(slot.index_path)
+            if meta is not None:
+                crc = meta["data_crc"]
+        except (OSError, faults.CorruptArtifactError):
+            pass
+        outs.append({"map_id": slot.map_id,
+                     "data_path": slot.data_path,
+                     "index_path": slot.index_path,
+                     "epoch": artifacts.epoch_of(slot.data_path),
+                     "data_crc": crc})
+    return outs
+
+
+def _register_stage_repairs(stage: Stage, slots, ntasks: int,
+                            run_info=None, device=None) -> None:
+    for task, slot in enumerate(slots):
+        _register_slot_repair(stage, slot, task, ntasks, run_info, device)
+
+
+def _register_slot_repair(stage: Stage, slot, task: int, ntasks: int,
+                          run_info=None, device=None) -> None:
+    """Arm lineage repair for one committed map output: on read-path
+    corruption (artifacts.handle_corruption) ONLY the producing map task
+    re-runs, in-process, under a fresh repair epoch so the new pair never
+    collides with the quarantined names; it recommits and replaces its
+    MapStatus (shuffle_manager replaces by map_id). Armed BEFORE the
+    slot's own commit: the MapStatus parse is itself a verifying read.
+    unregister_shuffle forgets the registration with the files."""
+    node = pb.PlanNode()
+    node.CopyFrom(stage.plan)
+
+    def repair(task=task, slot=slot, node=node):
+        epoch = _repair_fence.advance(slot.data_path)
+        new_data = artifacts.stamp_epoch(slot.data_path, epoch)
+        new_index = artifacts.stamp_epoch(slot.index_path, epoch)
+        node.shuffle_writer.data_file = new_data
+        node.shuffle_writer.index_file = new_index
+        op = decode_plan(node)
+        list(execute_plan(op, ExecContext(partition=task,
+                                          num_partitions=ntasks,
+                                          device=device)))
+        slot.data_path, slot.index_path = new_data, new_index
+        slot.commit()
+        if run_info is not None:
+            run_info["map_tasks_run"] = (
+                run_info.get("map_tasks_run", 0) + 1)
+        # the repaired pair is itself repairable; the registration under
+        # the OLD name stays to serve its redirect
+        artifacts.register_repair(new_data, repair)
+        return new_data, new_index
+
+    artifacts.register_repair(slot.data_path, repair)
+
+
+def _resume_shuffle_stage(stage: Stage, stages: List[Stage], shuffle_mgr,
+                          fp: str, jnl, run_info, ns: str = "",
+                          device=None) -> Optional[int]:
+    """Reuse a crashed driver's committed stage: when the recovery scan
+    harvested a VERIFIED stage_commit for this stage's fingerprint, the
+    journaled pairs become this run's map outputs and no map task runs
+    (`map_tasks_run` shows it). Returns the stage's logical bytes, or
+    None to run it normally."""
+    rec = journal.take_resume(fp)
+    if rec is None:
+        return None
+    ntasks = _input_tasks(stage, stages)
+    outputs = sorted(rec.get("outputs") or [],
+                     key=lambda o: int(o.get("map_id", 0)))
+    if len(outputs) != ntasks:
+        return None  # partitioning changed since the crash: recompute
+    reader_schema = decode_plan(stage.plan.shuffle_writer.input).schema
+    handle = shuffle_mgr.register_shuffle(
+        stage.stage_id, stage.num_partitions, reader_schema)
+    try:
+        for task, out in enumerate(outputs):
+            slot = shuffle_mgr.get_writer(handle, task)
+            slot.data_path = str(out["data_path"])
+            slot.index_path = str(out["index_path"])
+            _register_slot_repair(stage, slot, task, ntasks, run_info,
+                                  device)
+            slot.commit()
+    except (OSError, ValueError, KeyError, faults.CorruptArtifactError):
+        # artifacts vanished between scan and resume: run the stage
+        shuffle_mgr.unregister_shuffle(stage.stage_id, delete_files=False)
+        return None
+    logical = int(rec.get("logical_bytes", 0))
+    trace.event("journal_replay", stage_id=stage.stage_id,
+                fingerprint=fp, tasks=ntasks)
+    run_info["recovered_stages"] = run_info.get("recovered_stages", 0) + 1
+    journal.note_query_recovered(run_info.get("query_id", ""))
+    # re-journal under THIS query's id: a second crash resumes the same
+    jnl.stage_commit(stage.stage_id, fp, logical, outputs)
+    resources.put(f"{ns}shuffle:{stage.stage_id}",
+                  lambda partition: shuffle_mgr.get_reader_host(handle,
+                                                                partition))
+    return logical
+
+
+def _fallback_shuffle_task(stage: Stage, node: pb.PlanNode, task: int,
+                           ntasks: int, device=None):
+    """Ladder rung 3 for a map task: run the map subtree on the row
+    interpreter and pipe its Arrow batches into the NATIVE shuffle writer
+    through an ipc_reader: repartitioning, serde and the atomic commit
+    stay on the engine path, so readers cannot tell a degraded map output
+    from a healthy one."""
+    from blaze_tpu_torch.columnar.arrow_io import batch_from_arrow
+    from blaze_tpu_torch.plan.to_proto import encode_schema
+    from blaze_tpu_torch.spark import fallback
+    from blaze_tpu_torch.spark.converters import bridge_schema
+
+    sch = bridge_schema(stage.source)
+    # qid-prefixed: concurrent queries run fallback tasks with the same
+    # (sid, task) pair; the worker thread's trace context names the query
+    qid = trace.current_context().get("query_id", "")
+    rid = f"{qid}/__fallback_src:{stage.stage_id}:{task}"
+
+    def provider(partition=task, nparts=ntasks):
+        for rb in fallback.export_iterator(stage.source, partition, nparts):
+            yield batch_from_arrow(rb, schema=sch, device=device)
+
+    resources.put(rid, provider)
+    try:
+        node2 = pb.PlanNode()
+        node2.CopyFrom(node)
+        reader = pb.PlanNode()
+        reader.ipc_reader.schema.CopyFrom(encode_schema(sch))
+        reader.ipc_reader.provider_resource_id = rid
+        reader.ipc_reader.num_partitions = ntasks
+        node2.shuffle_writer.input.CopyFrom(reader)
+        op = decode_plan(node2)
+        # inherit the supervised task's commit gate (if any): a fallback
+        # racing a speculative twin must still arbitrate the publish
+        ctx = ExecContext(partition=task, num_partitions=ntasks,
+                          device=device,
+                          commit_gate=supervisor_mod.current_commit_gate())
+        list(execute_plan(op, ctx))
+        return op
+    finally:
+        resources.pop(rid)
+
+
+def _run_broadcast_stage(stage: Stage, stages: List[Stage],
+                         sup: Supervisor, run_info: Dict, ns: str,
+                         device) -> List[bytes]:
     # a broadcast stage runs ONE task but must see its upstream shuffles'
     # WHOLE output — a plan like broadcast(final_agg(exchange(...)))
     # would otherwise read only partition 0 and broadcast a quarter of
@@ -289,13 +594,63 @@ def _run_broadcast_stage(stage: Stage, stages: List[Stage], run_info: Dict,
     _rewrite_shuffle_readers_all(stage.plan, stages)
     frames: List[bytes] = []
     resources.put(f"{ns}broadcast_sink:{stage.stage_id}", frames.append)
-    op = decode_plan(stage.plan)
-    list(execute_plan(op, ExecContext(partition=0, num_partitions=1,
-                                      device=device)))
-    _note_metrics(op, run_info)
+
+    def attempt(ctx):
+        del frames[:]  # a half-pushed earlier attempt must not leak frames
+        op = decode_plan(stage.plan)
+        list(execute_plan(op, ctx))
+        return op
+
+    fb = (None if stage.source is None else
+          lambda: _fallback_broadcast_task(stage, stages, frames, device))
+    # speculatable=False: both twins would push into the ONE frames sink
+    (op,) = sup.run_tasks(("broadcast", stage.stage_id), [TaskSpec(
+        what=f"broadcast[{stage.stage_id}]", attempt_fn=attempt,
+        partition=0, num_partitions=1, fallback_fn=fb,
+        op_kinds=stage.op_kinds(), speculatable=False)])
+    if op is not None:
+        _note_metrics(op, run_info)
     resources.put(f"{ns}broadcast:{stage.stage_id}",
                   lambda partition=0: iter(list(frames)))
     return frames
+
+
+def _fallback_broadcast_task(stage: Stage, stages: List[Stage],
+                             frames: List[bytes], device=None) -> None:
+    """Ladder rung 3 for a broadcast stage: the collect subtree runs on
+    the row interpreter (reading ALL upstream shuffle partitions, like the
+    native rewrite) and its batches are serialized into the frame format
+    the sink's consumers replay."""
+    from blaze_tpu_torch.columnar import serde
+    from blaze_tpu_torch.columnar.arrow_io import batch_from_arrow
+    from blaze_tpu_torch.spark import fallback
+    from blaze_tpu_torch.spark.converters import bridge_schema
+
+    del frames[:]
+    src = _copy_tree_readers_all(stage.source, stages)
+    sch = bridge_schema(src)
+    for rb in fallback.export_iterator(src, 0, 1):
+        frames.append(serde.serialize_batch(
+            batch_from_arrow(rb, schema=sch, device=device)))
+
+
+def _copy_tree_readers_all(plan: SparkPlan, stages: List[Stage]) -> SparkPlan:
+    """Copy a SparkPlan tree, pointing shuffle __IpcReaders at the
+    all-partitions resource (the SparkPlan twin of
+    _rewrite_shuffle_readers_all; copies because stage.source is shared
+    with future retries)."""
+    attrs = dict(plan.attrs)
+    if plan.kind == "__IpcReader":
+        rid = attrs.get("resource_id", "")
+        local = local_resource_id(rid)
+        if local.startswith("shuffle:") and not local.endswith(":all"):
+            sid = int(local.split(":")[1])
+            attrs["resource_id"] = _all_partitions_resource(
+                rid, stages[sid].num_partitions)
+            attrs["num_partitions"] = 1
+    return SparkPlan(plan.kind, plan.schema,
+                     [_copy_tree_readers_all(c, stages)
+                      for c in plan.children], attrs)
 
 
 def _rewrite_shuffle_readers_all(node: pb.PlanNode,
@@ -322,6 +677,20 @@ def _rewrite_shuffle_readers_all(node: pb.PlanNode,
                     _rewrite_shuffle_readers_all(child, stages)
             else:
                 _rewrite_shuffle_readers_all(val, stages)
+
+
+def _fallback_result_task(stage: Stage, p: int, parts: int, schema,
+                          device=None) -> List[ColumnBatch]:
+    """Ladder rung 3 for one result-stage task: the full result subtree
+    (including any root sort the native path strips for the host-ordered
+    collect; re-sorting sorted rows changes nothing) runs on the row
+    interpreter and comes back as one batch on `device`, counted as an
+    export in `metrics.BRIDGE` (run_info's "fallback_exports")."""
+    from blaze_tpu_torch.columnar.arrow_io import batch_from_arrow
+    from blaze_tpu_torch.spark import fallback
+
+    rb = fallback.export_batch(stage.source, p, parts, schema)
+    return [batch_from_arrow(rb, schema=schema, device=device)]
 
 
 def _root_sort_split(op):
@@ -351,8 +720,8 @@ def _root_sort_split(op):
     return None
 
 
-def _run_result_stage(stage: Stage, parts: int, run_info: Dict,
-                      device) -> ColumnBatch:
+def _run_result_stage(stage: Stage, parts: int, sup: Supervisor,
+                      run_info: Dict, device) -> ColumnBatch:
     """`parts` is the upstream exchange's partition count (_input_tasks) —
     NOT the global default: an 8-way repartition read with 4 tasks would
     silently drop half the shuffle partitions."""
@@ -374,32 +743,59 @@ def _run_result_stage(stage: Stage, parts: int, run_info: Dict,
         # any task runs
         ParquetSinkExec.clear_stale_parts(op.path)
 
-    batches: List[ColumnBatch] = []
+    op_kinds = stage.op_kinds()
+    specs: List[TaskSpec] = []
     for p in range(parts):
-        op_p = decode_plan(stage.plan)  # fresh operator state per task
-        for _ in range(strip):
-            op_p = op_p.children[0]
-        ctx = ExecContext(partition=p, num_partitions=parts, device=device)
-        staged = try_run_stage(op_p, ctx)
-        batches.extend([staged] if staged is not None
-                       else execute_plan(op_p, ctx))
-        _note_metrics(op_p, run_info)
+        def attempt(task_ctx):
+            op_p = decode_plan(stage.plan)  # fresh operator state per task
+            for _ in range(strip):
+                op_p = op_p.children[0]
+            staged = try_run_stage(op_p, task_ctx)
+            out = ([staged] if staged is not None
+                   else list(execute_plan(op_p, task_ctx)))
+            return out, op_p
+
+        fb = (None if stage.source is None else
+              lambda p=p: (_fallback_result_task(stage, p, parts, op.schema,
+                                                 device), None))
+        specs.append(TaskSpec(
+            what=f"result[{stage.stage_id}:{p}]", attempt_fn=attempt,
+            partition=p, num_partitions=parts, fallback_fn=fb,
+            op_kinds=op_kinds))
+    batches: List[ColumnBatch] = []
+    for out, op_p in sup.run_tasks(("result", stage.stage_id), specs):
+        batches.extend(out)
+        if op_p is not None:
+            _note_metrics(op_p, run_info)
 
     if split is not None:
-        # ordered collect: ONE pull per partition result, order + truncate
-        # on the host, and hand the driver the host view (no second pull)
-        specs, limit, _ = split
-        hbs = [serde.to_host(b) for b in batches if int(b.num_rows) > 0]
-        if not hbs:
+        specs_, limit, _ = split
+        if not batches:
             return ColumnBatch.empty(op.schema, device=device)
-        hb = host_sort.host_concat(hbs)
-        perm = host_sort.sort_perm(hb, specs)
-        if limit is not None:
-            perm = perm[:limit]
-        hb = host_sort.host_take(hb, perm)
-        out = host_sort.host_to_device(hb, device=device)
-        out._host_numpy = host_sort.host_to_pylike(hb)
-        return out
+
+        def merge():
+            # ordered collect: ONE pull per partition result, order and
+            # truncate on the host, and hand the driver the host view (no
+            # second pull). A pure function of `batches`, so a failed
+            # pull or upload mid-merge simply runs again
+            hbs = [serde.to_host(b) for b in batches if int(b.num_rows) > 0]
+            if not hbs:
+                return ColumnBatch.empty(op.schema, device=device)
+            hb = host_sort.host_concat(hbs)
+            perm = host_sort.sort_perm(hb, specs_)
+            if limit is not None:
+                perm = perm[:limit]
+            hb = host_sort.host_take(hb, perm)
+            out = host_sort.host_to_device(hb, device=device)
+            out._host_numpy = host_sort.host_to_pylike(hb)
+            return out
+
+        # the merge runs inline on the driver (it needs every partition's
+        # batches) but still honours the deadlines and the breaker
+        return run_task_with_resilience(
+            merge, what=f"result_merge[{stage.stage_id}]",
+            run_info=run_info, deadline=sup.deadline(),
+            on_error=sup.breaker.note_failure)
 
     if not batches:
         return ColumnBatch.empty(op.schema, device=device)

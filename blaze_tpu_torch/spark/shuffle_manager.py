@@ -12,10 +12,9 @@ driver tracks for fetch planning.
 This module is that API over the engine's file format (ops/shuffle.py
 writes concatenated per-partition frame streams + a little-endian u64
 offsets index with a checksum footer). The local runner drives it for
-every file-path exchange. The JAX package's commit quarantines a corrupt
-index and repairs it through the map task's lineage; that path is not
-ported, so a corrupt index raises `CorruptArtifactError`, as the port's
-reader does.
+every file-path exchange. A corrupt index found at commit is quarantined
+and repaired through the map task's lineage (runtime/artifacts.py), and
+the commit goes on with the repaired pair.
 """
 
 from __future__ import annotations
@@ -73,11 +72,17 @@ class ShuffleWriteSlot:
         """Parse the committed .index into partition lengths and register
         the MapStatus (ref: BlazeShuffleWriterBase.scala:84-109).
         artifacts.read_index strips (and verifies) the checksum footer
-        before the offsets are interpreted; a corrupt index raises
-        CorruptArtifactError."""
+        before the offsets are interpreted; a corrupt index is
+        quarantined and repaired through the registered lineage closure
+        before the commit goes on with the repaired pair."""
         from blaze_tpu_torch.runtime import artifacts
 
-        raw, _meta = artifacts.read_index(self.index_path)
+        try:
+            raw, _meta = artifacts.read_index(self.index_path)
+        except artifacts.CorruptArtifactError as e:
+            self.data_path, self.index_path = artifacts.handle_corruption(
+                self.data_path, self.index_path, str(e))
+            raw, _meta = artifacts.read_index(self.index_path)
         offsets = np.frombuffer(raw, "<u8")
         expected = self.handle.num_partitions + 1
         if len(offsets) != expected:
@@ -117,14 +122,25 @@ class BlazeShuffleManager:
         self._map_outputs[shuffle_id] = []
         return handle
 
-    def unregister_shuffle(self, shuffle_id: int) -> None:
+    def unregister_shuffle(self, shuffle_id: int,
+                           delete_files: bool = True) -> None:
+        from blaze_tpu_torch.runtime import artifacts
+
         self._handles.pop(shuffle_id, None)
         for st in self._map_outputs.pop(shuffle_id, []):
-            for p in (st.data_path, st.index_path):
-                try:
-                    os.remove(p)
-                except OSError:
-                    pass
+            # the lineage-repair registration dies with its output, and so
+            # does the redirect from the slot's first name to a repaired
+            # pair: a later query reusing the work dir writes that name
+            # again and must not be sent to the quarantined lineage
+            artifacts.forget_repair(st.data_path)
+            artifacts.forget_repair(os.path.join(
+                self.work_dir, f"shuffle_{shuffle_id}_{st.map_id}.data"))
+            if delete_files:
+                for p in (st.data_path, st.index_path):
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
 
     # -- map side -----------------------------------------------------
 
@@ -186,4 +202,7 @@ class BlazeShuffleManager:
                     continue
                 yield from read_shuffle_partition_host(
                     st.data_path, st.index_path, partition, handle.schema)
+        # readahead happens in the consumer (IpcReaderExec wraps every
+        # provider stream in pipeline.prefetch with the task's kill scope
+        # and memory budget); this stays a plain generator
         return gen()

@@ -41,9 +41,32 @@ class Stage:
     num_partitions: int
     depends_on: List[int]
     # the SparkPlan subtree this stage's plan was converted from: what
-    # the JAX package's resilience ladder re-runs on its row interpreter
-    # (spark/fallback.py, not ported)
+    # the resilience ladder re-runs on the row interpreter
+    # (spark/fallback.py) when a task exhausts every native rung
     source: Optional[SparkPlan] = None
+    _op_kinds: Optional[frozenset] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def op_kinds(self) -> frozenset:
+        """Operator kinds in this stage's task plan: the circuit
+        breaker's reroute key (a tripped kind reroutes every remaining
+        task whose plan holds it). Cached: every task of the stage shares
+        one plan shape."""
+        if self._op_kinds is None:
+            from blaze_tpu_torch.plan.from_proto import decode_plan
+
+            try:
+                stack = [decode_plan(self.plan)]
+            except Exception:  # noqa: BLE001 - attribution, never fatal
+                self._op_kinds = frozenset()
+                return self._op_kinds
+            kinds = set()
+            while stack:
+                op = stack.pop()
+                kinds.add(op.name())
+                stack.extend(op.children)
+            self._op_kinds = frozenset(kinds)
+        return self._op_kinds
 
 
 def local_resource_id(rid: str) -> str:

@@ -100,7 +100,8 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 and q04 against numpy and against phases 13 and 14's
                 rows, q09's four bucket averages against numpy, rtol
                 1e-9) and once timed; run_info's stage counts, routes,
-                launches and host pulls
+                launches and host pulls, and peak device memory (every
+                runner query of phases 15-20 reports its peak)
  16. runner_strings  spark/tpcds.py's q03, q06, q07 and q08 (BHJ) the same
                 way, over phase 12's store_sales files and the dimension
                 tables it also writes at SF100's row counts (item 204,000,
@@ -151,9 +152,31 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 host a batch, a root sort on the row interpreter); each
                 against numpy, hashlib and zlib, once timed; the bridge's
                 rows and host seconds and the host crossings reported
+ 20. runner_resilience  the task runtime at its defaults (phases 1-19 run
+                with conf.enable_supervisor and conf.enable_pipeline off,
+                the inline route their earlier numbers were taken on):
+                tpcds.py's q02 and q04 (BHJ) through run_plan with the
+                runtime's knobs at config.py's defaults: the supervisor's
+                pool of 4 tasks, the threaded pipeline (4 I/O threads, 2
+                batches ahead), the trace off; each against numpy and
+                phase 15's rows, q02 with phase 15's launch count, no
+                task retried, degraded or rerouted; each stage's time
+                beside phase 15's inline route, the pipeline's streams
+                (none left open) and peak device memory. Then both once
+                more with the trace on, labelled "traced" (its on_batch
+                reads every batch's row count to the host). Then the
+                resilience ladder, its faults seeded
+                from --seed, on q09 (and q02 over one file a fact table,
+                SMJ): a retryable fault at serde.encode is retried; an
+                oom at every IpcReaderExec batch walks the ladder's three
+                rungs and ends on the row interpreter; a stall past
+                hang_detect_ms is killed and relaunched; and a stalled
+                join task past speculation_multiplier loses to its twin,
+                every map output published exactly once. Each case's rows
+                against numpy and its run_info counters printed
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-19 have run_plan convert and decode
+decode_task_definition; phases 15-20 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -1906,6 +1929,9 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                  for i, p in enumerate(paths[table])]
     q02 = [np.zeros(2101 * 4), np.zeros(2101 * 4, np.int64),
            np.zeros(2101 * 4)]
+    # q02 over the first file of each fact table (runner_resilience's
+    # speculation case)
+    q02_first = [np.zeros(2101 * 4), np.zeros(2101 * 4, np.int64)]
     q04 = {(t, y): [np.zeros(CUSTOMERS + 1),
                     np.zeros(CUSTOMERS + 1, np.int64),
                     np.zeros(CUSTOMERS + 1)]
@@ -1915,7 +1941,7 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
     q09 = np.zeros((len(Q09_BUCKETS), 3))
     strings = {}
     with cf.ThreadPoolExecutor(max_workers=8) as ex:
-        for (table, _, _, _), part in zip(jobs, ex.map(
+        for (table, i, _, _), part in zip(jobs, ex.map(
                 lambda j: _fact_file(seed, j[0], j[1], j[2], dd, dims, j[3]),
                 jobs)):
             q09 += part.get("q09", 0)
@@ -1938,6 +1964,9 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
                 q02[0] += part["q02"][0]
                 q02[1] += part["q02"][1]
                 q02[2] += part["q02_cents"]
+                if i == 0:
+                    q02_first[0] += part["q02"][0]
+                    q02_first[1] += part["q02"][1]
             for y, (c, p, pc) in part.get("q04", {}).items():
                 acc = q04[(table, y)]
                 acc[0] += np.bincount(c, weights=p, minlength=CUSTOMERS + 1)
@@ -1946,8 +1975,8 @@ def write_tpcds(work_dir, seed=TPCDS_SEED):
     t0 = time.perf_counter()
     nested.update(_nested_oracles(parts), q05_sales=q05_sales,
                   nested_oracle_s=time.perf_counter() - t0)
-    return paths, dict(strings, q02=q02, q04=q04, q09=q09, q03_rev=q03_rev,
-                       **nested)
+    return paths, dict(strings, q02=q02, q02_first=q02_first, q04=q04,
+                       q09=q09, q03_rev=q03_rev, **nested)
 
 
 def _q02_oracle(orc):
@@ -2479,6 +2508,12 @@ def check_q09(out, orc):
 RUNNER_INFO = ("file_stages", "broadcast_stages", "map_tasks_run",
                "stage_compiled", "stage_fallbacks", "stage_s",
                "bytes_scanned", "fallback_exports", "bridge_rows")
+# the ladder's run_info counters that a run with no fault armed leaves at
+# 0 (or unset): any other value means a task left its route (retried,
+# degraded, moved to the row interpreter, rerouted by the breaker or
+# killed as hung)
+ROUTE_KEPT = ("retries", "degradations", "task_fallbacks",
+              "breaker_reroutes", "hangs_detected")
 
 
 def _runner_plan(q, paths, mode="bhj", tpcds=None):
@@ -2536,17 +2571,26 @@ def _runner_run(q, paths, work_dir, check, plan=None, info_keys=RUNNER_INFO,
     info = {}
     _reset_counts()
     spills = memory.get_manager().spill_count
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = run_plan(plan, work_dir=os.path.join(work_dir, "runner", q),
                    run_info=info)
     rows = out.to_numpy()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     _require(exports or info["fallback_exports"] == 0,
              f"{q}: {info['fallback_exports']} subtrees ran on the host row "
              f"interpreter")
+    ladder = dict({k: info.get(k, 0) for k in ROUTE_KEPT}, **{
+        k: v for k, v in info.items()
+        if k.startswith(("errors.", "degraded."))})
+    _require(not any(ladder.values()),
+             f"{q}: a task left its route with no fault armed: {ladder}")
     check(out)
     return dict({k: info[k] for k in info_keys}, wall_s=wall, rows=rows,
+                ladder=ladder,
                 spills=memory.get_manager().spill_count - spills,
+                peak_device_bytes=peak,
                 launches=mxu_agg.KERNEL_LAUNCHES,
                 host_pulls=metrics.HOST_PULLS,
                 # io_time_ns: Arrow to device, host conversion plus copies
@@ -2598,7 +2642,8 @@ def phase_runner_tpcds(paths, orc, work_dir, hand_q02, hand_q04) -> dict:
     q02["hand_built_map_plus_reduce_s"] = (hand_q02["median_map_s"]
                                            + hand_q02["median_reduce_s"])
     _emit(res)
-    res["q02_rows"] = rows["q02"]    # for runner_spark_json; not printed
+    # for runner_spark_json and runner_resilience; not printed
+    res["q02_rows"], res["q04_rows"] = rows["q02"], rows["q04"]
     return res
 
 
@@ -2682,12 +2727,12 @@ def _profiled_map_stage(q, paths, work_dir) -> dict:
     real = local_runner._run_shuffle_stage
     prof = {}
 
-    def profiled(stage, *args):
+    def profiled(stage, *args, **kwargs):
         if prof:  # only the first map stage
-            return real(stage, *args)
+            return real(stage, *args, **kwargs)
         t0 = time.perf_counter()
         rows, busy_ms = _device_profile(lambda: prof.setdefault(
-            "ret", real(stage, *args)))
+            "ret", real(stage, *args, **kwargs)))
         wall = time.perf_counter() - t0
         prof.update(task_wall_s=wall, device_busy_ms=busy_ms,
                     idle_share=1.0 - busy_ms / (wall * 1e3),
@@ -3927,6 +3972,221 @@ def phase_runner_spark_json(paths, orc, work_dir, runner) -> dict:
     return res
 
 
+RESILIENCE_INFO = RUNNER_INFO + ("pipeline_streams",
+                                  "pipeline_live_streams")
+# the task runtime's knobs; runner_resilience sets each to its default in
+# config.py's KNOBS
+RUNTIME_KNOBS = ("enable_supervisor", "enable_pipeline",
+                 "max_concurrent_tasks", "io_threads", "prefetch_batches",
+                 "trace_enabled")
+# the run_info counters of the ladder and the supervisor
+LADDER_INFO = ("retries", "degradations", "ladder_rung", "task_fallbacks",
+               "faults_injected", "stalls_injected", "hangs_detected",
+               "breaker_trips", "breaker_reroutes", "speculations_launched",
+               "speculations_won")
+
+
+class _knobs:
+    """conf knobs set for a block, restored after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: getattr(conf, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(conf, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(conf, k, v)
+        return False
+
+
+def _ladder_case(q, paths, work_dir, check, spec, mode="bhj", **knobs):
+    """One run of q under the fault spec (and knobs), checked against
+    numpy: (run_info's ladder counters, wall seconds)."""
+    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    info = {}
+    plan = _runner_plan(q, paths, mode)
+    faults.install(spec)
+    t0 = time.perf_counter()
+    try:
+        with _knobs(**knobs):
+            out = run_plan(plan, work_dir=os.path.join(
+                work_dir, "resilience", q), run_info=info)
+    finally:
+        faults.install(None)
+    wall = time.perf_counter() - t0
+    check(out)
+    counts = {k: v for k, v in info.items()
+              if k in LADDER_INFO or k.startswith(("errors.", "degraded."))}
+    # every task the ladder moved to the row interpreter counts its export
+    counts["fallback_exports"] = info["fallback_exports"]
+    _require(counts["fallback_exports"] >= counts.get("task_fallbacks", 0),
+             f"{q}: a fallback task went uncounted: {counts}")
+    _require(info["pipeline_live_streams"] == 0,
+             f"{q}: {info['pipeline_live_streams']} streams left open")
+    return counts, wall
+
+
+def _speculation_case(paths, orc, work_dir, seed) -> dict:
+    """q02 in SMJ mode over the first file of each fact table, so that its
+    join stage is a map stage of 4 tasks reading two shuffles. The first
+    task to reach its second join batch stalls (60 s, kill-interruptible)
+    past speculation_multiplier x the stage's median: its twin must win,
+    and every map output of the run is published exactly once."""
+    import collections
+
+    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    cut = {t: (v[:1] if isinstance(v, list) else v)
+           for t, v in paths.items()}
+    published = collections.Counter()
+    real = artifacts.commit_shuffle_pair
+
+    def commit(write_fn, data_path, index_path, gate=None):
+        out = real(write_fn, data_path, index_path, gate=gate)
+        published[data_path] += 1
+        return out
+
+    info = {}
+    plan = _runner_plan("q02", cut, "smj")
+    spec = {"seed": seed, "concurrent": True,
+            "points": {"op.SortMergeJoinExec": {"kind": "stall", "nth": 2,
+                                                "ms": 60_000}}}
+    wd = os.path.join(work_dir, "resilience", "q02_speculation")
+    artifacts.commit_shuffle_pair = commit
+    faults.install(spec)
+    t0 = time.perf_counter()
+    try:
+        # AQE off for this run: the join stays a sort-merge join
+        with _knobs(speculation_multiplier=2.0, aqe_broadcast_threshold=0):
+            out = run_plan(plan, work_dir=wd, run_info=info)
+    finally:
+        faults.install(None)
+        artifacts.commit_shuffle_pair = real
+    wall = time.perf_counter() - t0
+    # numpy's q02 over the first web_sales and catalog_sales files
+    check_q02(out, {"q02": orc["q02_first"]})
+    d = out.to_numpy()
+    counts = {k: v for k, v in info.items()
+              if k in LADDER_INFO or k.startswith(("errors.", "degraded."))}
+    _require(info.get("speculations_won", 0) >= 1,
+             f"speculation: no twin won: {counts}")
+    _require(wall < 50, f"speculation: the run waited out the stall "
+             f"({wall:.1f} s)")
+    _require(published and max(published.values()) == 1,
+             f"speculation: a map output was published twice: "
+             f"{published.most_common(2)}")
+    _require(artifacts.find_orphans([wd]) == [],
+             "speculation: temps left behind")
+    return dict(counts, wall_s=wall, map_outputs_published=len(published),
+                most_publishes_of_one_output=max(published.values()),
+                rows=len(d["d_year"]))
+
+
+def _resilience_runs(paths, orc, work_dir, runner, checks) -> dict:
+    """q02 and q04 through run_plan under the knobs in force, each checked
+    against numpy and runner_tpcds's rows, q02 with its launch count."""
+    from blaze_tpu_torch.runtime import trace
+
+    res = {}
+    for q in ("q02", "q04"):
+        trace.reset()
+        run = _runner_run(q, paths, work_dir, checks[q],
+                          info_keys=RESILIENCE_INFO)
+        _same_rows(run.pop("rows"), runner[f"{q}_rows"],
+                   f"{q} against runner_tpcds")
+        _require(run["pipeline_streams"] > 0
+                 and run["pipeline_live_streams"] == 0,
+                 f"{q}: pipeline streams {run['pipeline_streams']}, "
+                 f"{run['pipeline_live_streams']} left open")
+        run["trace_records"] = len(trace.TRACE.snapshot())
+        run["trace_dropped"] = trace.TRACE.dropped
+        res[q] = run
+    _require(res["q02"]["launches"] == runner["q02"]["launches"] > 0,
+             f"q02 under the pool launched the kernel "
+             f"{res['q02']['launches']} times, the inline route "
+             f"{runner['q02']['launches']}")
+    return res
+
+
+def phase_runner_resilience(paths, orc, work_dir, runner, seed) -> dict:
+    """The task runtime at its defaults (see the module docstring, phase
+    20): q02 and q04 through run_plan under the supervisor and the
+    pipeline, then once more with the trace on, then the resilience
+    ladder's cases."""
+    from blaze_tpu_torch.config import KNOBS
+    from blaze_tpu_torch.runtime import trace
+
+    checks = {"q02": lambda out: check_q02(out, orc),
+              "q04": lambda out: check_q04(out, orc),
+              "q09": lambda out: check_q09(out, orc)}
+    defaults = {k: KNOBS[k].default for k in RUNTIME_KNOBS}
+    _require(defaults["enable_supervisor"] and defaults["enable_pipeline"],
+             f"the task runtime is off by default: {defaults}")
+    res = {"phase": "runner_resilience", "mode": "bhj",
+           "runtime": defaults}
+    t_phase = time.perf_counter()
+    with _knobs(**defaults):
+        res.update(_resilience_runs(paths, orc, work_dir, runner, checks))
+        for q in ("q02", "q04"):
+            res[q]["inline_stage_s"] = runner[q]["stage_s"]
+            res[q]["inline_launches"] = runner[q]["launches"]
+            res[q]["inline_peak_device_bytes"] = runner[q][
+                "peak_device_bytes"]
+            res[q]["inline_host_pulls"] = runner[q]["host_pulls"]
+        # the same runs with the trace on: on_batch counts every batch's
+        # rows at every operator boundary, one host read each
+        with _knobs(trace_enabled=True):
+            traced = _resilience_runs(paths, orc, work_dir, runner, checks)
+        _require(all(run["trace_records"] > 0 for run in traced.values()),
+                 "the traced runs recorded nothing")
+        res["traced"] = {q: {k: run[k] for k in (
+            "stage_s", "wall_s", "launches", "host_pulls",
+            "peak_device_bytes", "trace_records", "trace_dropped")}
+            for q, run in traced.items()}
+        trace.reset()
+        ladder = {}
+        ladder["retry_serde_encode"] = _ladder_case(
+            "q09", paths, work_dir, checks["q09"],
+            {"seed": seed, "points": {"serde.encode": {"kind": "io",
+                                                       "nth": 1}}})
+        ladder["oom_to_row_interpreter"] = _ladder_case(
+            "q09", paths, work_dir, checks["q09"],
+            {"seed": seed, "points": {"op.IpcReaderExec": {
+                "kind": "oom", "fail_times": 10 ** 9}}})
+        ladder["stall_relaunch"] = _ladder_case(
+            "q09", paths, work_dir, checks["q09"],
+            {"seed": seed, "points": {"op": {"kind": "stall", "nth": 3,
+                                             "ms": 60_000}}},
+            hang_detect_ms=3000)
+        res["ladder"] = {k: dict(c, wall_s=w) for k, (c, w) in
+                         ladder.items()}
+        res["ladder"]["speculation"] = _speculation_case(
+            paths, orc, work_dir, seed)
+    lad = res["ladder"]
+    _require(lad["retry_serde_encode"].get("retries", 0) >= 1,
+             f"serde.encode fault not retried: {lad['retry_serde_encode']}")
+    oom = lad["oom_to_row_interpreter"]
+    _require(oom.get("ladder_rung") == 3 and oom.get("task_fallbacks", 0)
+             >= 1 and all(oom.get(f"degraded.{r}", 0) >= 1 for r in
+                          ("halve_batch", "force_spill", "fallback")),
+             f"the oom did not walk rungs 1-3 to the row interpreter: {oom}")
+    stall = lad["stall_relaunch"]
+    _require(stall.get("hangs_detected", 0) >= 1
+             and stall.get("retries", 0) >= 1
+             and stall["wall_s"] < 50,
+             f"the stall was not killed and relaunched: {stall}")
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -3965,6 +4225,10 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     smi = phase_card()
+    # phases 1-19 take the inline route their earlier numbers were taken
+    # on; phase 20 runs the task runtime at its defaults
+    conf.enable_supervisor = False
+    conf.enable_pipeline = False
     phase_build()
     kern = phase_kernel()
     main_path = phase_main_path(kern)
@@ -3987,6 +4251,8 @@ def main(argv=None) -> int:
         nested = phase_runner_nested(paths, orc, work_dir)
         decimal = phase_runner_decimal(paths, orc, work_dir, runner)
         spark_json = phase_runner_spark_json(paths, orc, work_dir, runner)
+        resilient = phase_runner_resilience(paths, orc, work_dir, runner,
+                                            args.seed)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -4006,6 +4272,7 @@ def main(argv=None) -> int:
                                     for q in DECIMAL_CHECKS},
         "runner_json_launches": {q: spark_json[q]["launches"]
                                  for q in JSON_QUERIES},
+        "runner_resilience_q02_launches": resilient["q02"]["launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

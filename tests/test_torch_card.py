@@ -9,9 +9,10 @@ generate batch, the decimal slice: 128-bit limb arithmetic, wide
 decimal arithmetic, comparison, CheckOverflow, hash, sort keys and
 segmented sum/min/max, the casts that round or parse, and the bitwise and
 shift ops, and the Spark-facing slice: every registered scalar function,
-the host crossings of hostfns and the UDF wrapper, and a row-interpreter
-export bridged onto the card) on the card against the port's own CPU
-route.
+the host crossings of hostfns and the UDF wrapper, a row-interpreter
+export bridged onto the card, and the task runtime: a real device OOM's
+classification and the resilience ladder under a fault spec) on the card
+against the port's own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -622,6 +623,57 @@ def test_run_plan_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, q):
             "stage_compiled", "stage_fallbacks")
     assert {k: ginfo[k] for k in keys} == {k: winfo[k] for k in keys}
     assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_real_device_oom_classifies_as_resource(cuda):
+    """A real allocation past the card's memory raises the caching
+    allocator's torch.cuda.OutOfMemoryError, which the taxonomy maps to
+    "resource" (the degradation ladder), and the card keeps working."""
+    from blaze_tpu_torch.runtime import faults
+
+    free, total = torch.cuda.mem_get_info()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(total * 4, dtype=torch.uint8, device=cuda)
+    assert faults.classify(ei.value) == "resource"
+    assert torch.ones(4, device=cuda).sum().item() == 4.0
+
+
+@pytest.mark.parametrize("spec", [
+    {"seed": 7, "points": {"serde.encode": {"kind": "io", "nth": 2}}},
+    {"seed": 8, "points": {"op.ParquetScanExec": {"kind": "oom",
+                                                  "fail_times": 10 ** 9}}}])
+def test_ladder_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, spec):
+    """tpcds.py's q02 (SMJ) under a fault spec at the default runtime (the
+    supervisor's pool, the pipeline): on the card, the rows and the
+    resilience counters of the CPU route."""
+    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.spark import tpcds
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    paths, frames = tpcds_tables
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        plan, _ = tpcds.QUERIES["q02"](paths, frames, "smj")
+        info = {}
+        faults.install(spec)
+        try:
+            out = run_plan(plan, work_dir=str(tmp_path / dev),
+                           run_info=info, device=dev)
+        finally:
+            faults.install(None)
+        runs[dev] = out.to_numpy(), {
+            k: v for k, v in info.items()
+            if k in ("retries", "degradations", "ladder_rung",
+                     "task_fallbacks", "faults_injected")
+            or k.startswith(("errors.", "degraded."))}
+    (got, ginfo), (want, winfo) = runs["cuda"], runs["cpu"]
+    assert ginfo == winfo and ginfo["faults_injected"] >= 1
     for k in want:
         g, w = np.asarray(got[k]), np.asarray(want[k])
         if w.dtype.kind == "f":

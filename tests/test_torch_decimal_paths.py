@@ -50,6 +50,7 @@ from blaze_tpu_torch.spark import tpcds
 from blaze_tpu_torch.spark.convert_strategy import apply_strategy
 from blaze_tpu_torch.spark.local_runner import run_plan
 from blaze_tpu_torch.spark.stages import plan_stages
+from torch_parity import no_jax_native
 
 CHECKS = {"q02_dec": cs.check_q02_dec, "q04_dec": cs.check_q04_dec,
           "q03_rev": cs.check_q03_rev}
@@ -251,6 +252,7 @@ def jax_routes(monkeypatch):
     monkeypatch.setattr(jstage, "_fallback", fallback)
     monkeypatch.setattr(jconf, "enable_supervisor", False)
     monkeypatch.setattr(jconf, "enable_pipeline", False)
+    no_jax_native(monkeypatch)
     return counts
 
 

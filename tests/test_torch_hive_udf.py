@@ -33,6 +33,7 @@ from blaze_tpu_torch.spark.local_runner import run_plan
 from blaze_tpu_torch.spark.stages import plan_stages
 from test_plan_json import SPARK, attr, scan_node
 from test_torch_plan_json import same_rows, stage_bytes
+from torch_parity import no_jax_native
 
 
 def _squish(v):
@@ -65,6 +66,7 @@ UDFS = {"squish": (_squish, "FLOAT64"), "tagit": (_tagit, "STRING"),
 def registered(monkeypatch):
     monkeypatch.setattr(jconf, "enable_supervisor", False)
     monkeypatch.setattr(jconf, "enable_pipeline", False)
+    no_jax_native(monkeypatch)
     for name, (fn, kind) in UDFS.items():
         hive_udf.register_udf(name, fn, getattr(TT, kind))
         jhive.register_udf(name, fn, getattr(JT, kind))

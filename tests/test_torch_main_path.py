@@ -318,7 +318,9 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'spark.local_runner', 'spark.tpcds', 'spark.validator',\n"
         "        'exprs.strings', 'exprs.functions', 'exprs.hostfns',\n"
         "        'spark.fallback', 'spark.hive_udf', 'spark.shims',\n"
-        "        'spark.plan_json', 'spark.pyspark_ext')}\n"
+        "        'spark.plan_json', 'spark.pyspark_ext', 'runtime.trace',\n"
+        "        'runtime.faults', 'runtime.pipeline', 'runtime.supervisor',\n"
+        "        'runtime.journal')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

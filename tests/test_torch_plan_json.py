@@ -35,6 +35,7 @@ from blaze_tpu_torch.spark import plan_json
 from blaze_tpu_torch.spark.convert_strategy import apply_strategy
 from blaze_tpu_torch.spark.local_runner import run_plan
 from blaze_tpu_torch.spark.stages import plan_stages
+from torch_parity import no_jax_native
 
 SPARK = tpj.SPARK
 attr, lit, binop, scan_node, agg_expr = (tpj.attr, tpj.lit, tpj.binop,
@@ -46,6 +47,7 @@ def jax_inline(monkeypatch):
     """The JAX package's inline runner, the path the port mirrors."""
     monkeypatch.setattr(jconf, "enable_supervisor", False)
     monkeypatch.setattr(jconf, "enable_pipeline", False)
+    no_jax_native(monkeypatch)
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,10 @@
 Each package generates its tables from the same seed (the TPC-DS
 catalogue's at 6000 store_sales rows, the validator core catalogue's at
 6000), makes each plan with its own query function, and runs it through
-its own `run_plan` (the JAX package with `mesh_exchange="off"` and its
-supervisor and threaded pipeline off, the inline path the port runs). The
+its own `run_plan`: the port at its defaults (the supervisor's pool of
+four, the threaded pipeline), the JAX package with `mesh_exchange="off"`
+and its supervisor and pipeline off, with its native layer taken out
+(`no_jax_native`); a few cases run both packages at their defaults. The
 results must be equal row for row, in order (integers bitwise, floats
 within rtol 1e-12), each package's answer must pass its validator's
 `_compare` against the pandas oracle, and the two runs must agree on
@@ -42,6 +44,7 @@ from blaze_tpu_torch.spark import tpcds, validator
 from blaze_tpu_torch.spark.convert_strategy import apply_strategy
 from blaze_tpu_torch.spark.local_runner import run_plan
 from blaze_tpu_torch.spark.stages import plan_stages
+from torch_parity import no_jax_native
 
 ROWS = 6000
 CATALOGUES = {"tpcds": (tpcds, jtpcds), "core": (validator, jvalidator)}
@@ -103,9 +106,10 @@ def jax_routes(monkeypatch):
 
     monkeypatch.setattr(jmetrics.MetricsSet, "add", add)
     monkeypatch.setattr(jstage, "_fallback", fallback)
-    # tasks one after another on the driver thread, as the port runs them
+    # the JAX package's tasks one after another on the driver thread
     monkeypatch.setattr(jconf, "enable_supervisor", False)
     monkeypatch.setattr(jconf, "enable_pipeline", False)
+    no_jax_native(monkeypatch)
     return counts
 
 
@@ -150,6 +154,32 @@ def test_run_plan_matches_jax(tables, jax_routes, tmp_path, suite, q, mode):
         assert info[key] == jinfo[key], key
     assert {k: info[k] for k in jax_routes} == jax_routes
     assert info["map_tasks_run"] == jinfo["map_tasks_run"]
+
+
+@pytest.mark.parametrize("suite,q,mode", [
+    ("tpcds", "q02", "bhj"), ("tpcds", "q05", "smj"),
+    ("core", "q5_multijoin_limit", "bhj")])
+def test_run_plan_matches_jax_both_at_defaults(tables, monkeypatch, tmp_path,
+                                               suite, q, mode):
+    """Both packages at their defaults: the supervisor's pool and the
+    threaded pipeline on each side (the JAX package's native layer out)."""
+    no_jax_native(monkeypatch)
+    assert conf.enable_supervisor and conf.enable_pipeline
+    assert jconf.enable_supervisor and jconf.enable_pipeline
+    port, jax = CATALOGUES[suite]
+    (paths, frames), (jpaths, jframes) = tables[suite]
+    info, jinfo = {}, {}
+    out = run_plan(port.QUERIES[q](paths, frames, mode)[0], num_partitions=4,
+                   work_dir=str(tmp_path / "port"), run_info=info,
+                   device="cpu")
+    jout = jrun_plan(jax.QUERIES[q](jpaths, jframes, mode)[0],
+                     num_partitions=4, work_dir=str(tmp_path / "jax"),
+                     mesh_exchange="off", run_info=jinfo)
+    _same_rows(out.to_numpy(), jout.to_numpy())
+    for key in ("file_stages", "broadcast_stages", "map_tasks_run",
+                "pipeline_live_streams"):
+        assert info[key] == jinfo[key], key
+    assert info["pipeline_streams"] > 0
 
 
 def test_tables_match_jax(tables):
@@ -287,11 +317,8 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
 
 @pytest.mark.parametrize("knob,value,module", [
     ("mesh_exchange", "auto", "parallel/stage_exchange.py"),
-    ("enable_supervisor", True, "runtime/supervisor.py"),
-    ("enable_pipeline", True, "runtime/pipeline.py"),
-    ("trace_enabled", True, "runtime/trace.py"),
+    ("trace_export_dir", "/nonexistent", "runtime/trace.py"),
     ("history_dir", "/nonexistent", "runtime/history.py"),
-    ("journal_dir", "/nonexistent", "runtime/journal.py"),
     ("progress_enabled", True, "runtime/progress.py"),
     ("autopilot_enabled", True, "runtime/autopilot.py"),
     ("flight_dir", "/nonexistent", "runtime/flight_recorder.py"),

@@ -7,7 +7,10 @@ checksum footer included, must be byte-identical, and each package reads
 the other's partitions. Also: restart-stable round robin, the writer's spill
 to a tempfile, the RSS writer's frames, IpcWriterExec -> IpcReaderExec, a
 flipped byte in either file raising CorruptArtifactError, crash-atomic
-commit, sweep_orphans, and the decoder's four shuffle arms.
+commit, sweep_orphans, and the decoder's four shuffle arms. The JAX
+package runs with its native layer out (tests/torch_parity.py), but for
+one case that builds its own copy of the native library and holds the
+port's files to its C++ writer's.
 """
 
 import io
@@ -33,6 +36,7 @@ from blaze_tpu_torch.ops.basic import MemorySourceExec
 from blaze_tpu_torch.plan.from_proto import decode_task_definition
 from blaze_tpu_torch.runtime import artifacts, memory, resources
 from test_torch_serde import _assert_rows_equal, _pair
+from torch_parity import no_jax_native
 
 HASH_KEYS = ("c5", "c9", "c4")   # int64, float64, bool
 
@@ -40,6 +44,7 @@ HASH_KEYS = ("c5", "c9", "c4")   # int64, float64, bool
 @pytest.fixture(autouse=True)
 def spill_dir(tmp_path, monkeypatch):
     monkeypatch.setattr(conf, "spill_dir", str(tmp_path / "spill"))
+    no_jax_native(monkeypatch)
 
 
 def _batches():
@@ -99,6 +104,54 @@ def test_map_output_byte_identical_and_cross_read(tmp_path, kind, P):
         hosts = list(S.read_shuffle_partition_host(td, ti, p, schema))
         assert [h.num_rows for h in hosts] == [int(t.num_rows) for t in mine]
     assert rows == 761
+
+
+@pytest.fixture(scope="module")
+def native_lib(tmp_path_factory):
+    """A copy of the JAX package's native library, built from the sources
+    into a temp dir (so no other test's build of
+    native/libblaze_tpu_native.so is ever read half-written)."""
+    import shutil
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler to build the native library")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native")
+    lib = str(tmp_path_factory.mktemp("native") / "libblaze_tpu_native.so")
+    srcs = sorted(os.path.join(src, "src", f)
+                  for f in os.listdir(os.path.join(src, "src"))
+                  if f.endswith(".cpp"))
+    subprocess.run([cxx, "-O2", "-fPIC", "-std=c++17", "-I",
+                    os.path.join(src, "include"), *srcs, "-shared",
+                    "-lzstd", "-ldl", "-o", lib],
+                   check=True, capture_output=True)
+    return lib
+
+
+@pytest.mark.parametrize("kind,P", [("hash", 7), ("round_robin", 5)])
+def test_map_output_matches_the_native_writer(tmp_path, monkeypatch,
+                                              native_lib, kind, P):
+    """The JAX package's C++ map-output writer and frame encoder
+    (native/), loaded from `native_lib`, write the port's bytes."""
+    from blaze_tpu import native
+
+    monkeypatch.setattr(native, "_LIB_PATH", native_lib)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "available",
+                        lambda: native._load() is not None)
+    assert native.available()
+    made = []
+    real_init = JS._NativeWriterState.__init__
+
+    def init(self, *args):
+        real_init(self, *args)
+        made.append(self)
+
+    monkeypatch.setattr(JS._NativeWriterState, "__init__", init)
+    (jd, ji), (td, ti), _, _ = _write_both(tmp_path, kind, P)
+    assert len(made) == 1  # the JAX writer was the C++ one
+    _same_files((jd, ji), (td, ti))
 
 
 def test_rows_keep_input_order_inside_a_partition(tmp_path):

@@ -42,6 +42,7 @@ from blaze_tpu_torch.exprs import ir as tir
 from blaze_tpu_torch.spark import plan_model as tpm
 from blaze_tpu_torch.spark.convert_strategy import apply_strategy
 from blaze_tpu_torch.spark.local_runner import run_plan
+from torch_parity import no_jax_native
 
 PKGS = {
     "port": SimpleNamespace(T=TT, ir=tir, SparkPlan=tpm.SparkPlan,
@@ -55,6 +56,7 @@ PKGS = {
 def _inline_jax(monkeypatch):
     monkeypatch.setattr(jconf, "enable_supervisor", False)
     monkeypatch.setattr(jconf, "enable_pipeline", False)
+    no_jax_native(monkeypatch)
 
 
 def _vals(rng, n, digits=22, scale=4):
@@ -506,9 +508,10 @@ def test_project_division(wide_table, tmp_path):
 def test_division_gating_regression(wide_table, tmp_path):
     """A division whose scale alignment cannot provably fit 128 bits tags
     NeverConvert in both packages' wide-decimal walk, so it runs on the
-    row interpreter, whose Python Decimal division raises on the table's
-    zero divisor in both packages alike (the inline JAX runner, the path
-    the port mirrors)."""
+    row interpreter. The JAX package's Python Decimal division raises on
+    the table's zero divisor (pinned); the port's answers as Spark does
+    off ANSI mode: NULL for the zero divisor and the NULL dividend, every
+    other row the quotient rounded HALF_UP to the result scale, exactly."""
     import decimal
 
     df, p = wide_table
@@ -528,6 +531,13 @@ def test_division_gating_regression(wide_table, tmp_path):
     with pytest.raises(decimal.DivisionByZero):
         jrun_plan(make(PKGS["jax"]), num_partitions=1,
                   work_dir=str(tmp_path / "jax"), mesh_exchange="off")
-    with pytest.raises(decimal.DivisionByZero):
-        run_plan(make(PKGS["port"]), num_partitions=1,
-                 work_dir=str(tmp_path / "port"), device="cpu")
+    got = run_plan(make(PKGS["port"]), num_partitions=1,
+                   work_dir=str(tmp_path / "port"),
+                   device="cpu").to_numpy()["q"]
+    ctx = decimal.Context(prec=80, rounding=decimal.ROUND_HALF_UP)
+    want = [None if a is None or pd.isna(a) or b == 0 else
+            int(ctx.divide(a, b).scaleb(20, context=ctx).to_integral_value(
+                context=ctx))
+            for a, b in zip(df["a"], df["b"])]
+    assert want[5] is None and want[9] is None
+    assert list(got) == want

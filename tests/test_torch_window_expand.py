@@ -41,6 +41,7 @@ from blaze_tpu_torch.ops.basic import MemorySourceExec
 from blaze_tpu_torch.ops.sort_keys import SortSpec
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.executor import collect
+from torch_parity import no_jax_native
 
 FIELDS = [("g", "INT64"), ("o", "INT32"), ("v", "FLOAT64"), ("i", "INT32"),
           ("a", "FLOAT64")]
@@ -338,6 +339,7 @@ def test_nested_queries_run_plan_like_jax(tables, tmp_path, monkeypatch, q,
 
     monkeypatch.setattr(jconf, "enable_supervisor", False)
     monkeypatch.setattr(jconf, "enable_pipeline", False)
+    no_jax_native(monkeypatch)
     (paths, _), (jpaths, _) = tables
     info, jinfo = {}, {}
     out = run_plan(cs.NESTED_QUERIES[q](tpcds, paths, mode),

@@ -38,8 +38,9 @@ Decoding builds host columns (`read_batch_host`, `deserialize_batch_host`)
 and uploads them in one host->device copy onto the caller's device
 (ops/host_sort.host_to_device); `device=None` is the CUDA card. The
 fault points are the JAX module's (`serde.encode`, `device.get`,
-`serde.decode`, runtime/faults.py); its monitor hooks wait for
-runtime/monitor.py.
+`serde.decode`, runtime/faults.py), and so are its runtime/monitor.py
+counts: a frame's raw and compressed bytes and its encode or decode time
+at the serde boundary, a pull's host bytes at the ffi boundary.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ from blaze_tpu_torch.columnar.types import (
 )
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike
-from blaze_tpu_torch.runtime import faults, metrics
+from blaze_tpu_torch.runtime import faults, metrics, monitor
 
 MAGIC = b"BTB1"
 DICT_SENTINEL = 0xFFFFFFFF  # an impossible plain string `total`
@@ -114,7 +115,7 @@ class HostBatch:
 
     def serialize(self, lo: int = 0, hi: Optional[int] = None) -> bytes:
         # the window opens before the fault point: an injected encode
-        # stall is real wall time and lands in SERDE_NS
+        # stall is real wall time and lands in SERDE_NS and serde_encode
         t0 = time.perf_counter_ns()
         if conf.fault_injection_spec:
             faults.inject("serde.encode")
@@ -126,9 +127,15 @@ class HostBatch:
         raw = out.getvalue()
         comp = zstandard.ZstdCompressor(level=conf.zstd_level).compress(raw)
         frame = MAGIC + struct.pack("<II", len(raw), len(comp)) + comp
-        metrics.bump(metrics.SERDE_NS, "encode", time.perf_counter_ns() - t0)
+        ns = time.perf_counter_ns() - t0
+        metrics.bump(metrics.SERDE_NS, "encode", ns)
         metrics.bump(metrics.SERDE_BYTES, "raw", len(raw))
         metrics.bump(metrics.SERDE_BYTES, "frames", len(frame))
+        if conf.monitor_enabled:
+            # copied: the raw payload rebuilt row by row into the frame;
+            # moved: the compressed frame that crosses
+            monitor.count_copy("serde", len(raw), moved=len(frame))
+            monitor.count_time("serde_encode", ns)
         return frame
 
 
@@ -162,6 +169,8 @@ def _write_dict_block(out, dmat: np.ndarray, dlens: np.ndarray,
         pos = np.arange(dmat.shape[1])[None, :] < dlens[:, None]
         out.write(np.ascontiguousarray(dmat)[pos].tobytes())
     out.write(codes.astype(np.uint32).tobytes())
+    if conf.monitor_enabled:
+        monitor.count_zerocopy("dict_cols_encoded")
 
 
 def _write_col(out, c: _HostCol, lo: int, hi: int) -> None:
@@ -302,7 +311,10 @@ def to_host_with(batch: ColumnBatch, extra: Sequence[torch.Tensor] = ()
             for f, c in zip(batch.schema, batch.columns)]
     extras = [take(_np_dtype(e), e.numel()).reshape(tuple(e.shape))
               for e in extra]
-    return HostBatch(batch.schema, cols, n), extras
+    hb = HostBatch(batch.schema, cols, n)
+    if conf.monitor_enabled:
+        monitor.count_copy("ffi", host_batch_nbytes(hb))
+    return hb, extras
 
 
 def to_host(batch: ColumnBatch) -> HostBatch:
@@ -429,38 +441,50 @@ def frame_headers(fp: BinaryIO) -> Iterator[Tuple[int, int]]:
         yield raw_len, comp_len
 
 
-def _decode_frame(comp, raw_len: int, schema: Schema, dctx) -> HostBatch:
-    t0 = time.perf_counter_ns()
+def _decode_frame(comp, raw_len: int, comp_len: int, schema: Schema, dctx,
+                  t0: int) -> HostBatch:
+    """Decompress and decode one frame; its decode window opened at `t0`,
+    before the caller's fault point and frame read, as the JAX package's
+    does (an injected stall and the read are real decode time)."""
     raw = (dctx or zstandard.ZstdDecompressor()).decompress(
         comp, max_output_size=raw_len)
+    if conf.monitor_enabled:
+        monitor.count_copy("serde", raw_len, moved=12 + comp_len)
     hb = _decode_payload(raw, schema)
-    metrics.bump(metrics.SERDE_NS, "decode", time.perf_counter_ns() - t0)
+    ns = time.perf_counter_ns() - t0
+    metrics.bump(metrics.SERDE_NS, "decode", ns)
+    if conf.monitor_enabled:
+        monitor.count_time("serde_decode", ns)
     return hb
 
 
 def deserialize_batch_host(buf, schema: Schema) -> HostBatch:
     """Decode one frame held in memory (bytes or a memoryview) to host
     columns."""
+    t0 = time.perf_counter_ns()
     if conf.fault_injection_spec:
         faults.inject("serde.decode")
     mv = memoryview(buf)
     if len(mv) == 0:
         raise ValueError("empty batch frame")
     raw_len, comp_len = frame_header(bytes(mv[:12]))
-    return _decode_frame(mv[12:12 + comp_len], raw_len, schema, None)
+    return _decode_frame(mv[12:12 + comp_len], raw_len, comp_len, schema,
+                         None, t0)
 
 
 def read_batch_host(fp: BinaryIO, schema: Schema,
                     dctx=None) -> Optional[HostBatch]:
     """Read one frame to host columns; None at clean EOF. `dctx` lets a
     stream reader reuse one decompressor across frames."""
+    t0 = time.perf_counter_ns()
     if conf.fault_injection_spec:
         faults.inject("serde.decode")
     head = fp.read(12)
     if not head:
         return None
     raw_len, comp_len = frame_header(head)
-    return _decode_frame(_read_exact(fp, comp_len), raw_len, schema, dctx)
+    return _decode_frame(_read_exact(fp, comp_len), raw_len, comp_len,
+                         schema, dctx, t0)
 
 
 def read_batches_host(fp: BinaryIO, schema: Schema) -> Iterator[HostBatch]:
@@ -475,20 +499,19 @@ def read_batches_host(fp: BinaryIO, schema: Schema) -> Iterator[HostBatch]:
 def deserialize_batch(buf, schema: Schema, capacity: Optional[int] = None,
                       device: DeviceLike = None) -> ColumnBatch:
     """One frame -> a batch on `device` (None: the CUDA card)."""
-    from blaze_tpu_torch.ops.host_sort import host_to_device
+    from blaze_tpu_torch.ops.host_sort import upload
 
-    return host_to_device(deserialize_batch_host(buf, schema), capacity,
-                          device)
+    return upload(deserialize_batch_host(buf, schema), capacity, device)
 
 
 def read_batch(fp: BinaryIO, schema: Schema, capacity: Optional[int] = None,
                dctx=None, device: DeviceLike = None
                ) -> Optional[ColumnBatch]:
     """Read one frame onto `device`; None at clean EOF."""
-    from blaze_tpu_torch.ops.host_sort import host_to_device
+    from blaze_tpu_torch.ops.host_sort import upload
 
     hb = read_batch_host(fp, schema, dctx)
-    return None if hb is None else host_to_device(hb, capacity, device)
+    return None if hb is None else upload(hb, capacity, device)
 
 
 def read_batches(fp: BinaryIO, schema: Schema,

@@ -339,9 +339,7 @@ _DECLARATIONS: Tuple[Knob, ...] = (
          step=1, min=1, max=8),
 
     # -- resource accounting & live metrics (runtime/monitor.py) --
-    # the port has no runtime/monitor.py: spark/local_runner.py raises
-    # when this is set
-    Knob("monitor_enabled", False,
+    Knob("monitor_enabled", True,
          doc="Byte accounting at every copy boundary with per-query/"
              "stage attribution. Off, every boundary call site is one "
              "truthiness check and all counters read 0; the always-on "

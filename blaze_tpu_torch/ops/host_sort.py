@@ -334,6 +334,18 @@ def _build(lay: tuple, view) -> Column:
 
 def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
                    device: DeviceLike = None) -> ColumnBatch:
+    """`upload`, its host bytes counted at the monitor's ffi boundary."""
+    from blaze_tpu_torch.config import conf
+
+    if conf.monitor_enabled:
+        from blaze_tpu_torch.runtime import monitor
+
+        monitor.count_copy("ffi", host_nbytes(hb))
+    return upload(hb, capacity, device)
+
+
+def upload(hb: HostBatch, capacity: Optional[int] = None,
+           device: DeviceLike = None) -> ColumnBatch:
     """A host batch onto `device` (None: the CUDA card) in ONE host->device
     copy: every column and validity is laid out, padded to the capacity,
     in one byte buffer, uploaded, and viewed back per column. Invalid
@@ -341,7 +353,10 @@ def host_to_device(hb: HostBatch, capacity: Optional[int] = None,
     is the bucket of its longest row; a dictionary keeps its entries in a
     `bucket_dict_rows` table; a list's elements take the bucket of their
     count. The copy is a plain blocking one: `non_blocking` from unpinned
-    numpy memory may read the buffer after it is freed."""
+    numpy memory may read the buffer after it is freed. Uncounted by the
+    monitor: serde's device decode calls it, a frame the JAX package
+    decodes straight onto the device and counts at the serde boundary
+    alone."""
     from blaze_tpu_torch.config import conf
 
     if conf.fault_injection_spec:

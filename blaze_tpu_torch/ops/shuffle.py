@@ -33,6 +33,7 @@ import inspect
 import io
 import os
 import tempfile
+import time
 from typing import Callable, Iterator, List
 
 import numpy as np
@@ -52,7 +53,7 @@ from blaze_tpu_torch.ops.base import (
 )
 from blaze_tpu_torch.ops.sort_keys import permute_by_keys
 from blaze_tpu_torch.runtime import memory as M
-from blaze_tpu_torch.runtime import resources
+from blaze_tpu_torch.runtime import monitor, resources
 from blaze_tpu_torch.runtime.metrics import BRIDGE, bump
 
 
@@ -230,11 +231,17 @@ class ShuffleWriterExec(Operator):
             # drain every pending frame (re-raising a pool-side error)
             # before the commit reads the buffers
             sink.close()
+            t0 = time.perf_counter_ns()
             with self.metrics.timer():
                 # crash-atomic: stage temps, fsync, rename data-then-index
                 lengths = artifacts.commit_shuffle_pair(
                     state.commit, self.data_path, self.index_path,
                     gate=ctx.commit_gate)
+            if conf.monitor_enabled:
+                # the map-output commit is the write half of shuffle_io;
+                # the read half lands in serde_decode
+                monitor.count_time("shuffle_io",
+                                   time.perf_counter_ns() - t0)
             self.metrics.add("shuffle_bytes_written", int(sum(lengths)))
             self.metrics.add("spill_count", state.spill_chunks)
             committed = True
@@ -285,6 +292,8 @@ class _WriterBuffers(M.MemConsumer):
         return freed
 
     def push(self, p: int, frame: bytes) -> None:
+        if conf.monitor_enabled:
+            monitor.count_copy("shuffle", len(frame))
         # op_lock: serialize against a host-driven release()
         with self.manager.op_lock:
             self.buffers[p].append(frame)
@@ -352,8 +361,11 @@ class RssShuffleWriterExec(ShuffleWriterExec):
                 hb, offs = rep.split(batch)
                 for p in range(self.partitioning.num_partitions):
                     if offs[p + 1] > offs[p]:
-                        writer.write(p, serde.serialize_slice(
-                            hb, int(offs[p]), int(offs[p + 1])))
+                        frame = serde.serialize_slice(
+                            hb, int(offs[p]), int(offs[p + 1]))
+                        if conf.monitor_enabled:
+                            monitor.count_copy("shuffle", len(frame))
+                        writer.write(p, frame)
         writer.flush()
         return iter(())
 

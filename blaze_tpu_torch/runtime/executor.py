@@ -1,19 +1,23 @@
 """Per-task execution: pipeline fusion, collect, and the fetch entry.
 
-Port of blaze_tpu/runtime/executor.py: the collect subset,
-`execute_stage_or_plan` (the entry of the shuffle writers) and
-`run_task_with_resilience`, the retry / degrade / fallback ladder every
-supervised task runs under (runtime/supervisor.py). Maximal
+Port of blaze_tpu/runtime/executor.py: the collect subset (with
+`collect_arrow`), `execute_stage_or_plan` (the entry of the shuffle
+writers) and `run_task_with_resilience`, the retry / degrade / fallback
+ladder every supervised task runs under (runtime/supervisor.py). Maximal
 chains of map-like operators run as one composed per-batch function,
 eagerly on the batch's device (PyTorch has no compiled-program cache to
 keep small, so there is no jit cache here). `collect` first tries the
 whole-stage path of runtime/stage_compiler.py (the dense grouped
 aggregation, the agg-less chain stage); anything else streams, and a
-stream of several batches concatenates into one (ops/common.py).
+stream of several batches concatenates into one (ops/common.py). Each
+fused chain's dispatch bills its host wall time to runtime/monitor.py
+(device_compute, or host_compute for a chain with a host function) and
+each backoff sleep to retry_backoff, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -68,7 +72,7 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
     import time as _time
 
     from blaze_tpu_torch.config import conf
-    from blaze_tpu_torch.runtime import faults, memory, trace
+    from blaze_tpu_torch.runtime import faults, memory, monitor, trace
 
     retries = 0
     hang_relaunches = 0
@@ -154,7 +158,11 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                     trace.event("retry", what=what, n=retries,
                                 category=cat,
                                 backoff_ms=round(sleep_s * 1000, 2))
+                    t0 = _time.perf_counter_ns()
                     faults._sleep(sleep_s)
+                    if conf.monitor_enabled:
+                        monitor.count_time("retry_backoff",
+                                           _time.perf_counter_ns() - t0)
                     continue
                 raise faults.ensure_classified(e) from e
     finally:
@@ -183,18 +191,29 @@ def _fused_chain(op: MapLikeOp) -> tuple:
 def execute_fused(op: MapLikeOp, ctx: ExecContext) -> BatchStream:
     """Execute a map-like operator, fusing its maximal map-like chain into
     one per-batch function (one CSE scope per operator)."""
+    from blaze_tpu_torch.config import conf
     from blaze_tpu_torch.exprs.compiler import cse_scope
+    from blaze_tpu_torch.runtime import monitor
 
     _, source, chain = _fused_chain(op)
     fns = [c.make_batch_fn() for c in chain]
+    # a chain with a host-evaluated expression (digests, JSON, UDFs:
+    # Operator.jit_safe) bills host_compute, any other device_compute
+    category = ("device_compute" if all(c.jit_safe() for c in chain)
+                else "host_compute")
 
     def gen():
         for batch in source.execute(ctx):
             ctx.check_running()
+            t0 = time.perf_counter_ns()
             with op.metrics.timer():
                 for fn in fns:
                     with cse_scope():
                         batch = fn(batch)
+            if conf.monitor_enabled:
+                # the dispatch's host wall time: kernels launch
+                # asynchronously, so on the card this is enqueue time
+                monitor.count_time(category, time.perf_counter_ns() - t0)
             yield batch
 
     return count_stream(op, gen())
@@ -260,3 +279,10 @@ def collect_fetch_async(root: Operator, pack: Callable,
     pull already happened; `pack` is only enqueued here."""
     packed = pack(collect(root, ctx))
     return lambda: to_host(packed).numpy()
+
+
+def collect_arrow(root: Operator, ctx: Optional[ExecContext] = None):
+    """Run the plan and return its output as one pyarrow RecordBatch."""
+    from blaze_tpu_torch.columnar.arrow_io import batch_to_arrow
+
+    return batch_to_arrow(collect(root, ctx))

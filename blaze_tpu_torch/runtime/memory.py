@@ -1,7 +1,6 @@
 """Memory manager: budgeted consumers with fair-share spilling.
 
-Port of blaze_tpu/runtime/memory.py, whole but for its monitor hooks
-(runtime/monitor.py is not ported) (ref: datafusion-ext-plans
+Port of blaze_tpu/runtime/memory.py, whole (ref: datafusion-ext-plans
 common/memory_manager.rs). Operator state that
 lives on the device (sort buffers, aggregation state) registers as a
 `MemConsumer`; a consumer that grows calls `update_mem_used`, and over the
@@ -28,6 +27,7 @@ import logging
 import os
 import tempfile
 import threading
+import time
 import weakref
 import zlib
 from typing import BinaryIO, Iterator, List, Optional
@@ -37,7 +37,7 @@ from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.columnar.types import Schema
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike
-from blaze_tpu_torch.runtime import trace
+from blaze_tpu_torch.runtime import monitor, trace
 
 
 class MemConsumer:
@@ -381,6 +381,9 @@ class SpillFile:
         return self._append(hb.serialize(lo, hi))
 
     def _append(self, buf: bytes) -> int:
+        # the frame is already serialized (that bills serde_encode): the
+        # spill term is the injected stall and the file write
+        t0 = time.perf_counter_ns()
         if conf.fault_injection_spec:
             from blaze_tpu_torch.runtime import faults
 
@@ -394,6 +397,9 @@ class SpillFile:
         self.pending_bytes += n
         if self._manager is not None:
             self._manager.host_spill_bytes += n
+        if conf.monitor_enabled:
+            monitor.count_copy("spill", n)
+            monitor.count_time("spill", time.perf_counter_ns() - t0)
         return n
 
     def flush_pages(self) -> int:
@@ -430,6 +436,7 @@ class SpillFile:
                 f"spill checksum mismatch in {self.path} (quarantined)")
 
     def _rewind(self) -> None:
+        t0 = time.perf_counter_ns()
         if conf.fault_injection_spec:
             from blaze_tpu_torch.runtime import faults
 
@@ -437,6 +444,11 @@ class SpillFile:
         self.flush_pages()
         self._verify_frames()
         self._fp.seek(0)
+        if conf.monitor_enabled:
+            # the whole file is about to be re-read, counted up front; the
+            # frame reads bill serde_decode, the spill term the fsync
+            monitor.count_copy("spill", self.bytes_written)
+            monitor.count_time("spill", time.perf_counter_ns() - t0)
 
     def read(self, device: DeviceLike = None) -> Iterator[ColumnBatch]:
         """The spilled batches, decoded onto `device` (default: the device

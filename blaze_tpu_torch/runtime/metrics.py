@@ -25,13 +25,13 @@ COUNTER_LOCK = threading.Lock()
 # one waits for the device to drain its queue; chip_smoke.py resets and
 # reads it around a rep
 HOST_PULLS = 0
-# host time (ns) in frame encode (pack, compress) and decode (decompress,
-# unpack) of columnar/serde.py since import; the JAX package's monitor
-# counts the same windows as serde_encode / serde_decode
+# host time (ns) in frame encode (pack, compress) and decode (read,
+# decompress, unpack) of columnar/serde.py since import; runtime/monitor.py
+# counts the same windows per query as serde_encode / serde_decode
 SERDE_NS = {"encode": 0, "decode": 0}
 # bytes of the frames encoded since import: the payload before compression
-# ("raw") and the frames as written ("frames"); the JAX package's monitor
-# counts the same pair as serde copied / moved
+# ("raw") and the frames as written ("frames"); runtime/monitor.py counts
+# the same pair per query as serde copied / moved
 SERDE_BYTES = {"raw": 0, "frames": 0}
 
 

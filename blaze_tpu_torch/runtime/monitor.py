@@ -1,0 +1,358 @@
+"""Resource accounting: bytes and time at the engine's copy boundaries.
+
+Port of the half of blaze_tpu/runtime/monitor.py that a default query
+runs (its :66-510): the byte and time accounting with per-query and
+per-stage attribution, the zero-copy event counters, the per-query
+roll-up merged into run_info, and the always-on leak check.
+
+  accounting  `count_copy(boundary, nbytes, moved=...)` — called from
+              the five copy boundaries of the engine:
+                serde     frame encode/decode in columnar/serde.py
+                          (copied = raw payload bytes built/rebuilt,
+                          moved = compressed frame bytes crossing)
+                ffi       device<->host transfers (serde.to_host pull,
+                          host_sort.host_to_device upload)
+                shuffle   partition-split frames pushed into the map
+                          writer's buffers or an RSS writer (ops/shuffle.py)
+                spill     SpillFile write + re-read (runtime/memory.py)
+                fallback  row-interpreter Arrow export (spark/fallback.py)
+              Counts accumulate process-wide AND per query/stage: the
+              query id comes from the trace context (the runner pushes it
+              whether or not tracing is on, and the supervisor replays it
+              on pool threads), else from the runner-registered active
+              query. Disabled (conf.monitor_enabled=False) every call is
+              one truthiness check at the call site.
+
+  time        `count_time(category, ns)` — host wall time of the
+              TIME_CATEGORIES (serde encode/decode, shuffle commit, spill
+              I/O, operator dispatch, retry backoff), the same
+              attribution. On the card a dispatch's time is its host
+              time: kernels launch asynchronously.
+
+  leak check  finish_query() — always on (independent of
+              monitor_enabled): live pipeline streams, pipeline
+              reservations, or nonzero MemManager consumers at query end
+              emit a `resource_leak` trace event and count in run_info.
+
+What the JAX module also has waits for the modules it reads: the
+executor-side ship (drain_remote_deltas, merge_remote, drain_zerocopy,
+merge_zerocopy) for runtime/executor_pool.py, and the sampler and
+exporters (ResourceMonitor, prometheus_text, MetricsServer, ...) for the
+service-layer modules they read; conf.metrics_port stays refused until
+then (spark/local_runner.py). The roll-up has no compile_* keys: the
+port compiles no programs (its ops run eagerly).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+from blaze_tpu_torch.config import conf
+from blaze_tpu_torch.runtime import trace
+
+BOUNDARIES = ("serde", "ffi", "shuffle", "spill", "fallback")
+
+# boundary-time categories: each lands in run_info as "<category>_ms" and
+# on stage spans. sched_queue belongs to the service's fair scheduler,
+# which is not ported, so nothing counts it yet.
+TIME_CATEGORIES = ("sched_queue", "serde_encode", "serde_decode",
+                   "shuffle_io", "spill", "device_compute",
+                   "host_compute", "retry_backoff")
+
+# event counters of the zero-copy data plane: how often the cheap path
+# ran (byte volumes live in the "shuffle" boundary)
+ZEROCOPY_KEYS = ("shuffle_mmap_hits", "shuffle_mmap_fallbacks",
+                 "dict_cols_encoded")
+
+_lock = threading.Lock()
+_copied: Dict[str, int] = {b: 0 for b in BOUNDARIES}
+_moved: Dict[str, int] = {b: 0 for b in BOUNDARIES}
+_zerocopy: Dict[str, int] = {k: 0 for k in ZEROCOPY_KEYS}
+_leaks_total = 0
+# runner-registered active query: the attribution fallback for a thread
+# with no query in its trace context
+_active_qid: Optional[str] = None
+_queries: Dict[str, "_QueryAcct"] = {}
+
+
+class _QueryAcct:
+    """Per-query accumulator (popped at query_end into the roll-up)."""
+
+    __slots__ = ("qid", "copied", "moved", "stage_copied", "stage_moved",
+                 "t0", "spilled0", "spill_count0", "time_ns",
+                 "stage_time_ns", "zc0")
+
+    def __init__(self, qid: str) -> None:
+        self.qid = qid
+        self.copied: Dict[str, int] = {}
+        self.moved: Dict[str, int] = {}
+        self.stage_copied: Dict[Any, int] = {}
+        self.stage_moved: Dict[Any, int] = {}
+        self.t0 = time.time()
+        self.spilled0 = 0
+        self.spill_count0 = 0
+        # wall ns per time category, query-level and per stage
+        self.time_ns: Dict[str, int] = {}
+        self.stage_time_ns: Dict[Any, Dict[str, int]] = {}
+        # zero-copy watermark: query_end reports the delta (a lock-free
+        # snapshot: constructors run with and without _lock held)
+        self.zc0 = {k: _zerocopy.get(k, 0) for k in ZEROCOPY_KEYS}
+
+
+# -- copy/byte accounting ----------------------------------------------------
+
+
+def count_copy(boundary: str, nbytes: int, moved: Optional[int] = None
+               ) -> None:
+    """Account one copy at `boundary`: `nbytes` bytes duplicated
+    (bytes_copied), `moved` bytes crossing the boundary (bytes_moved,
+    defaults to nbytes). Call sites gate on conf.monitor_enabled so the
+    disabled hot path pays one truthiness check."""
+    if not conf.monitor_enabled:
+        return
+    n = int(nbytes)
+    m = n if moved is None else int(moved)
+    if n <= 0 and m <= 0:
+        return
+    ctx = trace.current_context()
+    sid = ctx.get("stage_id")
+    with _lock:
+        _copied[boundary] = _copied.get(boundary, 0) + n
+        _moved[boundary] = _moved.get(boundary, 0) + m
+        qid = ctx.get("query_id") or _active_qid
+        q = _queries.get(qid) if qid else None
+        if q is not None:
+            q.copied[boundary] = q.copied.get(boundary, 0) + n
+            q.moved[boundary] = q.moved.get(boundary, 0) + m
+            if sid is not None:
+                q.stage_copied[sid] = q.stage_copied.get(sid, 0) + n
+                q.stage_moved[sid] = q.stage_moved.get(sid, 0) + m
+
+
+def count_time(category: str, ns: int, qid: Optional[str] = None,
+               sid: Optional[Any] = None) -> None:
+    """Account `ns` wall nanoseconds of `category` work against the
+    attributed query/stage: the time-domain twin of count_copy.
+    Attribution follows count_copy (trace context, then the active
+    query) unless qid/sid are passed. Call sites gate on
+    conf.monitor_enabled."""
+    if not conf.monitor_enabled:
+        return
+    n = int(ns)
+    if n <= 0:
+        return
+    if qid is None or sid is None:
+        ctx = trace.current_context()
+        if qid is None:
+            qid = ctx.get("query_id")
+        if sid is None:
+            sid = ctx.get("stage_id")
+    with _lock:
+        qid = qid or _active_qid
+        q = _queries.get(qid) if qid else None
+        if q is None:
+            return
+        q.time_ns[category] = q.time_ns.get(category, 0) + n
+        if sid is not None:
+            st = q.stage_time_ns.setdefault(sid, {})
+            st[category] = st.get(category, 0) + n
+
+
+def count_move(boundary: str, nbytes: int) -> None:
+    """Bytes that crossed `boundary` without a host-side duplication
+    (bytes_moved only)."""
+    count_copy(boundary, 0, moved=nbytes)
+
+
+def copy_totals() -> Tuple[Dict[str, int], Dict[str, int]]:
+    """(bytes_copied, bytes_moved) per boundary, process lifetime."""
+    with _lock:
+        return dict(_copied), dict(_moved)
+
+
+# -- zero-copy event accounting ----------------------------------------------
+
+
+def count_zerocopy(key: str, n: int = 1) -> None:
+    """Count one zero-copy data-plane event (a string column shipped
+    dictionary-encoded: "dict_cols_encoded"; the mmap shuffle fetch's
+    keys wait for runtime/shuffle_server.py). Call sites gate on
+    conf.monitor_enabled; self-gated too."""
+    if not conf.monitor_enabled:
+        return
+    with _lock:
+        _zerocopy[key] = _zerocopy.get(key, 0) + int(n)
+
+
+def zerocopy_stats() -> Dict[str, int]:
+    """Process-lifetime zero-copy event counters."""
+    with _lock:
+        return {k: _zerocopy.get(k, 0) for k in ZEROCOPY_KEYS}
+
+
+def leaks_total() -> int:
+    with _lock:
+        return _leaks_total
+
+
+def reset() -> None:
+    """Clear counters + per-query state (test isolation)."""
+    global _active_qid, _leaks_total
+    with _lock:
+        for d in (_copied, _moved, _zerocopy):
+            for k in d:
+                d[k] = 0
+        _queries.clear()
+        _active_qid = None
+        _leaks_total = 0
+
+
+# -- per-query lifecycle -----------------------------------------------------
+
+
+def begin_query(qid: str, manager=None) -> None:
+    """Register `qid` as the active query (attribution fallback), reset
+    the manager's peak-usage watermark, and snapshot the process
+    counters the roll-up reports as deltas."""
+    global _active_qid
+    if not conf.monitor_enabled:
+        return
+    acct = _QueryAcct(qid)
+    if manager is not None:
+        manager.reset_peak()
+        acct.spilled0 = manager.spilled_bytes
+        acct.spill_count0 = manager.spill_count
+    with _lock:
+        _queries[qid] = acct
+        _active_qid = qid
+
+
+def ensure_query(qid: str) -> None:
+    """Create the per-query accumulator for `qid` WITHOUT making it the
+    active query or touching the manager (a worker that attributes work
+    to a query another thread owns)."""
+    if not conf.monitor_enabled or not qid:
+        return
+    with _lock:
+        if qid not in _queries:
+            _queries[qid] = _QueryAcct(qid)
+
+
+def query_end(qid: str, manager=None) -> Dict[str, Any]:
+    """Pop `qid`'s accumulator; returns the flat roll-up merged into
+    run_info: bytes_copied_/bytes_moved_<boundary> and their totals, the
+    zero-copy deltas, peak_mem_bytes, spill_bytes, spill_count and one
+    <category>_ms a time category seen."""
+    global _active_qid
+    with _lock:
+        acct = _queries.pop(qid, None)
+        if _active_qid == qid:
+            _active_qid = None
+    if acct is None:
+        return {}
+    roll: Dict[str, Any] = {}
+    copied_total = moved_total = 0
+    for b in BOUNDARIES:
+        c = acct.copied.get(b, 0)
+        m = acct.moved.get(b, 0)
+        roll[f"bytes_copied_{b}"] = c
+        roll[f"bytes_moved_{b}"] = m
+        copied_total += c
+        moved_total += m
+    roll["bytes_copied_total"] = copied_total
+    roll["bytes_moved_total"] = moved_total
+    # zero-copy deltas over the query's lifetime: process-global counters
+    # diffed against the begin_query watermark, so concurrent queries
+    # share them (attribution, not an exact ledger)
+    with _lock:
+        zc_now = {k: _zerocopy.get(k, 0) for k in ZEROCOPY_KEYS}
+    for k in ZEROCOPY_KEYS:
+        roll[k] = max(zc_now.get(k, 0) - acct.zc0.get(k, 0), 0)
+    if manager is not None:
+        roll["peak_mem_bytes"] = max(manager.observe_peak(),
+                                     manager.peak_used)
+        roll["spill_bytes"] = manager.spilled_bytes - acct.spilled0
+        roll["spill_count"] = manager.spill_count - acct.spill_count0
+    for cat, ns in acct.time_ns.items():
+        roll[f"{cat}_ms"] = round(ns / 1e6, 3)
+    return roll
+
+
+def stage_span_attrs(qid: str, stage_id) -> Dict[str, Any]:
+    """{moved_bytes, copied_bytes} plus any per-stage `<category>_ms`
+    accumulated for one stage so far: the local runner stamps them onto
+    the stage span before it closes. {} when unattributed."""
+    with _lock:
+        q = _queries.get(qid)
+        if q is None:
+            return {}
+        m = q.stage_moved.get(stage_id, 0)
+        c = q.stage_copied.get(stage_id, 0)
+        times = dict(q.stage_time_ns.get(stage_id, ()))
+    out: Dict[str, Any] = {}
+    if m or c:
+        out = {"moved_bytes": m, "copied_bytes": c}
+    for cat in sorted(times):
+        out[f"{cat}_ms"] = round(times[cat] / 1e6, 3)
+    return out
+
+
+def finish_query(qid: str, run_info: Dict[str, Any], manager=None) -> None:
+    """Query-end hook: merge the roll-up into run_info and run the
+    always-on leak check (independent of conf.monitor_enabled): live
+    pipeline streams, pipeline reservations, or nonzero MemManager
+    consumers at query end are a `resource_leak` trace event and
+    run_info's "resource_leaks"."""
+    global _leaks_total
+    if conf.monitor_enabled:
+        run_info.update(query_end(qid, manager))
+    leaks: List[str] = []
+    live = run_info.get("pipeline_live_streams", 0)
+    if live:
+        leaks.append(f"pipeline_live_streams={live}")
+    if manager is not None:
+        if manager.pipeline_reserved:
+            leaks.append(
+                f"pipeline_reserved={manager.pipeline_reserved}")
+        held = [(c.name, c.mem_used())
+                for c in manager._consumers_snapshot() if c.mem_used() > 0]
+        if held:
+            leaks.append("consumers=" + ",".join(
+                f"{name}:{used}" for name, used in held))
+    run_info["resource_leaks"] = len(leaks)
+    if leaks:
+        with _lock:
+            _leaks_total += len(leaks)
+        trace.event("resource_leak", query_id=qid, leaks="; ".join(leaks))
+
+
+def running_queries() -> List[Dict[str, Any]]:
+    """Live queries (id, seconds running, bytes so far)."""
+    now = time.time()
+    with _lock:
+        return [{"query_id": q.qid,
+                 "seconds": round(now - q.t0, 1),
+                 "bytes_copied": sum(q.copied.values()),
+                 "bytes_moved": sum(q.moved.values())}
+                for q in _queries.values()]
+
+
+def query_t0(qid: str) -> Optional[float]:
+    """Wall-clock start of a STILL-REGISTERED query (None after
+    query_end pops it)."""
+    with _lock:
+        q = _queries.get(qid)
+        return q.t0 if q is not None else None
+
+
+def query_time_breakdown(qid: str) -> Dict[str, float]:
+    """Wall ms per time category accumulated SO FAR for one running
+    query; {} when unregistered or the monitor is disabled."""
+    with _lock:
+        q = _queries.get(qid)
+        if q is None:
+            return {}
+        return {cat: round(ns / 1e6, 3)
+                for cat, ns in sorted(q.time_ns.items())}

@@ -438,20 +438,22 @@ def export_batch(plan: SparkPlan, partition: int, num_partitions: int,
                  schema: T.Schema) -> pa.RecordBatch:
     """The subtree's rows for one task partition as one Arrow batch of
     `schema`. Every route onto the row interpreter goes through here, so
-    `metrics.BRIDGE` counts each export, its rows and its host time."""
+    `metrics.BRIDGE` counts each export, its rows and its host time, and
+    the monitor its bytes at the fallback boundary (the JAX package counts
+    those of export_iterator alone, not a result task's fallback)."""
     import time
 
     from blaze_tpu_torch.config import conf as _conf
     from blaze_tpu_torch.runtime import metrics
 
-    if _conf.monitor_enabled:
-        # the JAX package counts the export's bytes in runtime/monitor.py
-        raise NotImplementedError(
-            "conf.monitor_enabled switches on runtime/monitor.py, "
-            "not yet ported")
     t0 = time.perf_counter_ns()
     df = _execute(plan, partition, num_partitions)
     rb = _to_arrow(df, schema)
+    if _conf.monitor_enabled:
+        from blaze_tpu_torch.runtime import monitor
+
+        # the row interpreter's result exported as a fresh Arrow batch
+        monitor.count_copy("fallback", rb.nbytes)
     metrics.bump(metrics.BRIDGE, "exports", 1)
     metrics.bump(metrics.BRIDGE, "rows", rb.num_rows)
     metrics.bump(metrics.BRIDGE, "ns", time.perf_counter_ns() - t0)

@@ -28,12 +28,21 @@ reuses a crashed query's verified stage commits. Tasks run on `device`
 interpreter (spark/fallback.py) on the host, and its rows enter the
 native pipeline through the FFI bridge (FfiReaderExec).
 
+With mesh_exchange="auto" (the default, as in the JAX package) a
+hash-partitioned shuffle map stage on plain column keys first tries the
+device-mesh exchange (parallel/stage_exchange.py): its partitions stay in
+device memory and no file is written; a stage the mesh declines, or whose
+mesh attempt fails with a transient or resource error, takes the file
+path. runtime/monitor.py accounts the query's bytes at every copy
+boundary and merges its roll-up into run_info (conf.monitor_enabled, on
+by default), and its leak check runs on every query.
+
 What the JAX package hangs around this that is not yet ported raises,
 naming its module, when a caller switches it on: the history store,
 progress, the autopilot and its conf overlays, the flight recorder, the
 profiler, the trace exporters (conf.trace_export_dir), the executor pool
-(with its `_run_shuffle_stage_pooled`), the monitor and the device-mesh
-exchange (`mesh_exchange` other than "off").
+(with its `_run_shuffle_stage_pooled`) and the monitor's sampler and
+exporters (conf.metrics_port).
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from blaze_tpu_torch.plan import decode_plan, fingerprint_plan
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.fingerprint import fingerprint_query
 from blaze_tpu_torch.runtime import (
-    artifacts, faults, journal, pipeline, resources, trace,
+    artifacts, faults, journal, memory, monitor, pipeline, resources, trace,
 )
 from blaze_tpu_torch.runtime import supervisor as supervisor_mod
 from blaze_tpu_torch.runtime.executor import (
@@ -83,7 +92,8 @@ _LEFT_OUT = (
     ("flight_dir", "runtime/flight_recorder.py"),
     ("profile_enabled", "runtime/profiler.py"),
     ("executor_count", "runtime/executor_pool.py"),
-    ("monitor_enabled", "runtime/monitor.py"),
+    ("metrics_port",
+     "the sampler and exporters of runtime/monitor.py (MetricsServer)"),
     ("trace_export_dir",
      "the trace exporters of runtime/trace.py (export_query)"),
 )
@@ -95,11 +105,7 @@ _TASK_METRICS = ("stage_compiled", "stage_fallbacks", "bytes_scanned",
                  "io_time_ns")
 
 
-def _refuse_left_out(mesh_exchange: str) -> None:
-    if mesh_exchange != "off":
-        raise NotImplementedError(
-            f"mesh_exchange={mesh_exchange!r}: the device-mesh exchange "
-            "(parallel/stage_exchange.py) is not yet ported; pass 'off'")
+def _refuse_left_out() -> None:
     for knob, module in _LEFT_OUT:
         if getattr(conf, knob):
             raise NotImplementedError(
@@ -108,15 +114,24 @@ def _refuse_left_out(mesh_exchange: str) -> None:
 
 def run_plan(root: SparkPlan, num_partitions: int = 4,
              work_dir: Optional[str] = None,
-             mesh_exchange: str = "off",
+             mesh_exchange: str = "auto",
+             mesh_quota: Optional[int] = None,
              run_info: Optional[Dict[str, int]] = None,
              device: DeviceLike = None) -> ColumnBatch:
     """Convert + execute a Spark plan tree locally; returns the collected
     result batch, on `device` (None: the CUDA card).
 
+    mesh_exchange: "auto" runs each shuffle stage's exchange in device
+    memory over the device mesh (parallel/stage_exchange.py), falling
+    back to the file path on quota overflow or unsupported shapes; "off"
+    always uses .data/.index files. mesh_quota caps the staging rows a
+    device sends one device (None: no overflow possible).
+
     run_info: optional dict populated with execution-path counters
-    ("file_stages", "broadcast_stages", "map_tasks_run",
-    "recovered_stages", and `_TASK_METRICS` summed over every task), each
+    ("mesh_stages", "file_stages", "broadcast_stages", "map_tasks_run",
+    "recovered_stages", and `_TASK_METRICS` summed over every task), the
+    device bytes the mesh stages kept on the device ("mesh_pinned_bytes",
+    each stage's count of the half-budget rule, summed), each
     stage's kind and host wall time ("stage_s"), the query's "query_id",
     the resilience counters of the ladder and the supervisor ("retries",
     "degradations", "degraded.<rung>", "ladder_rung", "errors.<category>",
@@ -128,21 +143,32 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     batches FfiReaderExec handed on and those of them on the card
     ("bridge_batches", "bridge_card_batches"), and the host-evaluated
     functions' and UDF wrappers' crossings and host seconds
-    ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s").
+    ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s"), and with
+    conf.monitor_enabled the monitor's roll-up ("bytes_copied_<boundary>",
+    "bytes_moved_<boundary>" and their "_total"s, "peak_mem_bytes",
+    "spill_bytes", "spill_count", the zero-copy counts and one
+    "<category>_ms" a time category seen). "resource_leaks" is there
+    whatever the knob says.
 
     With conf.trace_enabled the whole run is a "query" span in the trace
     (runtime/trace.py), and every stage and task below inherits its
     query_id."""
     if run_info is None:
         run_info = {}
-    _refuse_left_out(mesh_exchange)
+    _refuse_left_out()
     dev = resolve_device(device)
     qid = run_info.get("query_id") or trace.new_query_id()
     run_info["query_id"] = qid
-    for key in (("file_stages", "broadcast_stages", "map_tasks_run",
-                 "recovered_stages") + _TASK_METRICS):
+    for key in (("mesh_stages", "mesh_pinned_bytes", "file_stages",
+                 "broadcast_stages", "map_tasks_run", "recovered_stages")
+                + _TASK_METRICS):
         run_info.setdefault(key, 0)
     run_info.setdefault("stage_s", [])
+    mgr = memory.get_manager()
+    # resource accounting: register the active query (the attribution
+    # fallback of a thread with no query in its context) and reset the
+    # memory high-water mark
+    monitor.begin_query(qid, mgr)
     # write-ahead journal: the admission record opens this query's
     # crash-recovery log (no-op with journal_dir unset); the terminal
     # record in the finally below settles it
@@ -158,8 +184,12 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
                                 num_partitions=num_partitions,
                                 mesh_exchange=mesh_exchange):
                     return _run_plan_inner(root, num_partitions, work_dir,
+                                           mesh_exchange, mesh_quota,
                                            run_info, dev, jnl)
     finally:
+        # the roll-up (bytes by boundary, peak memory, spill) merged into
+        # run_info, and the always-on leak check
+        monitor.finish_query(qid, run_info, mgr)
         if jnl is not None:
             # a journal with a complete line never enters a replay
             exc = sys.exc_info()[1]
@@ -169,7 +199,8 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
 
 
 def _run_plan_inner(root: SparkPlan, num_partitions: int,
-                    work_dir: Optional[str], run_info: Dict,
+                    work_dir: Optional[str], mesh_exchange: str,
+                    mesh_quota: Optional[int], run_info: Dict,
                     device, jnl) -> ColumnBatch:
     # task setup reclaims dead writers' leftover spill files
     artifacts.sweep_orphans([conf.spill_dir])
@@ -238,38 +269,43 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                                    stage_kind="shuffle_map",
                                    fingerprint=fp,
                                    tasks=_input_tasks(stage, stages)) as sp:
-                    logical = None
+                    logical, transport = None, "journal"
                     if jnl is not None and fp:
                         # a crashed driver's verified stage commit for
                         # this fingerprint: reuse it, no map task runs
                         logical = _resume_shuffle_stage(
                             stage, stages, shuffle_mgr, fp, jnl, run_info,
                             ns, device)
-                        if logical is not None:
-                            sp.set(transport="journal", bytes=logical)
+                    if logical is None and mesh_exchange == "auto":
+                        logical, transport = _run_mesh_stage(
+                            stage, stages, mesh_quota, work_dir, run_info,
+                            ns, device), "mesh"
                     if logical is None:
-                        logical = _run_shuffle_stage(
+                        logical, transport = _run_shuffle_stage(
                             stage, stages, shuffle_mgr, sup, run_info, ns,
-                            device, jnl=jnl, fp=fp)
+                            device, jnl=jnl, fp=fp), "file"
                         run_info["file_stages"] += 1
-                        sp.set(transport="file", bytes=logical)
+                    sp.set(transport=transport, bytes=logical,
+                           **monitor.stage_span_attrs(qid, stage.stage_id))
                     shuffle_bytes[stage.stage_id] = logical
             elif stage.kind == "broadcast":
                 with trace.context(stage_id=stage.stage_id), \
                         trace.span("stage", stage_id=stage.stage_id,
                                    stage_kind="broadcast",
-                                   fingerprint=fp, tasks=1):
+                                   fingerprint=fp, tasks=1) as sp:
                     _run_broadcast_stage(stage, stages, sup, run_info, ns,
                                          device)
+                    sp.set(**monitor.stage_span_attrs(qid, stage.stage_id))
                 run_info["broadcast_stages"] += 1
             else:
                 parts = _input_tasks(stage, stages, fallback=num_partitions)
                 with trace.context(stage_id=stage.stage_id), \
                         trace.span("stage", stage_id=stage.stage_id,
                                    stage_kind="result",
-                                   fingerprint=fp, tasks=parts):
+                                   fingerprint=fp, tasks=parts) as sp:
                     out = _run_result_stage(stage, parts, sup, run_info,
                                             device)
+                    sp.set(**monitor.stage_span_attrs(qid, stage.stage_id))
             # a stage ends in host reads (commits, frames, the collect),
             # so the host clock covers its device work
             run_info["stage_s"].append(
@@ -300,6 +336,42 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                         f"{ns}broadcast_sink:{stage.stage_id}"):
                 resources.pop(key)
             shuffle_mgr.unregister_shuffle(stage.stage_id)
+
+
+def _run_mesh_stage(stage: Stage, stages: List[Stage],
+                    mesh_quota: Optional[int], work_dir: str, run_info: Dict,
+                    ns: str, device) -> Optional[int]:
+    """The stage's exchange over the device mesh; its logical bytes, or
+    None when the mesh declines the stage or its attempt fails with an
+    error another transport may not meet (then the file path runs it: the
+    same row multisets). A plan, fatal or killed error relays: another
+    transport won't fix a broken plan."""
+    from blaze_tpu_torch.parallel.stage_exchange import (
+        run_mesh_shuffle_stage,
+    )
+
+    stats: Dict = {}
+    try:
+        ok = run_mesh_shuffle_stage(
+            stage.plan, stage.stage_id, _input_tasks(stage, stages),
+            quota=mesh_quota, work_dir=work_dir, stats=stats, namespace=ns,
+            device=device)
+    except Exception as e:  # noqa: BLE001 — classified
+        cat = faults.classify(e)
+        if cat in ("killed", "fatal", "plan"):
+            raise
+        faults.note_error(cat, run_info)
+        faults.note_degradation("mesh_to_file", run_info)
+        trace.event("degrade", what="mesh_to_file", category=cat,
+                    error=type(e).__name__)
+        return None
+    if not ok:
+        return None
+    for op in stats["ops"]:
+        _note_metrics(op, run_info)
+    run_info["mesh_stages"] += 1
+    run_info["mesh_pinned_bytes"] += stats["pinned"]
+    return stats.get("bytes", 0)
 
 
 def _crossings() -> Dict[str, float]:

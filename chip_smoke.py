@@ -174,9 +174,31 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 join task past speculation_multiplier loses to its twin,
                 every map output published exactly once. Each case's rows
                 against numpy and its run_info counters printed
+ 21. runner_mesh  the device-mesh exchange and the monitor at config.py's
+                defaults (phases 1-20 run with both off, the route of
+                their earlier numbers): first a logical-device check,
+                shuffle_q06's map stage over 4 of the main path's batches
+                through parallel/stage_exchange.run_mesh_shuffle_stage on
+                4 logical devices, all this card, each of its 200
+                partitions holding the file path's rows (no multi-card
+                claim); a mixed-provider check, 3 of those batches not
+                aggregated through the exchange on this card with the
+                memory budget cut to two batches' bytes, so that two
+                stay on the card and one goes to files, every partition
+                the file path's rows; then q02, q04, q03, q03_rev and
+                basket_items through run_plan at the defaults (mesh
+                "auto": each hash shuffle of plain column keys kept in
+                device memory, files past half the memory budget), each
+                but basket_items (which the mesh declines) beside the
+                same query with mesh_exchange="off", every run against
+                numpy:
+                q02 with one launch a probe batch (48), basket_items (list
+                state) with no mesh stage, no leak; each route's stage
+                times, stage counts, host pulls, serde seconds, peak
+                device memory and the monitor's bytes by boundary
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-20 have run_plan convert and decode
+decode_task_definition; phases 15-21 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -204,6 +226,7 @@ from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.ops import mxu_agg
 from blaze_tpu_torch.ops.base import ExecContext
+from blaze_tpu_torch.ops.host_sort import host_concat, host_to_pylike
 from blaze_tpu_torch.ops.shuffle import read_shuffle_partition_host
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.from_proto import _KIND_MAP as _PB_KIND_MAP
@@ -2559,12 +2582,14 @@ def _runner_stages(q, paths):
 
 
 def _runner_run(q, paths, work_dir, check, plan=None, info_keys=RUNNER_INFO,
-                exports=False) -> dict:
+                exports=False, mesh="off") -> dict:
     """One run of q through run_plan on the card, with the counts reset
     before it, timed to its rows on the host; `check` holds the result.
     `plan` is _runner_plan's unless given (plans are single-use). Unless
     `exports` is set, q must run wholly native: no subtree of it may run
-    on the host row interpreter and come back through the FFI bridge."""
+    on the host row interpreter and come back through the FFI bridge.
+    `mesh` is run_plan's mesh_exchange: "off" (the file route of phases
+    15-20's numbers) unless runner_mesh asks for its default, "auto"."""
     from blaze_tpu_torch.spark.local_runner import run_plan
 
     plan = _runner_plan(q, paths) if plan is None else plan
@@ -2574,7 +2599,7 @@ def _runner_run(q, paths, work_dir, check, plan=None, info_keys=RUNNER_INFO,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = run_plan(plan, work_dir=os.path.join(work_dir, "runner", q),
-                   run_info=info)
+                   mesh_exchange=mesh, run_info=info)
     rows = out.to_numpy()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2741,7 +2766,7 @@ def _profiled_map_stage(q, paths, work_dir) -> dict:
 
     local_runner._run_shuffle_stage = profiled
     try:
-        run_plan(_runner_plan(q, paths),
+        run_plan(_runner_plan(q, paths), mesh_exchange="off",
                  work_dir=os.path.join(work_dir, "runner", q + "_prof"))
     finally:
         local_runner._run_shuffle_stage = real
@@ -3244,7 +3269,7 @@ def _profiled_result_stage(q, paths, work_dir, cpu=True) -> dict:
 
     local_runner._run_result_stage = profiled
     try:
-        run_plan(_runner_plan(q, paths),
+        run_plan(_runner_plan(q, paths), mesh_exchange="off",
                  work_dir=os.path.join(work_dir, "runner", q + "_prof"))
     finally:
         local_runner._run_result_stage = real
@@ -4016,7 +4041,8 @@ def _ladder_case(q, paths, work_dir, check, spec, mode="bhj", **knobs):
     try:
         with _knobs(**knobs):
             out = run_plan(plan, work_dir=os.path.join(
-                work_dir, "resilience", q), run_info=info)
+                work_dir, "resilience", q), mesh_exchange="off",
+                run_info=info)
     finally:
         faults.install(None)
     wall = time.perf_counter() - t0
@@ -4065,7 +4091,8 @@ def _speculation_case(paths, orc, work_dir, seed) -> dict:
     try:
         # AQE off for this run: the join stays a sort-merge join
         with _knobs(speculation_multiplier=2.0, aqe_broadcast_threshold=0):
-            out = run_plan(plan, work_dir=wd, run_info=info)
+            out = run_plan(plan, work_dir=wd, mesh_exchange="off",
+                           run_info=info)
     finally:
         faults.install(None)
         artifacts.commit_shuffle_pair = real
@@ -4186,6 +4213,215 @@ def phase_runner_resilience(paths, orc, work_dir, runner, seed) -> dict:
     _emit(res)
     return res
 
+# ---- runner_mesh: the device-mesh exchange and the monitor at defaults ----
+
+MESH_QUERIES = ("q02", "q04", "q03", "q03_rev", "basket_items")
+# list state, which the mesh declines: every shuffle stage takes the files
+MESH_DECLINED = ("basket_items",)
+MONITOR_BYTES = tuple(f"bytes_{kind}_{b}" for kind in ("copied", "moved")
+                      for b in ("serde", "ffi", "shuffle", "spill",
+                                "fallback", "total"))
+MESH_INFO = RUNNER_INFO + ("mesh_stages", "mesh_pinned_bytes",
+                           "pipeline_streams",
+                           "pipeline_live_streams", "resource_leaks",
+                           "peak_mem_bytes", "spill_bytes",
+                           "spill_count") + MONITOR_BYTES
+LOGICAL_DEVICES = 4
+LOGICAL_BATCHES = 4
+# the mixed-provider check: batches, and the budget in batches' bytes
+# (half of it pins two batches on the card; the third goes to files)
+MIXED_BATCHES = 3
+MIXED_BUDGET = 2
+
+
+def _sorted_rows(d: dict, key: str) -> dict:
+    order = np.argsort(np.asarray(d[key]), kind="stable")
+    return {k: np.asarray(v)[order] for k, v in d.items()}
+
+
+def _logical_device_check(batches, work_dir) -> dict:
+    """shuffle_q06's map stage (LOGICAL_BATCHES of the main path's batches
+    -> the dense partial aggregate -> hash(ss_item_sk) into 200) through
+    run_mesh_shuffle_stage with the mesh on LOGICAL_DEVICES logical
+    devices, every one this card (parallel/stage_exchange.mesh_devices
+    patched), then through the file path (the same plan's shuffle writer
+    and reader). Each partition's rows must be the file path's."""
+    from blaze_tpu_torch.parallel import stage_exchange
+
+    rid = resources.register(lambda: iter(batches[:LOGICAL_BATCHES]))
+    data = os.path.join(work_dir, "logical.data")
+    index = os.path.join(work_dir, "logical.index")
+    td = pb.TaskDefinition.FromString(_shuffle_map_task(
+        SCHEMA_PB, rid, 0, data, index))
+    schema = decode_task_definition(td.SerializeToString())[0].schema
+    real = stage_exchange.mesh_devices
+    stage_exchange.mesh_devices = lambda dev: [
+        batches[0].device] * LOGICAL_DEVICES
+    try:
+        t0 = time.perf_counter()
+        _require(stage_exchange.run_mesh_shuffle_stage(
+            td.plan, 990, 1, work_dir=work_dir), "the mesh declined q06")
+        provider = resources.get("shuffle:990")
+        mesh = [[b.to_numpy() for b in provider(p)]
+                for p in range(SHUFFLE_PARTITIONS)]
+        mesh_s = time.perf_counter() - t0
+    finally:
+        stage_exchange.mesh_devices = real
+        resources.pop("shuffle:990")
+    t0 = time.perf_counter()
+    _run_map_stage([td.SerializeToString()])
+    file_s = time.perf_counter() - t0
+    resources.pop(rid)
+    rows = 0
+    for p in range(SHUFFLE_PARTITIONS):
+        want = list(read_shuffle_partition_host(data, index, p, schema))
+        w = host_to_pylike(host_concat(want)) if want else None
+        g = {k: np.concatenate([d[k] for d in mesh[p]])
+             for k in schema.names()} if mesh[p] else None
+        _require((w is None) == (g is None),
+                 f"partition {p}: mesh {g is not None}, file {w is not None}")
+        if w is None:
+            continue
+        w, g = _sorted_rows(w, "ss_item_sk"), _sorted_rows(g, "ss_item_sk")
+        for k in schema.names():
+            _require(np.array_equal(np.asarray(g[k]), np.asarray(w[k])),
+                     f"partition {p}: column {k} differs from the file path")
+        rows += len(w["ss_item_sk"])
+    return {"logical_devices": LOGICAL_DEVICES, "cards": 1,
+            "partitions": SHUFFLE_PARTITIONS, "state_rows": rows,
+            "equal_to_file_path": True, "mesh_s": mesh_s, "file_s": file_s}
+
+
+def _partition_rows(rows: list, names: list) -> dict:
+    """Host rows of one partition (a list of column dicts) in one order:
+    sorted by every column, so two routes' multisets compare."""
+    cols = {k: np.concatenate([np.asarray(r[k]) for r in rows])
+            for k in names}
+    order = np.lexsort([cols[k] for k in reversed(names)])
+    return {k: v[order] for k, v in cols.items()}
+
+
+def _mixed_provider_check(batches, work_dir) -> dict:
+    """The half-budget rule on the card: MIXED_BATCHES of the main path's
+    batches, not aggregated (ffi_reader -> hash(ss_item_sk) into 200),
+    through run_mesh_shuffle_stage on this one card (exchange_local) with
+    the memory budget cut to MIXED_BUDGET batches' device bytes, so the
+    first two stay on the card and the rest go to files; each partition
+    (mesh slices, then file segments) must hold the rows the file path
+    writes for the same batches."""
+    from blaze_tpu_torch.parallel import stage_exchange
+
+    mgr = memory.get_manager()
+    budget = mgr.total
+    rid = resources.register(lambda: iter(batches[:MIXED_BATCHES]))
+    src = _reader_node(SCHEMA_PB, rid, kind="ffi_reader")
+    data = os.path.join(work_dir, "mixed.data")
+    index = os.path.join(work_dir, "mixed.index")
+    node = _writer_node(src, ["ss_item_sk"], SHUFFLE_PARTITIONS, data, index)
+    names = [n for n, _ in SCHEMA_PB]
+    mesh_dir = os.path.join(work_dir, "mixed_mesh")
+    os.makedirs(mesh_dir, exist_ok=True)
+    mgr.total = MIXED_BUDGET * memory.batch_nbytes(batches[0])
+    try:
+        t0 = time.perf_counter()
+        _require(stage_exchange.run_mesh_shuffle_stage(
+            node, 989, 1, work_dir=mesh_dir), "the mesh declined the stage")
+        provider = resources.get("shuffle:989")
+        mesh = []
+        for p in range(SHUFFLE_PARTITIONS):
+            mesh.append([host_to_pylike(b) if isinstance(b, serde.HostBatch)
+                         else b.to_numpy() for b in provider(p)])
+        mesh_s = time.perf_counter() - t0
+    finally:
+        mgr.total = budget
+        resources.pop("shuffle:989")
+    to_files = len([f for f in os.listdir(mesh_dir) if f.endswith(".data")])
+    _require(0 < to_files < MIXED_BATCHES,
+             f"{to_files} of {MIXED_BATCHES} batches went to files")
+    t0 = time.perf_counter()
+    _run_map_stage([_task_bytes(node, 0, 0)])
+    file_s = time.perf_counter() - t0
+    resources.pop(rid)
+    rows = 0
+    for p in range(SHUFFLE_PARTITIONS):
+        want = [host_to_pylike(hb) for hb in read_shuffle_partition_host(
+            data, index, p, SCHEMA)]
+        _require(bool(want) == bool(mesh[p]), f"partition {p}: empty on "
+                 f"one route")
+        if not want:
+            continue
+        g, w = _partition_rows(mesh[p], names), _partition_rows(want, names)
+        for k in names:
+            _require(np.array_equal(g[k], w[k]),
+                     f"partition {p}: column {k} differs from the file path")
+        rows += len(w[names[0]])
+    _require(rows == MIXED_BATCHES * ROWS, f"{rows} rows came back")
+    return {"batches": MIXED_BATCHES, "batches_to_files": to_files,
+            "budget_bytes": MIXED_BUDGET * memory.batch_nbytes(batches[0]),
+            "partitions": SHUFFLE_PARTITIONS, "rows": rows,
+            "equal_to_file_path": True, "mesh_s": mesh_s, "file_s": file_s}
+
+
+def phase_runner_mesh(paths, orc, batches, work_dir) -> dict:
+    """The device-mesh exchange and the monitor at their defaults (phases
+    1-20 run with both off, the route of their earlier numbers): MESH_QUERIES
+    through run_plan with config.py's defaults (the mesh "auto", the
+    monitor, the supervisor's pool, the pipeline), each but the declined
+    ones beside the same query with mesh_exchange="off" in the same call,
+    each run checked against numpy. On one card each hash shuffle of plain column keys is
+    exchanged in device memory (stage_exchange.exchange_local); past half
+    the memory budget a batch goes to the files. q02 must launch the
+    kernel once a probe batch on the mesh route, basket_items (list
+    state) must take no mesh stage, and no run may leak a stream, a
+    reservation or a consumer. First, the logical-device check and the
+    mixed-provider check."""
+    from blaze_tpu_torch.config import KNOBS
+
+    checks = {"q02": lambda out: check_q02(out, orc),
+              "q04": lambda out: check_q04(out, orc),
+              "q03": lambda out: check_q03(out, orc),
+              "q03_rev": lambda out: check_q03_rev(out, orc),
+              "basket_items": lambda out: check_basket_items(out, orc)}
+    defaults = {k: KNOBS[k].default
+                for k in RUNTIME_KNOBS + ("monitor_enabled",)}
+    _require(defaults["monitor_enabled"], "the monitor is off by default")
+    res = {"phase": "runner_mesh", "mode": "bhj", "runtime": defaults}
+    t_phase = time.perf_counter()
+    with _knobs(**defaults):
+        res["logical_device_check"] = _logical_device_check(batches,
+                                                            work_dir)
+        res["mixed_provider_check"] = _mixed_provider_check(batches,
+                                                            work_dir)
+        for q in MESH_QUERIES:
+            res[q] = {}
+            # a declined query takes the same route either way
+            for route in ("auto",) if q in MESH_DECLINED else ("auto",
+                                                                "off"):
+                run = _runner_run(q, paths, work_dir, checks[q],
+                                  info_keys=MESH_INFO, mesh=route)
+                run["result_rows"] = len(next(iter(run.pop(
+                    "rows").values())))
+                res[q][route] = run
+    probe_batches = TPCDS_FILES["web_sales"] + TPCDS_FILES["catalog_sales"]
+    _require(res["q02"]["auto"]["launches"] == probe_batches,
+             f"q02 on the mesh route launched the kernel "
+             f"{res['q02']['auto']['launches']} times, not {probe_batches}")
+    for q in MESH_QUERIES:
+        auto, off = res[q]["auto"], res[q].get("off")
+        _require((auto["mesh_stages"] == 0) == (q in MESH_DECLINED),
+                 f"{q}: {auto['mesh_stages']} mesh stages")
+        _require(off is None or off["mesh_stages"] == 0 and (
+            auto["mesh_stages"] + auto["file_stages"] == off["file_stages"]),
+                 f"{q}: stages {auto} against {off}")
+        for route, run in res[q].items():
+            _require(run["resource_leaks"] == 0
+                     and run["pipeline_live_streams"] == 0,
+                     f"{q} ({route}): {run['resource_leaks']} leaks, "
+                     f"{run['pipeline_live_streams']} streams left open")
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
 
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
@@ -4226,9 +4462,12 @@ def main(argv=None) -> int:
         return 2
     smi = phase_card()
     # phases 1-19 take the inline route their earlier numbers were taken
-    # on; phase 20 runs the task runtime at its defaults
+    # on; phase 20 runs the task runtime at its defaults. Phases 1-20 run
+    # with the monitor and the mesh exchange off (their earlier route);
+    # phase 21 runs both at their defaults
     conf.enable_supervisor = False
     conf.enable_pipeline = False
+    conf.monitor_enabled = False
     phase_build()
     kern = phase_kernel()
     main_path = phase_main_path(kern)
@@ -4253,6 +4492,7 @@ def main(argv=None) -> int:
         spark_json = phase_runner_spark_json(paths, orc, work_dir, runner)
         resilient = phase_runner_resilience(paths, orc, work_dir, runner,
                                             args.seed)
+        mesh = phase_runner_mesh(paths, orc, batches, work_dir)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -4273,6 +4513,7 @@ def main(argv=None) -> int:
         "runner_json_launches": {q: spark_json[q]["launches"]
                                  for q in JSON_QUERIES},
         "runner_resilience_q02_launches": resilient["q02"]["launches"],
+        "runner_mesh_q02_launches": mesh["q02"]["auto"]["launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -10,9 +10,10 @@ decimal arithmetic, comparison, CheckOverflow, hash, sort keys and
 segmented sum/min/max, the casts that round or parse, and the bitwise and
 shift ops, and the Spark-facing slice: every registered scalar function,
 the host crossings of hostfns and the UDF wrapper, a row-interpreter
-export bridged onto the card, and the task runtime: a real device OOM's
-classification and the resilience ladder under a fault spec) on the card
-against the port's own CPU route.
+export bridged onto the card, the task runtime: a real device OOM's
+classification and the resilience ladder under a fault spec, and the
+device-mesh exchange on one device and on four logical devices of the
+card) on the card against the port's own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -619,8 +620,8 @@ def test_run_plan_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, q):
         assert out.device.type == dev
         runs[dev] = out.to_numpy(), info
     (got, ginfo), (want, winfo) = runs["cuda"], runs["cpu"]
-    keys = ("file_stages", "broadcast_stages", "map_tasks_run",
-            "stage_compiled", "stage_fallbacks")
+    keys = ("mesh_stages", "file_stages", "broadcast_stages",
+            "map_tasks_run", "stage_compiled", "stage_fallbacks")
     assert {k: ginfo[k] for k in keys} == {k: winfo[k] for k in keys}
     assert list(got) == list(want)
     for k in want:
@@ -629,6 +630,50 @@ def test_run_plan_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, q):
             np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
         else:
             np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def _source(batches):
+    """An ffi_reader provider of no parameter (ops/shuffle._call_provider
+    passes as many task arguments as a provider names)."""
+    return lambda: iter(batches)
+
+
+@pytest.mark.parametrize("logical", [1, 4])
+def test_mesh_exchange_on_card_matches_cpu(cuda, monkeypatch, logical):
+    """run_mesh_shuffle_stage over one map batch of every hashed kind,
+    keyed on three of them, on the card (one device, or four logical
+    devices all this card) and on the CPU route: every partition holds
+    the same rows in the same order."""
+    from blaze_tpu_torch.parallel import stage_exchange
+    from blaze_tpu_torch.plan import plan_pb2 as pb
+    from blaze_tpu_torch.plan.to_proto import encode_schema
+
+    parts = {}
+    for dev in (cuda, torch.device("cpu")):
+        b = _kinds_batch(dev)
+        monkeypatch.setattr(stage_exchange, "mesh_devices",
+                            lambda d, dev=dev: [dev] * logical)
+        rid = resources.register(_source([b]))
+        node = pb.PlanNode()
+        w = node.shuffle_writer
+        w.input.ffi_reader.schema.CopyFrom(encode_schema(b.schema))
+        w.input.ffi_reader.export_iter_resource_id = rid
+        w.partitioning.kind = pb.HashRepartition.HASH
+        w.partitioning.num_partitions = 8
+        for k in ("c0", "c8", "c4"):
+            w.partitioning.keys.add().column.name = k
+        assert stage_exchange.run_mesh_shuffle_stage(node, 993, 1,
+                                                     device=dev)
+        reader = resources.get("shuffle:993")
+        parts[dev.type] = [list(reader(p)) for p in range(8)]
+        resources.pop("shuffle:993")
+        resources.pop(rid)
+    for got, want in zip(parts["cuda"], parts["cpu"]):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            _assert_card_equals_cpu(g, w)
+    assert sum(int(b.num_rows) for p in parts["cuda"] for b in p) == 3000
 
 
 def test_real_device_oom_classifies_as_resource(cuda):
@@ -650,7 +695,8 @@ def test_real_device_oom_classifies_as_resource(cuda):
                                                   "fail_times": 10 ** 9}}}])
 def test_ladder_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, spec):
     """tpcds.py's q02 (SMJ) under a fault spec at the default runtime (the
-    supervisor's pool, the pipeline): on the card, the rows and the
+    supervisor's pool, the pipeline) with the mesh exchange off, so that
+    the map tasks run under the ladder: on the card, the rows and the
     resilience counters of the CPU route."""
     from blaze_tpu_torch.runtime import faults
     from blaze_tpu_torch.spark import tpcds
@@ -664,7 +710,7 @@ def test_ladder_on_card_matches_cpu(cuda, tpcds_tables, tmp_path, spec):
         faults.install(spec)
         try:
             out = run_plan(plan, work_dir=str(tmp_path / dev),
-                           run_info=info, device=dev)
+                           mesh_exchange="off", run_info=info, device=dev)
         finally:
             faults.install(None)
         runs[dev] = out.to_numpy(), {

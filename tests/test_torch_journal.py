@@ -221,7 +221,8 @@ def test_a_stopped_run_resumes_its_committed_stage(tables, tmp_path,
         plan, _ = tpcds.QUERIES["q02"](paths, frames, "smj")
         return local_runner.run_plan(plan, num_partitions=4,
                                      work_dir=str(tmp_path / work),
-                                     run_info=info, device="cpu")
+                                     mesh_exchange="off", run_info=info,
+                                     device="cpu")
 
     full = {}
     want = run("full", full).to_numpy()

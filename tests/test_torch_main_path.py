@@ -4,7 +4,7 @@ agg) as TaskDefinition bytes, decoded and collected in both packages over
 the identical batches (4 x 2^12 rows, 2^10 groups). Keys and counts must be
 equal, float sums within rtol 1e-12 of the JAX package and 1e-9 of numpy.
 
-Also: a partial-only plan, an avg aggregate, min/max on the dense path,
+Also: collect_arrow, a partial-only plan, an avg aggregate, min/max on the dense path,
 the fallback of stages the dense path declines, the typed
 NotImplementedError of undecoded plan nodes, the import guard that keeps
 jax, `blaze_tpu` and (at import) pandas out of the port, and the no-CUDA
@@ -93,6 +93,24 @@ def test_bench_plan_matches_jax_and_numpy(small):
     np.testing.assert_allclose(t["sum_amount"], ref_sums[nz], rtol=1e-9)
     assert out.schema.names() == ["ss_item_sk", "sum_amount", "cnt"]
     assert repr(out.columns[2].dtype) == "int64"
+
+
+def test_collect_arrow_matches_jax(small):
+    """executor.collect_arrow: the collected rows as one Arrow batch, the
+    JAX package's schema and values (sums within rtol 1e-12)."""
+    from blaze_tpu.runtime.executor import collect_arrow as jcollect_arrow
+    from blaze_tpu_torch.runtime.executor import collect_arrow
+
+    rid = _both([small._make_data(s) for s in range(N_BATCHES)])
+    task = small._build_task(small.SCHEMA_PB, rid)
+    rb = collect_arrow(decode_task_definition(task)[0])
+    jrb = jcollect_arrow(jdecode(task)[0])
+    assert rb.schema == jrb.schema and rb.num_rows == jrb.num_rows > 0
+    t = _sorted({k: rb.column(k).to_numpy() for k in rb.schema.names})
+    j = _sorted({k: jrb.column(k).to_numpy() for k in jrb.schema.names})
+    np.testing.assert_array_equal(t["ss_item_sk"], j["ss_item_sk"])
+    np.testing.assert_array_equal(t["cnt"], j["cnt"])
+    np.testing.assert_allclose(t["sum_amount"], j["sum_amount"], rtol=1e-12)
 
 
 def test_collect_fetch_digest_and_memo(small):
@@ -320,7 +338,8 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'spark.fallback', 'spark.hive_udf', 'spark.shims',\n"
         "        'spark.plan_json', 'spark.pyspark_ext', 'runtime.trace',\n"
         "        'runtime.faults', 'runtime.pipeline', 'runtime.supervisor',\n"
-        "        'runtime.journal')}\n"
+        "        'runtime.journal', 'runtime.monitor', 'parallel.shuffle',\n"
+        "        'parallel.stage_exchange')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

@@ -4,20 +4,24 @@ Each package generates its tables from the same seed (the TPC-DS
 catalogue's at 6000 store_sales rows, the validator core catalogue's at
 6000), makes each plan with its own query function, and runs it through
 its own `run_plan`: the port at its defaults (the supervisor's pool of
-four, the threaded pipeline), the JAX package with `mesh_exchange="off"`
-and its supervisor and pipeline off, with its native layer taken out
-(`no_jax_native`); a few cases run both packages at their defaults. The
-results must be equal row for row, in order (integers bitwise, floats
-within rtol 1e-12), each package's answer must pass its validator's
-`_compare` against the pandas oracle, and the two runs must agree on
-`run_info`'s `file_stages` and `broadcast_stages` and on the whole-stage
-routes (`stage_compiled`, `stage_fallbacks`; the JAX package counts
-neither per query, so the test tallies its metric updates).
+four, the threaded pipeline, the device-mesh exchange on its one CPU
+device, the monitor), the JAX package with `mesh_exchange="off"` and its
+supervisor and pipeline off, with its native layer taken out
+(`no_jax_native`); a few cases run both packages at their defaults, the
+port's mesh patched to as many logical CPU devices as the JAX package's
+exchange uses of its eight. The results must be equal row for row, in
+order (integers bitwise, floats within rtol 1e-12), each package's answer
+must pass its validator's `_compare` against the pandas oracle, and the
+two runs must agree on `run_info`'s shuffle stages (the port's mesh and
+file stages together against the JAX package's file stages),
+`broadcast_stages` and on the whole-stage routes (`stage_compiled`,
+`stage_fallbacks`; the JAX package counts neither per query, so the test
+tallies its metric updates).
 
 Every plan arm the JAX decoder decodes must decode in the port. What the
 port's runner leaves out must raise NotImplementedError naming the
-missing module: the mesh exchange, and every conf knob that would switch
-on an unported module. A NeverConvert subtree runs on the row
+missing module: every conf knob that would switch on an unported
+module. A NeverConvert subtree runs on the row
 interpreter, which raises, as the JAX package's does, for an operator or
 a function it has no body for.
 """
@@ -25,6 +29,7 @@ a function it has no body for.
 import os
 import re
 
+import jax
 import numpy as np
 import pytest
 
@@ -44,7 +49,7 @@ from blaze_tpu_torch.spark import tpcds, validator
 from blaze_tpu_torch.spark.convert_strategy import apply_strategy
 from blaze_tpu_torch.spark.local_runner import run_plan
 from blaze_tpu_torch.spark.stages import plan_stages
-from torch_parity import no_jax_native
+from torch_parity import assert_same_stages, no_jax_native
 
 ROWS = 6000
 CATALOGUES = {"tpcds": (tpcds, jtpcds), "core": (validator, jvalidator)}
@@ -150,22 +155,39 @@ def test_run_plan_matches_jax(tables, jax_routes, tmp_path, suite, q, mode):
         drop=True), oracle().reset_index(drop=True)) is None
     assert jvalidator._compare(jvalidator._to_pandas(jout).reset_index(
         drop=True), joracle().reset_index(drop=True)) is None
-    for key in ("file_stages", "broadcast_stages"):
-        assert info[key] == jinfo[key], key
+    assert_same_stages(info, jinfo)
     assert {k: info[k] for k in jax_routes} == jax_routes
-    assert info["map_tasks_run"] == jinfo["map_tasks_run"]
+
+
+def mesh_like_jax(monkeypatch, partitions: int = 4) -> None:
+    """The port's mesh on as many logical CPU devices as the JAX package's
+    exchange takes of its eight for `partitions` (its use_d, ref
+    stage_exchange.py:116-118)."""
+    import torch
+
+    from blaze_tpu_torch.parallel import stage_exchange
+
+    d = min(len(jax.devices()), partitions)
+    monkeypatch.setattr(stage_exchange, "mesh_devices",
+                        lambda dev: [torch.device("cpu")] * d)
 
 
 @pytest.mark.parametrize("suite,q,mode", [
     ("tpcds", "q02", "bhj"), ("tpcds", "q05", "smj"),
-    ("core", "q5_multijoin_limit", "bhj")])
+    ("core", "q5_multijoin_limit", "bhj"), ("tpcds", "q03", "bhj"),
+    ("core", "q3_join_agg_sort", "smj")])
 def test_run_plan_matches_jax_both_at_defaults(tables, monkeypatch, tmp_path,
                                                suite, q, mode):
-    """Both packages at their defaults: the supervisor's pool and the
-    threaded pipeline on each side (the JAX package's native layer out)."""
+    """Both packages at their defaults: the supervisor's pool, the threaded
+    pipeline, the mesh exchange (the port's over the JAX package's device
+    count) and the monitor on each side (the JAX package's native layer
+    out). The SMJ cases take AQE's decisions off the mesh's logical
+    bytes."""
     no_jax_native(monkeypatch)
+    mesh_like_jax(monkeypatch)
     assert conf.enable_supervisor and conf.enable_pipeline
     assert jconf.enable_supervisor and jconf.enable_pipeline
+    assert conf.monitor_enabled and jconf.monitor_enabled
     port, jax = CATALOGUES[suite]
     (paths, frames), (jpaths, jframes) = tables[suite]
     info, jinfo = {}, {}
@@ -174,11 +196,12 @@ def test_run_plan_matches_jax_both_at_defaults(tables, monkeypatch, tmp_path,
                    device="cpu")
     jout = jrun_plan(jax.QUERIES[q](jpaths, jframes, mode)[0],
                      num_partitions=4, work_dir=str(tmp_path / "jax"),
-                     mesh_exchange="off", run_info=jinfo)
+                     run_info=jinfo)
     _same_rows(out.to_numpy(), jout.to_numpy())
-    for key in ("file_stages", "broadcast_stages", "map_tasks_run",
-                "pipeline_live_streams"):
+    for key in ("mesh_stages", "file_stages", "broadcast_stages",
+                "map_tasks_run", "pipeline_live_streams", "resource_leaks"):
         assert info[key] == jinfo[key], key
+    assert info["mesh_stages"] > 0
     assert info["pipeline_streams"] > 0
 
 
@@ -316,7 +339,7 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
 
 
 @pytest.mark.parametrize("knob,value,module", [
-    ("mesh_exchange", "auto", "parallel/stage_exchange.py"),
+    ("metrics_port", 9091, "runtime/monitor.py"),
     ("trace_export_dir", "/nonexistent", "runtime/trace.py"),
     ("history_dir", "/nonexistent", "runtime/history.py"),
     ("progress_enabled", True, "runtime/progress.py"),
@@ -324,19 +347,14 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
     ("flight_dir", "/nonexistent", "runtime/flight_recorder.py"),
     ("profile_enabled", True, "runtime/profiler.py"),
     ("executor_count", 2, "runtime/executor_pool.py"),
-    ("monitor_enabled", True, "runtime/monitor.py"),
 ])
 def test_left_out_modules_raise(tables, monkeypatch, tmp_path, knob, value,
                                 module):
     (paths, frames), _ = tables["tpcds"]
     plan, _ = tpcds.QUERIES["q09"](paths, frames, "bhj")
-    kwargs = {}
-    if knob == "mesh_exchange":
-        kwargs["mesh_exchange"] = value
-    else:
-        monkeypatch.setattr(conf, knob, value)
+    monkeypatch.setattr(conf, knob, value)
     with pytest.raises(NotImplementedError, match=module):
-        run_plan(plan, work_dir=str(tmp_path), device="cpu", **kwargs)
+        run_plan(plan, work_dir=str(tmp_path), device="cpu")
 
 
 def test_run_plan_defaults_to_the_card(tables):

@@ -416,7 +416,8 @@ def test_query_deadline_ends_in_deadline_error(tables, tmp_path):
 def test_straggler_loses_to_its_twin(tables, tmp_path):
     """A map task stalls past speculation_multiplier x the stage's median:
     its twin wins, and the stage's work dir holds exactly one committed
-    pair a task."""
+    pair a task (the file route: the mesh exchange runs no supervised map
+    task)."""
     from blaze_tpu_torch.spark import validator
     from blaze_tpu_torch.spark.local_runner import run_plan
     from blaze_tpu_torch.spark.shuffle_manager import BlazeShuffleManager
@@ -444,7 +445,7 @@ def test_straggler_loses_to_its_twin(tables, tmp_path):
         plan, oracle = validator.QUERIES["q3_join_agg_sort"](paths, frames,
                                                              "smj")
         out = run_plan(plan, num_partitions=4, work_dir=str(tmp_path),
-                       run_info=info, device="cpu")
+                       mesh_exchange="off", run_info=info, device="cpu")
     finally:
         BlazeShuffleManager._register_map_output = real
         faults.install(None)
@@ -541,7 +542,7 @@ def test_a_work_dir_reused_after_a_repair(tables, tmp_path):
     outs = []
     for mod, val, run, flt, p, f, kw in (
             ("port", validator, run_plan, faults, paths, frames,
-             {"device": "cpu"}),
+             {"device": "cpu", "mesh_exchange": "off"}),
             ("jax", jvalidator, jrun_plan, jf, jpaths, jframes,
              {"mesh_exchange": "off"})):
         wd = str(tmp_path / mod)

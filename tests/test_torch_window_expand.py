@@ -41,7 +41,7 @@ from blaze_tpu_torch.ops.basic import MemorySourceExec
 from blaze_tpu_torch.ops.sort_keys import SortSpec
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.executor import collect
-from torch_parity import no_jax_native
+from torch_parity import assert_same_stages, no_jax_native
 
 FIELDS = [("g", "INT64"), ("o", "INT32"), ("v", "FLOAT64"), ("i", "INT32"),
           ("a", "FLOAT64")]
@@ -361,8 +361,7 @@ def test_nested_queries_run_plan_like_jax(tables, tmp_path, monkeypatch, q,
         np.testing.assert_array_equal(w, jw, err_msg=k)
         np.testing.assert_allclose(g[~w], jg[~jw], rtol=1e-12, err_msg=k)
     assert len(want[next(iter(want))]) > 0
-    for key in ("file_stages", "broadcast_stages", "map_tasks_run"):
-        assert info[key] == jinfo[key], key
+    assert_same_stages(info, jinfo)
 
 
 @pytest.mark.parametrize("share", [0.0, 0.05, 0.9, 1.0])

@@ -30,6 +30,19 @@ RESILIENCE_KEYS = ("retries", "degradations", "ladder_rung",
                    "speculations_won")
 
 
+def assert_same_stages(info: dict, jinfo: dict) -> None:
+    """The port at its defaults (the mesh exchange on, one device) against
+    the JAX package with the mesh off: as many shuffle stages, mesh and
+    file together, and broadcast stages; and as many map tasks on the
+    file path exactly when no stage took the mesh (a mesh stage runs its
+    own map tasks, which map_tasks_run does not count)."""
+    assert info["mesh_stages"] + info["file_stages"] == jinfo["file_stages"]
+    assert info["broadcast_stages"] == jinfo["broadcast_stages"]
+    assert (info["map_tasks_run"] == jinfo["map_tasks_run"]) == (
+        info["mesh_stages"] == 0)
+    assert info["map_tasks_run"] <= jinfo["map_tasks_run"]
+
+
 def resilience(info: dict) -> dict:
     """The resilience counters of a run_info dict."""
     return {k: v for k, v in info.items()
@@ -57,10 +70,12 @@ def both_tables(tmp_path_factory, rows: int) -> dict:
 
 
 def run_both(tables, tmp_path, suite, q, mode, spec=None, parts=4):
-    """One query through each package's run_plan at its defaults (the
-    JAX package's mesh exchange off), under the same fault spec installed
-    in each: ((port rows, run_info), (JAX rows, run_info)). Each
-    package's answer is checked against its validator's pandas oracle."""
+    """One query through each package's run_plan at its defaults but for
+    the mesh exchange, off on both sides (the shuffle stages' map tasks
+    then run under the supervisor and the ladder, where the fault points
+    act), under the same fault spec installed in each: ((port rows,
+    run_info), (JAX rows, run_info)). Each package's answer is checked
+    against its validator's pandas oracle."""
     from blaze_tpu.runtime import faults as jfaults
     from blaze_tpu.spark import tpcds as jtpcds
     from blaze_tpu.spark import validator as jvalidator
@@ -75,7 +90,7 @@ def run_both(tables, tmp_path, suite, q, mode, spec=None, parts=4):
     runs = []
     for mod, val, run, flt, p, f, extra in (
             (port, validator, run_plan, faults, paths, frames,
-             {"device": "cpu"}),
+             {"device": "cpu", "mesh_exchange": "off"}),
             (jax, jvalidator, jrun_plan, jfaults, jpaths, jframes,
              {"mesh_exchange": "off"})):
         plan, oracle = mod.QUERIES[q](p, f, mode)

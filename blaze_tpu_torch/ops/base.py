@@ -1,12 +1,12 @@
 """Operator protocol + execution context.
 
-Port of blaze_tpu/ops/base.py without the history and progress hooks
-(runtime/history.py, runtime/progress.py are not ported). Operators yield
-batches; consecutive map-like operators (filter/project/rename) expose a
-`batch_fn` that the executor composes into one per-batch function
+Port of blaze_tpu/ops/base.py. Operators yield batches; consecutive
+map-like operators (filter/project/rename) expose a `batch_fn` that the
+executor composes into one per-batch function
 (runtime/executor.execute_fused), run eagerly on the batch's device.
 Every operator's output stream passes `count_stream`, the batch boundary
-where the `op.<Kind>` fault point fires and the trace records the batch.
+where the `op.<Kind>` fault point fires and where the trace, the history
+store's row tap and live progress see the batch.
 """
 
 from __future__ import annotations
@@ -118,23 +118,41 @@ def count_stream(op: Operator, stream: BatchStream) -> BatchStream:
     """Wrap a stream updating the operator's baseline metrics.
 
     The batch boundary is also where the `op.<Kind>` fault point fires
-    (runtime/faults.py) and, with conf.trace_enabled, where the trace
-    records the batch and its rows (runtime/trace.on_batch); off, each
-    costs one truthiness check. With tracing off the row count stays a
+    (runtime/faults.py) and where three taps see the batch's rows: the
+    trace (conf.trace_enabled, runtime/trace.on_batch), the history
+    store's per-operator row tap (conf.history_dir,
+    runtime/history.observe_rows) and live progress
+    (conf.progress_enabled, runtime/progress.on_batch); off, each costs
+    one truthiness check. With all three off the row count stays a
     device tensor until someone reads the metric, so the stream never
-    waits on the card; with it on, each batch's count is read."""
+    waits on the card; with any on, each batch's count is read once and
+    shared by the taps."""
     from blaze_tpu_torch.config import conf
     from blaze_tpu_torch.runtime import faults, trace
 
+    if conf.history_dir:
+        from blaze_tpu_torch.runtime import history
+    else:
+        history = None
+    if conf.progress_enabled:
+        from blaze_tpu_torch.runtime import progress
+    else:
+        progress = None
     fault_point = "op." + op.name()
     rows, counted = [], 0
     try:
         for batch in stream:
             if conf.fault_injection_spec:
                 faults.inject(fault_point)
-            if conf.trace_enabled:
-                n = int(to_host(batch.num_rows))
-                trace.on_batch(op, n)
+            if conf.trace_enabled or history is not None \
+                    or progress is not None:
+                n = int(to_host(batch.num_rows))  # one pull, three taps
+                if conf.trace_enabled:
+                    trace.on_batch(op, n)
+                if history is not None:
+                    history.observe_rows(op, n)
+                if progress is not None:
+                    progress.on_batch(op, n)
                 counted += n
             else:
                 rows.append(batch.num_rows)

@@ -8,6 +8,7 @@ shape.
 """
 
 from blaze_tpu_torch.plan.fingerprint import (
+    fingerprint_operator,
     fingerprint_plan,
     fingerprint_query,
 )
@@ -21,6 +22,7 @@ __all__ = [
     "decode_expr",
     "decode_plan",
     "decode_task_definition",
+    "fingerprint_operator",
     "fingerprint_plan",
     "fingerprint_query",
 ]

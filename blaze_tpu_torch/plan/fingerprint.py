@@ -1,6 +1,6 @@
 """Canonical plan fingerprints: stable hashes of operator-subtree SHAPE.
 
-Port of blaze_tpu/plan/fingerprint.py (the proto side). "Same plan" must
+Port of blaze_tpu/plan/fingerprint.py, whole. "Same plan" must
 survive what legitimately changes between runs of one logical query:
 literal values in predicates (`price > 5` vs `price > 7`), scan file
 paths and sizes (a regenerated table directory), and task-scoped
@@ -21,10 +21,13 @@ that masks exactly those:
                hashed structurally, so any shape change re-keys
 
 `fingerprint_plan(msg)` hashes one plan proto (a stage's task plan);
-`fingerprint_query(stage_fps)` hashes a query's ordered stage hashes.
-The walk is the JAX package's, so both packages give one plan the same
-fingerprint. The JAX package's `fingerprint_operator` (a decoded
-operator's jit-cache key) keys its history store, which is not ported.
+`fingerprint_query(stage_fps)` hashes a query's ordered stage hashes;
+`fingerprint_operator(op)` hashes a decoded operator tree's `plan_key()`
+(the literal-free structure key), the key of the history store's
+operator taps and the whole-stage events. The walk and the keys are the
+JAX package's, so both packages give one plan the same fingerprints: a
+plan_key holds plain Python values (kinds, names, enum values, nested
+tuples), whose repr is the same in both.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ def fingerprint_plan(msg) -> str:
     tokens: List[str] = []
     _walk(msg, tokens)
     return _digest(tokens)
+
+
+def fingerprint_operator(op) -> str:
+    """Stable hex fingerprint of a decoded Operator tree, derived from
+    plan_key(). Hashed into the same opaque-key space history records
+    index by (distinct from the proto-side keyspace, which carries more
+    shape detail)."""
+    return _digest(["opkey", repr(op.plan_key())])
 
 
 def fingerprint_query(stage_fps: List[str]) -> str:

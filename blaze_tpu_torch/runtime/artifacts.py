@@ -78,19 +78,21 @@ def _fsync_path(path: str) -> None:
         os.close(fd)
 
 
-def publish(tmp_path: str, final_path: str) -> None:
-    """fsync a staged temp, then atomically rename it onto its final
-    name."""
-    _fsync_path(tmp_path)
+def publish(tmp_path: str, final_path: str, fsync: bool = True) -> None:
+    """fsync a staged temp (unless `fsync` is False: a best-effort
+    export), then atomically rename it onto its final name."""
+    if fsync:
+        _fsync_path(tmp_path)
     os.replace(tmp_path, final_path)
 
 
-def commit_file(write_fn: Callable[[str], None], final_path: str) -> None:
+def commit_file(write_fn: Callable[[str], None], final_path: str,
+                fsync: bool = True) -> None:
     """stage -> write_fn(tmp) -> publish; the temp goes on any failure."""
     tmp = stage_path(final_path)
     try:
         write_fn(tmp)
-        publish(tmp, final_path)
+        publish(tmp, final_path, fsync=fsync)
     except BaseException:
         _unlink_quiet(tmp)
         raise

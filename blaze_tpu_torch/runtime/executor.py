@@ -2,8 +2,10 @@
 
 Port of blaze_tpu/runtime/executor.py: the collect subset (with
 `collect_arrow`), `execute_stage_or_plan` (the entry of the shuffle
-writers) and `run_task_with_resilience`, the retry / degrade / fallback
-ladder every supervised task runs under (runtime/supervisor.py). Maximal
+writers), `metric_tree` and `run_task_with_resilience`, the retry /
+degrade / fallback ladder every supervised task runs under
+(runtime/supervisor.py), whose retries and rungs also land on the live
+progress waterfall (runtime/progress.py). Maximal
 chains of map-like operators run as one composed per-batch function,
 eagerly on the batch's device (PyTorch has no compiled-program cache to
 keep small, so there is no jit cache here). `collect` first tries the
@@ -27,7 +29,7 @@ from blaze_tpu_torch.ops.base import (
     BatchStream, ExecContext, MapLikeOp, Operator, count_stream,
 )
 from blaze_tpu_torch.ops.common import concat_batches
-from blaze_tpu_torch.runtime.metrics import to_host
+from blaze_tpu_torch.runtime.metrics import MetricNode, to_host
 
 
 def run_task_with_resilience(attempt: Callable[[], object], *,
@@ -105,6 +107,7 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                         trace.event("ladder_rung", what=what, rung=1,
                                     action="halve_batch")
                         _note_rung(run_info, rung)
+                        _note_progress("ladder_rung", "halve_batch")
                         continue
                     if rung == 1:
                         rung = 2
@@ -113,6 +116,7 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                         trace.event("ladder_rung", what=what, rung=2,
                                     action="force_spill")
                         _note_rung(run_info, rung)
+                        _note_progress("ladder_rung", "force_spill")
                         continue
                     if rung == 2 and fallback is not None:
                         rung = 3
@@ -120,6 +124,7 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                         trace.event("ladder_rung", what=what, rung=3,
                                     action="fallback")
                         _note_rung(run_info, rung)
+                        _note_progress("ladder_rung", "fallback")
                         return fallback()
                 elif isinstance(e, faults.HungError) and \
                         hang_relaunches < conf.max_task_retries:
@@ -158,6 +163,7 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                     trace.event("retry", what=what, n=retries,
                                 category=cat,
                                 backoff_ms=round(sleep_s * 1000, 2))
+                    _note_progress("retry", cat)
                     t0 = _time.perf_counter_ns()
                     faults._sleep(sleep_s)
                     if conf.monitor_enabled:
@@ -178,6 +184,18 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
 def _note_rung(run_info: Optional[dict], rung: int) -> None:
     if run_info is not None:
         run_info["ladder_rung"] = max(run_info.get("ladder_rung", 0), rung)
+
+
+def _note_progress(kind: str, detail: str) -> None:
+    """Mirror a resilience event into the live progress registry (the
+    waterfall's retry/rung annotations). One truthiness check when live
+    progress is off."""
+    from blaze_tpu_torch.config import conf
+
+    if conf.progress_enabled:
+        from blaze_tpu_torch.runtime import progress
+
+        progress.note_event(kind, detail)
 
 
 def _fused_chain(op: MapLikeOp) -> tuple:
@@ -286,3 +304,15 @@ def collect_arrow(root: Operator, ctx: Optional[ExecContext] = None):
     from blaze_tpu_torch.columnar.arrow_io import batch_to_arrow
 
     return batch_to_arrow(collect(root, ctx))
+
+
+def metric_tree(root: Operator) -> MetricNode:
+    """The operator tree's metrics as a MetricNode, with the process-wide
+    resilience counters riding along as an extra child (no handler of its
+    own). The JAX module's compile-service child comes with that module
+    (ROADMAP Queue 1, item 4)."""
+    from blaze_tpu_torch.runtime import faults
+
+    node = MetricNode.from_operator(root)
+    node.children = list(node.children) + [faults.telemetry_node()]
+    return node

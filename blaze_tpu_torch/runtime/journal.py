@@ -2,8 +2,8 @@
 
 Port of blaze_tpu/runtime/journal.py without stream adoption
 (`adoptable_streams`, `claim_adoptable_stream`: runtime/streaming.py is
-not ported) and without the flight-recorder dossier of a recovered query
-(runtime/flight_recorder.py is not ported; conf.flight_dir stays refused).
+not ported). A replayed journal writes a `driver_restart` flight dossier
+under conf.flight_dir (runtime/flight_recorder.py).
 
 The commit protocol (runtime/artifacts.py) makes each ARTIFACT durable;
 this module makes the QUERY durable. Every query appends a crash-atomic
@@ -366,6 +366,21 @@ def _replay_one(path: str, records: List[Dict[str, Any]],
                    stages_recovered=recovered, stages_discarded=discarded)
     except OSError:
         pass
+    _flight_dossier(qid, tenant, recovered, discarded, plan_fp)
+
+
+def _flight_dossier(qid: str, tenant: str, recovered: int,
+                    discarded: int, plan_fp: str) -> None:
+    from blaze_tpu_torch.runtime import flight_recorder
+
+    if not flight_recorder.enabled("driver_restart"):
+        return
+    flight_recorder.capture(
+        "driver_restart", qid or "unknown", tenant_id=tenant or None,
+        error="driver restarted with this query in flight",
+        detail={"stages_recovered": recovered,
+                "stages_discarded": discarded,
+                "plan_fingerprint": plan_fp})
 
 
 def _output_verifies(out: Dict[str, Any]) -> bool:

@@ -38,9 +38,13 @@ What the JAX module also has waits for the modules it reads: the
 executor-side ship (drain_remote_deltas, merge_remote, drain_zerocopy,
 merge_zerocopy) for runtime/executor_pool.py, and the sampler and
 exporters (ResourceMonitor, prometheus_text, MetricsServer, ...) for the
-service-layer modules they read; conf.metrics_port stays refused until
-then (spark/local_runner.py). The roll-up has no compile_* keys: the
-port compiles no programs (its ops run eagerly).
+service-layer modules they read (ROADMAP Queue 1, item 3);
+conf.metrics_port stays refused until then (spark/local_runner.py), and
+`sampler()`/`ring_slice()` give what the JAX module's give while no
+sampler runs: None and []. `begin_query` starts the sampling profiler
+(runtime/profiler.py) under conf.profile_enabled, as the JAX module's
+does. The roll-up has no compile_* keys: the port compiles no programs
+(its ops run eagerly).
 """
 
 from __future__ import annotations
@@ -215,8 +219,13 @@ def reset() -> None:
 def begin_query(qid: str, manager=None) -> None:
     """Register `qid` as the active query (attribution fallback), reset
     the manager's peak-usage watermark, and snapshot the process
-    counters the roll-up reports as deltas."""
+    counters the roll-up reports as deltas. Starts the sampling profiler
+    when conf.profile_enabled is set."""
     global _active_qid
+    if conf.profile_enabled:
+        from blaze_tpu_torch.runtime import profiler
+
+        profiler.ensure_started()
     if not conf.monitor_enabled:
         return
     acct = _QueryAcct(qid)
@@ -356,3 +365,17 @@ def query_time_breakdown(qid: str) -> Dict[str, float]:
             return {}
         return {cat: round(ns / 1e6, 3)
                 for cat, ns in sorted(q.time_ns.items())}
+
+
+def sampler():
+    """The global gauge sampler: None, as in the JAX module while
+    conf.metrics_port is 0 (the sampler comes with the service layer,
+    ROADMAP Queue 1, item 3)."""
+    return None
+
+
+def ring_slice(since_ts: Optional[float] = None) -> List[Dict[str, Any]]:
+    """Global-sampler ring samples with ts >= since_ts, the flight
+    recorder's monitor slice: [], as in the JAX module while its sampler
+    never started."""
+    return []

@@ -32,6 +32,13 @@ through the streaming sort-based AggExec (`_fallback`).
 An agg-less `source -> (filter|project|rename)+` stage runs as one chain
 stage (`_run_chain_stage`): the chain over every batch with filters as
 masks, and all surviving rows compacted into ONE output batch.
+
+With conf.trace_enabled every attempt, dense group count and fallback is
+a trace event (whole_stage_attempt, whole_stage_groups,
+whole_stage_fallback) carrying the root operator's fingerprint, as in
+the JAX module; with conf.history_dir the group counts and output rows
+feed the history store's taps (runtime/history.py), since this path
+bypasses count_stream's per-batch row tap.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from blaze_tpu_torch.ops.agg import (
     AggExec, AggMode, result_field, state_fields,
 )
 from blaze_tpu_torch.ops.base import ExecContext, MapLikeOp, Operator
+from blaze_tpu_torch.runtime import trace
 from blaze_tpu_torch.runtime.metrics import to_host
 
 _GROUP_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
@@ -176,6 +184,15 @@ def _fallback(root: Operator, batches: List[ColumnBatch], source: Operator,
     from blaze_tpu_torch.runtime.executor import collect_streamed
 
     root.metrics.add("stage_fallbacks", 1)
+    trace.event("whole_stage_fallback", op_kind=type(root).__name__,
+                fingerprint=_stage_fp(root))
+    if conf.history_dir:
+        from blaze_tpu_torch.runtime import history
+
+        fp = _stage_fp(root)
+        if fp is not None:
+            history.observe_groups(fp, type(root).__name__, None,
+                                   dense=False)
     src = MemorySourceExec(batches, source.schema)
     return collect_streamed(_rebuild(root, source, src), ctx,
                             batches[0].device)
@@ -230,6 +247,8 @@ def try_run_stage(root: Operator, ctx: ExecContext,
         from blaze_tpu_torch.runtime import faults
 
         faults.inject("op." + type(root).__name__)
+    trace.event("whole_stage_attempt", op_kind=type(root).__name__,
+                fingerprint=_stage_fp(root))
     m = _match(root)
     if m is None:
         if not chain_ok:
@@ -297,6 +316,9 @@ def try_run_stage(root: Operator, ctx: ExecContext,
         op.metrics.add("output_batches", 1)
     root.metrics.add("output_rows", nrows)
     root.metrics.add("stage_compiled", 1)
+    # observed groupby cardinality: the dense path knows the exact group
+    # count from the flags it already pulled
+    _note_stage_stats(root, nrows, dense=True)
     return out
 
 
@@ -357,9 +379,41 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
     out = flat.compact(torch.cat(masks))
     for op in chain:
         op.metrics.add("output_batches", 1)
-    root.metrics.add("output_rows", int(to_host(out.num_rows)))
+    n = int(to_host(out.num_rows))
+    root.metrics.add("output_rows", n)
     root.metrics.add("stage_compiled", 1)
+    # chain stages have no group key: record output cardinality only
+    _note_stage_stats(root, None, dense=True, rows=n)
     return out
+
+
+def _stage_fp(root: Operator):
+    """Operator fingerprint for whole-stage events/history taps; None
+    when neither tracing nor the history store would record it."""
+    if not (conf.trace_enabled or conf.history_dir):
+        return None
+    from blaze_tpu_torch.runtime import history
+
+    return history.op_fingerprint(root)
+
+
+def _note_stage_stats(root: Operator, groups, dense: bool,
+                      rows=None) -> None:
+    """Feed the history taps for a whole-stage dispatch: the whole-stage
+    path bypasses count_stream's per-batch row tap, so output rows and
+    the dense-vs-fallback group cardinality are recorded here."""
+    fp = _stage_fp(root)
+    if fp is None:
+        return
+    trace.event("whole_stage_groups", op_kind=type(root).__name__,
+                fingerprint=fp, groups=groups, dense=dense)
+    if conf.history_dir:
+        from blaze_tpu_torch.runtime import history
+
+        history.observe_groups(fp, type(root).__name__, groups, dense)
+        n = groups if rows is None else rows
+        if n is not None:
+            history.observe_rows(root, int(n))
 
 
 def _probe(batches, steps, partial, input_fns, float_calls):

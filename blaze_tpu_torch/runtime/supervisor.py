@@ -4,7 +4,10 @@ detection, straggler speculation and per-operator circuit breaking.
 Port of blaze_tpu/runtime/supervisor.py without its process supervision
 (`ProcessPeer`, `ProcessWatchdog`: their callers are the executor pool and
 the standby driver, not yet ported) and without `FairScheduler` and the
-query sessions (the multi-tenant service's, not yet ported). The reference
+query sessions (the multi-tenant service's, not yet ported). A breaker
+trip writes a flight dossier, a watchdog kill stashes every thread's
+stack for the query's dossier, and each attempt's state lands on the
+live progress waterfall, as in the JAX module. The reference
 engine gets all of this from Spark's scheduler; this engine is its own
 scheduler, so the resilience ladder (retry / degrade / fallback,
 executor.run_task_with_resilience) gets its time axis here:
@@ -59,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import statistics
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -195,6 +199,18 @@ class CircuitBreaker:
         if self._run_info is not None:
             self._run_info["breaker_trips"] = \
                 self._run_info.get("breaker_trips", 0) + 1
+        if conf.flight_dir:
+            # black-box dossier at the moment of the trip: the query
+            # usually survives (rerouted to fallback), so the end-of-run
+            # hook would never see this incident
+            from blaze_tpu_torch.runtime import flight_recorder
+
+            qid = trace.current_context().get("query_id")
+            if qid:
+                flight_recorder.capture(
+                    "breaker_trip", qid,
+                    error=exc if isinstance(exc, Exception) else None,
+                    detail={"op_kind": kind, "failures": n})
 
     def tripped(self) -> FrozenSet[str]:
         with self._lock:
@@ -400,6 +416,7 @@ class Supervisor:
                         trace.event("deadline_kill",
                                     attempt_id=att.attempt_id,
                                     **task.trace_ctx)
+                        self._stash_stacks(task, "deadline")
                 elif hang_s > 0 and now - att.last_beat > hang_s:
                     if att.kill("hung"):
                         self._note("hangs_detected")
@@ -410,7 +427,21 @@ class Supervisor:
                                     stale_ms=round((now - att.last_beat)
                                                    * 1000),
                                     **task.trace_ctx)
+                        self._stash_stacks(task, "hung")
             self._maybe_speculate(task, now)
+
+    def _stash_stacks(self, task: _Task, reason: str) -> None:
+        """Snapshot every thread's stack AT detection time for the
+        flight recorder: by the time the query unwinds and the dossier
+        is written, the hung/overrunning frames are long gone."""
+        if not conf.flight_dir:
+            return
+        qid = task.trace_ctx.get("query_id")
+        if not qid:
+            return
+        from blaze_tpu_torch.runtime import flight_recorder
+
+        flight_recorder.record_stacks(qid, reason)
 
     def _note(self, key: str, n: int = 1) -> None:
         faults.TELEMETRY.add(key, n)
@@ -491,6 +522,12 @@ class Supervisor:
             raise TaskKilledError(f"{task.spec.what}: cancelled")
         att = TaskAttempt(task, speculative)
         task.attach(att)
+        if conf.progress_enabled:
+            from blaze_tpu_torch.runtime import progress
+            progress.attempt_update(task.trace_ctx, att.attempt_id,
+                                    "running", speculative=speculative)
+        else:
+            progress = None
         prev_att = getattr(_current, "attempt", None)
         prev_task = getattr(_current, "task", None)
         _current.attempt, _current.task = att, task
@@ -531,6 +568,15 @@ class Supervisor:
         finally:
             _current.attempt, _current.task = prev_att, prev_task
             task.detach(att)
+            if progress is not None:
+                if att.kill_reason:
+                    state = f"killed:{att.kill_reason}"
+                elif sys.exc_info()[1] is not None:
+                    state = "failed"
+                else:
+                    state = "ok"
+                progress.attempt_update(task.trace_ctx, att.attempt_id,
+                                        state, speculative=speculative)
 
     def _run_supervised(self, task: _Task) -> Any:
         """Pool-worker body: breaker reroute, then the resilience

@@ -1,7 +1,6 @@
-"""Structured query tracing: a correlated span/event log and its Chrome
-trace export.
+"""Structured query tracing: a correlated span/event log and its exporters.
 
-Port of blaze_tpu/runtime/trace.py, the recording half. The supervisor
+Port of blaze_tpu/runtime/trace.py, whole. The supervisor
 retries, degrades, speculates, kills and reroutes tasks; this module
 records every such decision as a structured record with correlation ids:
 
@@ -24,17 +23,27 @@ records every such decision as a structured record with correlation ids:
   histograms  named process-global `metrics.Histogram`s (log2 buckets):
               batch_rows, task_latency_us, shuffle_write_bytes.
 
-  export      export_chrome_trace(): Chrome/Perfetto trace-event JSON,
+  exporters   export_chrome_trace() — Chrome/Perfetto trace-event JSON,
               one row per task, spans nested under stages.
+              explain_analyze() — EXPLAIN ANALYZE-style operator tree
+              merging per-op counters with span wall-times, throughput
+              and resilience annotations, the doctor's breakdown and the
+              profiler's hot frames.
+              export_run_ledger() — one JSONL summary line per query
+              (build_run_record: ids, durations, per-stage timings,
+              counters, histogram percentiles, the critical path), the
+              line the JAX package's doctor and trend tools read;
+              export_query() writes it and the Chrome trace under
+              conf.trace_export_dir, and rotate_export_dir() bounds that
+              directory.
 
 Everything is gated on `conf.trace_enabled`: off, span() returns a shared
 no-op context manager and event() returns after one truthiness check.
 `profiled_span` captures the device timeline with torch.profiler under
-`conf.profiler_dir`. The JAX module's EXPLAIN ANALYZE report, run ledger
-and per-query export (`explain_analyze`, `build_run_record`,
-`export_run_ledger`, `rotate_export_dir`, `export_query`) reach modules
-the port does not have yet (doctor, profiler, compile_service,
-autoscaler), so `conf.trace_export_dir` stays refused by the runner.
+`conf.profiler_dir`. Where the JAX module reads the compile service or
+the autoscaler, which the port does not have yet, the port writes what
+the JAX module writes while they are idle: no compile summary line and
+no "fleet" key.
 """
 
 from __future__ import annotations
@@ -630,3 +639,408 @@ def export_chrome_trace(path: str,
     with open(path, "w") as f:
         json.dump(doc, f)
     return {"events": len(events), "path": path}
+
+
+
+
+# -- exporter 2: EXPLAIN ANALYZE ---------------------------------------------
+
+
+def human_bytes(n: int) -> str:
+    """1536 -> '1.5KiB' (the *_bytes analog of *_ns -> ms rendering)."""
+    n = int(n)
+    for unit, shift in (("GiB", 30), ("MiB", 20), ("KiB", 10)):
+        if abs(n) >= (1 << shift):
+            return f"{n / (1 << shift):.1f}{unit}"
+    return f"{n}B"
+
+
+def fmt_metric(k: str, v) -> str:
+    if k.endswith("_ns"):
+        return f"{k[:-3]}={v / 1e6:.1f}ms"
+    if k.endswith("_bytes"):
+        return f"{k}={human_bytes(v)}"
+    return f"{k}={v}"
+
+
+def metric_report(root) -> str:
+    """Operator tree with its metrics, one line per op (post-run) — the
+    analog of the reference's metric push into the Spark UI
+    (blaze/src/metrics.rs:21-50), absorbed from the retired
+    runtime/tracing.py shim.
+
+    Counters are read via MetricsSet.snapshot() — supervisor pool
+    threads mutate the raw dicts while a report renders, and iterating
+    them unlocked raises RuntimeError("dict changed size during
+    iteration"). `*_ns` values render as ms, `*_bytes` as KiB/MiB
+    (fmt_metric). For the span-correlated superset (stage wall-times,
+    throughput, resilience annotations) use explain_analyze(root,
+    run_info)."""
+    lines: List[str] = []
+
+    def walk(op, depth: int) -> None:
+        vals = {k: v for k, v in op.metrics.snapshot().items() if v}
+        shown = ", ".join(fmt_metric(k, v)
+                          for k, v in sorted(vals.items()))
+        lines.append("  " * depth + f"{op.name()}: {shown}")
+        for c in op.children:
+            walk(c, depth + 1)
+
+    walk(root, 0)
+    from blaze_tpu_torch.runtime import faults
+
+    # the faults summary appends its [plan=1 retryable=2 ...] error
+    # counts; the compile service's line, '' while it is idle, comes with
+    # that module (ROADMAP Queue 1, item 4)
+    summary = faults.telemetry_summary()
+    if summary:
+        lines.append(summary)
+    return "\n".join(lines)
+
+
+_RESILIENCE_EVENT_KINDS = (
+    "retry", "ladder_rung", "hang_detected", "hang_relaunch",
+    "deadline_kill", "deadline_exceeded", "speculation_launch",
+    "speculation_win", "speculation_loss", "breaker_trip",
+    "fault_injected", "task_error", "degrade", "executor_death",
+    "executor_task_requeued", "epoch_fenced",
+    # partition-tolerant control plane: wire blips and their outcomes
+    # (run records count them so doctor's network_flaky rule can rank)
+    "control_reconnect", "partition_suspected", "shuffle_conn_dropped",
+    "lease_expired", "executor_drain",
+)
+
+
+def _stage_annotations(stage_events: List[dict]) -> str:
+    """'2 retries, rung=halve_batch, speculated: won' from one stage's
+    resilience events."""
+    notes: List[str] = []
+    retries = sum(1 for e in stage_events if e["kind"] == "retry")
+    if retries:
+        notes.append(f"{retries} retr{'y' if retries == 1 else 'ies'}")
+    rungs = [e.get("attrs", {}).get("action") for e in stage_events
+             if e["kind"] == "ladder_rung"]
+    if rungs:
+        notes.append(f"rung={rungs[-1]}")
+    hangs = sum(1 for e in stage_events if e["kind"] == "hang_detected")
+    if hangs:
+        notes.append(f"{hangs} hang kill(s)")
+    if any(e["kind"] == "speculation_launch" for e in stage_events):
+        won = any(e["kind"] == "speculation_win" for e in stage_events)
+        notes.append("speculated: " + ("won" if won else "lost"))
+    trips = [e.get("attrs", {}).get("op_kind") for e in stage_events
+             if e["kind"] == "breaker_trip"]
+    if trips:
+        notes.append(f"breaker tripped: {','.join(map(str, trips))}")
+    faults_fired = sum(1 for e in stage_events
+                       if e["kind"] == "fault_injected")
+    if faults_fired:
+        notes.append(f"{faults_fired} fault(s) injected")
+    return ", ".join(notes)
+
+
+def _stage_overlap(pipeline_events: List[dict]) -> Optional[int]:
+    """Producer-time-weighted overlap % across a stage's pipelined
+    streams (runtime/pipeline.py "pipeline_stats" events): the share of
+    pool-side production hidden behind the consumer's compute. None when
+    the stage ran no pipelines (serial mode or no pipelined sources)."""
+    busy = wait = 0.0
+    for e in pipeline_events:
+        a = e.get("attrs", {})
+        busy += a.get("producer_busy_ms", 0.0)
+        wait += a.get("consumer_wait_ms", 0.0)
+    if busy <= 0:
+        return None
+    return int(round(100.0 * max(0.0, 1.0 - wait / busy)))
+
+
+def explain_analyze(root, run_info: Optional[dict] = None,
+                    records: Optional[Iterable[dict]] = None) -> str:
+    """EXPLAIN ANALYZE-style report: the operator tree with per-operator
+    counters (bytes humanized, times in ms, row throughput), then
+    per-stage span wall-times with resilience annotations, histogram
+    percentiles and the process telemetry summaries.
+
+    `root` is an executed Operator tree (its MetricsSet snapshots are
+    read under their locks); `records` defaults to the global TraceLog —
+    pass query_records(qid) to scope a multi-query log."""
+    lines: List[str] = ["== EXPLAIN ANALYZE =="]
+
+    def walk(op, depth: int) -> None:
+        vals = {k: v for k, v in op.metrics.snapshot().items() if v}
+        parts = [fmt_metric(k, v) for k, v in sorted(vals.items())]
+        ns = vals.get("elapsed_compute_ns", 0)
+        rows = vals.get("output_rows", 0)
+        if ns and rows:
+            parts.append(f"throughput={rows / (ns / 1e9):,.0f} rows/s")
+        lines.append("  " * depth + f"{op.name()}: " + ", ".join(parts))
+        for c in op.children:
+            walk(c, depth + 1)
+
+    walk(root, 0)
+
+    recs = TRACE.snapshot() if records is None else list(records)
+    stage_spans = [r for r in recs
+                   if r["type"] == "span" and r["kind"] == "stage"]
+    # expected-vs-observed column: with a history store configured, each
+    # stage's wall time is shown against the fingerprint's historical
+    # median (runtime/history.StatisticsFeed)
+    feed = None
+    if conf.history_dir and stage_spans:
+        try:
+            from blaze_tpu_torch.runtime.history import StatisticsFeed
+
+            feed = StatisticsFeed()
+        except Exception:  # noqa: BLE001 — reporting, never fatal
+            feed = None
+    if stage_spans:
+        lines.append("-- stages --")
+        for sp in stage_spans:
+            a = sp.get("attrs", {})
+            sid = sp.get("stage_id")
+            head = (f"stage {sid} {a.get('stage_kind', '?')}"
+                    f"[{a.get('transport', '-')}] "
+                    f"{sp.get('dur', 0) / 1e6:.1f}ms tasks={a.get('tasks', 1)}")
+            if feed is not None and a.get("fingerprint"):
+                exp = feed.observed_stage_cost(a["fingerprint"])
+                if exp:
+                    head += (f" expect~{exp['ms_p50']:.1f}ms "
+                             f"(n={exp['n']})")
+            if a.get("bytes"):
+                head += f" bytes={human_bytes(a['bytes'])}"
+            mv, cp = a.get("moved_bytes", 0), a.get("copied_bytes", 0)
+            if mv or cp:
+                # copy ratio per stage: the zero-copy roadmap's target
+                pct = round(100.0 * cp / mv) if mv else 0
+                head += (f" moved {human_bytes(mv)}, copied "
+                         f"{human_bytes(cp)} ({pct}%)")
+            notes = _stage_annotations(
+                [r for r in recs if r["type"] == "event"
+                 and r.get("stage_id") == sid
+                 and r["kind"] in _RESILIENCE_EVENT_KINDS])
+            ov = _stage_overlap(
+                [r for r in recs if r["type"] == "event"
+                 and r.get("stage_id") == sid
+                 and r["kind"] == "pipeline_stats"])
+            if ov is not None:
+                notes = (notes + ", " if notes else "") + f"overlap={ov}%"
+            if sp.get("error"):
+                notes = (notes + ", " if notes else "") + \
+                    f"error={sp['error']}"
+            lines.append("  " + head + (f"  [{notes}]" if notes else ""))
+    qspans = [r for r in recs
+              if r["type"] == "span" and r["kind"] == "query"]
+    for q in qspans:
+        lines.append(f"query {q.get('query_id')}: "
+                     f"{q.get('dur', 0) / 1e6:.1f}ms")
+
+    # doctor section: additive wall-time breakdown + ranked findings for
+    # the (last) query span in scope (runtime/doctor.py — pure function
+    # of the records, so the rendering is deterministic per run record)
+    if conf.doctor_enabled and qspans:
+        from blaze_tpu_torch.runtime import doctor
+
+        qid = qspans[-1].get("query_id")
+        drec = build_run_record(qid, run_info, recs)
+        cp = drec.get("critical_path") or {}
+        if cp.get("total_ms"):
+            lines.append("-- critical path --")
+            lines.extend(doctor.render_critical_path(cp))
+        findings = doctor.diagnose(drec, records=query_records(qid, recs),
+                                   feed=feed)
+        if findings:
+            lines.append("-- findings --")
+            lines.extend(doctor.render_findings(findings))
+
+    hists = histograms_snapshot()
+    if hists:
+        lines.append("-- distributions --")
+        for name in sorted(hists):
+            lines.append("  " + histogram(name).summary())
+
+    # continuous-profiler section: top self-time frames for the (last)
+    # query span in scope — the "which code, not just which stage"
+    # answer, fleet-merged (executor samples federate driver-ward)
+    if conf.profile_enabled:
+        from blaze_tpu_torch.runtime import profiler
+
+        hot = profiler.hot_frames(
+            qspans[-1].get("query_id") if qspans else None, top=5)
+        if hot:
+            lines.append("-- hot frames --")
+            for h in hot:
+                lines.append(f"  {h['frame']:<48} {h['samples']:>6} "
+                             f"samples  {h['pct']:>5.1f}%")
+
+    from blaze_tpu_torch.runtime import faults
+
+    # no compile-service summary: it comes with that module (ROADMAP
+    # Queue 1, item 4)
+    summary = faults.telemetry_summary()
+    if summary:
+        lines.append(summary)
+    if run_info:
+        shown = ", ".join(f"{k}={v}" for k, v in sorted(run_info.items())
+                          if not isinstance(v, (dict, list)))
+        lines.append(f"run_info: {shown}")
+    return "\n".join(lines)
+
+
+# -- exporter 3: run ledger (JSONL, one line per query) ----------------------
+
+
+def build_run_record(query_id: str, run_info: Optional[dict] = None,
+                     records: Optional[Iterable[dict]] = None) -> dict:
+    """One query's ledger line: ids, durations, per-stage timings,
+    run_info counters, histogram snapshots, drop accounting."""
+    recs = query_records(query_id, records)
+    qspan = next((r for r in recs if r["type"] == "span"
+                  and r["kind"] == "query"), None)
+    stages = []
+    for sp in recs:
+        if sp["type"] != "span" or sp["kind"] != "stage":
+            continue
+        a = sp.get("attrs", {})
+        stages.append({"stage_id": sp.get("stage_id"),
+                       "fingerprint": a.get("fingerprint"),
+                       "kind": a.get("stage_kind"),
+                       "transport": a.get("transport"),
+                       "ms": round(sp.get("dur", 0) / 1e6, 3),
+                       "tasks": a.get("tasks", 1),
+                       "bytes": a.get("bytes", 0),
+                       "moved_bytes": a.get("moved_bytes", 0),
+                       "copied_bytes": a.get("copied_bytes", 0)})
+    event_counts: Dict[str, int] = {}
+    for r in recs:
+        if r["type"] == "event" and r["kind"] in _RESILIENCE_EVENT_KINDS:
+            event_counts[r["kind"]] = event_counts.get(r["kind"], 0) + 1
+    info = run_info or {}
+    rec = {
+        "schema_version": SCHEMA_VERSION,
+        "query_id": query_id,
+        # billing/SLO attribution: every ledger line names its tenant and
+        # how admission handled the query (admitted/parked/rejected +
+        # wait); the service also writes lines for queries SHED at
+        # admission, which never reach a query span
+        "tenant_id": info.get("tenant_id", ""),
+        "admission_outcome": info.get("admission_outcome", "admitted"),
+        "admission_wait_ms": info.get("admission_wait_ms", 0),
+        "wall_ns": qspan.get("wall") if qspan else None,
+        "duration_ms": (round(qspan.get("dur", 0) / 1e6, 3)
+                        if qspan else None),
+        "stages": stages,
+        "events": len(recs),
+        "resilience_events": event_counts,
+        "counters": {k: v for k, v in (run_info or {}).items()
+                     if not isinstance(v, (dict, list))},
+        "histograms": {
+            name: {"count": s["count"], "total": s["total"],
+                   "min": s["min"], "max": s["max"],
+                   "p50": histogram(name).percentile(50),
+                   "p95": histogram(name).percentile(95),
+                   "p99": histogram(name).percentile(99)}
+            for name, s in histograms_snapshot().items()},
+        "dropped_events": TRACE.dropped,
+    }
+    # no "fleet" key: the autoscaler's fleet posture comes with that
+    # module (ROADMAP Queue 1, item 3), and an idle autoscaler adds none
+    # streaming evidence (runtime/streaming.py): a micro-batch ledger
+    # line carries its stream's lag posture so doctor's stream_lag rule
+    # can rank offline, from the record alone
+    if isinstance(info.get("stream"), dict):
+        rec["stream"] = dict(info["stream"])
+    # conf-overlay provenance (runtime/autopilot.py): the resolved
+    # overlay, which layer set each value, and the canary posture — the
+    # 3am "why did my query's conf change" answer, in the ledger line
+    if isinstance(info.get("autopilot"), dict):
+        rec["autopilot"] = dict(info["autopilot"])
+    # sampling-profiler evidence (runtime/profiler.py): top self-time
+    # frames so doctor's host_cpu_bound rule ranks offline, from the
+    # record alone (diagnose() stays a pure function of its inputs)
+    if conf.profile_enabled:
+        from blaze_tpu_torch.runtime import profiler
+
+        prof = profiler.profile_summary(query_id)
+        if prof:
+            rec["profile"] = prof
+    if conf.doctor_enabled:
+        from blaze_tpu_torch.runtime import doctor
+
+        rec["critical_path"] = doctor.compute_critical_path(rec, recs)
+    return rec
+
+
+def export_run_ledger(path: str, record: dict) -> None:
+    """Append one JSONL line (atomic enough for trend tooling: a single
+    write() of one line; concurrent drivers interleave whole lines). A
+    crash-torn tail (a prior driver died mid-write, leaving a line with
+    no newline) is healed before appending, the history-store posture —
+    the new record must never concatenate onto garbage."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "ab+") as f:
+        if f.tell() > 0:
+            f.seek(-1, os.SEEK_END)
+            if f.read(1) != b"\n":
+                f.write(b"\n")
+        f.write((json.dumps(record, default=str) + "\n").encode())
+
+
+def rotate_export_dir(export_dir: Optional[str] = None,
+                      keep: Optional[int] = None) -> Dict[str, int]:
+    """Bound the trace export dir: trim ledger.jsonl to its last `keep`
+    lines and delete the oldest trace_<qid>.json files beyond `keep`
+    (default conf.history_retention_runs). The local runner applies
+    this on driver start alongside the orphan sweep — before it, the
+    ledger grew one line per query forever. Returns
+    {"ledger_trimmed", "traces_pruned"} (zeros when under the bound)."""
+    d = export_dir or conf.trace_export_dir
+    out = {"ledger_trimmed": 0, "traces_pruned": 0}
+    if not d or not os.path.isdir(d):
+        return out
+    if keep is None:
+        keep = conf.history_retention_runs
+    keep = max(int(keep), 1)
+    ledger = os.path.join(d, "ledger.jsonl")
+    if os.path.exists(ledger):
+        try:
+            with open(ledger) as f:
+                lines = f.readlines()
+            if len(lines) > keep:
+                tmp = ledger + ".tmp"
+                with open(tmp, "w") as f:
+                    f.writelines(lines[-keep:])
+                os.replace(tmp, ledger)  # crash-atomic, like the spills
+                out["ledger_trimmed"] = len(lines) - keep
+        except OSError:
+            pass
+    try:
+        traces = [os.path.join(d, n) for n in os.listdir(d)
+                  if n.startswith("trace_") and n.endswith(".json")]
+    except OSError:
+        return out
+    if len(traces) > keep:
+        traces.sort(key=lambda p: (os.path.getmtime(p), p))
+        for p in traces[:len(traces) - keep]:
+            try:
+                os.remove(p)
+                out["traces_pruned"] += 1
+            except OSError:
+                pass
+    return out
+
+
+def export_query(query_id: str, run_info: Optional[dict] = None,
+                 export_dir: Optional[str] = None) -> Optional[dict]:
+    """Per-query auto-export (the local runner calls this at query-span
+    close when conf.trace_export_dir is set): writes
+    <dir>/trace_<query_id>.json and appends <dir>/ledger.jsonl."""
+    d = export_dir or conf.trace_export_dir
+    if not d:
+        return None
+    recs = query_records(query_id)
+    export_chrome_trace(os.path.join(d, f"trace_{query_id}.json"), recs)
+    rec = build_run_record(query_id, run_info, recs)
+    export_run_ledger(os.path.join(d, "ledger.jsonl"), rec)
+    return rec

@@ -37,12 +37,18 @@ path. runtime/monitor.py accounts the query's bytes at every copy
 boundary and merges its roll-up into run_info (conf.monitor_enabled, on
 by default), and its leak check runs on every query.
 
+The observability layer hangs off the same hooks as in the JAX package:
+the history store's taps (conf.history_dir, runtime/history.py), live
+progress (conf.progress_enabled, runtime/progress.py), the per-query
+trace and ledger export (conf.trace_export_dir, trace.export_query), the
+sampling profiler's export (conf.profile_enabled with
+conf.profile_export_dir, runtime/profiler.py) and the flight recorder's
+dossiers (conf.flight_dir, runtime/flight_recorder.py).
+
 What the JAX package hangs around this that is not yet ported raises,
-naming its module, when a caller switches it on: the history store,
-progress, the autopilot and its conf overlays, the flight recorder, the
-profiler, the trace exporters (conf.trace_export_dir), the executor pool
-(with its `_run_shuffle_stage_pooled`) and the monitor's sampler and
-exporters (conf.metrics_port).
+naming its module, when a caller switches it on: the autopilot and its
+conf overlays, the executor pool (with its `_run_shuffle_stage_pooled`)
+and the monitor's sampler and exporters (conf.metrics_port).
 """
 
 from __future__ import annotations
@@ -64,7 +70,8 @@ from blaze_tpu_torch.plan import decode_plan, fingerprint_plan
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.fingerprint import fingerprint_query
 from blaze_tpu_torch.runtime import (
-    artifacts, faults, journal, memory, monitor, pipeline, resources, trace,
+    artifacts, faults, history, journal, memory, monitor, pipeline,
+    resources, trace,
 )
 from blaze_tpu_torch.runtime import supervisor as supervisor_mod
 from blaze_tpu_torch.runtime.executor import (
@@ -86,16 +93,10 @@ _convert_lock = threading.Lock()
 
 # conf knobs that would switch on a module the port does not have
 _LEFT_OUT = (
-    ("history_dir", "runtime/history.py"),
-    ("progress_enabled", "runtime/progress.py"),
     ("autopilot_enabled", "runtime/autopilot.py"),
-    ("flight_dir", "runtime/flight_recorder.py"),
-    ("profile_enabled", "runtime/profiler.py"),
     ("executor_count", "runtime/executor_pool.py"),
     ("metrics_port",
      "the sampler and exporters of runtime/monitor.py (MetricsServer)"),
-    ("trace_export_dir",
-     "the trace exporters of runtime/trace.py (export_query)"),
 )
 
 # per-task operator metrics summed into run_info: the whole-stage routes
@@ -169,12 +170,20 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     # fallback of a thread with no query in its context) and reset the
     # memory high-water mark
     monitor.begin_query(qid, mgr)
+    # query-history taps: per-op row counts and whole-stage group
+    # cardinality accumulate under this qid until record_run pops them
+    # at close (no-op with conf.history_dir unset)
+    history.begin_query(qid)
     # write-ahead journal: the admission record opens this query's
     # crash-recovery log (no-op with journal_dir unset); the terminal
     # record in the finally below settles it
     jnl = journal.journal_for(qid)
     if jnl is not None:
         jnl.admitted()
+    if conf.progress_enabled:
+        from blaze_tpu_torch.runtime import progress
+
+        progress.begin_query(qid)
     try:
         # correlation ids pushed whether or not tracing is on (a cheap
         # stack push): pool threads replay them per task
@@ -187,15 +196,43 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
                                            mesh_exchange, mesh_quota,
                                            run_info, dev, jnl)
     finally:
+        # the flight recorder needs the query's wall-clock start for its
+        # monitor-ring slice; finish_query pops the acct holding it
+        t0 = monitor.query_t0(qid) if conf.flight_dir else None
         # the roll-up (bytes by boundary, peak memory, spill) merged into
-        # run_info, and the always-on leak check
+        # run_info before the ledger export, and the always-on leak check
         monitor.finish_query(qid, run_info, mgr)
+        # export even on failure: a failed query's trace is the one you
+        # most want to read
+        if conf.trace_enabled and conf.trace_export_dir:
+            trace.export_query(qid, run_info)
+        # per-query profile (collapsed stacks + speedscope), the same
+        # export-even-on-failure rule
+        if conf.profile_enabled and conf.profile_export_dir:
+            from blaze_tpu_torch.runtime import profiler
+
+            profiler.export_query(qid)
+        # the run's fingerprinted statistics, after the monitor roll-up
+        # so the record carries the byte and spill counters
+        if conf.history_dir:
+            history.record_run(qid, run_info)
         if jnl is not None:
             # a journal with a complete line never enters a replay
             exc = sys.exc_info()[1]
             jnl.complete("failed" if exc is not None else "ok",
                          error=type(exc).__name__ if exc is not None
                          else "")
+        if conf.flight_dir:
+            # black-box dossier on failure / deadline / hang / leak: it
+            # classifies the in-flight exception via sys.exc_info (this
+            # finally runs while it propagates)
+            from blaze_tpu_torch.runtime import flight_recorder
+
+            flight_recorder.on_query_end(qid, run_info, started_at=t0)
+        if conf.progress_enabled:
+            from blaze_tpu_torch.runtime import progress
+
+            progress.finish_query(qid)
 
 
 def _run_plan_inner(root: SparkPlan, num_partitions: int,
@@ -208,6 +245,10 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
     # verified stage commits land in the resume map each shuffle-map
     # stage consults below
     journal.ensure_recovery_scan()
+    # the trace export dir is bounded to conf.history_retention_runs
+    # (ledger.jsonl lines + trace_<qid>.json files)
+    if conf.trace_export_dir:
+        trace.rotate_export_dir()
     telemetry_before = faults.TELEMETRY.snapshot()
     pipeline_before = pipeline.TELEMETRY.snapshot()
     qid = run_info["query_id"]
@@ -250,6 +291,11 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
     # the query's worker pool, watchdog, speculation and circuit breaker;
     # off, each stage runs inline on this thread
     sup = Supervisor(run_info, device=device)
+    # live-progress taps: one is-None check per stage when off
+    if conf.progress_enabled:
+        from blaze_tpu_torch.runtime import progress
+    else:
+        progress = None
     try:
         for stage in stages:
             t0 = time.perf_counter()
@@ -259,9 +305,17 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                 apply_dynamic_join_selection(stage.plan, shuffle_bytes,
                                              shuffle_parts)
             # the executed (post-AQE) shape's fingerprint: the journal's
-            # resume key and the stage span's attribute
+            # resume key, the stage span's attribute and the history
+            # store's stage key
             fp = (fingerprint_plan(stage.plan)
-                  if conf.trace_enabled or jnl is not None else None)
+                  if conf.trace_enabled or conf.history_dir
+                  or jnl is not None else None)
+            if progress is not None:
+                progress.stage_begin(
+                    qid, stage.stage_id, stage.kind, fingerprint=fp,
+                    tasks=(1 if stage.kind == "broadcast"
+                           else _input_tasks(stage, stages,
+                                             fallback=num_partitions)))
             if stage.kind == "shuffle_map":
                 shuffle_parts[stage.stage_id] = stage.num_partitions
                 with trace.context(stage_id=stage.stage_id), \
@@ -306,6 +360,8 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                     out = _run_result_stage(stage, parts, sup, run_info,
                                             device)
                     sp.set(**monitor.stage_span_attrs(qid, stage.stage_id))
+            if progress is not None:
+                progress.stage_end(qid, stage.stage_id)
             # a stage ends in host reads (commits, frames, the collect),
             # so the host clock covers its device work
             run_info["stage_s"].append(

@@ -111,7 +111,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 string literals, comparisons, group, sort and join keys,
                 substring and string broadcasts through the serde. Each
                 against numpy (strings and counts exact, sums and
-                averages rtol 1e-9), once timed, and one q07 map task
+                averages rtol 1e-9) and timed, and one q07 map task
                 profiled (device busy, idle share, top operations)
  17. runner_nested  tpcds.py's q05 (a ROLLUP: ExpandExec) and q01 over
                 phase 12's store_sales files and its store_returns file
@@ -121,7 +121,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 (collect_list, posexplode) and basket_stores (collect_set,
                 explode), all BHJ through run_plan; each against numpy
                 (names, ids, ranks and counts exact, sums rtol 1e-9; the
-                window's row count and rank sums exact), once timed, and
+                window's row count and rank sums exact) and timed, and
                 q51_store's window stage profiled
  18. runner_decimal  this script's DECIMAL_QUERIES over the decimal
                 copies, in the form Spark 3.3's optimizer gives them
@@ -134,7 +134,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 revenue report: sum of quantity x price as decimal(28,2),
                 wide agg state and sort key, and avg(price) as Spark
                 plans it); each exact against numpy's integers (q03_rev's
-                average within one unit of its sixth place), once timed,
+                average within one unit of its sixth place) and timed,
                 and q04_dec's result stage profiled with its 128-step
                 divisions counted
  19. runner_spark_json  Spark's entry: JSON_QUERIES as the TreeNode JSON
@@ -196,9 +196,33 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 state) with no mesh stage, no leak; each route's stage
                 times, stage counts, host pulls, serde seconds, peak
                 device memory and the monitor's bytes by boundary
+ 22. runner_observability  the observability layer on top of phase 21's
+                defaults: trace export, the history store, live
+                progress, the flight recorder and the sampling profiler
+                (with its export) all on, their files under the work
+                dir. q02 and q04 twice each, every run against numpy and
+                runner_tpcds's rows, q02 with its 48 launches; each
+                run's time beside runner_mesh's "auto" run, its host
+                pulls, trace records and the profiler's duty. The files
+                must load back: 4 ledger lines whose critical paths add
+                up to their durations, a trace per query, 4 history
+                records whose second runs repeat the first runs' stage
+                fingerprints, detect_regressions, the doctor's findings
+                over the export dir (printed), and each query's
+                collapsed and speedscope profiles attributed to it. q04
+                is read live from a second thread (snapshot_query): its
+                stages advance, and it ends in finished_queries. Then
+                q09 over the 8 store_sales files: a stall past
+                hang_detect_ms is killed and relaunched (the stacks are
+                stashed, the query equals numpy, and, as in the JAX
+                package, a query that survives writes no dossier); with
+                no relaunch budget the same stall ends the query in a
+                hang dossier holding those stacks; and a query killed
+                by query_deadline_ms writes a deadline dossier. Each
+                dossier loads and names its trigger and query
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-21 have run_plan convert and decode
+decode_task_definition; phases 15-22 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -1470,7 +1494,7 @@ SALES_SK = (2_450_816, 2_452_642)
 FACT_FILE_ROWS = 1 << 21
 TPCDS_FILES = {"web_sales": 16, "catalog_sales": 32, "store_sales": 8}
 TPCDS_NULL_SHARE = 0.05
-TPCDS_REPS = 2       # timed reps of each TPC-DS phase after its checked run
+TPCDS_REPS = 1       # timed reps of each TPC-DS phase after its checked run
 TPCDS_SEED = 20_260_000
 
 DD_PB = [("d_date_sk", pb.TK_INT64), ("d_year", pb.TK_INT32),
@@ -2582,18 +2606,19 @@ def _runner_stages(q, paths):
 
 
 def _runner_run(q, paths, work_dir, check, plan=None, info_keys=RUNNER_INFO,
-                exports=False, mesh="off") -> dict:
+                exports=False, mesh="off", query_id=None) -> dict:
     """One run of q through run_plan on the card, with the counts reset
     before it, timed to its rows on the host; `check` holds the result.
     `plan` is _runner_plan's unless given (plans are single-use). Unless
     `exports` is set, q must run wholly native: no subtree of it may run
     on the host row interpreter and come back through the FFI bridge.
     `mesh` is run_plan's mesh_exchange: "off" (the file route of phases
-    15-20's numbers) unless runner_mesh asks for its default, "auto"."""
+    15-20's numbers) unless runner_mesh asks for its default, "auto".
+    `query_id` names the run (run_plan makes one up otherwise)."""
     from blaze_tpu_torch.spark.local_runner import run_plan
 
     plan = _runner_plan(q, paths) if plan is None else plan
-    info = {}
+    info = {} if query_id is None else {"query_id": query_id}
     _reset_counts()
     spills = memory.get_manager().spill_count
     torch.cuda.reset_peak_memory_stats()
@@ -2782,7 +2807,7 @@ def phase_runner_strings(paths, orc, work_dir) -> dict:
     join keys (q06's category), substring and a string semi-join key
     (q08), string columns through the broadcasts' serde (customer's 2 M
     ids in q06, customer_address's 1 M zips in q08). Each query once
-    checked against numpy, then once timed; one q07 map task profiled.
+    checked against numpy and timed; one q07 map task profiled.
 
     q10 (its BHJ plan broadcasts whole web_sales and catalog_sales
     relations through zlib) is left to tests/test_torch_runner.py on the
@@ -2790,13 +2815,9 @@ def phase_runner_strings(paths, orc, work_dir) -> dict:
     res = {"phase": "runner_strings", "mode": "bhj"}
     for q, check in STRING_QUERIES.items():
         first = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
-        timed = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
-        _require(timed["launches"] == first["launches"],
-                 f"{q}: launches moved between runs")
         first["result_rows"] = len(next(iter(first.pop("rows").values())))
         first["checked_s"] = first.pop("wall_s")
-        res[q] = dict(first, timed_s=timed["wall_s"],
-                      stages=_runner_stages(q, paths))
+        res[q] = dict(first, stages=_runner_stages(q, paths))
     res["q07_map_task_profile"] = _profiled_map_stage("q07", paths,
                                                       work_dir)
     _emit(res)
@@ -3301,8 +3322,8 @@ def phase_runner_nested(paths, orc, work_dir) -> dict:
     WindowExec over 3.1 M daily item totals), basket_items (collect_list,
     posexplode) and basket_stores (collect_set, explode). Each once
     checked against numpy (q51_store's window also by its own row count
-    and rank sums), then once timed; the result stage of q51_store, which
-    runs the window, profiled."""
+    and rank sums) and timed; the result stage of q51_store, which runs
+    the window, profiled."""
     res = {"phase": "runner_nested", "mode": "bhj"}
     for q, check in NESTED_CHECKS.items():
         counts = _WindowCounts()
@@ -3312,13 +3333,9 @@ def phase_runner_nested(paths, orc, work_dir) -> dict:
         if q == "q51_store":
             first["window"] = counts.result()
             check_q51(_Out(first["rows"]), orc, first["window"])
-        timed = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
-        _require(timed["launches"] == first["launches"],
-                 f"{q}: launches moved between runs")
         first["result_rows"] = len(next(iter(first.pop("rows").values())))
         first["checked_s"] = first.pop("wall_s")
-        res[q] = dict(first, timed_s=timed["wall_s"],
-                      stages=_runner_stages(q, paths))
+        res[q] = dict(first, stages=_runner_stages(q, paths))
     res["q51_store"]["window_stage_profile"] = _profiled_result_stage(
         "q51_store", paths, work_dir)
     _emit(res)
@@ -3370,18 +3387,14 @@ def phase_runner_decimal(paths, orc, work_dir, runner) -> dict:
     year totals and the wide-division growth test) and q03_rev (a
     decimal(28,2) sum of quantity x price: wide agg state through the
     serde, and a wide sort key). Each once checked against numpy's exact
-    integers, then once timed; q04_dec's result stage profiled with its
+    integers and timed; q04_dec's result stage profiled with its
     divisions counted."""
     res = {"phase": "runner_decimal", "mode": "bhj"}
     for q, check in DECIMAL_CHECKS.items():
         first = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
-        timed = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
-        _require(timed["launches"] == first["launches"],
-                 f"{q}: launches moved between runs")
         first["result_rows"] = len(next(iter(first.pop("rows").values())))
         first["checked_s"] = first.pop("wall_s")
-        res[q] = dict(first, timed_s=timed["wall_s"],
-                      stages=_runner_stages(q, paths))
+        res[q] = dict(first, stages=_runner_stages(q, paths))
     q02 = res["q02_dec"]
     _require(q02["stage_fallbacks"] == 0
              and q02["launches"] == runner["q02"]["launches"] > 0,
@@ -4423,6 +4436,272 @@ def phase_runner_mesh(paths, orc, batches, work_dir) -> dict:
     return res
 
 
+# ---- runner_observability: exports, history, progress, dossiers, profiles ----
+
+OBS_QUERIES = ("q02", "q04")
+OBS_RUNS = 2
+OBS_INFO = MESH_INFO + ("query_id",)
+OBS_HANG_MS = 3000           # hang_detect_ms of the stall cases
+OBS_DEADLINE_MS = 2000       # query_deadline_ms of the deadline case
+# the doctor's rounding: each of its 13 terms is rounded to 1 µs
+OBS_TERM_ROUNDING_MS = 13 * 0.0005
+
+
+def _obs_dirs(work_dir) -> dict:
+    base = os.path.join(work_dir, "observability")
+    return {"trace_export_dir": os.path.join(base, "trace"),
+            "history_dir": os.path.join(base, "history"),
+            "flight_dir": os.path.join(base, "flight"),
+            "profile_export_dir": os.path.join(base, "profile")}
+
+
+def _watch_progress(qid, seen, stop) -> None:
+    """Second-thread reader of the live progress registry: every change
+    of (stages seen, stages done) while `qid` runs."""
+    from blaze_tpu_torch.runtime import progress
+
+    while not stop.is_set():
+        snap = progress.snapshot_query(qid)
+        if snap is not None:
+            cur = (snap["stages_total"], snap["stages_done"])
+            if not seen or seen[-1] != cur:
+                seen.append(cur)
+        stop.wait(0.005)
+
+
+def _obs_runs(paths, work_dir, runner, mesh, checks) -> dict:
+    """q02 and q04, OBS_RUNS each, under the knobs in force; q04's runs
+    read live from a second thread."""
+    import threading
+
+    from blaze_tpu_torch.runtime import profiler, progress, trace
+
+    res = {}
+    for q in OBS_QUERIES:
+        for i in range(OBS_RUNS):
+            qid = f"obs_{q}_{i}"
+            seen, stop = [], threading.Event()
+            watcher = threading.Thread(target=_watch_progress,
+                                       args=(qid, seen, stop))
+            if q == "q04":
+                watcher.start()
+            try:
+                run = _runner_run(q, paths, work_dir, checks[q],
+                                  info_keys=OBS_INFO, mesh="auto",
+                                  query_id=qid)
+            finally:
+                stop.set()
+                if q == "q04":
+                    watcher.join()
+            _same_rows(run.pop("rows"), runner[f"{q}_rows"],
+                       f"{qid} against runner_tpcds")
+            run["trace_records"] = len(trace.query_records(qid))
+            run["profiler_duty_pct"] = profiler.stats()["duty_pct"]
+            run["mesh_auto_wall_s"] = mesh[q]["auto"]["wall_s"]
+            if q == "q04":
+                _require(len(seen) >= 2 and seen == sorted(seen)
+                         and seen[-1][1] >= 1,
+                         f"{qid}: progress read live {seen}")
+                fin = [f for f in progress.finished_queries()
+                       if f["query_id"] == qid]
+                _require(len(fin) == 1 and fin[0]["phase"] == "finished",
+                         f"{qid}: not in finished_queries: {fin}")
+                run["progress_seen"] = seen
+                run["progress_final"] = {k: fin[0][k] for k in (
+                    "stages_total", "stages_done", "rows", "elapsed_ms")}
+            res[qid] = run
+    return res
+
+
+def _obs_files(dirs, runs) -> dict:
+    """The ledger, traces, history, doctor and profiles the runs wrote,
+    loaded back and checked."""
+    from blaze_tpu_torch.runtime import doctor, history
+
+    out = {}
+    ledger = doctor.load_ledger(os.path.join(dirs["trace_export_dir"],
+                                             "ledger.jsonl"))
+    _require([r["query_id"] for r in ledger] == list(runs),
+             f"ledger lines {[r['query_id'] for r in ledger]}")
+    for rec in ledger:
+        cp = rec.get("critical_path") or {}
+        total = sum(cp.get("terms", {}).values())
+        _require(rec.get("schema_version") and rec.get("stages")
+                 and abs(total - rec["duration_ms"]) <= OBS_TERM_ROUNDING_MS,
+                 f"{rec['query_id']}: critical path {total} ms against "
+                 f"{rec.get('duration_ms')} ms")
+        _require(os.path.exists(os.path.join(
+            dirs["trace_export_dir"], f"trace_{rec['query_id']}.json")),
+            f"no trace file for {rec['query_id']}")
+    st = history.HistoryStore(dirs["history_dir"])
+    recs = st.records()
+    _require([r["query_id"] for r in recs] == list(runs),
+             f"history records {[r['query_id'] for r in recs]}")
+    for q in OBS_QUERIES:
+        fps = [[s["fingerprint"] for s in r["stages"]] for r in recs
+               if r["query_id"].startswith(f"obs_{q}_")]
+        _require(len(fps) == OBS_RUNS and all(f == fps[0] for f in fps)
+                 and all(fps[0]),
+                 f"{q}: stage fingerprints differ between runs: {fps}")
+    regressions = history.detect_regressions(recs)
+    feed = history.StatisticsFeed(recs)
+    diag = doctor.diagnose_dir(dirs["trace_export_dir"],
+                               dirs["history_dir"])
+    for d in diag:
+        cp = d["critical_path"]
+        out[d["query_id"]] = {
+            "duration_ms": next(r["duration_ms"] for r in ledger
+                                if r["query_id"] == d["query_id"]),
+            "top_term": cp["top_term"],
+            "terms_ms": {k: v for k, v in cp["terms"].items() if v},
+            "parallel_scale": cp["parallel_scale"],
+            "findings": [(f["code"], f["score"]) for f in
+                         d["findings"][:3]]}
+    for qid in runs:
+        folded = os.path.join(dirs["profile_export_dir"],
+                              f"profile_{qid}.collapsed")
+        scope = os.path.join(dirs["profile_export_dir"],
+                             f"profile_{qid}.speedscope.json")
+        _require(os.path.exists(folded) and os.path.exists(scope),
+                 f"{qid}: no profile files")
+        with open(folded) as f:
+            lines = [ln for ln in f.read().splitlines() if ln]
+        with open(scope) as f:
+            doc = json.load(f)
+        samples = sum(int(ln.rsplit(" ", 1)[1]) for ln in lines)
+        _require(lines and all(ln.startswith(f"query:{qid};")
+                               for ln in lines) and samples > 0
+                 and doc["profiles"][0]["endValue"] == samples,
+                 f"{qid}: profile not attributed to the query")
+        out[qid]["profile_samples"] = samples
+        out[qid]["hot_frames"] = [
+            (h["frame"], h["pct"]) for h in next(
+                r for r in ledger if r["query_id"] == qid).get(
+                    "profile", {}).get("hot_frames", [])[:3]]
+    return {"ledger_lines": len(ledger), "history_records": len(recs),
+            "history_shards": len(st.shards()),
+            "stage_fingerprints": len(feed.fingerprints()["stages"]),
+            "op_fingerprints": len(feed.fingerprints()["ops"]),
+            "regressions": len(regressions), "doctor": out}
+
+
+def _obs_dossiers(paths, orc, work_dir, seed, dirs) -> dict:
+    """q09's incidents: a survived stall (stacks stashed, no dossier), the
+    same stall with no relaunch budget (a hang dossier), and a query
+    deadline (a deadline dossier)."""
+    from blaze_tpu_torch.runtime import faults, flight_recorder
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    stashed = []
+    real = flight_recorder.record_stacks
+
+    def record_stacks(qid, reason):
+        stashed.append((qid, reason))
+        real(qid, reason)
+
+    stall = {"seed": seed, "points": {"op": {"kind": "stall", "nth": 3,
+                                             "ms": 60_000}}}
+    out = {}
+    flight_recorder.record_stacks = record_stacks
+    try:
+        counts, wall = _ladder_case("q09", paths, work_dir,
+                                    lambda o: check_q09(o, orc), stall,
+                                    hang_detect_ms=OBS_HANG_MS)
+        _require(counts.get("hangs_detected", 0) >= 1 and stashed
+                 and stashed[0][1] == "hung",
+                 f"the stall was not detected: {counts}, {stashed}")
+        _require(flight_recorder.list_dossiers() == [],
+                 "a query that survived its stall wrote a dossier")
+        out["stall_relaunched"] = dict(counts, wall_s=wall,
+                                       stacks_stashed=len(stashed))
+        for case, spec, knobs, err in (
+                ("hang", stall, {"hang_detect_ms": OBS_HANG_MS,
+                                 "max_task_retries": 0}, faults.HungError),
+                ("deadline", {"seed": seed, "points": {"op": {
+                    "kind": "stall", "nth": 1, "ms": 60_000}}},
+                 {"query_deadline_ms": OBS_DEADLINE_MS},
+                 faults.DeadlineError)):
+            qid = f"obs_q09_{case}"
+            faults.install(spec)
+            t0 = time.perf_counter()
+            try:
+                with _knobs(**knobs):
+                    run_plan(_runner_plan("q09", paths),
+                             work_dir=os.path.join(work_dir, "obs", case),
+                             mesh_exchange="off",
+                             run_info={"query_id": qid})
+                raise AssertionError(f"q09 {case}: the query did not fail")
+            except err:
+                pass
+            finally:
+                faults.install(None)
+            wall = time.perf_counter() - t0
+            found = [d for d in flight_recorder.list_dossiers(
+                dirs["flight_dir"]) if d["query_id"] == qid]
+            _require(len(found) == 1 and found[0]["trigger"] == case,
+                     f"q09 {case}: dossiers {found}")
+            doc = flight_recorder.load(found[0]["path"])
+            _require(doc["trigger"] == case and doc["query_id"] == qid
+                     and doc["thread_stacks"]
+                     and doc["thread_stacks"]["stacks"],
+                     f"q09 {case}: dossier without its stacks")
+            out[case] = {"wall_s": wall, "error": doc["error"]["type"],
+                         "stacks_reason": doc["thread_stacks"]["reason"],
+                         "threads": len(doc["thread_stacks"]["stacks"]),
+                         "trace_events": len(doc["trace_events"]),
+                         "top_finding": found[0]["top_finding"],
+                         "bytes": os.path.getsize(found[0]["path"])}
+    finally:
+        flight_recorder.record_stacks = real
+    _require(flight_recorder.last_error() is None,
+             f"a capture failed: {flight_recorder.last_error()}")
+    return out
+
+
+def phase_runner_observability(paths, orc, work_dir, runner, mesh,
+                               seed) -> dict:
+    """The observability layer on top of runner_mesh's defaults (see the
+    module docstring, phase 22)."""
+    from blaze_tpu_torch.config import KNOBS
+    from blaze_tpu_torch.runtime import (
+        flight_recorder, history, profiler, progress, trace,
+    )
+
+    checks = {"q02": lambda out: check_q02(out, orc),
+              "q04": lambda out: check_q04(out, orc)}
+    dirs = _obs_dirs(work_dir)
+    knobs = dict({k: KNOBS[k].default
+                  for k in RUNTIME_KNOBS + ("monitor_enabled",)},
+                 trace_enabled=True, progress_enabled=True,
+                 profile_enabled=True, **dirs)
+    for m in (trace, history, progress, flight_recorder, profiler):
+        m.reset()
+    res = {"phase": "runner_observability", "mode": "bhj",
+           "runtime": knobs}
+    t_phase = time.perf_counter()
+    try:
+        with _knobs(**knobs):
+            res["runs"] = _obs_runs(paths, work_dir, runner, mesh, checks)
+            res["profiler"] = profiler.stats()
+            res["files"] = _obs_files(dirs, res["runs"])
+            res["dossiers"] = _obs_dossiers(paths, orc, work_dir, seed,
+                                            dirs)
+    finally:
+        profiler.stop()
+    for qid, run in res["runs"].items():
+        if qid.startswith("obs_q02"):
+            _require(run["launches"] == runner["q02"]["launches"] > 0,
+                     f"{qid} launched the kernel {run['launches']} times, "
+                     f"runner_tpcds's q02 {runner['q02']['launches']}")
+        _require(run["resource_leaks"] == 0
+                 and run["pipeline_live_streams"] == 0,
+                 f"{qid}: {run['resource_leaks']} leaks, "
+                 f"{run['pipeline_live_streams']} streams left open")
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -4493,6 +4772,8 @@ def main(argv=None) -> int:
         resilient = phase_runner_resilience(paths, orc, work_dir, runner,
                                             args.seed)
         mesh = phase_runner_mesh(paths, orc, batches, work_dir)
+        observed = phase_runner_observability(paths, orc, work_dir, runner,
+                                              mesh, args.seed)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -4514,6 +4795,9 @@ def main(argv=None) -> int:
                                  for q in JSON_QUERIES},
         "runner_resilience_q02_launches": resilient["q02"]["launches"],
         "runner_mesh_q02_launches": mesh["q02"]["auto"]["launches"],
+        "runner_observability_q02_launches": [
+            run["launches"] for qid, run in observed["runs"].items()
+            if qid.startswith("obs_q02")],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

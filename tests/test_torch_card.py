@@ -1372,3 +1372,126 @@ def test_ffi_bridge_lands_on_card(cuda, tpcds_tables, tmp_path,
             np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
         else:
             np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_observability_taps_share_one_pull_a_batch(cuda, monkeypatch,
+                                                   tmp_path):
+    """count_stream on the card: with the trace, the history store and
+    live progress all on, each batch's row count is read once and shared
+    by the three taps; with the trace alone, once a batch too; with all
+    three off, the counts stay on the card and are summed by one pull at
+    the stream's end. The taps see the same rows."""
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.ops.base import count_stream
+    from blaze_tpu_torch.ops.basic import MemorySourceExec
+    from blaze_tpu_torch.runtime import history, metrics, progress, trace
+
+    n_batches = 6
+    from blaze_tpu_torch.columnar import types as T
+
+    schema = T.Schema([T.Field("a", T.INT64)])
+    batches = [ColumnBatch.from_numpy(
+        {"a": np.arange(100 + i, dtype=np.int64)}, schema, capacity=512,
+        device=cuda) for i in range(n_batches)]
+    rows = sum(100 + i for i in range(n_batches))
+    pulls = {}
+    for case, knobs in (("all", dict(trace_enabled=True,
+                                     history_dir=str(tmp_path / "h"),
+                                     progress_enabled=True)),
+                        ("trace", dict(trace_enabled=True, history_dir="",
+                                       progress_enabled=False)),
+                        ("off", dict(trace_enabled=False, history_dir="",
+                                     progress_enabled=False))):
+        for k, v in knobs.items():
+            monkeypatch.setattr(conf, k, v)
+        trace.reset()
+        history.reset()
+        progress.reset()
+        qid = f"qPull-{case}"
+        history.begin_query(qid)
+        progress.begin_query(qid)
+        progress.stage_begin(qid, 0, "result")
+        op = MemorySourceExec(batches, batches[0].schema)
+        before = metrics.HOST_PULLS
+        with trace.context(query_id=qid, stage_id=0):
+            out = list(count_stream(op, iter(batches)))
+        pulls[case] = metrics.HOST_PULLS - before
+        assert len(out) == n_batches
+        assert op.metrics.snapshot()["output_rows"] == rows
+        if case == "all":
+            snap = progress.snapshot_query(qid)
+            assert snap["rows"] == rows
+            assert snap["stages"][0]["batches"] == n_batches
+            rec = history.record_run(qid, {})
+            assert rec["ops"][0]["rows"] == rows
+            assert sum(r["kind"] == "batch" for r in
+                       trace.query_records(qid)) == n_batches
+        progress.finish_query(qid)
+    assert pulls == {"all": n_batches, "trace": n_batches, "off": 1}
+
+
+def test_profiler_attributes_a_kernel_launch_to_its_query(cuda,
+                                                          monkeypatch):
+    """A thread in a task's trace context launches the accumulate kernel
+    in a loop; samples taken meanwhile (the ctypes launch releases the
+    GIL) fold stacks that pass through the kernel's wrapper, attributed
+    to the task's query, stage and task."""
+    import threading
+
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.runtime import profiler, trace
+
+    monkeypatch.setattr(conf, "profile_enabled", True)
+    profiler.reset()
+    keys, valid, words, recipe, rng = _case("uniform")
+    args = (keys.to(cuda), valid.to(cuda), [w.to(cuda) for w in words],
+            recipe, rng)
+    acc = torch.zeros(((rng + 127) // 128, len(recipe), 128),
+                      dtype=torch.int64, device=cuda)
+    stop = threading.Event()
+
+    def task():
+        with trace.context(query_id="qK", stage_id=2, task_id="map[2:0]"):
+            while not stop.is_set():
+                M.accumulate_into(acc, *args)
+                torch.cuda.synchronize()
+
+    t = threading.Thread(target=task)
+    t.start()
+    try:
+        for _ in range(5000):
+            profiler.sample_once()
+            if any("mxu_agg." in r[5] for r in profiler.rows("qK")):
+                break
+    finally:
+        stop.set()
+        t.join()
+    hits = [r for r in profiler.rows("qK") if "mxu_agg." in r[5]]
+    assert hits and all(r[2] == "2" and r[3] == "map[2:0]" for r in hits)
+    profiler.reset()
+
+
+def test_dossier_after_a_card_oom(cuda, monkeypatch, tmp_path):
+    """A real torch.cuda.OutOfMemoryError from the card, ending a query:
+    the flight recorder writes its failure dossier (a capture makes no
+    device call), and the card keeps working."""
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.runtime import flight_recorder, trace
+
+    monkeypatch.setattr(conf, "flight_dir", str(tmp_path / "flight"))
+    monkeypatch.setattr(conf, "trace_enabled", True)
+    flight_recorder.reset()
+    free, total = torch.cuda.mem_get_info()
+    with trace.context(query_id="qOom"):
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            try:
+                torch.empty(total * 4, dtype=torch.uint8, device=cuda)
+            finally:
+                flight_recorder.on_query_end("qOom", {"query_id": "qOom"})
+    assert flight_recorder.last_error() is None
+    (entry,) = flight_recorder.list_dossiers()
+    doc = flight_recorder.load(entry["path"])
+    assert doc["trigger"] == "failure" and doc["query_id"] == "qOom"
+    assert doc["error"]["type"] == "OutOfMemoryError"
+    assert torch.ones(4, device=cuda).sum().item() == 4.0
+    flight_recorder.reset()

@@ -339,7 +339,9 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'spark.plan_json', 'spark.pyspark_ext', 'runtime.trace',\n"
         "        'runtime.faults', 'runtime.pipeline', 'runtime.supervisor',\n"
         "        'runtime.journal', 'runtime.monitor', 'parallel.shuffle',\n"
-        "        'parallel.stage_exchange')}\n"
+        "        'parallel.stage_exchange', 'runtime.history',\n"
+        "        'runtime.doctor', 'runtime.progress',\n"
+        "        'runtime.flight_recorder', 'runtime.profiler')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

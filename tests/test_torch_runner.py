@@ -350,11 +350,33 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
 ])
 def test_left_out_modules_raise(tables, monkeypatch, tmp_path, knob, value,
                                 module):
+    """A knob whose module the port does not have yet raises, naming the
+    module. The observability knobs (trace_export_dir, history_dir,
+    progress_enabled, flight_dir, profile_enabled) have their modules
+    now: each runs the query to the oracle's rows, its directory under
+    tmp_path."""
+    from blaze_tpu_torch.spark import local_runner
+
     (paths, frames), _ = tables["tpcds"]
-    plan, _ = tpcds.QUERIES["q09"](paths, frames, "bhj")
-    monkeypatch.setattr(conf, knob, value)
-    with pytest.raises(NotImplementedError, match=module):
-        run_plan(plan, work_dir=str(tmp_path), device="cpu")
+    plan, oracle = tpcds.QUERIES["q09"](paths, frames, "bhj")
+    if knob in dict(local_runner._LEFT_OUT):
+        monkeypatch.setattr(conf, knob, value)
+        with pytest.raises(NotImplementedError, match=module):
+            run_plan(plan, work_dir=str(tmp_path), device="cpu")
+        return
+    assert os.path.exists(os.path.join(
+        os.path.dirname(local_runner.__file__), "..", module))
+    monkeypatch.setattr(conf, knob, str(tmp_path / knob)
+                        if isinstance(value, str) else value)
+    monkeypatch.setattr(conf, "spill_dir", str(tmp_path / "spill"))
+    try:
+        out = run_plan(plan, work_dir=str(tmp_path / "w"), device="cpu")
+    finally:
+        from blaze_tpu_torch.runtime import profiler
+
+        profiler.stop()  # the sampler thread begin_query started
+    assert validator._compare(validator._to_pandas(out).reset_index(
+        drop=True), oracle().reset_index(drop=True)) is None
 
 
 def test_run_plan_defaults_to_the_card(tables):

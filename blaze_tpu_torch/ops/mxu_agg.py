@@ -42,7 +42,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from blaze_tpu_torch import kernels
-from blaze_tpu_torch.runtime.metrics import COUNTER_LOCK
+from blaze_tpu_torch.runtime.metrics import COUNTER_LOCK, tally_add
 
 CHUNK_BITS = 8
 I64_CHUNKS = 8          # full int64 (|v| < 2^62; sums exact within 2^53)
@@ -215,6 +215,8 @@ def _chain_call(acc, keys, valid, words, recipe, rng: int):
                 CHAIN_LAUNCHES[name] += c
             if err == 0:
                 KERNEL_LAUNCHES += 1
+        if err == 0:
+            tally_add("kernel_launches")
         if err != 0:
             raise RuntimeError("mxu_accumulate launch failed: "
                                + lib.mxu_accumulate_error(err).decode())

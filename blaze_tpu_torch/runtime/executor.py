@@ -2,7 +2,8 @@
 
 Port of blaze_tpu/runtime/executor.py: the collect subset (with
 `collect_arrow`), `execute_stage_or_plan` (the entry of the shuffle
-writers), `metric_tree` and `run_task_with_resilience`, the retry /
+writers), `metric_tree`, `run_pool_plan` (the executor process's entry,
+runtime/executor_pool.py) and `run_task_with_resilience`, the retry /
 degrade / fallback ladder every supervised task runs under
 (runtime/supervisor.py), whose retries and rungs also land on the live
 progress waterfall (runtime/progress.py). Maximal
@@ -179,6 +180,51 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
             # the saves raced
             conf.target_batch_bytes = max(conf.target_batch_bytes,
                                           saved_target)
+
+
+# per-task operator metrics a driver sums into run_info: the whole-stage
+# routes of runtime/stage_compiler.py and the Parquet scan's bytes and
+# Arrow-to-device time (spark/local_runner.py; an executor process reports
+# them in its result, runtime/executor_pool.py)
+TASK_METRICS = ("stage_compiled", "stage_fallbacks", "bytes_scanned",
+                "io_time_ns")
+
+
+def task_metrics(op: Operator) -> dict:
+    """TASK_METRICS summed over an executed operator tree."""
+    out = dict.fromkeys(TASK_METRICS, 0)
+    stack = [op]
+    while stack:
+        o = stack.pop()
+        for key in TASK_METRICS:
+            out[key] += o.metrics[key]
+        stack.extend(o.children)
+    return out
+
+
+def run_pool_plan(node, ctx: ExecContext, what: str = "pool_task"):
+    """Executor-PROCESS entry for one shipped plan proto
+    (runtime/executor_pool.py worker): decode -> execute -> crash-atomic
+    commit, driven through the in-process resilience ladder: a transient
+    fault burns an executor-local retry (or a resource fault a ladder
+    rung) before it costs the driver a cross-process re-queue. No row
+    fallback here: the driver owns the lineage and re-executes lost
+    partitions itself. conf.task_deadline_ms bounds all attempts, the
+    contract of the supervised thread path. Returns the executed operator
+    (its metrics carry the statistics the worker reports back)."""
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.plan import decode_plan
+
+    def attempt():
+        op = decode_plan(node)  # fresh operator state per attempt
+        list(execute_plan(op, ctx))
+        return op
+
+    deadline = None
+    if conf.task_deadline_ms and conf.task_deadline_ms > 0:
+        deadline = time.monotonic() + conf.task_deadline_ms / 1000.0
+    return run_task_with_resilience(attempt, what=what, ctx=ctx,
+                                    deadline=deadline)
 
 
 def _note_rung(run_info: Optional[dict], rung: int) -> None:

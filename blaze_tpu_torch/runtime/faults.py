@@ -50,8 +50,8 @@ Spec shape:
 
 Install specs through `install()`, which resets the schedule. Point names
 are hierarchical: a rule for "op" matches "op.FilterExec". The wire-level
-`net.*` points act in runtime/shuffle_server.py, which the port does not
-have yet: a spec that arms one raises NotImplementedError naming it.
+`net.*` points act at the socket operations of runtime/shuffle_server.py
+and runtime/executor_pool.py, through shuffle_server.NET_HOOK.
 """
 
 from __future__ import annotations
@@ -330,19 +330,15 @@ def install(spec: Optional[dict]) -> None:
     """Set `conf.fault_injection_spec` and reset the deterministic
     schedule state (per-point counters, rngs, the injection log)."""
     conf.fault_injection_spec = spec or {}
-    try:
-        reset()
-    except NotImplementedError:
-        conf.fault_injection_spec = {}
-        reset()
-        raise
+    reset()
 
 
 def reset() -> None:
     """Restart the injection schedule (counters/rngs/log) for the current
-    spec; same seed => bit-identical schedule on replay. A spec arming a
-    net.* point raises: the JAX package arms shuffle_server.NET_HOOK with
-    net_rule for it, and runtime/shuffle_server.py is not yet ported."""
+    spec; same seed => bit-identical schedule on replay. Also (un)arms
+    the wire-fault seam: shuffle_server.NET_HOOK points at net_rule only
+    while the spec arms a net.* point, so the disabled-path cost at the
+    socket layer is one module-global load."""
     with _sched_lock:
         _counters.clear()
         _rngs.clear()
@@ -351,11 +347,11 @@ def reset() -> None:
         seed = spec.get("seed")
         if seed is not None:
             _rngs["__jitter__"] = random.Random(_mix(seed, "__jitter__"))
-    armed = [p for p in (spec.get("points") or {}) if p.startswith("net.")]
-    if armed:
-        raise NotImplementedError(
-            f"fault points {armed} act in runtime/shuffle_server.py "
-            "(NET_HOOK), not yet ported")
+    from blaze_tpu_torch.runtime import shuffle_server
+
+    armed = any(p.startswith("net.")
+                for p in (spec.get("points") or {}))
+    shuffle_server.NET_HOOK = net_rule if armed else None
 
 
 def reset_telemetry() -> None:
@@ -447,9 +443,8 @@ def net_rule(point: str) -> Optional[dict]:
     deterministic schedule (same seed => same wire chaos) but never
     raises itself — delay/reset/blackhole/torn/dup are properties of
     the wire, not taxonomy errors, so the socket layer enacts them.
-    The JAX package reaches its socket call sites through
-    shuffle_server.NET_HOOK; the port keeps the decision for the
-    shuffle-server slice (reset() refuses net.* specs until then)."""
+    Reaches the socket call sites through shuffle_server.NET_HOOK,
+    which reset() arms only while a spec targets a net.* point."""
     spec = conf.fault_injection_spec
     if not spec:
         return None

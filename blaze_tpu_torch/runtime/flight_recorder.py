@@ -3,9 +3,8 @@
 Port of blaze_tpu/runtime/flight_recorder.py, whole. A capture makes no
 device call (no torch.cuda query, no tensor read): after a sticky CUDA
 error the context is poisoned, and the dossier of that failure must
-still be written. The executor pool is not ported (ROADMAP Queue 1,
-item 2), so a dossier's `executor_pool` is None, what the JAX package
-writes while no pool is active.
+still be written. A dossier's `executor_pool` is
+executor_pool.pool_stats(): None while no pool is active.
 
 The observability ladder (trace ring -> monitor -> history -> doctor) is
 aggregate and postmortem: when a query fails, is shed, blows its
@@ -318,9 +317,12 @@ def _capture_locked_out(trigger, query_id, tenant_id, error, run_info,
         doc["profile_window"] = profiler.window(query_id)
     else:
         doc["profile_window"] = None
-    # no executor pool in the port yet (ROADMAP Queue 1, item 2): None is
-    # what the JAX package's pool_stats() gives while no pool is active
-    doc["executor_pool"] = None
+    try:
+        from blaze_tpu_torch.runtime import executor_pool
+
+        doc["executor_pool"] = executor_pool.pool_stats()
+    except Exception:  # noqa: BLE001 — pool snapshot is optional context
+        doc["executor_pool"] = None
 
     os.makedirs(conf.flight_dir, exist_ok=True)
     qid_safe = "".join(ch if ch.isalnum() or ch in "-_" else "_"

@@ -13,6 +13,7 @@ process-wide counters below share `COUNTER_LOCK`.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -44,6 +45,38 @@ HOST_EVAL = {"hostfn": [0, 0], "udf": [0, 0]}
 # pipeline, and host ns spent producing them; and the batches FfiReaderExec
 # handed on, with those of them that lie on the card
 BRIDGE = {"exports": 0, "rows": 0, "ns": 0, "batches": 0, "card_batches": 0}
+
+
+# per-task tallies beside the process-wide counts: `task_tally` opens a
+# dict on its thread, the pipeline's threads replay it
+# (runtime/pipeline._CtxSnapshot), and `tally_add` counts into it, so an
+# executor process that runs several tasks at once (runtime/executor_pool.py)
+# reports each task's own kernel launches
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def task_tally(box: Optional[Dict[str, int]] = None):
+    """Scope a per-task tally on this thread (a fresh dict, or `box` to
+    rejoin a tally opened on another thread); yields the dict."""
+    prev = getattr(_tally, "box", None)
+    _tally.box = {} if box is None else box
+    try:
+        yield _tally.box
+    finally:
+        _tally.box = prev
+
+
+def current_tally() -> Optional[Dict[str, int]]:
+    return getattr(_tally, "box", None)
+
+
+def tally_add(key: str, n: int = 1) -> None:
+    """Count `n` into this thread's task tally, if one is open."""
+    box = getattr(_tally, "box", None)
+    if box is not None:
+        with COUNTER_LOCK:
+            box[key] = box.get(key, 0) + n
 
 
 def note_host_eval(kind: str, ns: int) -> None:

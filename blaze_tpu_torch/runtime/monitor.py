@@ -34,9 +34,13 @@ roll-up merged into run_info, and the always-on leak check.
               reservations, or nonzero MemManager consumers at query end
               emit a `resource_leak` trace event and count in run_info.
 
-What the JAX module also has waits for the modules it reads: the
-executor-side ship (drain_remote_deltas, merge_remote, drain_zerocopy,
-merge_zerocopy) for runtime/executor_pool.py, and the sampler and
+  federation  the executor-side ship: a worker process drains its
+              per-query deltas (drain_remote_deltas) and zero-copy deltas
+              (drain_zerocopy) into telemetry frames, and the driver folds
+              them into its totals and live roll-ups (merge_remote,
+              merge_zerocopy), as runtime/executor_pool.py does.
+
+What the JAX module also has waits for the modules it reads: the sampler and
 exporters (ResourceMonitor, prometheus_text, MetricsServer, ...) for the
 service-layer modules they read (ROADMAP Queue 1, item 3);
 conf.metrics_port stays refused until then (spark/local_runner.py), and
@@ -74,6 +78,9 @@ _lock = threading.Lock()
 _copied: Dict[str, int] = {b: 0 for b in BOUNDARIES}
 _moved: Dict[str, int] = {b: 0 for b in BOUNDARIES}
 _zerocopy: Dict[str, int] = {k: 0 for k in ZEROCOPY_KEYS}
+# executor-side ship watermark (drain ships disjoint deltas, like
+# drain_remote_deltas does for the per-query accumulators)
+_zerocopy_shipped: Dict[str, int] = {k: 0 for k in ZEROCOPY_KEYS}
 _leaks_total = 0
 # runner-registered active query: the attribution fallback for a thread
 # with no query in its trace context
@@ -180,14 +187,38 @@ def copy_totals() -> Tuple[Dict[str, int], Dict[str, int]]:
 
 
 def count_zerocopy(key: str, n: int = 1) -> None:
-    """Count one zero-copy data-plane event (a string column shipped
-    dictionary-encoded: "dict_cols_encoded"; the mmap shuffle fetch's
-    keys wait for runtime/shuffle_server.py). Call sites gate on
-    conf.monitor_enabled; self-gated too."""
+    """Count one zero-copy data-plane event: a same-host mmap shuffle
+    fetch served without streaming ("shuffle_mmap_hits"), a mmap attempt
+    that fell back to the socket ("shuffle_mmap_fallbacks"), or a string
+    column shipped dictionary-encoded ("dict_cols_encoded"). Call sites
+    gate on conf.monitor_enabled; self-gated too."""
     if not conf.monitor_enabled:
         return
     with _lock:
         _zerocopy[key] = _zerocopy.get(key, 0) + int(n)
+
+
+def drain_zerocopy() -> Dict[str, int]:
+    """Executor-side: zero-copy counter deltas since the last drain
+    (empty when nothing new), shipped in telemetry frames next to the
+    per-query deltas and folded in driver-side by merge_zerocopy."""
+    out: Dict[str, int] = {}
+    with _lock:
+        for k in ZEROCOPY_KEYS:
+            d = _zerocopy.get(k, 0) - _zerocopy_shipped.get(k, 0)
+            if d:
+                out[k] = d
+                _zerocopy_shipped[k] = _zerocopy.get(k, 0)
+    return out
+
+
+def merge_zerocopy(deltas: Dict[str, int]) -> None:
+    """Driver-side ingest of executor zero-copy deltas."""
+    if not deltas or not conf.monitor_enabled:
+        return
+    with _lock:
+        for k, n in deltas.items():
+            _zerocopy[k] = _zerocopy.get(k, 0) + int(n)
 
 
 def zerocopy_stats() -> Dict[str, int]:
@@ -205,7 +236,7 @@ def reset() -> None:
     """Clear counters + per-query state (test isolation)."""
     global _active_qid, _leaks_total
     with _lock:
-        for d in (_copied, _moved, _zerocopy):
+        for d in (_copied, _moved, _zerocopy, _zerocopy_shipped):
             for k in d:
                 d[k] = 0
         _queries.clear()
@@ -239,14 +270,86 @@ def begin_query(qid: str, manager=None) -> None:
 
 
 def ensure_query(qid: str) -> None:
-    """Create the per-query accumulator for `qid` WITHOUT making it the
-    active query or touching the manager (a worker that attributes work
-    to a query another thread owns)."""
+    """Executor-side registration: create the per-query accumulator for
+    a driver-issued qid WITHOUT making it the active query or touching
+    the manager. Worker processes never call begin_query (the driver
+    owns the query lifecycle); they still need an accumulator so
+    count_copy/count_time attribute pooled work, which then drains into
+    telemetry ships (drain_remote_deltas) instead of a local
+    query_end."""
     if not conf.monitor_enabled or not qid:
         return
     with _lock:
         if qid not in _queries:
             _queries[qid] = _QueryAcct(qid)
+
+
+def drain_remote_deltas() -> Dict[str, Dict[str, Any]]:
+    """Pop-and-return every query accumulator's counters as a JSON-safe
+    delta doc {qid: {copied, moved, time_ns, stage_copied, stage_moved,
+    stage_time_ns}}: the executor-side half of counter federation. The
+    accumulators stay registered (a task may still be appending); only
+    the counts move, so repeated drains ship disjoint deltas."""
+    out: Dict[str, Dict[str, Any]] = {}
+    with _lock:
+        for qid, q in _queries.items():
+            d: Dict[str, Any] = {}
+            for field in ("copied", "moved", "time_ns",
+                          "stage_copied", "stage_moved", "stage_time_ns"):
+                vals = getattr(q, field)
+                if vals:
+                    d[field] = vals
+                    setattr(q, field, {})
+            if d:
+                out[qid] = d
+    return out
+
+
+def _stage_key(k: Any) -> Any:
+    """Stage ids are ints driver-side but stringify over the JSON wire;
+    convert back so remote deltas merge into the same buckets."""
+    try:
+        return int(k)
+    except (TypeError, ValueError):
+        return k
+
+
+def merge_remote(deltas: Dict[str, Dict[str, Any]]) -> None:
+    """Driver-side ingest of executor counter deltas (telemetry frames
+    and sidecar recovery): fold into the process-lifetime totals AND the
+    per-query accumulators, so query_end roll-ups and stage span attrs
+    see pooled work as they see in-process work. Deltas for a query
+    already rolled up (a late or recovered ship after query_end) still
+    land in the process totals."""
+    if not deltas or not conf.monitor_enabled:
+        return
+    with _lock:
+        for qid, d in deltas.items():
+            copied = d.get("copied") or {}
+            moved = d.get("moved") or {}
+            for b, n in copied.items():
+                _copied[b] = _copied.get(b, 0) + int(n)
+            for b, n in moved.items():
+                _moved[b] = _moved.get(b, 0) + int(n)
+            q = _queries.get(qid)
+            if q is None:
+                continue
+            for b, n in copied.items():
+                q.copied[b] = q.copied.get(b, 0) + int(n)
+            for b, n in moved.items():
+                q.moved[b] = q.moved.get(b, 0) + int(n)
+            for cat, n in (d.get("time_ns") or {}).items():
+                q.time_ns[cat] = q.time_ns.get(cat, 0) + int(n)
+            for sk, n in (d.get("stage_copied") or {}).items():
+                k = _stage_key(sk)
+                q.stage_copied[k] = q.stage_copied.get(k, 0) + int(n)
+            for sk, n in (d.get("stage_moved") or {}).items():
+                k = _stage_key(sk)
+                q.stage_moved[k] = q.stage_moved.get(k, 0) + int(n)
+            for sk, cats in (d.get("stage_time_ns") or {}).items():
+                st = q.stage_time_ns.setdefault(_stage_key(sk), {})
+                for cat, n in cats.items():
+                    st[cat] = st.get(cat, 0) + int(n)
 
 
 def query_end(qid: str, manager=None) -> Dict[str, Any]:

@@ -72,6 +72,7 @@ from typing import Callable, Iterable, Iterator, Optional
 from blaze_tpu_torch import config
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.runtime import trace
+from blaze_tpu_torch.runtime import metrics
 from blaze_tpu_torch.runtime.metrics import MetricsSet
 
 TELEMETRY = MetricsSet()
@@ -181,13 +182,16 @@ class _CtxSnapshot:
     inside pump bodies exactly as they do at batch boundaries, and the
     query's resolved conf overlay (config.overlay_scope) so producers
     reading adaptive batch knobs see the same per-query conf as the
-    task thread that opened the stream."""
+    task thread that opened the stream, and the task's tally
+    (metrics.task_tally) so its kernel launches count wherever they
+    run."""
 
     __slots__ = ("trace_ctx", "sup_attempt", "sup_task",
-                 "conf_overlay", "conf_provenance")
+                 "conf_overlay", "conf_provenance", "tally")
 
     def __init__(self) -> None:
         self.trace_ctx = trace.current_context()
+        self.tally = metrics.current_tally()
         self.sup_attempt = None
         self.sup_task = None
         self.conf_overlay = config.current_overlay()
@@ -207,6 +211,8 @@ class _CtxSnapshot:
 
         stack = ExitStack()
         stack.enter_context(trace.context(**self.trace_ctx))
+        if self.tally is not None:
+            stack.enter_context(metrics.task_tally(self.tally))
         if self.conf_overlay:
             stack.enter_context(config.overlay_scope(
                 self.conf_overlay, self.conf_provenance))

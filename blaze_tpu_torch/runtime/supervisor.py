@@ -1,10 +1,10 @@
 """Task supervisor: bounded concurrency, heartbeats, deadlines, hang
 detection, straggler speculation and per-operator circuit breaking.
 
-Port of blaze_tpu/runtime/supervisor.py without its process supervision
-(`ProcessPeer`, `ProcessWatchdog`: their callers are the executor pool and
-the standby driver, not yet ported) and without `FairScheduler` and the
-query sessions (the multi-tenant service's, not yet ported). A breaker
+Port of blaze_tpu/runtime/supervisor.py with its process supervision
+(`ProcessPeer`, `ProcessWatchdog`: the executor pool's death detector,
+runtime/executor_pool.py) and without `FairScheduler` and the query
+sessions (the multi-tenant service's, not yet ported). A breaker
 trip writes a flight dossier, a watchdog kill stashes every thread's
 stack for the query's dossier, and each attempt's state lands on the
 live progress waterfall, as in the JAX module. The reference
@@ -221,6 +221,165 @@ class CircuitBreaker:
             return False
         with self._lock:
             return not self._tripped.isdisjoint(op_kinds)
+
+
+class ProcessPeer:
+    """One supervised executor process: the PID twin of TaskAttempt.
+    `beat()` is bumped by ANY inbound control-socket frame (push beats
+    included), the same no-second-instrument posture as the thread
+    heartbeat; `poll` is the owner's reaper (subprocess.Popen.poll) so a
+    zombie child is seen as dead even though os.kill(pid, 0) still
+    succeeds on it."""
+
+    __slots__ = ("key", "pid", "last_beat", "poll", "on_death", "dead",
+                 "draining", "stale_ms")
+
+    def __init__(self, key: str, pid: int,
+                 on_death: Callable[["ProcessPeer", str, Optional[int]],
+                                    None],
+                 poll: Optional[Callable[[], Optional[int]]] = None,
+                 stale_ms: Optional[int] = None) -> None:
+        self.key = key
+        self.pid = pid
+        self.last_beat = time.monotonic()
+        self.poll = poll
+        self.on_death = on_death
+        self.dead = False
+        self.draining = False
+        # per-peer staleness override: None -> conf.executor_death_ms;
+        # 0 -> pid-liveness ONLY (a peer that never beats this watchdog
+        # — the standby watching its primary — must not be declared
+        # heartbeat-dead for silence that is perfectly healthy)
+        self.stale_ms = stale_ms
+
+    def beat(self) -> None:
+        self.last_beat = time.monotonic()
+
+
+class ProcessWatchdog:
+    """Executor-death detector: the thread watchdog's heartbeat/staleness
+    scan generalized to PIDs (ROADMAP item 1). A peer is declared dead
+    when its process is reaped/vanished (reason "exit", with the exit
+    code — negative = killing signal) or when its heartbeat goes stale
+    past conf.executor_death_ms (reason "heartbeat" — the process may
+    still be RUNNING; the owner must fence its epoch so its late results
+    are rejected). Each peer's on_death fires exactly once, off-thread
+    from the socket readers, and must never raise."""
+
+    _TICK = 0.05
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._peers: Dict[str, ProcessPeer] = {}
+        self._closed = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def register(self, key: str, pid: int, on_death,
+                 poll=None, stale_ms=None) -> ProcessPeer:
+        peer = ProcessPeer(key, pid, on_death, poll=poll,
+                           stale_ms=stale_ms)
+        with self._lock:
+            self._peers[key] = peer
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._loop, name="blz-procdog", daemon=True)
+                self._thread.start()
+        return peer
+
+    def unregister(self, key: str) -> None:
+        with self._lock:
+            self._peers.pop(key, None)
+
+    def beat(self, key: str) -> None:
+        with self._lock:
+            peer = self._peers.get(key)
+        if peer is not None:
+            peer.beat()
+
+    def mark_draining(self, key: str) -> None:
+        """Flag a peer as gracefully decommissioning: its clean exit
+        (rc 0) routes to on_death(reason="drained") with NO
+        executor_death event/telemetry — an orderly drain is not a
+        death."""
+        with self._lock:
+            peer = self._peers.get(key)
+        if peer is not None:
+            peer.draining = True
+
+    def _pid_gone(self, peer: ProcessPeer) -> Tuple[bool, Optional[int]]:
+        if peer.poll is not None:
+            rc = peer.poll()
+            if rc is not None:
+                return True, rc
+            return False, None
+        from blaze_tpu_torch.runtime.artifacts import _pid_alive
+
+        return (not _pid_alive(peer.pid)), None
+
+    def _loop(self) -> None:
+        while not self._closed.is_set():
+            death_ms = max(int(conf.executor_death_ms), 1)
+            self._closed.wait(min(self._TICK, death_ms / 4000.0))
+            try:
+                self._scan()
+            except Exception:  # noqa: BLE001 — watchdog must never die
+                pass
+
+    def _scan(self) -> None:
+        now = time.monotonic()
+        stale_s = max(int(conf.executor_death_ms), 1) / 1000.0
+        with self._lock:
+            peers = list(self._peers.values())
+        for peer in peers:
+            if peer.dead:
+                continue
+            gone, rc = self._pid_gone(peer)
+            peer_stale_s = (stale_s if peer.stale_ms is None
+                            else max(int(peer.stale_ms), 0) / 1000.0)
+            if gone:
+                reason = "exit"
+            elif peer.draining:
+                continue  # a draining peer may idle past staleness
+            elif peer_stale_s > 0 and now - peer.last_beat > peer_stale_s:
+                reason, rc = "heartbeat", None
+            else:
+                continue
+            peer.dead = True
+            self.unregister(peer.key)
+            if peer.stale_ms == 0:
+                # a pid-liveness-only peer is a SILENT watch on a
+                # non-heartbeating process (the standby watching its
+                # primary, standby.StandbyDriver) — route the death to
+                # the owner but do not account it as an executor death
+                try:
+                    peer.on_death(peer, reason, rc)
+                except Exception:  # noqa: BLE001 — must not kill scan
+                    pass
+                continue
+            if peer.draining and rc in (0, None):
+                # clean exit of a decommissioning worker: route to the
+                # owner as "drained", no dossier, no death accounting
+                try:
+                    peer.on_death(peer, "drained", rc)
+                except Exception:  # noqa: BLE001 — must not kill scan
+                    pass
+                continue
+            faults.TELEMETRY.add("executor_deaths", 1)
+            trace.event("executor_death", exec_id=peer.key, pid=peer.pid,
+                        reason=reason, exit_code=rc,
+                        stale_ms=round((now - peer.last_beat) * 1000))
+            try:
+                peer.on_death(peer, reason, rc)
+            except Exception:  # noqa: BLE001 — callback must not kill scan
+                pass
+
+    def close(self) -> None:
+        self._closed.set()
+        with self._lock:
+            thread = self._thread
+            self._peers.clear()
+        if thread is not None:
+            thread.join(timeout=1.0)
 
 
 @dataclasses.dataclass

@@ -28,14 +28,21 @@ reuses a crashed query's verified stage commits. Tasks run on `device`
 interpreter (spark/fallback.py) on the host, and its rows enter the
 native pipeline through the FFI bridge (FfiReaderExec).
 
-With mesh_exchange="auto" (the default, as in the JAX package) a
-hash-partitioned shuffle map stage on plain column keys first tries the
-device-mesh exchange (parallel/stage_exchange.py): its partitions stay in
-device memory and no file is written; a stage the mesh declines, or whose
-mesh attempt fails with a transient or resource error, takes the file
-path. runtime/monitor.py accounts the query's bytes at every copy
-boundary and merges its roll-up into run_info (conf.monitor_enabled, on
-by default), and its leak check runs on every query.
+With a process pool active (runtime/executor_pool.activate), a shuffle
+map stage whose every input is servable over the pool's shuffle server
+(`_pool_stage_rids`: committed shuffle partitions, `:all` reads included,
+and broadcast frame lists) runs its tasks in the pool's worker processes
+(`_run_shuffle_stage_pooled`), each on the run's device; a pool that
+cannot run it degrades the stage to the in-process route
+("pool_to_thread"). With mesh_exchange="auto" (the default, as in the
+JAX package) a hash-partitioned shuffle map stage on plain column keys
+next tries the device-mesh exchange (parallel/stage_exchange.py): its
+partitions stay in device memory and no file is written; a stage the
+mesh declines, or whose mesh attempt fails with a transient or resource
+error, takes the file path. runtime/monitor.py accounts the query's
+bytes at every copy boundary and merges its roll-up into run_info
+(conf.monitor_enabled, on by default), and its leak check runs on every
+query.
 
 The observability layer hangs off the same hooks as in the JAX package:
 the history store's taps (conf.history_dir, runtime/history.py), live
@@ -47,8 +54,9 @@ dossiers (conf.flight_dir, runtime/flight_recorder.py).
 
 What the JAX package hangs around this that is not yet ported raises,
 naming its module, when a caller switches it on: the autopilot and its
-conf overlays, the executor pool (with its `_run_shuffle_stage_pooled`)
-and the monitor's sampler and exporters (conf.metrics_port).
+conf overlays and the monitor's sampler and exporters (conf.metrics_port).
+As in the JAX package, `run_plan` reads the active pool, not
+conf.executor_count.
 """
 
 from __future__ import annotations
@@ -69,13 +77,14 @@ from blaze_tpu_torch.ops.common import concat_batches
 from blaze_tpu_torch.plan import decode_plan, fingerprint_plan
 from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.fingerprint import fingerprint_query
+from blaze_tpu_torch.plan.to_proto import encode_schema
 from blaze_tpu_torch.runtime import (
-    artifacts, faults, history, journal, memory, monitor, pipeline,
-    resources, trace,
+    artifacts, executor_pool, faults, history, journal, memory, monitor,
+    pipeline, resources, trace,
 )
 from blaze_tpu_torch.runtime import supervisor as supervisor_mod
 from blaze_tpu_torch.runtime.executor import (
-    execute_plan, run_task_with_resilience,
+    TASK_METRICS, execute_plan, run_task_with_resilience, task_metrics,
 )
 from blaze_tpu_torch.runtime.supervisor import Supervisor, TaskSpec
 from blaze_tpu_torch.spark import converters
@@ -94,16 +103,9 @@ _convert_lock = threading.Lock()
 # conf knobs that would switch on a module the port does not have
 _LEFT_OUT = (
     ("autopilot_enabled", "runtime/autopilot.py"),
-    ("executor_count", "runtime/executor_pool.py"),
     ("metrics_port",
      "the sampler and exporters of runtime/monitor.py (MetricsServer)"),
 )
-
-# per-task operator metrics summed into run_info: the whole-stage routes
-# of runtime/stage_compiler.py and the Parquet scan's bytes and
-# Arrow-to-device time
-_TASK_METRICS = ("stage_compiled", "stage_fallbacks", "bytes_scanned",
-                 "io_time_ns")
 
 
 def _refuse_left_out() -> None:
@@ -129,10 +131,14 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     device sends one device (None: no overflow possible).
 
     run_info: optional dict populated with execution-path counters
-    ("mesh_stages", "file_stages", "broadcast_stages", "map_tasks_run",
-    "recovered_stages", and `_TASK_METRICS` summed over every task), the
-    device bytes the mesh stages kept on the device ("mesh_pinned_bytes",
-    each stage's count of the half-budget rule, summed), each
+    ("pool_stages", "mesh_stages", "file_stages", "broadcast_stages",
+    "map_tasks_run", "recovered_stages", and executor.TASK_METRICS
+    summed over every task, pooled ones included), the accumulate
+    kernel's launches that pool workers reported ("pool_kernel_launches")
+    and the seconds their first plan tasks spent importing the engine and
+    making a CUDA context ("pool_engine_start_s"), the device bytes the
+    mesh stages kept on the device ("mesh_pinned_bytes", each stage's
+    count of the half-budget rule, summed), each
     stage's kind and host wall time ("stage_s"), the query's "query_id",
     the resilience counters of the ladder and the supervisor ("retries",
     "degradations", "degraded.<rung>", "ladder_rung", "errors.<category>",
@@ -160,9 +166,11 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     dev = resolve_device(device)
     qid = run_info.get("query_id") or trace.new_query_id()
     run_info["query_id"] = qid
-    for key in (("mesh_stages", "mesh_pinned_bytes", "file_stages",
-                 "broadcast_stages", "map_tasks_run", "recovered_stages")
-                + _TASK_METRICS):
+    for key in (("pool_stages", "pool_kernel_launches",
+                 "pool_engine_start_s", "mesh_stages",
+                 "mesh_pinned_bytes", "file_stages", "broadcast_stages",
+                 "map_tasks_run", "recovered_stages")
+                + TASK_METRICS):
         run_info.setdefault(key, 0)
     run_info.setdefault("stage_s", [])
     mgr = memory.get_manager()
@@ -291,6 +299,11 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
     # the query's worker pool, watchdog, speculation and circuit breaker;
     # off, each stage runs inline on this thread
     sup = Supervisor(run_info, device=device)
+    # process-isolated executors (runtime/executor_pool.py): when a pool
+    # is active, eligible shuffle-map stages ship their task plans to
+    # worker PROCESSES (crash containment) instead of the thread pool;
+    # the pool failing degrades back to the in-process path below
+    pool = executor_pool.active()
     # live-progress taps: one is-None check per stage when off
     if conf.progress_enabled:
         from blaze_tpu_torch.runtime import progress
@@ -330,6 +343,13 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                         logical = _resume_shuffle_stage(
                             stage, stages, shuffle_mgr, fp, jnl, run_info,
                             ns, device)
+                    prids = (_pool_stage_rids(stage)
+                             if logical is None and pool is not None
+                             else None)
+                    if prids is not None and _served(pool, prids):
+                        logical, transport = _pooled_or_none(
+                            stage, stages, shuffle_mgr, pool, run_info, ns,
+                            prids, device, jnl, fp), "pool"
                     if logical is None and mesh_exchange == "auto":
                         logical, transport = _run_mesh_stage(
                             stage, stages, mesh_quota, work_dir, run_info,
@@ -347,8 +367,14 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                         trace.span("stage", stage_id=stage.stage_id,
                                    stage_kind="broadcast",
                                    fingerprint=fp, tasks=1) as sp:
-                    _run_broadcast_stage(stage, stages, sup, run_info, ns,
-                                         device)
+                    frames = _run_broadcast_stage(stage, stages, sup,
+                                                  run_info, ns, device)
+                    if pool is not None:
+                        # executors read broadcasts from the driver's
+                        # shuffle server, the frames the local provider
+                        # replays
+                        pool.server.register_frames(
+                            f"{ns}broadcast:{stage.stage_id}", frames)
                     sp.set(**monitor.stage_span_attrs(qid, stage.stage_id))
                 run_info["broadcast_stages"] += 1
             else:
@@ -391,6 +417,9 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                         f"{ns}broadcast:{stage.stage_id}",
                         f"{ns}broadcast_sink:{stage.stage_id}"):
                 resources.pop(key)
+            if pool is not None:
+                pool.server.unregister(f"{ns}shuffle:{stage.stage_id}")
+                pool.server.unregister(f"{ns}broadcast:{stage.stage_id}")
             shuffle_mgr.unregister_shuffle(stage.stage_id)
 
 
@@ -428,6 +457,37 @@ def _run_mesh_stage(stage: Stage, stages: List[Stage],
     run_info["mesh_stages"] += 1
     run_info["mesh_pinned_bytes"] += stats["pinned"]
     return stats.get("bytes", 0)
+
+
+def _pooled_or_none(stage: Stage, stages: List[Stage], shuffle_mgr, pool,
+                    run_info: Dict, ns: str, rids: List[str], device, jnl,
+                    fp) -> Optional[int]:
+    """The stage on the process pool; its logical bytes, or None when the
+    pool cannot run it (no live executor, exhausted retries): then the
+    in-process transports run it, the same row multisets either way. A
+    fatal or plan error relays. Two departures from the JAX package,
+    whose degradation these block: a pool with no live executor
+    (PoolUnavailableError, a ConnectionError that faults.classify calls
+    fatal) counts as a resource error and degrades; and the degraded
+    stage's registration is dropped so the file path can register it
+    again."""
+    try:
+        logical = _run_shuffle_stage_pooled(
+            stage, stages, shuffle_mgr, pool, run_info, ns, rids, device,
+            jnl=jnl, fp=fp)
+    except Exception as e:  # noqa: BLE001 — classified
+        cat = ("resource" if isinstance(e, executor_pool.PoolUnavailableError)
+               else faults.classify(e))
+        if cat in ("fatal", "plan"):
+            raise
+        shuffle_mgr.unregister_shuffle(stage.stage_id, delete_files=False)
+        faults.note_error(cat, run_info)
+        faults.note_degradation("pool_to_thread", run_info)
+        trace.event("degrade", what="pool_to_thread", category=cat,
+                    error=type(e).__name__)
+        return None
+    run_info["pool_stages"] += 1
+    return logical
 
 
 def _crossings() -> Dict[str, float]:
@@ -488,13 +548,9 @@ def _input_tasks(stage: Stage, stages: List[Stage],
 
 
 def _note_metrics(op: Operator, run_info: Dict) -> None:
-    """Add a finished task's `_TASK_METRICS` to run_info."""
-    stack = [op]
-    while stack:
-        o = stack.pop()
-        for key in _TASK_METRICS:
-            run_info[key] += o.metrics[key]
-        stack.extend(o.children)
+    """Add a finished task's TASK_METRICS to run_info."""
+    for key, value in task_metrics(op).items():
+        run_info[key] += value
 
 
 def _run_shuffle_stage(stage: Stage, stages: List[Stage], shuffle_mgr,
@@ -556,6 +612,159 @@ def _run_shuffle_stage(stage: Stage, stages: List[Stage], shuffle_mgr,
     resources.put(f"{ns}shuffle:{stage.stage_id}",
                   lambda partition: shuffle_mgr.get_reader_host(handle,
                                                                 partition))
+    return logical
+
+
+def _pool_stage_rids(stage: Stage) -> Optional[List[str]]:
+    """Reader resource ids of a shuffle-map stage when EVERY one is
+    servable to executor processes over the driver's shuffle server
+    (committed shuffle partitions, including `:all` build-side reads,
+    which workers reassemble by fetching every partition of the base
+    rid, mmap-first, and broadcast frame lists). None marks the stage
+    pool-ineligible: it needs driver-local state a worker process cannot
+    reach (FFI export iterators, UDF eval callbacks, RSS/sink consumers,
+    fs providers), and it runs in-process instead."""
+    rids: List[str] = []
+    servable = True
+
+    def walk(msg) -> None:
+        nonlocal servable
+        for fd, val in msg.ListFields():
+            if fd.type == fd.TYPE_MESSAGE:
+                vals = val if _is_repeated_field(fd) else (val,)
+                for v in vals:
+                    walk(v)
+            elif fd.name == "provider_resource_id":
+                local = local_resource_id(val)
+                if (local.startswith("shuffle:")
+                        or local.startswith("broadcast:")):
+                    rids.append(val)
+                else:
+                    servable = False
+            elif fd.name.endswith("resource_id") and val:
+                servable = False
+
+    walk(stage.plan)
+    return rids if servable else None
+
+
+def _served(pool, rids: List[str]) -> bool:
+    """Every rid the stage reads is registered on the pool's shuffle
+    server (a port-only check: an upstream stage the mesh exchanged, or
+    one that degraded, left no files there, and the JAX package would
+    send the stage to workers that cannot fetch it)."""
+    registered = set(pool.server.registered())
+    return all((r[:-len(":all")] if r.endswith(":all") else r)
+               in registered for r in rids)
+
+
+def _is_repeated_field(fd) -> bool:
+    # protobuf >= 5.x deprecates FieldDescriptor.label (plan/fingerprint)
+    rep = getattr(fd, "is_repeated", None)
+    if rep is not None and not callable(rep):
+        return bool(rep)
+    return fd.label == fd.LABEL_REPEATED
+
+
+def _run_shuffle_stage_pooled(stage: Stage, stages: List[Stage],
+                              shuffle_mgr, pool, run_info: Dict, ns: str,
+                              rids: List[str], device, jnl=None,
+                              fp=None) -> int:
+    """The map stage on the PROCESS pool: each task's plan proto ships to
+    an executor over the control socket, with the run's device in its
+    payload; the worker epoch-stamps the writer paths, reads upstream
+    input from the driver's shuffle server, and commits crash-atomically
+    in its own process. The driver admits each result through the epoch
+    fence, points the writer slot at the accepted attempt's files,
+    commits the MapStatus, sweeps stale-epoch twins, adds the task's
+    metrics and kernel launches to run_info, and publishes the outputs
+    to BOTH registries: the in-process resource registry (downstream
+    result and broadcast stages run locally) and the shuffle server
+    (downstream POOLED stages fetch from workers)."""
+    ntasks = _input_tasks(stage, stages)
+    reader_schema = decode_plan(stage.plan.shuffle_writer.input).schema
+    handle = shuffle_mgr.register_shuffle(
+        stage.stage_id, stage.num_partitions, reader_schema)
+    # driver-issued correlation ids ride the task payload: the worker
+    # replays them into its trace context, so executor-side spans and
+    # counter attribution share the driver's query/stage/task ids (the
+    # telemetry-federation join key)
+    ctx = trace.current_context()
+    # `:all` build-side reads: the worker reassembles the whole relation
+    # by fetching every partition of the base rid (mmap-first), so ship
+    # each one's partition count, the only driver-local fact it needs
+    rid_parts = {}
+    # each upstream shuffle's WRITE schema (a final aggregate's reader
+    # node may name fewer columns than the partial state holds): the
+    # worker decodes fetched frames with it, as the in-process provider
+    # (get_reader_host) does; the JAX package decodes with the reader
+    # node's schema and fails there (tpcds q04, SMJ)
+    rid_schemas = {}
+    for rid in rids:
+        local = local_resource_id(rid)
+        if local.startswith("shuffle:"):
+            sid = int(local.split(":")[1])
+            if local.endswith(":all"):
+                rid_parts[rid] = stages[sid].num_partitions
+            rid_schemas[rid] = base64.b64encode(encode_schema(
+                shuffle_mgr.handle(sid).schema).SerializeToString()
+            ).decode()
+    specs: List[executor_pool.PoolTaskSpec] = []
+    slots = []
+    for task in range(ntasks):
+        node = pb.PlanNode()
+        node.CopyFrom(stage.plan)
+        slot = shuffle_mgr.get_writer(handle, task)
+        node.shuffle_writer.data_file = slot.data_path
+        node.shuffle_writer.index_file = slot.index_path
+        specs.append(executor_pool.PoolTaskSpec(
+            key=f"{ns}shuffle:{stage.stage_id}:{task}",
+            kind="plan",
+            payload={"partition": task, "num_partitions": ntasks,
+                     "rids": rids, "rid_parts": rid_parts,
+                     "rid_schemas": rid_schemas,
+                     "device": str(device),
+                     "query_id": ctx.get("query_id"),
+                     "tenant_id": ctx.get("tenant_id"),
+                     "stage_id": stage.stage_id,
+                     "task_id": task,
+                     "what": f"shuffle_map[{stage.stage_id}:{task}]"},
+            blob=node.SerializeToString(),
+            what=f"shuffle_map[{stage.stage_id}:{task}]"))
+        slots.append(slot)
+    results = pool.run_tasks(specs)
+    logical = 0
+    for task, (res, slot) in enumerate(zip(results, slots)):
+        base_data, base_index = slot.data_path, slot.index_path
+        # the accepted attempt's epoch-stamped pair becomes the slot's
+        # committed artifact; every fenced twin is swept
+        slot.data_path = res["data_path"]
+        slot.index_path = res["index_path"]
+        written = int(res.get("logical_bytes", 0))
+        trace.record_value("shuffle_write_bytes", written)
+        logical += written
+        for key, value in (res.get("task_metrics") or {}).items():
+            run_info[key] += value
+        run_info["pool_kernel_launches"] += int(
+            res.get("kernel_launches", 0))
+        run_info["pool_engine_start_s"] += float(
+            res.get("engine_start_s", 0.0))
+        # repairs re-run in-process even for pool-committed outputs: the
+        # reader resources the map subtree needs are in BOTH registries
+        _register_slot_repair(stage, slot, task, ntasks, run_info, device)
+        slot.commit()
+        artifacts.sweep_stale_epochs(
+            base_data, base_index, artifacts.epoch_of(res["data_path"]))
+    run_info["map_tasks_run"] += ntasks
+    if jnl is not None and fp:
+        jnl.stage_commit(stage.stage_id, fp, logical,
+                         _journal_outputs(slots))
+    resources.put(f"{ns}shuffle:{stage.stage_id}",
+                  lambda partition: shuffle_mgr.get_reader_host(handle,
+                                                                partition))
+    pool.server.register_shuffle(
+        f"{ns}shuffle:{stage.stage_id}",
+        [(slot.data_path, slot.index_path) for slot in slots])
     return logical
 
 

@@ -122,6 +122,11 @@ class BlazeShuffleManager:
         self._map_outputs[shuffle_id] = []
         return handle
 
+    def handle(self, shuffle_id: int) -> ShuffleHandle:
+        """The registered handle of `shuffle_id` (its partition count and
+        the schema its map outputs were written with)."""
+        return self._handles[shuffle_id]
+
     def unregister_shuffle(self, shuffle_id: int,
                            delete_files: bool = True) -> None:
         from blaze_tpu_torch.runtime import artifacts
@@ -184,6 +189,17 @@ class BlazeShuffleManager:
                 yield from read_shuffle_partition(
                     st.data_path, st.index_path, partition, handle.schema,
                     device=device)
+        return gen()
+
+    def get_all_partitions_reader(self, handle: ShuffleHandle,
+                                  device: DeviceLike = None
+                                  ) -> Iterator[ColumnBatch]:
+        """Every partition of every map output: Spark's local-shuffle-
+        reader shape that AQE's SMJ->BHJ conversion reads build sides
+        with (spark/aqe.py)."""
+        def gen():
+            for p in range(handle.num_partitions):
+                yield from self.get_reader(handle, p, device=device)
         return gen()
 
     def get_reader_host(self, handle: ShuffleHandle, partition: int):

@@ -96,10 +96,10 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 all of its table's files, through the driver path
                 spark/local_runner.run_plan: tagging, conversion, stage
                 splitting, AQE, and the stages in order (a scan stage is
-                one task over all of its files). Each once checked (q02
+                one task over all of its files). Each once, checked (q02
                 and q04 against numpy and against phases 13 and 14's
                 rows, q09's four bucket averages against numpy, rtol
-                1e-9) and once timed; run_info's stage counts, routes,
+                1e-9) and timed; run_info's stage counts, routes,
                 launches and host pulls, and peak device memory (every
                 runner query of phases 15-20 reports its peak)
  16. runner_strings  spark/tpcds.py's q03, q06, q07 and q08 (BHJ) the same
@@ -150,7 +150,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 row interpreter feeding the broadcast join through the FFI
                 bridge onto the card, a numeric Scala UDF crossing to the
                 host a batch, a root sort on the row interpreter); each
-                against numpy, hashlib and zlib, once timed; the bridge's
+                against numpy, hashlib and zlib, and timed; the bridge's
                 rows and host seconds and the host crossings reported
  20. runner_resilience  the task runtime at its defaults (phases 1-19 run
                 with conf.enable_supervisor and conf.enable_pipeline off,
@@ -220,9 +220,31 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 hang dossier holding those stacks; and a query killed
                 by query_deadline_ms writes a deadline dossier. Each
                 dossier loads and names its trigger and query
+ 23. runner_pool  the process-isolated executor pool at phase 21's
+                defaults: ExecutorPool(count=2, slots=2) started and
+                activated, each worker a fresh interpreter with its own
+                CUDA context (made at its first plan task, whose seconds
+                it reports), loading the kernel library phase 2 built.
+                tpcds.py's q02 (its map stage and its 48 launches of the
+                kernel in a worker, 0 in the driver, the worker's own
+                count), the same again on the warm worker, and q04 (its
+                four arm map stages in workers), each against numpy and
+                runner_tpcds's rows, beside runner_mesh's "auto" times,
+                with the sampling profiler on in the workers to show
+                where the first plan task went; while the pool lives the card's used memory
+                (nvidia-smi memory.used; its per-process list names pids
+                of another namespace in a container, and is printed) holds
+                the workers' contexts and blocks. Then q09 with its map
+                task's worker SIGKILLed once busy_pids() names it: one
+                death, the task re-queued under a new epoch, the seat
+                respawned, no stale-epoch file left, the answer equal to
+                numpy's. After close() the card's used memory is back to
+                what it was before the workers ran. Telemetry frames and
+                bytes, the mmap hits and fallbacks, and the workers'
+                memory are printed
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-22 have run_plan convert and decode
+decode_task_definition; phases 15-23 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -2668,8 +2690,9 @@ def phase_runner_tpcds(paths, orc, work_dir, hand_q02, hand_q04) -> dict:
     """spark/tpcds.py's own q02, q04 and q09 (BHJ mode) through the
     port's driver path, run_plan: tagging, conversion, stage splitting,
     AQE and the stages in order, each scan stage one task over all of its
-    table's files. Each query once checked against numpy, then once
-    timed; q02 and q04 must also equal the hand-built phases' rows."""
+    table's files. Each query once, checked against numpy and timed (its
+    checked_s); q02 and q04 must also equal the hand-built phases'
+    rows."""
     checks = {"q02": lambda out: check_q02(out, orc),
               "q04": lambda out: check_q04(out, orc),
               "q09": lambda out: check_q09(out, orc)}
@@ -2677,13 +2700,9 @@ def phase_runner_tpcds(paths, orc, work_dir, hand_q02, hand_q04) -> dict:
     rows = {}
     for q in ("q02", "q04", "q09"):
         first = _runner_run(q, paths, work_dir, checks[q])
-        timed = _runner_run(q, paths, work_dir, checks[q])
-        _require(timed["launches"] == first["launches"],
-                 f"{q}: launches moved between runs")
         rows[q] = first.pop("rows")
         first["checked_s"] = first.pop("wall_s")
-        res[q] = dict(first, timed_s=timed["wall_s"],
-                      stages=_runner_stages(q, paths))
+        res[q] = dict(first, stages=_runner_stages(q, paths))
     _same_rows(rows["q02"], hand_q02["rows"], "q02 against tpcds_q02")
     _same_rows(rows["q04"], hand_q04["rows"], "q04 against tpcds_q04")
     q02 = res["q02"]
@@ -3968,8 +3987,8 @@ def phase_runner_spark_json(paths, orc, work_dir, runner) -> dict:
     and crc32 on the host) and json_udf (registered UDFs: a string Hive
     UDF on the row interpreter through the FFI bridge, a numeric Scala UDF
     native with one host crossing a batch, a root sort on the row
-    interpreter merged on the driver). Each once checked against numpy
-    (hashlib and zlib for the host functions), then once timed."""
+    interpreter merged on the driver). Each once, checked against numpy
+    (hashlib and zlib for the host functions) and timed."""
     register_json_udfs()
     t0 = time.perf_counter()
     jorc = json_oracles(paths)
@@ -3984,14 +4003,9 @@ def phase_runner_spark_json(paths, orc, work_dir, runner) -> dict:
         kw = dict(info_keys=JSON_INFO, exports=q == "json_udf")
         first = _runner_run(q, paths, work_dir, check,
                             _json_plan(q, paths), **kw)
-        timed = _runner_run(q, paths, work_dir, check,
-                            _json_plan(q, paths), **kw)
-        _require(timed["launches"] == first["launches"],
-                 f"{q}: launches moved between runs")
         first.pop("rows")
         first["checked_s"] = first.pop("wall_s")
-        res[q] = dict(first, timed_s=timed["wall_s"],
-                      stages=_json_stages(q, paths))
+        res[q] = dict(first, stages=_json_stages(q, paths))
     q02 = res["json_q02"]
     _require(q02["launches"] == runner["q02"]["launches"] > 0
              and q02["stage_fallbacks"] == 0,
@@ -4702,6 +4716,243 @@ def phase_runner_observability(paths, orc, work_dir, runner, mesh,
     return res
 
 
+# ---- runner_pool: the process-isolated executor pool ----
+
+POOL_COUNT = 2          # executor processes
+POOL_SLOTS = 2          # tasks a process at once: config.py's default
+POOL_INFO = MESH_INFO + ("pool_stages", "pool_kernel_launches",
+                         "pool_engine_start_s")
+POOL_KILL_WAIT_S = 30.0  # for q09's map task to reach a worker
+
+
+def _compute_apps() -> str:
+    """nvidia-smi's list of the processes on the card (pid, MiB). In a
+    container it names pids of the host's namespace, not this one's, so
+    the checks read the card's total (_card_used_mib) instead."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def _card_used_mib() -> float:
+    """The card's used memory in MiB, every process together (nvidia-smi
+    memory.used), after this process hands its cached blocks back."""
+    torch.cuda.empty_cache()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return float(out.split()[0])
+
+
+def _stale_epoch_files(root) -> list:
+    """Epoch-stamped map outputs (`*.e<N>.data`/`.index`, and their
+    temps) left under root."""
+    import re
+
+    pat = re.compile(r"\.e\d+\.(data|index)")
+    return sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root)
+                  for f in fs if pat.search(f))
+
+
+def _pool_kill_run(pool, paths, work_dir, check) -> dict:
+    """q09 with its map task's worker SIGKILLed once busy_pids() names
+    it: the driver re-queues the task under a new epoch, the seat
+    respawns, and the answer must still equal numpy's."""
+    import signal
+    import threading
+
+    from blaze_tpu_torch.runtime import artifacts
+
+    epochs, killed, stop = [], {}, threading.Event()
+    real = pool.run_tasks
+
+    def run_tasks(specs, timeout=None):
+        out = real(specs, timeout)
+        epochs.extend(artifacts.epoch_of(r["data_path"]) for r in out)
+        return out
+
+    def killer():
+        deadline = time.monotonic() + POOL_KILL_WAIT_S
+        while not stop.is_set() and time.monotonic() < deadline:
+            busy = pool.busy_pids()
+            if busy:
+                seat, pid = sorted(busy.items())[0]
+                os.kill(pid, signal.SIGKILL)
+                killed.update(seat=seat, pid=pid,
+                              at_s=time.perf_counter() - t0)
+                return
+            time.sleep(0.005)
+
+    before = pool.stats()
+    pool.run_tasks = run_tasks
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=killer)
+    thread.start()
+    try:
+        run = _runner_run("q09", paths, work_dir, check, info_keys=POOL_INFO,
+                          mesh="auto", query_id="pool_q09_kill")
+    finally:
+        stop.set()
+        thread.join()
+        pool.run_tasks = real
+    _require(bool(killed), "q09: no worker was busy to kill")
+    deadline = time.monotonic() + 60
+    while pool.live_count() < POOL_COUNT and time.monotonic() < deadline:
+        time.sleep(0.05)
+    after = pool.stats()
+    run.pop("rows")
+    run.update(killed=killed, map_epochs=epochs,
+               deaths=after["deaths_total"] - before["deaths_total"],
+               restarts=after["restarts_total"] - before["restarts_total"],
+               live_after=pool.live_count(),
+               rejoined_pid=pool.pids().get(killed["seat"]),
+               stale_epoch_files=_stale_epoch_files(
+                   os.path.join(work_dir, "runner", "q09")))
+    _require(run["deaths"] == 1 and run["restarts"] == 1
+             and run["live_after"] == POOL_COUNT
+             and run["rejoined_pid"] not in (None, killed["pid"]),
+             f"q09: the killed seat did not recover: {run}")
+    _require(max(epochs) >= 2, f"q09: no task re-queued: epochs {epochs}")
+    _require(not run["stale_epoch_files"],
+             f"q09: stale-epoch files left: {run['stale_epoch_files']}")
+    return run
+
+
+def _worker_profile(qid, top=8) -> dict:
+    """What the sampling profiler saw in the workers during one query:
+    samples by executor, the share under an import, the hottest leaf
+    frames and the hottest three-frame stack tails."""
+    from blaze_tpu_torch.runtime import profiler
+
+    rows = [r for r in profiler.rows(qid) if r[4]]
+    by_exec, leaf, tail = {}, {}, {}
+    imports = 0
+    for _q, _t, _s, _k, ex, stack, n in rows:
+        by_exec[ex] = by_exec.get(ex, 0) + n
+        frames = stack.split(";")
+        leaf[frames[-1]] = leaf.get(frames[-1], 0) + n
+        key = ";".join(frames[-3:])
+        tail[key] = tail.get(key, 0) + n
+        imports += n if "frozen importlib" in stack else 0
+    total = sum(by_exec.values())
+    rank = lambda d: [[k, n] for k, n in sorted(  # noqa: E731
+        d.items(), key=lambda kv: (-kv[1], kv[0]))[:top]]
+    return {"samples": total, "by_exec": by_exec,
+            "import_share": imports / total if total else None,
+            "top_leaf": rank(leaf), "top_tails": rank(tail)}
+
+
+def phase_runner_pool(paths, orc, work_dir, runner, mesh) -> dict:
+    """The process-isolated executor pool at runner_mesh's defaults (see
+    the module docstring, phase 23)."""
+    from blaze_tpu_torch.config import KNOBS
+    from blaze_tpu_torch.runtime import executor_pool, monitor, profiler
+
+    checks = {"q02": lambda out: check_q02(out, orc),
+              "q04": lambda out: check_q04(out, orc),
+              "q09": lambda out: check_q09(out, orc)}
+    defaults = {k: KNOBS[k].default
+                for k in RUNTIME_KNOBS + ("monitor_enabled",)}
+    res = {"phase": "runner_pool", "mode": "bhj", "count": POOL_COUNT,
+           "slots": POOL_SLOTS, "runtime": defaults}
+    # the sampling profiler runs in the workers (its governor holds it to
+    # 1% of a thread) to show where a worker's first plan task goes
+    profiler.reset()
+    t_phase = time.perf_counter()
+    driver_pid = os.getpid()
+    zc0 = monitor.zerocopy_stats()
+    with _knobs(profile_enabled=True, **defaults):
+        t0 = time.perf_counter()
+        pool = executor_pool.ExecutorPool(count=POOL_COUNT,
+                                          slots=POOL_SLOTS).start()
+        res["start_s"] = time.perf_counter() - t0
+        # no worker has a CUDA context before its first plan task
+        used0 = _card_used_mib()
+        executor_pool.activate(pool)
+        try:
+            for q in ("q02", "q04"):
+                run = _runner_run(q, paths, work_dir, checks[q],
+                                  info_keys=POOL_INFO, mesh="auto",
+                                  query_id=f"pool_{q}")
+                _same_rows(run.pop("rows"), runner[f"{q}_rows"],
+                           f"pooled {q} against runner_tpcds")
+                run["mesh_auto_wall_s"] = mesh[q]["auto"]["wall_s"]
+                res[q] = run
+                if q == "q02":
+                    # the same query on the now warm worker: the first
+                    # run's excess over it is the worker's start-up
+                    run["worker_profile"] = _worker_profile("pool_q02")
+                    warm = _runner_run(q, paths, work_dir, checks[q],
+                                       info_keys=POOL_INFO, mesh="auto",
+                                       query_id="pool_q02_warm")
+                    _same_rows(warm.pop("rows"), runner["q02_rows"],
+                               "warm pooled q02 against runner_tpcds")
+                    res["q02_warm"] = warm
+            res["compute_apps"] = _compute_apps()
+            res["worker_pids"] = sorted(pool.pids().values())
+            res["driver_pid"] = driver_pid
+            used_live = _card_used_mib()
+            res["card_used_mib"] = {"pool_started": used0,
+                                    "workers_live": used_live}
+            res["workers_mib"] = used_live - used0
+            _require(res["workers_mib"] >= 256,
+                     f"the workers hold {res['workers_mib']} MiB of the "
+                     f"card after q02 and q04")
+            res["q09_kill"] = _pool_kill_run(pool, paths, work_dir,
+                                             checks["q09"])
+            res["q09_kill"]["inline_checked_s"] = \
+                runner["q09"]["checked_s"]
+            st = pool.stats()
+            res["pool"] = {k: st[k] for k in (
+                "deaths_total", "restarts_total", "tasks_done",
+                "fenced_total", "telemetry_bytes_total",
+                "telemetry_records_total", "shuffle_conns_dropped")}
+            with pool._lock:
+                handles = list(pool._seats.values()) + list(pool._graveyard)
+            res["pool"]["telemetry_frames"] = sum(h.tel_seq
+                                                  for h in handles)
+            res["zerocopy"] = {k: v - zc0[k] for k, v in
+                               monitor.zerocopy_stats().items()
+                               if k.startswith("shuffle_mmap")}
+        finally:
+            executor_pool.deactivate(pool)
+            pool.close()
+            profiler.stop()
+    # the card's memory comes back with the processes
+    deadline = time.monotonic() + 30
+    used_after = _card_used_mib()
+    while used_after > used0 + 256 and time.monotonic() < deadline:
+        time.sleep(0.5)
+        used_after = _card_used_mib()
+    res["card_used_mib"]["after_close"] = used_after
+    res["compute_apps_after_close"] = _compute_apps()
+    _require(used_after <= used0 + 256,
+             f"the card holds {used_after} MiB after close(), "
+             f"{used0} before the workers ran")
+    q02, q04 = res["q02"], res["q04"]
+    probe_batches = TPCDS_FILES["web_sales"] + TPCDS_FILES["catalog_sales"]
+    for name in ("q02", "q02_warm"):
+        run = res[name]
+        _require(run["pool_stages"] >= 1 and run["launches"] == 0
+                 and run["pool_kernel_launches"] == probe_batches,
+                 f"pooled {name}: {run['pool_kernel_launches']} launches "
+                 f"in the workers and {run['launches']} in the driver, "
+                 f"not {probe_batches} and 0")
+    res["q02_first_run_excess_s"] = (q02["wall_s"]
+                                     - res["q02_warm"]["wall_s"])
+    _require(q04["pool_stages"] >= 4,
+             f"pooled q04 ran {q04['pool_stages']} stages in workers")
+    for q in ("q02", "q04"):
+        _require(res[q]["resource_leaks"] == 0
+                 and res[q]["pipeline_live_streams"] == 0,
+                 f"pooled {q}: leaks or open streams: {res[q]}")
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -4774,6 +5025,7 @@ def main(argv=None) -> int:
         mesh = phase_runner_mesh(paths, orc, batches, work_dir)
         observed = phase_runner_observability(paths, orc, work_dir, runner,
                                               mesh, args.seed)
+        pooled = phase_runner_pool(paths, orc, work_dir, runner, mesh)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -4795,6 +5047,7 @@ def main(argv=None) -> int:
                                  for q in JSON_QUERIES},
         "runner_resilience_q02_launches": resilient["q02"]["launches"],
         "runner_mesh_q02_launches": mesh["q02"]["auto"]["launches"],
+        "runner_pool_q02_launches": pooled["q02"]["pool_kernel_launches"],
         "runner_observability_q02_launches": [
             run["launches"] for qid, run in observed["runs"].items()
             if qid.startswith("obs_q02")],

@@ -13,7 +13,9 @@ the host crossings of hostfns and the UDF wrapper, a row-interpreter
 export bridged onto the card, the task runtime: a real device OOM's
 classification and the resilience ladder under a fault spec, and the
 device-mesh exchange on one device and on four logical devices of the
-card) on the card against the port's own CPU route.
+card, and the executor pool: a worker's kernel launches, its real OOM
+and its device memory after a SIGKILL) on the card against the port's
+own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -1495,3 +1497,260 @@ def test_dossier_after_a_card_oom(cuda, monkeypatch, tmp_path):
     assert doc["error"]["type"] == "OutOfMemoryError"
     assert torch.ones(4, device=cuda).sum().item() == 4.0
     flight_recorder.reset()
+
+
+# ---------------------------------------------------------------------------
+# the process-isolated executor pool on the card: each worker a fresh
+# interpreter with its own CUDA context
+# ---------------------------------------------------------------------------
+
+
+def _pool_env(**env):
+    """Start an ExecutorPool(2, 2) with `env` set in the environment its
+    workers inherit (and only there)."""
+    import os
+
+    from blaze_tpu_torch.runtime import executor_pool as ep
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return ep.ExecutorPool(count=2, slots=2).start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _pooled(pool, fn):
+    """fn(), with the workers' stderr tails and the pool's state in the
+    message of any failure (a worker's log dies with the pool's dir)."""
+    import os
+
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 — re-raised with context
+        logs = {}
+        for name in sorted(os.listdir(pool._dir)):
+            if name.endswith(".err"):
+                with open(os.path.join(pool._dir, name), "rb") as f:
+                    logs[name] = f.read()[-2000:].decode(errors="replace")
+        raise AssertionError(f"{e!r}; stats {pool.stats()}; "
+                             f"executors {pool.executors()}; "
+                             f"logs {logs}") from e
+
+
+def _fill_card(hog, dev, leave, settle_s=20.0):
+    """Hold all but `leave` bytes of the card in `hog`, topping up until
+    two reads half a second apart agree: processes that just exited (an
+    earlier test's workers) hand their memory back a little later.
+    Returns the bytes left free."""
+    import time
+
+    deadline = time.monotonic() + settle_s
+    last = None
+    while True:
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        if free > leave + (64 << 20):
+            hog.append(torch.empty(free - leave, dtype=torch.uint8,
+                                   device=dev))
+            free, _ = torch.cuda.mem_get_info()
+        if last is not None and abs(free - last) < (64 << 20) \
+                or time.monotonic() > deadline:
+            return free
+        last = free
+        time.sleep(0.5)
+
+
+def _card_used_mib() -> float:
+    """The card's used memory, all processes together, as nvidia-smi
+    reads it (its per-process list names pids of another namespace in a
+    container, so the tests read the card's total)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.split()[0])
+
+
+@pytest.fixture(scope="module")
+def core_tables(tmp_path_factory):
+    from blaze_tpu_torch.spark import validator
+
+    d = tmp_path_factory.mktemp("core")
+    return validator.generate_tables(str(d), rows=6000)
+
+
+def _core_q06(tables, work_dir, device, info):
+    from blaze_tpu_torch.spark import validator
+    from blaze_tpu_torch.spark.local_runner import run_plan
+
+    paths, frames = tables
+    plan, _ = validator.QUERIES["q2_q06_core_agg"](paths, frames, "bhj")
+    return run_plan(plan, work_dir=work_dir, mesh_exchange="off",
+                    run_info=info, device=device).to_numpy()
+
+
+def test_pooled_dense_stage_reports_its_launches(cuda, core_tables,
+                                                 tmp_path):
+    """The core catalogue's q06 (scan -> filter -> project -> the dense
+    partial aggregate -> shuffle) with a pool active: its map stage runs
+    in a worker on the card, which reports as many launches of the
+    kernel chain as the in-process run counts, and the driver launches
+    none; the rows equal the in-process run's (floats rtol 1e-12)."""
+    from blaze_tpu_torch.runtime import executor_pool as ep
+
+    inproc = {}
+    before = M.KERNEL_LAUNCHES
+    want = _core_q06(core_tables, str(tmp_path / "in"), "cuda", inproc)
+    inproc_launches = M.KERNEL_LAUNCHES - before
+    assert inproc_launches > 0 and inproc["stage_compiled"] > 0
+    pool = _pool_env(OMP_NUM_THREADS="1")
+    ep.activate(pool)
+    try:
+        info = {}
+        before = M.KERNEL_LAUNCHES
+        got = _pooled(pool, lambda: _core_q06(
+            core_tables, str(tmp_path / "pool"), "cuda", info))
+        assert M.KERNEL_LAUNCHES - before == 0
+        assert info["pool_stages"] >= 1
+        assert info["pool_kernel_launches"] == inproc_launches
+        assert info["stage_compiled"] == inproc["stage_compiled"]
+        assert info["pool_engine_start_s"] > 0
+    finally:
+        ep.deactivate(pool)
+        pool.close()
+    assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_pool_worker_oom_taken_by_its_ladder(cuda, core_tables, tmp_path,
+                                             monkeypatch):
+    """A real torch.cuda.OutOfMemoryError inside a worker: the workers'
+    conf snapshot has min_capacity 2^28 rows (2 GiB an 8-byte column), and
+    this process holds all but 1.5 GiB of the card, so the worker's first
+    upload of its map task fails. The worker's own ladder takes it as a
+    resource error (its task_error and ladder_rung events come back over
+    the telemetry plane); once the card is freed the task completes, no
+    worker dies, and the rows equal the in-process run's."""
+    import threading
+    import time
+
+    from blaze_tpu_torch.config import conf
+    from blaze_tpu_torch.runtime import executor_pool as ep
+    from blaze_tpu_torch.runtime import trace
+
+    want = _core_q06(core_tables, str(tmp_path / "in"), "cuda", {})
+    monkeypatch.setattr(conf, "trace_enabled", True)
+    monkeypatch.setattr(conf, "telemetry_ship_ms", 50)
+    monkeypatch.setattr(conf, "retry_backoff_ms", 1000)
+    trace.reset()
+    with monkeypatch.context() as m:
+        m.setattr(conf, "min_capacity", 1 << 28)
+        pool = _pool_env(OMP_NUM_THREADS="1")
+    ep.activate(pool)
+    hog, box = [], {}
+    try:
+        free_left = _fill_card(hog, cuda, leave=3 << 29)
+
+        def run():
+            try:
+                box["rows"] = _pooled(pool, lambda: _core_q06(
+                    core_tables, str(tmp_path / "oom"), "cuda",
+                    box.setdefault("info", {})))
+            except Exception as e:  # noqa: BLE001 — asserted below
+                box["err"] = e
+
+        t = threading.Thread(target=run)
+        t.start()
+
+        def worker_oom():
+            return [r for r in trace.TRACE.snapshot()
+                    if r.get("exec") and r.get("kind") == "task_error"
+                    and (r.get("attrs") or {}).get("category") == "resource"]
+
+        deadline = time.monotonic() + 120
+        while not worker_oom() and time.monotonic() < deadline \
+                and t.is_alive():
+            time.sleep(0.01)
+        seen = worker_oom()
+        hog.clear()
+        torch.cuda.empty_cache()
+        t.join(timeout=300)
+        kinds = sorted({r.get("kind") for r in trace.TRACE.snapshot()
+                        if r.get("exec")})
+        assert seen, (f"no worker reported a resource error; "
+                      f"{free_left >> 20} MiB left free, {box}, {kinds}")
+        assert seen[0]["attrs"]["error"] == "OutOfMemoryError", seen
+        assert "err" not in box, (box.get("err"), kinds)
+        rungs = [r for r in trace.TRACE.snapshot() if r.get("exec")
+                 and r.get("kind") == "ladder_rung"]
+        assert rungs and rungs[0]["attrs"]["action"] == "halve_batch", (
+            rungs, kinds)
+        assert pool.stats()["deaths_total"] == 0, pool.stats()
+        assert box["info"]["pool_stages"] >= 1
+    finally:
+        hog.clear()
+        torch.cuda.empty_cache()
+        ep.deactivate(pool)
+        pool.close()
+        trace.reset()
+    got = box["rows"]
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-12, err_msg=k)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def test_sigkilled_worker_returns_its_device_memory(cuda, core_tables,
+                                                    tmp_path):
+    """Workers holding CUDA contexts (and the cached blocks of a map
+    task), SIGKILLed: the card's free memory rises by at least a context
+    once they are gone (read against the card after the query, so the
+    driver's own growth does not count), and both seats respawn."""
+    import os
+    import signal
+    import time
+
+    from blaze_tpu_torch.runtime import executor_pool as ep
+
+    pool = _pool_env(OMP_NUM_THREADS="1")
+    ep.activate(pool)
+    try:
+        info = {}
+        _pooled(pool, lambda: _core_q06(core_tables, str(tmp_path / "run"),
+                                        "cuda", info))
+        assert info["pool_engine_start_s"] > 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free_live, _ = torch.cuda.mem_get_info()
+        victims = pool.pids()
+        for pid in victims.values():
+            os.kill(pid, signal.SIGKILL)
+        deadline = time.monotonic() + 60
+        while (torch.cuda.mem_get_info()[0] - free_live < (256 << 20)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+        free_after, _ = torch.cuda.mem_get_info()
+        assert free_after - free_live >= (256 << 20), (
+            free_live, free_after, victims, pool.executors())
+        while pool.live_count() < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert pool.live_count() == 2
+        assert not set(victims.values()) & set(pool.pids().values())
+        assert pool.stats()["deaths_total"] >= len(victims)
+    finally:
+        ep.deactivate(pool)
+        pool.close()

@@ -204,9 +204,15 @@ def test_stall_delays_then_continues():
 
 
 def test_net_points_name_the_shuffle_server():
-    with pytest.raises(NotImplementedError,
-                       match="runtime/shuffle_server.py"):
-        faults.install({"points": {"net.shuffle.fetch": {"kind": "reset"}}})
+    """A net.* point arms the shuffle server's NET_HOOK, as in the JAX
+    package; an empty spec disarms it."""
+    from blaze_tpu_torch.runtime import shuffle_server
+
+    faults.install({"points": {"net.shuffle.fetch": {"kind": "reset"}}})
+    assert shuffle_server.NET_HOOK is faults.net_rule
+    assert shuffle_server.net_rule("net.shuffle.fetch")["kind"] == "reset"
+    faults.install(None)
+    assert shuffle_server.NET_HOOK is None
     assert conf.fault_injection_spec == {}
 
 

@@ -341,7 +341,8 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'runtime.journal', 'runtime.monitor', 'parallel.shuffle',\n"
         "        'parallel.stage_exchange', 'runtime.history',\n"
         "        'runtime.doctor', 'runtime.progress',\n"
-        "        'runtime.flight_recorder', 'runtime.profiler')}\n"
+        "        'runtime.flight_recorder', 'runtime.profiler',\n"
+        "        'runtime.executor_pool', 'runtime.shuffle_server')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

@@ -353,8 +353,9 @@ def test_left_out_modules_raise(tables, monkeypatch, tmp_path, knob, value,
     """A knob whose module the port does not have yet raises, naming the
     module. The observability knobs (trace_export_dir, history_dir,
     progress_enabled, flight_dir, profile_enabled) have their modules
-    now: each runs the query to the oracle's rows, its directory under
-    tmp_path."""
+    now, and so has executor_count, which run_plan does not read (it
+    reads the active pool, as the JAX package's does): each runs the
+    query to the oracle's rows, its directory under tmp_path."""
     from blaze_tpu_torch.spark import local_runner
 
     (paths, frames), _ = tables["tpcds"]

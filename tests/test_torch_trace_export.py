@@ -20,7 +20,7 @@ CPU.
   aside by name, and nothing else: timings (`TIMED`), what the sampling
   profiler saw (`profile`), the JAX package's compile-service keys
   (`compile_*` counters and its `compile_*` trace records in `events`),
-  the idle executor pool's `pool_stages`, and the run_info counters that
+  and the run_info counters that
   only the port writes (`PORT_ONLY`, named in run_plan's docstring). The
   JAX package's `load_ledger`, `diagnose_dir` and
   `tools/history_report.py` read the port's files.
@@ -56,16 +56,18 @@ MODULES = (trace, jtrace, history, jhistory, progress, jprogress,
 
 # run_info counters only the port writes (the FFI bridge and host
 # crossings, the scan's bytes and time, the whole-stage routes, the
-# mesh's pinned bytes): each is named in run_plan's docstring
+# mesh's pinned bytes, the pool workers' kernel launches): each is named
+# in run_plan's docstring
 PORT_ONLY = ("bridge_batches", "bridge_card_batches", "bridge_rows",
              "bridge_s", "bytes_scanned", "fallback_exports",
              "hostfn_crossings", "hostfn_s", "io_time_ns",
-             "mesh_pinned_bytes", "stage_compiled", "stage_fallbacks",
-             "udf_crossings", "udf_s")
-# the JAX package's keys for modules the port does not have yet: its
-# compile service's counters, and the executor pool's stage count
+             "mesh_pinned_bytes", "pool_engine_start_s",
+             "pool_kernel_launches", "stage_compiled",
+             "stage_fallbacks", "udf_crossings", "udf_s")
+# the JAX package's keys for a module the port does not have yet: its
+# compile service's counters
 JAX_ONLY = ("compile_cache_hits", "compile_cache_misses",
-            "compile_compile_count", "compile_ms", "pool_stages")
+            "compile_compile_count", "compile_ms")
 # timings: values of these keys hold a duration, a wall-clock stamp, or
 # a quantity derived from them (the doctor's terms and longest chains,
 # the histograms' sums and percentiles); they are compared by key only

@@ -126,14 +126,20 @@ def _field_row_bytes(dtype) -> int:
 def adaptive_target_bytes(manager=None) -> int:
     """Macro-batch byte target: conf.target_batch_bytes clamped so that one
     batch stays well inside the memory budget; a small budget (spill
-    tests) gets small bounded batches back. The JAX package also clamps
-    to a query's own target, lowered by the resilience ladder; the
-    ladder comes with the service slice."""
+    tests) gets small bounded batches back. A query session degraded by
+    the resilience ladder (rung 1 halves the target) clamps further via
+    its own override, so one query's degradation never shrinks another's
+    batches."""
     from blaze_tpu_torch.config import conf
     from blaze_tpu_torch.runtime import memory as M
+    from blaze_tpu_torch.runtime import supervisor as sup_mod
 
     mgr = manager or M.get_manager()
-    return max(min(conf.target_batch_bytes, mgr.total // 8), 1 << 18)
+    target = conf.target_batch_bytes
+    sess = sup_mod.current_session()
+    if sess is not None and sess.batch_target:
+        target = min(target, sess.batch_target)
+    return max(min(target, mgr.total // 8), 1 << 18)
 
 
 def adaptive_batch_rows(schema: Schema, manager=None) -> int:

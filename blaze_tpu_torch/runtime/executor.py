@@ -39,7 +39,8 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                              fallback: Optional[Callable[[], object]] = None,
                              ctx: Optional[ExecContext] = None,
                              deadline: Optional[float] = None,
-                             on_error: Optional[Callable] = None):
+                             on_error: Optional[Callable] = None,
+                             session=None):
     """Drive one task attempt through the resilience ladder.
 
     `attempt` must be a FULL re-runnable unit of work (decode plan ->
@@ -71,7 +72,14 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
 
     `on_error(exc, category)` is invoked for every classified failure
     except "killed" — the supervisor's per-operator circuit breaker
-    counts failures through it."""
+    counts failures through it.
+
+    `session` (a service.QuerySession) scopes the ladder's degradations
+    to ONE query: rung 1 halves the session's batch-target override
+    instead of mutating the process-global conf.target_batch_bytes, and
+    rung 2's forced spill sweeps only the session tenant's consumers —
+    a degrading query cannot shrink another tenant's batches or evict
+    its working set."""
     import time as _time
 
     from blaze_tpu_torch.config import conf
@@ -101,9 +109,15 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                 if ladder:
                     if rung == 0:
                         rung = 1
-                        saved_target = conf.target_batch_bytes
-                        conf.target_batch_bytes = max(saved_target // 2,
-                                                      1 << 20)
+                        if session is not None:
+                            saved_target = (session.batch_target
+                                            or conf.target_batch_bytes)
+                            session.batch_target = max(
+                                saved_target // 2, 1 << 20)
+                        else:
+                            saved_target = conf.target_batch_bytes
+                            conf.target_batch_bytes = max(
+                                saved_target // 2, 1 << 20)
                         faults.note_degradation("halve_batch", run_info)
                         trace.event("ladder_rung", what=what, rung=1,
                                     action="halve_batch")
@@ -112,7 +126,10 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
                         continue
                     if rung == 1:
                         rung = 2
-                        memory.get_manager(ctx).release(1 << 62)
+                        memory.get_manager(ctx).release(
+                            1 << 62,
+                            tenant=(session.tenant_id
+                                    if session is not None else None))
                         faults.note_degradation("force_spill", run_info)
                         trace.event("ladder_rung", what=what, rung=2,
                                     action="force_spill")
@@ -178,8 +195,12 @@ def run_task_with_resilience(attempt: Callable[[], object], *,
             # interleave their save/restore — taking the max keeps a
             # degraded (halved) target from outliving the query even if
             # the saves raced
-            conf.target_batch_bytes = max(conf.target_batch_bytes,
-                                          saved_target)
+            if session is not None:
+                session.batch_target = max(session.batch_target or 0,
+                                           saved_target)
+            else:
+                conf.target_batch_bytes = max(conf.target_batch_bytes,
+                                              saved_target)
 
 
 # per-task operator metrics a driver sums into run_info: the whole-stage

@@ -647,6 +647,13 @@ class ExecutorPool:
         with self._cv:
             if self._closed:
                 handle.closing = True
+            else:
+                # counted with the seat, under the lock: start_rebound
+                # returns once every seat is filled, and the takeover's
+                # evidence reads adopted_total then (the JAX package
+                # counts it after the reader starts, so a loaded host
+                # could report one adoption short)
+                self.adopted_total += 1
             self._seats[seat] = handle
             self._cv.notify_all()
         if handle.closing:
@@ -660,7 +667,6 @@ class ExecutorPool:
                              name=f"blz-pool-rd-{seat}", daemon=True)
         t.start()
         self._threads.append(t)
-        self.adopted_total += 1
         trace.event("executor_adopted", exec_id=handle.exec_id,
                     token=token, pid=handle.pid,
                     generation=generation,
@@ -1052,14 +1058,28 @@ class ExecutorPool:
                    * (2 ** restarts) / 1000.0)
         time.sleep(backoff)
         with self._cv:
-            self._respawns_pending -= 1
             if self._closed:
+                self._respawns_pending -= 1
                 self._respawn_seats.discard(seat)
                 return
         self.restarts_total += 1
-        self._spawn(seat, generation)
-        with self._cv:
-            self._respawn_seats.discard(seat)
+        self._spawn_pending(seat, generation)
+
+    def _spawn_pending(self, seat: int, generation: int) -> None:
+        """Start a scheduled replacement, then retire its pending count.
+        The count drops only once `_spawn` has put the new process in
+        `_awaiting`: a batch waiting in run_tasks with no live seat must
+        always see the replacement as pending or awaiting its hello,
+        never in between (the JAX package drops the count before the
+        Popen, and on a loaded host run_tasks raised
+        PoolUnavailableError in that window)."""
+        try:
+            self._spawn(seat, generation)
+        finally:
+            with self._cv:
+                self._respawns_pending -= 1
+                self._respawn_seats.discard(seat)
+                self._cv.notify_all()
 
     # -- graceful decommission -----------------------------------------
 
@@ -1180,13 +1200,11 @@ class ExecutorPool:
         """Replace a SIGTERM-drained seat (rolling restart): no backoff,
         no restart-budget charge — the drain was orderly, not a death."""
         with self._cv:
-            self._respawns_pending -= 1
             if self._closed:
+                self._respawns_pending -= 1
                 self._respawn_seats.discard(seat)
                 return
-        self._spawn(seat, generation)
-        with self._cv:
-            self._respawn_seats.discard(seat)
+        self._spawn_pending(seat, generation)
 
     # -- membership / capacity -----------------------------------------
 

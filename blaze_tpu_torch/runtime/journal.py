@@ -1,9 +1,10 @@
 """Write-ahead query journal and driver-crash recovery.
 
-Port of blaze_tpu/runtime/journal.py without stream adoption
-(`adoptable_streams`, `claim_adoptable_stream`: runtime/streaming.py is
-not ported). A replayed journal writes a `driver_restart` flight dossier
-under conf.flight_dir (runtime/flight_recorder.py).
+Port of blaze_tpu/runtime/journal.py whole. A replayed journal writes a
+`driver_restart` flight dossier under conf.flight_dir
+(runtime/flight_recorder.py); a dead writer's stream journal is
+registered for adoption (`adoptable_streams`, `claim_adoptable_stream`;
+runtime/streaming.resume_stream).
 
 The commit protocol (runtime/artifacts.py) makes each ARTIFACT durable;
 this module makes the QUERY durable. Every query appends a crash-atomic
@@ -58,6 +59,9 @@ _stats = {"journals_scanned": 0, "journals_resumable": 0,
           "journals_failed": 0, "stages_recovered": 0,
           "recovered_queries": 0, "streams_adoptable": 0}
 _recovered_qids: set = set()        # exactly-once recovered_queries bump
+# stream_id -> journal path of a dead-writer streaming journal found by
+# the recovery scan: ADOPTED (streaming.resume_stream) rather than billed
+_adoptable_streams: Dict[str, str] = {}
 
 # record kinds that mark a journal as a durable STREAM journal
 # (runtime/streaming.py): its checkpoints are the resume input for an
@@ -253,6 +257,7 @@ def reset() -> None:
         _resume.clear()
         _scanned_dirs.clear()
         _recovered_qids.clear()
+        _adoptable_streams.clear()
         for k in _stats:
             _stats[k] = 0
 
@@ -286,13 +291,14 @@ def ensure_recovery_scan(force: bool = False) -> Dict[str, int]:
         if _writer_alive(records):
             continue  # a LIVE driver's in-flight query, not a crash
         if is_stream(records):
-            # a dead-writer STREAM journal is not billed failed: its
-            # checkpoints are the resume input, adopted by the JAX
-            # package's runtime/streaming.py (not ported), so it is left
-            # alone
+            # a dead-writer STREAM journal is not billed failed — its
+            # checkpoints are the resume input. Register it for adoption
+            # (standby takeover / streaming.resume_stream) instead.
             qid = records[0].get("query_id", "")
             if qid and not _stream_settled(records):
                 summary["streams_adoptable"] += 1
+                with _lock:
+                    _adoptable_streams[qid] = path
             continue
         try:
             summary["scanned"] += 1
@@ -430,3 +436,18 @@ def note_query_recovered(qid: str) -> None:
 def recovered_queries_total() -> int:
     with _lock:
         return _stats["recovered_queries"]
+
+
+def adoptable_streams() -> Dict[str, str]:
+    """{stream_id: journal path} of dead-writer streaming journals the
+    recovery scan registered for adoption (consume via
+    streaming.resume_stream, which re-stamps the journal's writer pid)."""
+    with _lock:
+        return dict(_adoptable_streams)
+
+
+def claim_adoptable_stream(stream_id: str) -> Optional[str]:
+    """Pop one adoptable stream registration (consume-once, so two
+    adopters can't both resume the same checkpoint chain)."""
+    with _lock:
+        return _adoptable_streams.pop(stream_id, None)

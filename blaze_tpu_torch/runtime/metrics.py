@@ -93,12 +93,15 @@ def bump(counters: Dict[str, int], key: str, delta: int) -> None:
 
 
 def to_host(t):
-    """`t` on the host (a CPU tensor), counted in HOST_PULLS. The port's
-    reads of device values (row counts, stage flags, probe ranges) all go
-    through here."""
+    """`t` on the host (a CPU tensor), counted in HOST_PULLS and in this
+    thread's task tally. The port's reads of device values (row counts,
+    stage flags, probe ranges) all go through here."""
     global HOST_PULLS
+    box = getattr(_tally, "box", None)
     with COUNTER_LOCK:
         HOST_PULLS += 1
+        if box is not None:
+            box["host_pulls"] = box.get("host_pulls", 0) + 1
     return t.cpu()
 
 

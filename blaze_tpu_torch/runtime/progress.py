@@ -1,10 +1,9 @@
 """Live per-query progress: stage waterfalls, attempt states, ETA.
 
-Port of blaze_tpu/runtime/progress.py, whole, the stream hooks
-(begin_stream, stream_batch, stream_lag) included for the streaming
-runtime to come (ROADMAP Queue 1, item 3). The port has no metrics HTTP
-server yet (conf.metrics_port stays refused): callers read
-snapshot_queries()/snapshot_query() directly.
+Port of blaze_tpu/runtime/progress.py, whole, with the stream hooks
+(begin_stream, stream_batch, stream_lag) that runtime/streaming.py
+calls. The monitor's metrics server (conf.metrics_port) serves
+render_queries()/render_query() as GET /queries and /queries/<qid>.
 
 The monitor answers "how much is the process doing"; this module
 answers "how far along is query X" while it runs. A per-query record

@@ -1,10 +1,11 @@
 """Task supervisor: bounded concurrency, heartbeats, deadlines, hang
 detection, straggler speculation and per-operator circuit breaking.
 
-Port of blaze_tpu/runtime/supervisor.py with its process supervision
+Port of blaze_tpu/runtime/supervisor.py whole: the process supervision
 (`ProcessPeer`, `ProcessWatchdog`: the executor pool's death detector,
-runtime/executor_pool.py) and without `FairScheduler` and the query
-sessions (the multi-tenant service's, not yet ported). A breaker
+runtime/executor_pool.py), and the query sessions and the `FairScheduler`
+of the multi-tenant service (runtime/service.py), which every admitted
+query submits its tasks to instead of a private pool. A breaker
 trip writes a flight dossier, a watchdog kill stashes every thread's
 stack for the query's dossier, and each attempt's state lands on the
 live progress waterfall, as in the JAX module. The reference
@@ -59,20 +60,21 @@ rather than relaunching on a poisoned context.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import statistics
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Callable, Dict, FrozenSet, List, Optional, Tuple
 
 from blaze_tpu_torch import config
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.ops.base import ExecContext, TaskKilledError
-from blaze_tpu_torch.runtime import faults, trace
+from blaze_tpu_torch.runtime import faults, metrics, trace
 
 # thread-local plumbing: the attempt running on THIS thread (read by
 # faults._stall to make injected stalls kill-interruptible) and the task
@@ -94,6 +96,19 @@ def _active_delta(d: int) -> None:
 def active_tasks() -> int:
     with _active_lock:
         return _active
+
+
+def current_session():
+    """The QuerySession (runtime/service.py) owning the work on THIS
+    thread, or None outside the multi-tenant service. Pool workers reach
+    it through their task; the query's driver thread through the
+    thread-local run_plan pushes for the run's duration."""
+    task = getattr(_current, "task", None)
+    if task is not None:
+        sess = getattr(task, "session", None)
+        if sess is not None:
+            return sess
+    return getattr(_current, "session", None)
 
 
 def current_kill_event() -> Optional[threading.Event]:
@@ -382,6 +397,134 @@ class ProcessWatchdog:
             thread.join(timeout=1.0)
 
 
+class _SessionQueue:
+    """FairScheduler-internal per-session run queue (stride scheduling
+    state): FIFO within the session, virtual time across sessions."""
+
+    __slots__ = ("tenant_id", "query_id", "weight", "vt", "items")
+
+    def __init__(self, tenant_id: str, query_id: str, weight: float,
+                 vt: float) -> None:
+        self.tenant_id = tenant_id
+        self.query_id = query_id
+        self.weight = max(float(weight), 1e-6)
+        self.vt = vt
+        self.items: collections.deque = collections.deque()
+
+
+class FairScheduler:
+    """Shared worker pool dispatching TaskSpecs across live query
+    sessions with deficit-weighted round robin (stride scheduling).
+
+    The single-query Supervisor submits FIFO into its own pool; under
+    the multi-tenant service every live query submits HERE instead, and
+    each free worker runs the head of the non-empty session queue with
+    the smallest virtual time, then advances that queue's clock by
+    1/weight (weight = the tenant's conf.tenant_priority_spec entry).
+    Under contention a weight-3 tenant gets ~3x the dispatch share of a
+    weight-1 tenant, order within one session stays submission order,
+    and no session starves (every dispatch monotonically advances the
+    running queue's clock past its peers'). A session entering mid-run
+    starts at the scheduler's current clock — it competes from now on,
+    it does not get retroactive catch-up dispatches."""
+
+    def __init__(self, width: int) -> None:
+        self.width = max(1, int(width))
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._queues: Dict[str, _SessionQueue] = {}
+        self._vclock = 0.0
+        self._closed = False
+        # (tenant_id, query_id, what) per dispatch, in dispatch order —
+        # how tests observe weighted fairness without timing assertions
+        self.dispatch_log: List[Tuple[str, str, str]] = []
+        self._threads = [
+            threading.Thread(target=self._worker, name=f"blz-svc-{i}",
+                             daemon=True)
+            for i in range(self.width)]
+        for t in self._threads:
+            t.start()
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return sum(len(q.items) for q in self._queues.values())
+
+    def submit(self, session, fn: Callable[[], Any],
+               what: str = "") -> Future:
+        """Enqueue fn under the session's queue; returns a Future that a
+        worker completes (cancel() works while still queued)."""
+        fut: Future = Future()
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("FairScheduler is closed")
+            q = self._queues.get(session.query_id)
+            if q is None:
+                q = _SessionQueue(session.tenant_id, session.query_id,
+                                  session.priority, self._vclock)
+                self._queues[session.query_id] = q
+            # 4th element: enqueue timestamp — dispatch wait (submitted
+            # -> picked) is the "sched_queue" critical-path term
+            q.items.append((fut, fn, what, time.monotonic()))
+            self._cond.notify()
+        return fut
+
+    def forget(self, session) -> None:
+        """Drop a finished session's queue (cancelling stragglers)."""
+        with self._cond:
+            q = self._queues.pop(session.query_id, None)
+        if q is not None:
+            for fut, _fn, _what, _t0 in q.items:
+                fut.cancel()
+
+    def _pick_locked(self) -> Optional[tuple]:
+        ready = [q for q in self._queues.values() if q.items]
+        if not ready:
+            return None
+        q = min(ready, key=lambda s: (s.vt, s.query_id))
+        item = q.items.popleft()
+        q.vt += 1.0 / q.weight
+        if q.vt > self._vclock:
+            self._vclock = q.vt
+        self.dispatch_log.append((q.tenant_id, q.query_id, item[2]))
+        # per-query dispatch-wait attribution (runtime/doctor.py term
+        # "sched_queue"); explicit qid — workers have no trace context
+        wait_ns = int((time.monotonic() - item[3]) * 1e9)
+        if wait_ns > 0 and conf.monitor_enabled:
+            from blaze_tpu_torch.runtime import monitor
+
+            monitor.count_time("sched_queue", wait_ns, qid=q.query_id)
+        return item
+
+    def _worker(self) -> None:
+        while True:
+            with self._cond:
+                item = self._pick_locked()
+                while item is None and not self._closed:
+                    self._cond.wait()
+                    item = self._pick_locked()
+                if item is None:
+                    return  # closed and drained
+            fut, fn, _what, _t0 = item
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 — relay via future
+                fut.set_exception(e)
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            for q in self._queues.values():
+                for fut, _fn, _what, _t0 in q.items:
+                    fut.cancel()
+                q.items.clear()
+            self._queues.clear()
+            self._cond.notify_all()
+        for t in self._threads:
+            t.join(timeout=2.0)
+
+
 @dataclasses.dataclass
 class TaskSpec:
     """One schedulable unit handed to Supervisor.run_tasks.
@@ -408,10 +551,12 @@ class _Task:
     first-finish-wins outcome."""
 
     def __init__(self, spec: TaskSpec, stage_key, deadline: Optional[float],
-                 trace_ctx: Optional[Dict[str, Any]] = None) -> None:
+                 trace_ctx: Optional[Dict[str, Any]] = None,
+                 session=None) -> None:
         self.spec = spec
         self.stage_key = stage_key
         self.deadline = deadline
+        self.session = session
         self.gate = CommitGate()
         self.done = threading.Event()
         self._lock = threading.Lock()
@@ -432,6 +577,10 @@ class _Task:
         # concurrent query's tasks
         self.conf_overlay = config.current_overlay()
         self.conf_provenance = config.current_provenance()
+        # the submitting query's tally (metrics.task_tally, opened by
+        # run_plan), rejoined around every attempt so each query counts
+        # its own kernel launches and host pulls while others run
+        self.tally = metrics.current_tally()
         self._attempt_seq = itertools.count(1)
 
     def next_attempt_id(self) -> int:
@@ -482,14 +631,20 @@ class Supervisor:
     _ABANDON_GRACE = 2.0  # slack past a deadline before abandoning a thread
 
     def __init__(self, run_info: Optional[dict] = None,
-                 device=None) -> None:
+                 session=None, device=None) -> None:
         self.run_info = run_info
+        self.session = session
         # the device every attempt's ExecContext carries (None: the card)
         self.device = device
         self.enabled = bool(conf.enable_supervisor)
         self.breaker = CircuitBreaker(run_info)
         self.query_deadline: Optional[float] = None
-        if conf.query_deadline_ms and conf.query_deadline_ms > 0:
+        if session is not None and session.deadline_at is not None:
+            # admission-aware budget: the service stamped the absolute
+            # deadline when the query ARRIVED, so time parked in the
+            # admission queue counts against conf.query_deadline_ms
+            self.query_deadline = session.deadline_at
+        elif conf.query_deadline_ms and conf.query_deadline_ms > 0:
             self.query_deadline = (time.monotonic()
                                    + conf.query_deadline_ms / 1000.0)
         self._lock = threading.Lock()
@@ -694,7 +849,8 @@ class Supervisor:
             # replay the driver's correlation ids on THIS thread (pool or
             # speculative twin) and record the attempt as a span — every
             # record inside inherits query/stage/task/attempt ids
-            with trace.context(**task.trace_ctx):
+            with trace.context(**task.trace_ctx), \
+                    metrics.task_tally(task.tally):
                 with trace.span("task_attempt",
                                 attempt_id=att.attempt_id,
                                 partition=task.spec.partition,
@@ -750,7 +906,8 @@ class Supervisor:
             # context on the WORKER thread so the executor's retry/ladder
             # events (emitted between attempts, outside _attempt_once's
             # span) still carry the query/stage/task ids
-            with trace.context(**task.trace_ctx):
+            with trace.context(**task.trace_ctx), \
+                    metrics.task_tally(task.tally):
                 self._run_supervised_inner(task, run_task_with_resilience)
         except BaseException as e:  # noqa: BLE001
             if (isinstance(e, TaskKilledError) and not task.finished
@@ -791,7 +948,7 @@ class Supervisor:
         value = run_task_with_resilience(
             attempt, what=spec.what, run_info=self.run_info,
             fallback=spec.fallback_fn, deadline=task.deadline,
-            on_error=self.breaker.note_failure)
+            on_error=self.breaker.note_failure, session=self.session)
         if task.finish("ok", value):
             self._record_duration(task.stage_key,
                                   time.monotonic() - started)
@@ -827,16 +984,26 @@ class Supervisor:
         # snapshot the driver's query/stage ids here, on the submitting
         # thread — pool workers and twins replay them via task.trace_ctx
         ctx_snap = trace.current_context()
-        tasks = [_Task(spec, stage_key, deadline, ctx_snap)
+        tasks = [_Task(spec, stage_key, deadline, ctx_snap,
+                       session=self.session)
                  for spec in specs]
         with self._lock:
             self._tasks.extend(tasks)
         self._ensure_watchdog()
-        # the JAX package routes a service session's tasks through the
-        # shared FairScheduler; the port has no service, so every query
-        # runs on its own pool
-        pool = self._ensure_pool()
-        futures = [pool.submit(self._run_supervised, t) for t in tasks]
+        sched = (self.session.scheduler
+                 if self.session is not None else None)
+        if sched is not None:
+            # multi-tenant service: the SHARED pool interleaves this
+            # stage's tasks with other live queries', weighted by tenant
+            # priority (FairScheduler) — not this query's private FIFO
+            futures = [sched.submit(self.session,
+                                    lambda t=t: self._run_supervised(t),
+                                    what=t.spec.what)
+                       for t in tasks]
+        else:
+            pool = self._ensure_pool()
+            futures = [pool.submit(self._run_supervised, t)
+                       for t in tasks]
         results: List[Any] = [None] * len(tasks)
         first_err: Optional[BaseException] = None
         for i, (task, fut) in enumerate(zip(tasks, futures)):
@@ -903,7 +1070,8 @@ class Supervisor:
                     attempt, what=spec.what,
                     run_info=self.run_info, fallback=spec.fallback_fn,
                     ctx=ctx, deadline=self.deadline(),
-                    on_error=self.breaker.note_failure)
+                    on_error=self.breaker.note_failure,
+                    session=self.session)
             finally:
                 _active_delta(-1)
             trace.record_value("task_latency_us",

@@ -40,10 +40,11 @@ records every such decision as a structured record with correlation ids:
 Everything is gated on `conf.trace_enabled`: off, span() returns a shared
 no-op context manager and event() returns after one truthiness check.
 `profiled_span` captures the device timeline with torch.profiler under
-`conf.profiler_dir`. Where the JAX module reads the compile service or
-the autoscaler, which the port does not have yet, the port writes what
-the JAX module writes while they are idle: no compile summary line and
-no "fleet" key.
+`conf.profiler_dir`. While the autoscaler (runtime/autoscaler.py) is
+active, every ledger line carries its "fleet" posture, as the JAX
+module's does. Where the JAX module reads the compile service, which the
+port does not have, the port writes what the JAX module writes while it
+is idle: no compile summary line.
 """
 
 from __future__ import annotations
@@ -942,8 +943,15 @@ def build_run_record(query_id: str, run_info: Optional[dict] = None,
             for name, s in histograms_snapshot().items()},
         "dropped_events": TRACE.dropped,
     }
-    # no "fleet" key: the autoscaler's fleet posture comes with that
-    # module (ROADMAP Queue 1, item 3), and an idle autoscaler adds none
+    # elastic-fleet evidence (runtime/autoscaler.py): while the policy
+    # loop is active, every ledger line carries the fleet posture at
+    # query end so doctor's fleet_under/overprovisioned rules can rank
+    # offline, from the record alone
+    from blaze_tpu_torch.runtime import autoscaler
+
+    fleet = autoscaler.fleet_snapshot()
+    if fleet:
+        rec["fleet"] = fleet
     # streaming evidence (runtime/streaming.py): a micro-batch ledger
     # line carries its stream's lag posture so doctor's stream_lag rule
     # can rank offline, from the record alone

@@ -52,11 +52,15 @@ sampling profiler's export (conf.profile_enabled with
 conf.profile_export_dir, runtime/profiler.py) and the flight recorder's
 dossiers (conf.flight_dir, runtime/flight_recorder.py).
 
-What the JAX package hangs around this that is not yet ported raises,
-naming its module, when a caller switches it on: the autopilot and its
-conf overlays and the monitor's sampler and exporters (conf.metrics_port).
-As in the JAX package, `run_plan` reads the active pool, not
-conf.executor_count.
+The service and control layer hangs off it too, as in the JAX package:
+a `session` (runtime/service.QuerySession) names the query's id, tenant
+and admission-stamped deadline and routes its tasks through the
+service's shared FairScheduler; the conf overlays (tenant, autopilot
+fingerprint, per-query pins: config.resolve_overlay) scope the stage
+loop; the autopilot (conf.autopilot_enabled, runtime/autopilot.py) reads
+its overlay before the stages and observes the run after; and
+conf.metrics_port starts the monitor's endpoint and sampler. As in the
+JAX package, `run_plan` reads the active pool, not conf.executor_count.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from blaze_tpu_torch import config
 from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.config import conf
 from blaze_tpu_torch.device import DeviceLike, resolve_device
@@ -79,8 +84,8 @@ from blaze_tpu_torch.plan import plan_pb2 as pb
 from blaze_tpu_torch.plan.fingerprint import fingerprint_query
 from blaze_tpu_torch.plan.to_proto import encode_schema
 from blaze_tpu_torch.runtime import (
-    artifacts, executor_pool, faults, history, journal, memory, monitor,
-    pipeline, resources, trace,
+    artifacts, executor_pool, faults, history, journal, memory, metrics,
+    monitor, pipeline, resources, trace,
 )
 from blaze_tpu_torch.runtime import supervisor as supervisor_mod
 from blaze_tpu_torch.runtime.executor import (
@@ -100,27 +105,12 @@ from blaze_tpu_torch.spark.stages import Stage, local_resource_id, plan_stages
 # global, so [discard stale, convert, drain] must be atomic per query.
 _convert_lock = threading.Lock()
 
-# conf knobs that would switch on a module the port does not have
-_LEFT_OUT = (
-    ("autopilot_enabled", "runtime/autopilot.py"),
-    ("metrics_port",
-     "the sampler and exporters of runtime/monitor.py (MetricsServer)"),
-)
-
-
-def _refuse_left_out() -> None:
-    for knob, module in _LEFT_OUT:
-        if getattr(conf, knob):
-            raise NotImplementedError(
-                f"conf.{knob} switches on {module}, not yet ported")
-
-
 def run_plan(root: SparkPlan, num_partitions: int = 4,
              work_dir: Optional[str] = None,
              mesh_exchange: str = "auto",
              mesh_quota: Optional[int] = None,
              run_info: Optional[Dict[str, int]] = None,
-             device: DeviceLike = None) -> ColumnBatch:
+             session=None, device: DeviceLike = None) -> ColumnBatch:
     """Convert + execute a Spark plan tree locally; returns the collected
     result batch, on `device` (None: the CUDA card).
 
@@ -150,7 +140,11 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     batches FfiReaderExec handed on and those of them on the card
     ("bridge_batches", "bridge_card_batches"), and the host-evaluated
     functions' and UDF wrappers' crossings and host seconds
-    ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s"), and with
+    ("hostfn_crossings", "hostfn_s", "udf_crossings", "udf_s"), this
+    query's own accumulate-kernel launches, in this process and its pool
+    workers, and its own host pulls ("kernel_launches", "host_pulls": a
+    per-query metrics.task_tally that the supervisor's and the pipeline's
+    threads rejoin, so concurrent sessions count apart), and with
     conf.monitor_enabled the monitor's roll-up ("bytes_copied_<boundary>",
     "bytes_moved_<boundary>" and their "_total"s, "peak_mem_bytes",
     "spill_bytes", "spill_count", the zero-copy counts and one
@@ -159,13 +153,22 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
 
     With conf.trace_enabled the whole run is a "query" span in the trace
     (runtime/trace.py), and every stage and task below inherits its
-    query_id."""
+    query_id.
+
+    session: the QuerySession (runtime/service.py) when running under
+    the multi-tenant service: it carries the tenant id, priority, the
+    shared fair scheduler, the admission-stamped deadline, and the
+    per-session batch-target override. None: a standalone query."""
     if run_info is None:
         run_info = {}
-    _refuse_left_out()
     dev = resolve_device(device)
-    qid = run_info.get("query_id") or trace.new_query_id()
+    qid = (session.query_id if session is not None
+           else run_info.get("query_id")) or trace.new_query_id()
     run_info["query_id"] = qid
+    tenant = (session.tenant_id if session is not None
+              else run_info.get("tenant_id", "")) or ""
+    if tenant:
+        run_info["tenant_id"] = tenant
     for key in (("pool_stages", "pool_kernel_launches",
                  "pool_engine_start_s", "mesh_stages",
                  "mesh_pinned_bytes", "file_stages", "broadcast_stages",
@@ -175,8 +178,9 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     run_info.setdefault("stage_s", [])
     mgr = memory.get_manager()
     # resource accounting: register the active query (the attribution
-    # fallback of a thread with no query in its context) and reset the
-    # memory high-water mark
+    # fallback of a thread with no query in its context), reset the
+    # memory high-water mark, and lazily start the metrics endpoint and
+    # sampler when conf.metrics_port is set
     monitor.begin_query(qid, mgr)
     # query-history taps: per-op row counts and whole-stage group
     # cardinality accumulate under this qid until record_run pops them
@@ -184,26 +188,42 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
     history.begin_query(qid)
     # write-ahead journal: the admission record opens this query's
     # crash-recovery log (no-op with journal_dir unset); the terminal
-    # record in the finally below settles it
-    jnl = journal.journal_for(qid)
+    # record in the finally below settles it. Stream micro-batches
+    # (run_info["stream"], runtime/streaming.py) skip per-batch
+    # journals: the stream's checkpoint record is the durability unit
+    jnl = (None if run_info.get("stream") else journal.journal_for(qid))
     if jnl is not None:
-        jnl.admitted()
+        jnl.admitted(tenant_id=tenant)
     if conf.progress_enabled:
         from blaze_tpu_torch.runtime import progress
 
-        progress.begin_query(qid)
+        progress.begin_query(qid, tenant_id=tenant or None)
+    # the query's driver thread advertises its session for ladder/batch
+    # scoping (supervisor.current_session); pool workers inherit it
+    # through their _Task instead
+    prev_session = getattr(supervisor_mod._current, "session", None)
+    supervisor_mod._current.session = session
+    # this query's kernel launches and host pulls, apart from any other
+    # query's running at the same time (the process-wide counters mix
+    # them): the supervisor's and the pipeline's threads rejoin the tally
+    outer_tally = metrics.current_tally()
     try:
         # correlation ids pushed whether or not tracing is on (a cheap
         # stack push): pool threads replay them per task
-        with trace.context(query_id=qid):
-            with trace.profiled_span("run_plan"):
-                with trace.span("query", query_id=qid,
-                                num_partitions=num_partitions,
-                                mesh_exchange=mesh_exchange):
-                    return _run_plan_inner(root, num_partitions, work_dir,
-                                           mesh_exchange, mesh_quota,
-                                           run_info, dev, jnl)
+        with trace.context(query_id=qid, tenant_id=tenant or None), \
+                metrics.task_tally() as tally:
+            try:
+                with trace.profiled_span("run_plan"):
+                    with trace.span("query", query_id=qid,
+                                    num_partitions=num_partitions,
+                                    mesh_exchange=mesh_exchange):
+                        return _run_plan_inner(
+                            root, num_partitions, work_dir, mesh_exchange,
+                            mesh_quota, run_info, dev, jnl, session)
+            finally:
+                _note_tally(tally, outer_tally, run_info)
     finally:
+        supervisor_mod._current.session = prev_session
         # the flight recorder needs the query's wall-clock start for its
         # monitor-ring slice; finish_query pops the acct holding it
         t0 = monitor.query_t0(qid) if conf.flight_dir else None
@@ -222,8 +242,15 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
             profiler.export_query(qid)
         # the run's fingerprinted statistics, after the monitor roll-up
         # so the record carries the byte and spill counters
-        if conf.history_dir:
-            history.record_run(qid, run_info)
+        rec = (history.record_run(qid, run_info)
+               if conf.history_dir else None)
+        if conf.autopilot_enabled and conf.autopilot_dir:
+            # autopilot post-run hook: verdict a canary against the
+            # settled baseline, or propose the next one-knob exploration,
+            # off the record just persisted
+            from blaze_tpu_torch.runtime import autopilot
+
+            autopilot.observe(qid, run_info, rec)
         if jnl is not None:
             # a journal with a complete line never enters a replay
             exc = sys.exc_info()[1]
@@ -243,10 +270,25 @@ def run_plan(root: SparkPlan, num_partitions: int = 4,
             progress.finish_query(qid)
 
 
+def _note_tally(tally: Dict[str, int], outer: Optional[Dict[str, int]],
+                run_info: Dict) -> None:
+    """The query's tally into run_info: its in-process kernel launches
+    plus its pool workers' (pool_kernel_launches), and its host pulls;
+    then into the caller's tally, if one was open."""
+    launches = tally.get("kernel_launches", 0)
+    pulls = tally.get("host_pulls", 0)
+    run_info["kernel_launches"] = (launches
+                                   + run_info.get("pool_kernel_launches", 0))
+    run_info["host_pulls"] = pulls
+    if outer is not None:
+        metrics.tally_add("kernel_launches", launches)
+        metrics.tally_add("host_pulls", pulls)
+
+
 def _run_plan_inner(root: SparkPlan, num_partitions: int,
                     work_dir: Optional[str], mesh_exchange: str,
                     mesh_quota: Optional[int], run_info: Dict,
-                    device, jnl) -> ColumnBatch:
+                    device, jnl, session=None) -> ColumnBatch:
     # task setup reclaims dead writers' leftover spill files
     artifacts.sweep_orphans([conf.spill_dir])
     # driver-crash recovery: replay incomplete journals once per process;
@@ -277,18 +319,49 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                 return fallback.export_iterator(_p, partition, nparts)
             resources.put(rid, provider)
     crossings = _crossings()
+    # pre-AQE query fingerprint: pins the journal's plan record AND keys
+    # the autopilot's persisted overlay (stable across runs of the same
+    # plan and known before execution)
+    query_fp = fingerprint_query([fingerprint_plan(s.plan)
+                                  for s in stages])
     if jnl is not None:
         # the plan record pins what this journal is a log OF: the
         # pre-AQE query fingerprint and the stage skeleton (per-stage
         # fingerprints, the resume keys, ride each stage_commit)
-        jnl.plan(fingerprint=fingerprint_query([fingerprint_plan(s.plan)
-                                                for s in stages]),
+        jnl.plan(fingerprint=query_fp,
                  num_partitions=num_partitions,
                  stages=[{"stage_id": s.stage_id, "kind": s.kind,
                           "num_partitions": s.num_partitions,
                           "plan_proto": base64.b64encode(
                               s.plan.SerializeToString()).decode()}
                          for s in stages])
+    # conf overlays + the self-tuning autopilot: resolve base -> tenant
+    # -> per-fingerprint -> per-query pin (config.resolve_overlay
+    # validates each layer against KNOBS); the values ride a thread-local
+    # scope around the stage loop below (supervisor tasks replay it
+    # around every attempt), and the record with per-value provenance is
+    # stamped into run_info for the ledger, history and flight dossiers
+    fp_overlay: Dict[str, object] = {}
+    canary_knob = ""
+    if conf.autopilot_enabled and conf.autopilot_dir:
+        from blaze_tpu_torch.runtime import autopilot
+
+        fp_overlay, canary_knob = autopilot.overlay_for(query_fp)
+    resolved = config.resolve_overlay(
+        tenant=run_info.get("tenant_id") or None,
+        fingerprint_overlay=fp_overlay or None,
+        pin=run_info.get("conf_pins") or None)
+    if canary_knob:
+        resolved.canary = True
+        resolved.canary_knob = canary_knob
+    if resolved.values or (conf.autopilot_enabled and conf.autopilot_dir):
+        run_info["autopilot"] = dict(resolved.as_record(),
+                                     fingerprint=query_fp)
+    if fp_overlay:
+        trace.event("autopilot_apply", fingerprint=query_fp,
+                    overlay_hash=resolved.hash or "",
+                    canary=bool(canary_knob), canary_knob=canary_knob,
+                    knobs=",".join(sorted(fp_overlay)))
     work_dir = work_dir or tempfile.mkdtemp(prefix="blaze_tpu_torch_stages_")
     os.makedirs(work_dir, exist_ok=True)
 
@@ -298,7 +371,10 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
     shuffle_parts: Dict[int, int] = {}
     # the query's worker pool, watchdog, speculation and circuit breaker;
     # off, each stage runs inline on this thread
-    sup = Supervisor(run_info, device=device)
+    # under the service the session routes tasks through the SHARED fair
+    # scheduler and carries the admission-stamped query deadline; breaker
+    # state stays per query (one Supervisor per run_plan)
+    sup = Supervisor(run_info, session=session, device=device)
     # process-isolated executors (runtime/executor_pool.py): when a pool
     # is active, eligible shuffle-map stages ship their task plans to
     # worker PROCESSES (crash containment) instead of the thread pool;
@@ -309,7 +385,15 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
         from blaze_tpu_torch.runtime import progress
     else:
         progress = None
+    _ov = None
     try:
+        if resolved.values:
+            # overlay scope entered INSIDE the try so the finally is its
+            # only exit path: conf reads on this thread (and, via the
+            # supervisor's per-task replay, on worker threads) see the
+            # resolved values for exactly the stage loop's duration
+            _ov = config.overlay_scope(resolved.values, resolved.provenance)
+            _ov.__enter__()
         for stage in stages:
             t0 = time.perf_counter()
             # re-optimize THIS stage with the statistics of completed
@@ -396,6 +480,8 @@ def _run_plan_inner(root: SparkPlan, num_partitions: int,
                 return _merge_fallback_root_sort(root, out, parts)
         raise AssertionError("no result stage produced")
     finally:
+        if _ov is not None:
+            _ov.__exit__(None, None, None)
         sup.close()
         faults.run_info_delta(telemetry_before, run_info)
         # the query's pipelined streams and sinks, and the ones still
@@ -1132,7 +1218,7 @@ def _run_result_stage(stage: Stage, parts: int, sup: Supervisor,
         return run_task_with_resilience(
             merge, what=f"result_merge[{stage.stage_id}]",
             run_info=run_info, deadline=sup.deadline(),
-            on_error=sup.breaker.note_failure)
+            on_error=sup.breaker.note_failure, session=sup.session)
 
     if not batches:
         return ColumnBatch.empty(op.schema, device=device)

@@ -188,12 +188,11 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 the file path's rows; then q02, q04, q03, q03_rev and
                 basket_items through run_plan at the defaults (mesh
                 "auto": each hash shuffle of plain column keys kept in
-                device memory, files past half the memory budget), each
-                but basket_items (which the mesh declines) beside the
-                same query with mesh_exchange="off", every run against
-                numpy:
+                device memory, files past half the memory budget), every
+                run against numpy (their mesh_exchange="off" twins
+                are cut for the time limit):
                 q02 with one launch a probe batch (48), basket_items (list
-                state) with no mesh stage, no leak; each route's stage
+                state) with no mesh stage, no leak; each run's stage
                 times, stage counts, host pulls, serde seconds, peak
                 device memory and the monitor's bytes by boundary
  22. runner_observability  the observability layer on top of phase 21's
@@ -227,7 +226,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 it reports), loading the kernel library phase 2 built.
                 tpcds.py's q02 (its map stage and its 48 launches of the
                 kernel in a worker, 0 in the driver, the worker's own
-                count), the same again on the warm worker, and q04 (its
+                count; no warm rerun, for the time limit), and q04 (its
                 four arm map stages in workers), each against numpy and
                 runner_tpcds's rows, beside runner_mesh's "auto" times,
                 with the sampling profiler on in the workers to show
@@ -242,9 +241,26 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 what it was before the workers ran. Telemetry frames and
                 bytes, the mmap hits and fallbacks, and the workers'
                 memory are printed
+ 24. runner_service  the service and control layer at phase 21's
+                defaults with the trace on: a QueryService with two run
+                slots, two parked seats and tenants weighted 3:1 takes
+                five arrivals (q02, q09, q02, q09, q02), each from a
+                thread of its own: two run, two park and the fifth is
+                shed; every answer against numpy, each q02 session's own
+                run_info counting its 48 launches, their sum the phase's
+                count, the ledger a line an arrival, /metrics and
+                /healthz scraped from conf.metrics_port while two park,
+                the port free after shutdown(); the card's peak memory
+                with two sessions. Then a StreamingQuery through the
+                service over the 8 store_sales files, published by rename
+                in ticks of 3, 3 and 2, grouped by store; stopped
+                without settling after the second batch and resumed from
+                its journal, its state equal to numpy, each batch's route,
+                launches and time printed. Then q02 twice with the
+                autopilot on, the second under a stored overlay
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
-decode_task_definition; phases 15-23 have run_plan convert and decode
+decode_task_definition; phases 15-24 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
@@ -4419,32 +4435,27 @@ def phase_runner_mesh(paths, orc, batches, work_dir) -> dict:
                                                             work_dir)
         res["mixed_provider_check"] = _mixed_provider_check(batches,
                                                             work_dir)
+        # each query on the mesh route only: its "off" twin (the file
+        # route of runner_tpcds and the later runner phases) is cut for
+        # the script's time limit; the CPU tests hold the routes' stage
+        # counts (tests/torch_parity.assert_same_stages)
         for q in MESH_QUERIES:
-            res[q] = {}
-            # a declined query takes the same route either way
-            for route in ("auto",) if q in MESH_DECLINED else ("auto",
-                                                                "off"):
-                run = _runner_run(q, paths, work_dir, checks[q],
-                                  info_keys=MESH_INFO, mesh=route)
-                run["result_rows"] = len(next(iter(run.pop(
-                    "rows").values())))
-                res[q][route] = run
+            run = _runner_run(q, paths, work_dir, checks[q],
+                              info_keys=MESH_INFO, mesh="auto")
+            run["result_rows"] = len(next(iter(run.pop("rows").values())))
+            res[q] = {"auto": run}
     probe_batches = TPCDS_FILES["web_sales"] + TPCDS_FILES["catalog_sales"]
     _require(res["q02"]["auto"]["launches"] == probe_batches,
              f"q02 on the mesh route launched the kernel "
              f"{res['q02']['auto']['launches']} times, not {probe_batches}")
     for q in MESH_QUERIES:
-        auto, off = res[q]["auto"], res[q].get("off")
+        auto = res[q]["auto"]
         _require((auto["mesh_stages"] == 0) == (q in MESH_DECLINED),
                  f"{q}: {auto['mesh_stages']} mesh stages")
-        _require(off is None or off["mesh_stages"] == 0 and (
-            auto["mesh_stages"] + auto["file_stages"] == off["file_stages"]),
-                 f"{q}: stages {auto} against {off}")
-        for route, run in res[q].items():
-            _require(run["resource_leaks"] == 0
-                     and run["pipeline_live_streams"] == 0,
-                     f"{q} ({route}): {run['resource_leaks']} leaks, "
-                     f"{run['pipeline_live_streams']} streams left open")
+        _require(auto["resource_leaks"] == 0
+                 and auto["pipeline_live_streams"] == 0,
+                 f"{q}: {auto['resource_leaks']} leaks, "
+                 f"{auto['pipeline_live_streams']} streams left open")
     res["seconds"] = time.perf_counter() - t_phase
     _emit(res)
     return res
@@ -4881,15 +4892,9 @@ def phase_runner_pool(paths, orc, work_dir, runner, mesh) -> dict:
                 run["mesh_auto_wall_s"] = mesh[q]["auto"]["wall_s"]
                 res[q] = run
                 if q == "q02":
-                    # the same query on the now warm worker: the first
-                    # run's excess over it is the worker's start-up
+                    # where the worker's first plan task went (no warm
+                    # rerun: the script's time limit)
                     run["worker_profile"] = _worker_profile("pool_q02")
-                    warm = _runner_run(q, paths, work_dir, checks[q],
-                                       info_keys=POOL_INFO, mesh="auto",
-                                       query_id="pool_q02_warm")
-                    _same_rows(warm.pop("rows"), runner["q02_rows"],
-                               "warm pooled q02 against runner_tpcds")
-                    res["q02_warm"] = warm
             res["compute_apps"] = _compute_apps()
             res["worker_pids"] = sorted(pool.pids().values())
             res["driver_pid"] = driver_pid
@@ -4933,21 +4938,432 @@ def phase_runner_pool(paths, orc, work_dir, runner, mesh) -> dict:
              f"{used0} before the workers ran")
     q02, q04 = res["q02"], res["q04"]
     probe_batches = TPCDS_FILES["web_sales"] + TPCDS_FILES["catalog_sales"]
-    for name in ("q02", "q02_warm"):
-        run = res[name]
-        _require(run["pool_stages"] >= 1 and run["launches"] == 0
-                 and run["pool_kernel_launches"] == probe_batches,
-                 f"pooled {name}: {run['pool_kernel_launches']} launches "
-                 f"in the workers and {run['launches']} in the driver, "
-                 f"not {probe_batches} and 0")
-    res["q02_first_run_excess_s"] = (q02["wall_s"]
-                                     - res["q02_warm"]["wall_s"])
+    _require(q02["pool_stages"] >= 1 and q02["launches"] == 0
+             and q02["pool_kernel_launches"] == probe_batches,
+             f"pooled q02: {q02['pool_kernel_launches']} launches in the "
+             f"workers and {q02['launches']} in the driver, not "
+             f"{probe_batches} and 0")
     _require(q04["pool_stages"] >= 4,
              f"pooled q04 ran {q04['pool_stages']} stages in workers")
     for q in ("q02", "q04"):
         _require(res[q]["resource_leaks"] == 0
                  and res[q]["pipeline_live_streams"] == 0,
                  f"pooled {q}: leaks or open streams: {res[q]}")
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
+# runner_service: five arrivals in this order against two run slots and
+# two parked seats (two tenants weighted 3:1), so two run, two park and the
+# fifth is shed
+SERVICE_JOBS = (("q02", "gold"), ("q09", "silver"), ("q02", "gold"),
+                ("q09", "silver"), ("q02", "gold"))
+SERVICE_TENANTS = {"gold": 3.0, "silver": 1.0}
+SERVICE_INFO = RUNNER_INFO + ("query_id", "tenant_id", "admission_outcome",
+                              "admission_wait_ms", "kernel_launches",
+                              "host_pulls", "peak_mem_bytes")
+SERVICE_WAIT_S = 60.0   # for an arrival to run or park
+# the stream: store_sales files published a tick, grouped by store
+STREAM_TICKS = (3, 3, 2)
+STREAM_FIELDS = (("ss_store_sk", "int64"), ("ss_quantity", "int32"),
+                 ("ss_sales_price", "float64"))
+STREAM_AGGS = (("sum", "ss_quantity", "qty_sum"),
+               ("count", "ss_quantity", "qty_n"),
+               ("min", "ss_sales_price", "price_min"),
+               ("max", "ss_sales_price", "price_max"))
+STREAM_WAIT_S = 600.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _port_free(port) -> bool:
+    """No listener holds the port (TIME_WAIT entries of closed scrapes
+    aside)."""
+    import socket
+
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def _http_get(port, route):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _gauge(text, name) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split(" ", 1)[1])
+    raise RuntimeError(f"chip_smoke: no {name} in /metrics")
+
+
+def _service_admission(svc, paths, orc, work_dir, runner, port) -> dict:
+    """The five arrivals of SERVICE_JOBS through QueryService.submit, each
+    from a thread of its own: submit() admits on the calling thread, so a
+    parked arrival holds its thread until a slot frees. Each thread starts
+    once the previous arrival runs or parks. The metrics endpoint is
+    scraped while two run and two are parked."""
+    import threading
+
+    from blaze_tpu_torch.runtime import faults
+
+    checks = {"q02": lambda out: check_q02(out, orc),
+              "q09": lambda out: check_q09(out, orc)}
+    plans = [_runner_plan(q, paths) for q, _t in SERVICE_JOBS]
+    infos = [{} for _ in SERVICE_JOBS]
+    futs, errs, t_sub, t_done = {}, {}, {}, {}
+
+    def arrive(i):
+        q, tenant = SERVICE_JOBS[i]
+        t_sub[i] = time.perf_counter()
+        try:
+            fut = svc.submit(plans[i], tenant, run_info=infos[i],
+                             work_dir=os.path.join(work_dir, "service",
+                                                   f"{i}_{q}"))
+        except faults.AdmissionRejected as e:
+            t_done[i] = time.perf_counter()
+            errs[i] = e
+            return
+        fut.add_done_callback(
+            lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+        futs[i] = fut
+
+    def wait_for(pred, what):
+        deadline = time.monotonic() + SERVICE_WAIT_S
+        while not pred():
+            _require(time.monotonic() < deadline, f"service: {what}")
+            time.sleep(0.002)
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    threads = []
+    scrape = {}
+    for i in range(len(SERVICE_JOBS)):
+        th = threading.Thread(target=arrive, args=(i,),
+                              name=f"service-arrival-{i}")
+        threads.append(th)
+        th.start()
+        if i < 2:
+            wait_for(lambda i=i: i in futs or i in errs,
+                     f"arrival {i} was not admitted")
+        elif i < 4:
+            wait_for(lambda i=i: svc.stats()["queue_depth"] == i - 1
+                     or i in futs, f"arrival {i} did not park")
+            _require(i not in futs, f"arrival {i} ran without parking: a "
+                     "running query ended before it arrived")
+        else:
+            th.join(SERVICE_WAIT_S)
+        if i == 3:
+            # two running, two parked: the endpoint shows it
+            status, body = _http_get(port, "/metrics")
+            text = body.decode()
+            hstatus, hbody = _http_get(port, "/healthz")
+            scrape = {"metrics_status": status, "healthz_status": hstatus,
+                      "healthz": json.loads(hbody),
+                      "admission_queue_depth": _gauge(
+                          text, "blaze_admission_queue_depth"),
+                      "queries_running": _gauge(text,
+                                                "blaze_queries_running"),
+                      "service_capacity": _gauge(text,
+                                                 "blaze_service_capacity"),
+                      "metrics_bytes": len(body)}
+    # a parked arrival's thread returns from submit() once it is
+    # admitted: only then does its future exist
+    for th in threads:
+        th.join(STREAM_WAIT_S)
+        _require(not th.is_alive(), f"service: {th.name} still waits")
+    _require(list(errs) == [4] and isinstance(errs[4],
+                                              faults.AdmissionRejected),
+             f"service: shed arrivals {sorted(errs)}, not the fifth alone")
+    _require(sorted(futs) == [0, 1, 2, 3],
+             f"service: futures for arrivals {sorted(futs)}")
+    rows = {}
+    for i, fut in sorted(futs.items()):
+        q = SERVICE_JOBS[i][0]
+        out = fut.result(timeout=STREAM_WAIT_S)
+        checks[q](out)
+        rows[i] = out.to_numpy()
+        if q == "q02":
+            _same_rows(rows[i], runner["q02_rows"],
+                       f"service q02 #{i} against runner_tpcds")
+    wall = time.perf_counter() - t0
+    launches = mxu_agg.KERNEL_LAUNCHES
+    st = svc.stats()
+    res = {"scrape": scrape, "stats": st, "wall_s": wall,
+           "launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "single_q02_peak_device_bytes": runner["q02"]["peak_device_bytes"],
+           "shed": {"tenant_id": errs[4].tenant_id,
+                    "wait_ms": errs[4].wait_ms,
+                    "seconds": t_done[4] - t_sub[4]}}
+    for i, info in enumerate(infos):
+        if i in futs:
+            res[f"{i}_{SERVICE_JOBS[i][0]}"] = dict(
+                {k: info[k] for k in SERVICE_INFO},
+                wall_s=t_done[i] - t_sub[i])
+    runs = [res[f"{i}_{SERVICE_JOBS[i][0]}"] for i in sorted(futs)]
+    _require([r["admission_outcome"] for r in runs]
+             == ["admitted", "admitted", "parked", "parked"],
+             f"service outcomes {[r['admission_outcome'] for r in runs]}")
+    _require(st["admitted"] == 4 and st["parked"] == 2
+             and st["rejected"] == 1 and st["running"] == 0,
+             f"service stats {st}")
+    for i, r in zip(sorted(futs), runs):
+        if SERVICE_JOBS[i][0] == "q02":
+            _require(r["kernel_launches"] == runner["q02"]["launches"],
+                     f"service q02 #{i}: {r['kernel_launches']} launches, "
+                     f"not {runner['q02']['launches']}")
+    _require(launches == sum(r["kernel_launches"] for r in runs),
+             f"service: {launches} launches in the phase, "
+             f"{[r['kernel_launches'] for r in runs]} in its queries")
+    _require(scrape["metrics_status"] == 200
+             and scrape["healthz_status"] == 200
+             and scrape["healthz"]["ok"]
+             and scrape["admission_queue_depth"] == 2,
+             f"service: the endpoint showed {scrape}")
+    return res
+
+
+def _ledger_check(trace_dir, adm) -> dict:
+    """The run ledger: a line for each admitted query with its tenant,
+    outcome and wait, and one for the shed arrival."""
+    with open(os.path.join(trace_dir, "ledger.jsonl")) as f:
+        lines = [json.loads(line) for line in f if line.strip()]
+    by_qid = {rec["query_id"]: rec for rec in lines}
+    runs = [v for k, v in adm.items() if k[:1].isdigit()]
+    for r in runs:
+        rec = by_qid.get(r["query_id"])
+        _require(rec is not None, f"no ledger line for {r['query_id']}")
+        _require((rec["tenant_id"], rec["admission_outcome"])
+                 == (r["tenant_id"], r["admission_outcome"])
+                 and rec["admission_wait_ms"] == r["admission_wait_ms"],
+                 f"ledger line of {r['query_id']}: {rec['tenant_id']}, "
+                 f"{rec['admission_outcome']}")
+    shed = [rec for rec in lines if rec["admission_outcome"] == "rejected"]
+    _require(len(shed) == 1 and shed[0]["tenant_id"] == "gold"
+             and shed[0]["counters"]["admission_reject_reason"]
+             == "queue_full", f"ledger shed lines {shed}")
+    return {"lines": len(lines), "shed_query_id": shed[0]["query_id"],
+            "outcomes": sorted(rec["admission_outcome"] for rec in lines)}
+
+
+def _publish_tick(live, gen_dir, names) -> None:
+    """Publish by rename: the tick's directory (every file published so
+    far plus `names`, hard links of the data files) is made aside, then
+    the stream's directory link is renamed onto it, so a poll sees a whole
+    tick or none of it."""
+    prev = os.path.realpath(live) if os.path.islink(live) else None
+    os.makedirs(gen_dir)
+    if prev is not None:
+        for n in os.listdir(prev):
+            os.link(os.path.join(prev, n), os.path.join(gen_dir, n))
+    for src in names:
+        os.link(src, os.path.join(gen_dir, os.path.basename(src)))
+    tmp = live + ".next"
+    os.symlink(gen_dir, tmp)
+    os.replace(tmp, live)
+
+
+def _stream_oracle(files) -> dict:
+    """{store: (qty sum, qty count, price min, price max)} over the files,
+    nulls skipped."""
+    cols = _read_columns(files, [n for n, _t in STREAM_FIELDS])
+    store = cols["ss_store_sk"][0]
+    qty, qok = cols["ss_quantity"]
+    price, pok = cols["ss_sales_price"]
+    out = {}
+    order = np.argsort(store, kind="stable")
+    s = store[order]
+    bounds = np.flatnonzero(np.r_[True, s[1:] != s[:-1], True])
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        idx = order[lo:hi]
+        q, qv = qty[idx].astype(np.int64), qok[idx]
+        p, pv = price[idx], pok[idx]
+        out[int(s[lo])] = (int(q[qv].sum()) if qv.any() else None,
+                           int(qv.sum()),
+                           float(p[pv].min()) if pv.any() else None,
+                           float(p[pv].max()) if pv.any() else None)
+    return out
+
+
+def _service_stream(svc, paths, work_dir) -> dict:
+    """A StreamingQuery through the service over the store_sales files,
+    published in ticks of STREAM_TICKS; after the second batch it stops
+    without settling its journal (a crash) and resume_stream takes it
+    from its last checkpoint."""
+    from blaze_tpu_torch.columnar import types as CT
+    from blaze_tpu_torch.runtime import streaming
+
+    files = paths["store_sales"]
+    _require(sum(STREAM_TICKS) == len(files),
+             f"stream ticks {STREAM_TICKS} over {len(files)} files")
+    types = {"int64": CT.INT64, "int32": CT.INT32, "float64": CT.FLOAT64}
+    spec = streaming.StreamSpec(
+        CT.Schema([CT.Field(n, types[t]) for n, t in STREAM_FIELDS]),
+        keys=[{"col": "ss_store_sk", "name": "ss_store_sk"}],
+        aggs=[{"fn": fn, "col": c, "name": name}
+              for fn, c, name in STREAM_AGGS])
+    root = os.path.join(work_dir, "stream")
+    os.makedirs(root)
+    live = os.path.join(root, "live")
+    ticks = np.cumsum((0,) + STREAM_TICKS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    _publish_tick(live, os.path.join(root, "tick0"),
+                  files[ticks[0]:ticks[1]])
+    sq = svc.open_stream(streaming.TailSource(live), spec, tenant_id="gold",
+                         stream_id="service_stream",
+                         work_dir=os.path.join(root, "work"))
+    _require(sq.wait_consumed(int(ticks[1]), STREAM_WAIT_S),
+             f"stream: tick 1 not consumed ({sq.stats()}, {sq.error})")
+    _publish_tick(live, os.path.join(root, "tick1"),
+                  files[ticks[1]:ticks[2]])
+    _require(sq.wait_consumed(int(ticks[2]), STREAM_WAIT_S),
+             f"stream: tick 2 not consumed ({sq.stats()}, {sq.error})")
+    sq.stop(graceful=False)   # the crash posture: journal left unsettled
+    first, first_log = sq.stats(), list(sq.batch_log)
+    _publish_tick(live, os.path.join(root, "tick2"),
+                  files[ticks[2]:ticks[3]])
+    sq2 = svc.resume_stream("service_stream",
+                            work_dir=os.path.join(root, "work2"))
+    try:
+        _require(sq2.wait_consumed(int(ticks[3]), STREAM_WAIT_S),
+                 f"stream: tick 3 not consumed ({sq2.stats()}, "
+                 f"{sq2.error})")
+        wall = time.perf_counter() - t0
+        second, second_log = sq2.stats(), list(sq2.batch_log)
+        rows = sq2.result_rows()
+    finally:
+        sq2.stop(graceful=True)
+    launches = mxu_agg.KERNEL_LAUNCHES
+    log = first_log + second_log
+    got = {r["ss_store_sk"]: tuple(r[name] for _f, _c, name in STREAM_AGGS)
+           for r in rows}
+    want = _stream_oracle(files)
+    _require(got == want, f"stream: {len(got)} stores against numpy's "
+             f"{len(want)}; first differences "
+             f"{[(k, got.get(k), v) for k, v in want.items() if got.get(k) != v][:3]}")
+    _require([b["files"] for b in log] == list(STREAM_TICKS),
+             f"stream batches of {[b['files'] for b in log]} files")
+    _require(first["batches_total"] == 2 and second["batches_total"] == 1
+             and second["resumed_from_epoch"] == 2
+             and second["resumed_batches"] == 1 and second["epoch"] == 3
+             and second["files_consumed"] == len(files)
+             and second["rows_total"] == len(files) * FACT_FILE_ROWS,
+             f"stream: {first} then {second}")
+    _require(launches == sum(b["kernel_launches"] for b in log),
+             f"stream: {launches} launches, "
+             f"{[b['kernel_launches'] for b in log]} in its batches")
+    return {"batches": [dict(b, route="dense" if b["stage_compiled"]
+                             else "streaming_agg") for b in log],
+            "batches_total": first["batches_total"]
+            + second["batches_total"],
+            "resumed_from_epoch": second["resumed_from_epoch"],
+            "checkpoint_bytes": second["checkpoint_bytes"],
+            "groups": len(got), "rows_total": second["rows_total"],
+            "launches": launches, "wall_s": wall}
+
+
+def _service_autopilot(paths, orc, work_dir, runner) -> dict:
+    """q02 twice with the autopilot on: the first run stamps its query
+    fingerprint and an empty overlay; a settled overlay stored for that
+    fingerprint (as a prior run's promotion would) applies on the
+    second."""
+    from blaze_tpu_torch.runtime import autopilot
+
+    keys = RUNNER_INFO + ("autopilot", "kernel_launches")
+    res = {}
+    with _knobs(autopilot_enabled=True,
+                autopilot_dir=os.path.join(work_dir, "autopilot"),
+                history_dir=os.path.join(work_dir, "autopilot_history")):
+        autopilot.reset()
+        for n in (1, 2):
+            run = _runner_run("q02", paths, work_dir,
+                              lambda out: check_q02(out, orc),
+                              info_keys=keys, mesh="auto",
+                              query_id=f"autopilot_q02_{n}")
+            _same_rows(run.pop("rows"), runner["q02_rows"],
+                       f"autopilot q02 #{n} against runner_tpcds")
+            _require(run["launches"] == run["kernel_launches"]
+                     == runner["q02"]["launches"],
+                     f"autopilot q02 #{n}: {run['launches']} launches")
+            res[f"run{n}"] = run
+            if n == 1:
+                fp = run["autopilot"]["fingerprint"]
+                autopilot.active().store.append(
+                    "promote", fp, knob="prefetch_batches",
+                    value=conf.prefetch_batches + 1)
+                autopilot.reset()
+        autopilot.reset()
+    first, second = res["run1"]["autopilot"], res["run2"]["autopilot"]
+    _require(first["overlay"] == {} and second["overlay"] == {
+        "prefetch_batches": conf.prefetch_batches + 1}
+        and second["provenance"] == {"prefetch_batches": "fingerprint"}
+        and second["fingerprint"] == first["fingerprint"],
+        f"autopilot overlays {first} then {second}")
+    return res
+
+
+def phase_runner_service(paths, orc, work_dir, runner) -> dict:
+    """The service and control layer on the card (see the module
+    docstring, phase 24)."""
+    from blaze_tpu_torch.config import KNOBS
+    from blaze_tpu_torch.runtime import monitor, service
+
+    defaults = {k: KNOBS[k].default
+                for k in RUNTIME_KNOBS + ("monitor_enabled",)}
+    res = {"phase": "runner_service", "mode": "bhj",
+           "max_concurrent_queries": 2, "admission_queue_depth": 2,
+           "tenant_priority_spec": SERVICE_TENANTS,
+           "stream_default_stream": "kernels of concurrent sessions queue "
+                                    "on the device's default stream"}
+    t_phase = time.perf_counter()
+    trace_dir = os.path.join(work_dir, "service_trace")
+    port = _free_port()
+    with _knobs(**dict(defaults, trace_enabled=True,
+                       trace_export_dir=trace_dir, metrics_port=port,
+                       max_concurrent_queries=2, admission_queue_depth=2,
+                       tenant_priority_spec=dict(SERVICE_TENANTS),
+                       journal_dir=os.path.join(work_dir, "journal"),
+                       stream_checkpoint_interval=1, stream_poll_ms=50)):
+        srv = monitor.ensure_started()
+        _require(srv is not None and srv.port == port,
+                 "the metrics endpoint did not start")
+        try:
+            with service.QueryService() as svc:
+                adm = _service_admission(svc, paths, orc, work_dir, runner,
+                                         port)
+                res["admission"] = adm
+                res["ledger"] = _ledger_check(trace_dir, adm)
+                with _knobs(trace_enabled=False):
+                    res["stream"] = _service_stream(svc, paths, work_dir)
+            res["sampler_ring_samples"] = len(monitor.sampler().ring())
+        finally:
+            monitor.shutdown()
+        _require(_port_free(port), f"port {port} still held after "
+                 "shutdown()")
+        res["autopilot"] = _service_autopilot(paths, orc, work_dir, runner)
     res["seconds"] = time.perf_counter() - t_phase
     _emit(res)
     return res
@@ -5026,6 +5442,7 @@ def main(argv=None) -> int:
         observed = phase_runner_observability(paths, orc, work_dir, runner,
                                               mesh, args.seed)
         pooled = phase_runner_pool(paths, orc, work_dir, runner, mesh)
+        served = phase_runner_service(paths, orc, work_dir, runner)
     phase_wall(t0)
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
@@ -5051,6 +5468,14 @@ def main(argv=None) -> int:
         "runner_observability_q02_launches": [
             run["launches"] for qid, run in observed["runs"].items()
             if qid.startswith("obs_q02")],
+        "runner_service_q02_launches": [
+            run["kernel_launches"] for key, run in
+            served["admission"].items() if key.endswith("_q02")],
+        "runner_stream_launches": [
+            b["kernel_launches"] for b in served["stream"]["batches"]],
+        "runner_autopilot_q02_launches": [
+            served["autopilot"][r]["kernel_launches"]
+            for r in ("run1", "run2")],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -380,3 +380,79 @@ def test_sigterm_drains_then_respawns(net_conf):
         assert pool.capacity() == 2
     finally:
         pool.close()
+
+
+# ---- the exporters over the federation (the JAX package's cases,
+# tests/test_dist_obs.py:143 and :163, on both packages) ----
+
+
+def test_progress_finished_ring_bounds_cardinality(telemetry_conf):
+    """blaze_query_progress_ratio prunes stale qid series: finished
+    queries linger in a bounded last-N ring, older ones age out of the
+    exposition entirely."""
+    from blaze_tpu.runtime import progress as jprogress
+    from blaze_tpu_torch.runtime import progress
+
+    assert progress.FINISHED_RING == jprogress.FINISHED_RING
+    series = []
+    for prog, mon in ((progress, monitor), (jprogress, jmonitor)):
+        prog.reset()
+        try:
+            n = prog.FINISHED_RING + 5
+            for i in range(n):
+                prog.begin_query(f"qcard{i:03d}")
+                prog.finish_query(f"qcard{i:03d}")
+            rows = prog.finished_queries()
+            assert len(rows) == prog.FINISHED_RING
+            kept = {r["query_id"] for r in rows}
+            assert f"qcard{n - 1:03d}" in kept          # newest kept
+            assert "qcard000" not in kept               # oldest pruned
+            text = mon.prometheus_text()
+            assert 'blaze_query_progress_ratio{qid="qcard000"}' not in text
+            assert (f'blaze_query_progress_ratio{{qid="qcard{n - 1:03d}"}}'
+                    in text)
+            series.append([line for line in text.splitlines()
+                           if line.startswith("blaze_query_progress")])
+        finally:
+            prog.reset()
+    assert series[0] == series[1]
+
+
+def test_prometheus_per_executor_federation_gauges(telemetry_conf):
+    """The four executor-pane families render one labeled row per
+    executor from the pool's executors() snapshot."""
+
+    class _Stub:
+        def capacity(self):
+            return 2
+
+        def live_count(self):
+            return 1
+
+        def stats(self):
+            return {"count": 1, "live": 1, "capacity": 2, "slots": 2,
+                    "inflight": 0, "deaths_total": 0, "restarts_total": 0,
+                    "fenced_total": 0, "tasks_done": 7}
+
+        def executors(self):
+            return [{"exec_id": "exec0", "pid": 1, "generation": 0,
+                     "up": True, "inflight": 1, "heartbeat_age_ms": 12,
+                     "tasks_done": 7, "telemetry_bytes": 3456,
+                     "telemetry_records": 9, "telemetry_dropped": 0}]
+
+    want = ('blaze_executor_heartbeat_age_ms{exec_id="exec0"} 12',
+            'blaze_executor_busy_slots{exec_id="exec0"} 1',
+            'blaze_executor_tasks_done_total{exec_id="exec0"} 7',
+            'blaze_executor_telemetry_bytes_total{exec_id="exec0"} 3456')
+    rows = []
+    for pool_mod, mon in ((ep, monitor), (jep, jmonitor)):
+        stub = _Stub()
+        pool_mod.activate(stub)
+        try:
+            text = mon.prometheus_text()
+        finally:
+            pool_mod.deactivate(stub)
+        assert all(line in text for line in want)
+        rows.append([line for line in text.splitlines()
+                     if line.startswith("blaze_executor_")])
+    assert rows[0] == rows[1]

@@ -94,10 +94,13 @@ def test_pool_echo_capacity_and_stats(fast_death_conf):
         pool.close()
 
 
-def test_pool_retry_then_fatal(fast_death_conf, tmp_path):
+def test_pool_retry_then_fatal(fast_death_conf, tmp_path, monkeypatch):
     """A retryable failure is re-queued by the driver (a cross-process
     attempt under a new epoch) and succeeds; a fatal one is relayed as
-    faults.FatalError."""
+    faults.FatalError. No executor dies: the case is about task errors,
+    so its death bound is one a loaded host's heartbeats meet
+    (deaths_total stays 0, exactly)."""
+    monkeypatch.setattr(conf, "executor_death_ms", 10_000)
     pool = _start_pool(count=1, slots=1)
     try:
         marker = str(tmp_path / "flaky.n")
@@ -115,6 +118,36 @@ def test_pool_retry_then_fatal(fast_death_conf, tmp_path):
         assert pool.live_count() == 1
         assert pool.run_tasks([ep.PoolTaskSpec("e", "echo", {"value": 1})],
                               timeout=60)[0]["value"] == 1
+        assert pool.stats()["deaths_total"] == 0
+    finally:
+        pool.close()
+
+
+def test_batch_waits_out_a_slow_respawn(fast_death_conf, monkeypatch):
+    """The one seat dies mid-task and its replacement's process start is
+    slow (a loaded host): the batch waits for the replacement and
+    completes; it never sees "no live executors and no replacement
+    pending" between the respawn's backoff and the new process's
+    registration."""
+    pool = _start_pool(count=1, slots=1)
+    try:
+        spawn = pool._spawn
+
+        def slow_spawn(seat, generation):
+            time.sleep(0.5)  # several of run_tasks' 0.1 s wake-ups
+            spawn(seat, generation)
+
+        monkeypatch.setattr(pool, "_spawn", slow_spawn)
+        t, box = _run_async(pool, [ep.PoolTaskSpec("sl", "sleep",
+                                                   {"ms": 400})])
+        _wait(pool.busy_pids, 10, "a busy executor")
+        os.kill(next(iter(pool.busy_pids().values())), signal.SIGKILL)
+        t.join(timeout=120)
+        assert not t.is_alive()
+        assert "err" not in box, box.get("err")
+        assert [r["ok"] for r in box["out"]] == [True]
+        st = pool.stats()
+        assert st["deaths_total"] == 1 and st["restarts_total"] == 1
     finally:
         pool.close()
 
@@ -393,3 +426,114 @@ def test_first_plan_task_widens_its_heartbeat_bound(stub_worker,
     assert peer.stale_ms == conf.executor_death_ms * ep._START_GRACE
     pool._on_starting(handle, False)
     assert peer.stale_ms is None
+
+
+# ---- the service's capacity, /healthz and the pool gauges: the JAX
+# package's cases (tests/test_executor_pool.py:388-470), each run against
+# both packages over the same stub pool ----
+
+
+class _StubPool:
+    """A pool's capacity surface with no processes: membership changes on
+    demand."""
+
+    def __init__(self, live, slots=2):
+        self.live, self.slots = live, slots
+        self._cbs = []
+        self.deaths_total = self.restarts_total = self.tasks_done = 0
+
+    def capacity(self):
+        return self.live * self.slots
+
+    def live_count(self):
+        return self.live
+
+    def on_membership(self, cb):
+        self._cbs.append(cb)
+
+    def set_live(self, n):
+        self.live = n
+        for cb in list(self._cbs):
+            cb(self)
+
+    def stats(self):
+        return {"count": 2, "live": self.live,
+                "capacity": self.capacity(), "slots": self.slots,
+                "inflight": 0, "deaths_total": self.deaths_total,
+                "restarts_total": self.restarts_total,
+                "fenced_total": 0, "tasks_done": self.tasks_done}
+
+    def executors(self):
+        return [{"exec_id": f"exec{i}", "pid": 1000 + i, "generation": 0,
+                 "up": i < self.live, "inflight": 0} for i in range(2)]
+
+
+def _packages():
+    """(executor_pool, monitor, service) of the port, then of the JAX
+    package."""
+    from blaze_tpu.runtime import executor_pool as jep
+    from blaze_tpu.runtime import monitor as jmonitor
+    from blaze_tpu.runtime import service as jservice
+    from blaze_tpu_torch.runtime import monitor, service
+
+    return ((ep, monitor, service), (jep, jmonitor, jservice))
+
+
+def test_service_capacity_shrinks_and_recovers():
+    caps = []
+    for _pool_mod, _mon, svc_mod in _packages():
+        svc = svc_mod.QueryService(max_concurrent=8)
+        stub = _StubPool(live=2, slots=3)
+        svc.attach_pool(stub)
+        try:
+            seen = [svc.capacity()]
+            stub.set_live(1)          # death: admission window shrinks
+            seen.append(svc.capacity())
+            stub.set_live(2)          # rejoin: recovers
+            seen += [svc.capacity(), svc.stats()["capacity"]]
+        finally:
+            svc.close()
+        caps.append(seen)
+    assert caps[0] == caps[1] == [6, 3, 6, 6]
+
+
+def test_healthz_503_only_at_zero_executors():
+    seen = []
+    for pool_mod, mon, _svc in _packages():
+        stub = _StubPool(live=1)
+        pool_mod.activate(stub)
+        try:
+            snap = mon.health_snapshot()
+            status, _ctype, _body = mon.serve_path("/healthz")
+            row = [snap["ok"], snap["executors_live"], status]
+            stub.set_live(0)
+            snap = mon.health_snapshot()
+            status, _ctype, body = mon.serve_path("/healthz")
+            row += [snap["ok"], status, bool(body)]
+        finally:
+            pool_mod.deactivate(stub)
+        seen.append(row)
+    # 200 while one executor lives; 503 at zero, the body still the
+    # snapshot
+    assert seen[0] == seen[1] == [True, 1, 200, False, 503, True]
+
+
+def test_prometheus_executor_gauges():
+    want = ('blaze_executor_up{exec_id="exec0"} 1',
+            'blaze_executor_up{exec_id="exec1"} 0',
+            "blaze_executor_live 1", "blaze_executor_restarts_total 3")
+    texts = []
+    for pool_mod, mon, _svc in _packages():
+        stub = _StubPool(live=1)
+        stub.restarts_total = 3
+        pool_mod.activate(stub)
+        try:
+            text = mon.prometheus_text()
+        finally:
+            pool_mod.deactivate(stub)
+        assert all(line in text for line in want)
+        assert "blaze_service_capacity" in text
+        texts.append([line for line in text.splitlines()
+                      if line.startswith(("blaze_executor_",
+                                          "blaze_service_capacity"))])
+    assert texts[0] == texts[1]

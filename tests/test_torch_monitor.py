@@ -12,7 +12,23 @@ to end, two catalogue queries run through each package's run_plan (the
 mesh exchange off on both sides, the supervisor's pool on) and the
 roll-up's byte, spill, zero-copy and leak keys are equal. The port's
 roll-up has no compile_* keys (COMPILE_KEYS): it compiles no programs.
+
+The sampler and the exporters: the same byte traffic and histogram
+values give the same Prometheus exposition, family by family (names,
+label sets, types and values; families whose values read a clock, a pid
+or the compile service are compared by presence), the same sampler ring
+keys and /healthz codes, and both MetricsServers answer the same routes
+with the same statuses. The port's compile-service series read 0, as the
+JAX package's do before its first compile.
 """
+
+import json
+import re
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -277,3 +293,199 @@ def test_query_rollup_matches_jax(tables, monkeypatch, tmp_path, suite, q):
     assert any(r["kind"] == "task_attempt"
                and r["stage_id"] == result["stage_id"]
                and r["thread"].startswith("blz-task") for r in recs)
+
+
+# ---- the sampler and the exporters ----
+
+_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_SAMPLE = re.compile(
+    r"^" + _NAME + r"(\{[^{}]*\})? -?[0-9]+(\.[0-9]+)?([eE][-+]?[0-9]+)?$")
+
+# families whose samples read a clock, the process, what other tests in
+# the same process left behind (dossiers, journals, pools, profiles) or
+# the JAX package's compile service: compared by name and type
+BY_PRESENCE = ("blaze_mem_", "blaze_spill", "blaze_trace_buffer_events",
+               "blaze_profile_", "blaze_compile_", "blaze_pipeline_",
+               "blaze_faults_", "blaze_hist_", "blaze_queries_running",
+               "blaze_supervisor_active_tasks", "blaze_executor_",
+               "blaze_flight_", "blaze_recovered_", "blaze_artifact_",
+               "blaze_endpoint_", "blaze_tenant_", "blaze_dict_cols",
+               "blaze_shuffle_mmap", "blaze_query_progress",
+               "blaze_monitor_ring_samples")
+
+
+def _families(text):
+    """{family: (type, [(labels, value)])} of an exposition."""
+    fams, cur = {}, None
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, cur, mtype = line.split(" ", 3)
+            fams[cur] = (mtype, [])
+        elif not line.startswith("#"):
+            name_labels, value = line.rsplit(" ", 1)
+            fams[cur][1].append((name_labels, value))
+    return fams
+
+
+def _shape(fams):
+    return {name: mtype if name.startswith(BY_PRESENCE) else (mtype, samples)
+            for name, (mtype, samples) in fams.items()}
+
+
+def _exposition(mon, tr, c, batch, serde_mod):
+    c.trace_enabled = True
+    serde_mod.to_host(batch).serialize()
+    tr.record_value("batch_rows", 64)
+    return mon.prometheus_text()
+
+
+def test_prometheus_text_matches_jax():
+    tb, jb = _pair()
+    text = _exposition(monitor, trace, conf, tb, serde)
+    jtext = _exposition(jmonitor, jtrace, jconf, jb, jserde)
+    for t in (text, jtext):
+        assert t.endswith("\n")
+        typed = set()
+        for line in t.splitlines():
+            assert line, "blank line in exposition"
+            if line.startswith("# TYPE "):
+                _, _, name, mtype = line.split(" ", 3)
+                assert mtype in ("counter", "gauge", "histogram"), line
+                assert name not in typed, f"duplicate TYPE for {name}"
+                typed.add(name)
+            elif not line.startswith("# HELP "):
+                assert _SAMPLE.match(line), line
+    # the fixed families are the scrape contract; the dynamic ones
+    # (GAUGE_PREFIXES) mint a family a telemetry key, and which keys a
+    # process holds depends on what it ran before
+    fams, jfams = _families(text), _families(jtext)
+    fixed = {n: f for n, f in fams.items()
+             if not n.startswith(monitor.GAUGE_PREFIXES)}
+    jfixed = {n: f for n, f in jfams.items()
+              if not n.startswith(monitor.GAUGE_PREFIXES)}
+    assert sorted(fixed) == sorted(jfixed)
+    assert _shape(fixed) == _shape(jfixed)
+
+    def helps(t):
+        return [ln for ln in t.splitlines() if ln.startswith("# HELP ")
+                and not ln.split(" ")[2].startswith(monitor.GAUGE_PREFIXES)]
+
+    assert helps(text) == helps(jtext)
+    assert (sorted(n for n in fams if n.startswith("blaze_compile_"))
+            == sorted(n for n in jfams if n.startswith("blaze_compile_")))
+    assert fams["blaze_hist_batch_rows"][0] == "histogram"
+    assert jfams["blaze_hist_batch_rows"][0] == "histogram"
+    assert monitor.GAUGE_NAMES == jmonitor.GAUGE_NAMES
+    assert monitor.GAUGE_PREFIXES == jmonitor.GAUGE_PREFIXES
+    # the registry is the scrape contract: every fixed family is emitted
+    assert set(monitor.GAUGE_NAMES) <= set(fams)
+    assert re.search(r'^blaze_bytes_copied_total\{boundary="ffi"\} [1-9]',
+                     text, re.M)
+    assert "blaze_hist_batch_rows_sum 64" in text
+    assert "blaze_resource_leaks_total 0" in text
+    # no compile service in the port: its series read 0
+    assert all(v == "0" for _nl, v in
+               sum((fams[n][1] for n in fams
+                    if n.startswith("blaze_compile_")), []))
+
+
+def test_sampler_ring_matches_jax():
+    rings = []
+    for mon in (monitor, jmonitor):
+        rm = mon.ResourceMonitor(capacity=8)
+        for _ in range(20):
+            rm.sample_now()
+        ring = rm.ring()
+        assert len(ring) == 8 and ring[-1]["ts"] >= ring[0]["ts"]
+        assert rm.ring_since(ring[-1]["ts"]) == ring[-1:]
+        rings.append(ring[-1])
+    assert sorted(rings[0]) == sorted(rings[1])
+    for key in ("compile_cache_hits", "compile_cache_misses", "compile_ms"):
+        assert rings[0][key] == 0
+    # the keys that read configuration or an idle service (the others
+    # read the process: its memory manager, its resilience telemetry)
+    for key in ("io_pool_width", "task_pool_width",
+                "admission_queue_depth", "admission_parked",
+                "admission_rejected"):
+        assert rings[0][key] == rings[1][key], key
+
+
+def test_sampler_thread_start_stop():
+    rm = monitor.ResourceMonitor(capacity=64, sample_ms=5)
+    rm.start()
+    assert rm.start() is rm  # idempotent while alive
+    deadline = time.monotonic() + 5.0
+    while len(rm.ring()) < 3:
+        assert time.monotonic() < deadline, "the sampler never sampled"
+        time.sleep(0.01)
+    rm.stop()
+    n = len(rm.ring())
+    time.sleep(0.05)
+    assert len(rm.ring()) == n  # stopped: no further samples
+    assert not any(t.name == "blz-monitor" and t.is_alive()
+                   for t in threading.enumerate())
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def test_metrics_servers_answer_like_jax(monkeypatch):
+    """ensure_started() on conf.metrics_port serves /metrics, /healthz,
+    /queries, /queries/<qid> and a 404 in both packages with the same
+    statuses and content types; /healthz's snapshot has the same keys;
+    shutdown() frees the port and stops the sampler."""
+    answers = []
+    for mon, c in ((monitor, conf), (jmonitor, jconf)):
+        port = _free_port()
+        monkeypatch.setattr(c, "metrics_port", port)
+        srv = mon.ensure_started()
+        try:
+            assert srv.port == port and mon.ensure_started() is srv
+            assert mon.sampler() is not None
+            url = f"http://127.0.0.1:{port}"
+            got = {r: _get(url + r) for r in ("/metrics", "/healthz",
+                                              "/queries", "/queries/nope",
+                                              "/nope")}
+            assert b"blaze_bytes_copied_total" in got["/metrics"][2]
+            health = json.loads(got["/healthz"][2])
+            rows = {r: (st, ct) for r, (st, ct, _b) in got.items()}
+            answers.append((rows, sorted(health), health["ok"],
+                            health["sampler_alive"]))
+            assert "blaze_endpoint_requests_total{route=\"metrics\"} 1" in (
+                mon.prometheus_text())
+        finally:
+            mon.shutdown()
+        assert mon.sampler() is None
+        with socket.socket() as s:  # no listener holds the port
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", port))
+    assert answers[0] == answers[1]
+    rows = answers[0][0]
+    assert [rows[r][0] for r in ("/metrics", "/healthz", "/queries",
+                                 "/queries/nope", "/nope")] == [
+        200, 200, 200, 404, 404]
+    assert answers[0][2:] == (True, True)
+    monkeypatch.setattr(conf, "metrics_port", 0)
+    assert monitor.ensure_started() is None
+
+
+def test_health_snapshot_codes_match_jax():
+    rows = []
+    for mon in (monitor, jmonitor):
+        snap = mon.health_snapshot()
+        rows.append((sorted(snap), snap["ok"], snap["role"],
+                     snap["autoscaler"], snap["executors_live"],
+                     mon.serve_path("/healthz")[0],
+                     mon.serve_path("/nope")[:2]))
+    assert rows[0] == rows[1]

@@ -350,32 +350,45 @@ def test_unsupported_scalar_function_raises(tables, tmp_path):
 ])
 def test_left_out_modules_raise(tables, monkeypatch, tmp_path, knob, value,
                                 module):
-    """A knob whose module the port does not have yet raises, naming the
-    module. The observability knobs (trace_export_dir, history_dir,
-    progress_enabled, flight_dir, profile_enabled) have their modules
-    now, and so has executor_count, which run_plan does not read (it
-    reads the active pool, as the JAX package's does): each runs the
-    query to the oracle's rows, its directory under tmp_path."""
+    """Every knob that once named a module the port did not have now has
+    its module, and run_plan raises for none of them: the observability
+    knobs (trace_export_dir, history_dir, progress_enabled, flight_dir,
+    profile_enabled), the service layer's (metrics_port, served on a free
+    port; autopilot_enabled, with an autopilot_dir), and executor_count,
+    which run_plan does not read (it reads the active pool, as the JAX
+    package's does). Each runs the query to the oracle's rows, its
+    directory under tmp_path."""
+    import socket
+
+    from blaze_tpu_torch.runtime import monitor, profiler
     from blaze_tpu_torch.spark import local_runner
 
     (paths, frames), _ = tables["tpcds"]
     plan, oracle = tpcds.QUERIES["q09"](paths, frames, "bhj")
-    if knob in dict(local_runner._LEFT_OUT):
-        monkeypatch.setattr(conf, knob, value)
-        with pytest.raises(NotImplementedError, match=module):
-            run_plan(plan, work_dir=str(tmp_path), device="cpu")
-        return
+    assert not hasattr(local_runner, "_LEFT_OUT")
     assert os.path.exists(os.path.join(
         os.path.dirname(local_runner.__file__), "..", module))
+    if knob == "metrics_port":
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            value = s.getsockname()[1]
+    if knob == "autopilot_enabled":
+        monkeypatch.setattr(conf, "autopilot_dir", str(tmp_path / "ap"))
     monkeypatch.setattr(conf, knob, str(tmp_path / knob)
                         if isinstance(value, str) else value)
     monkeypatch.setattr(conf, "spill_dir", str(tmp_path / "spill"))
+    info = {}
     try:
-        out = run_plan(plan, work_dir=str(tmp_path / "w"), device="cpu")
+        out = run_plan(plan, work_dir=str(tmp_path / "w"), device="cpu",
+                       run_info=info)
+        if knob == "metrics_port":
+            assert monitor.serve_path("/healthz")[0] == 200
+            assert monitor.sampler() is not None
     finally:
-        from blaze_tpu_torch.runtime import profiler
-
         profiler.stop()  # the sampler thread begin_query started
+        monitor.shutdown()  # the endpoint and gauge sampler, likewise
+    if knob == "autopilot_enabled":
+        assert info["autopilot"]["fingerprint"]
     assert validator._compare(validator._to_pandas(out).reset_index(
         drop=True), oracle().reset_index(drop=True)) is None
 

@@ -424,3 +424,66 @@ def test_recv_applies_injected_faults():
     finally:
         a.close()
         b.close()
+
+
+class _DrainingPool:
+    """A pool's stats surface with seat 0 draining: the JAX package's
+    stub of tests/test_network.py:455."""
+
+    def __init__(self, live=2, slots=2, draining=1):
+        self.live, self.slots, self.draining = live, slots, draining
+        self.deaths_total = self.restarts_total = self.tasks_done = 0
+
+    def capacity(self):
+        return (self.live - self.draining) * self.slots
+
+    def live_count(self):
+        return self.live
+
+    def on_membership(self, cb):
+        pass
+
+    def stats(self):
+        return {"count": 2, "live": self.live, "capacity": self.capacity(),
+                "slots": self.slots, "inflight": 0,
+                "draining": self.draining, "deaths_total": 0,
+                "restarts_total": 0, "reconnects_total": 2,
+                "drains_total": 1, "drain_requeues_total": 0,
+                "fenced_total": 0, "tasks_done": 0,
+                "shuffle_conns_dropped": 3}
+
+    def executors(self):
+        return [{"exec_id": f"exec{i}", "pid": 1000 + i, "generation": 0,
+                 "up": True, "inflight": 0, "draining": i == 0,
+                 "conn_broken": False, "reconnects": 2 * i}
+                for i in range(2)]
+
+
+def test_healthz_and_prometheus_report_draining():
+    """A draining seat degrades capacity, not health; the draining,
+    reconnect, drain and dropped-connection series read the pool's
+    numbers (the JAX package's case, tests/test_network.py:484, on both
+    packages)."""
+    from blaze_tpu.runtime import executor_pool as jep
+    from blaze_tpu_torch.runtime import executor_pool as ep
+
+    want = ('blaze_executor_draining{exec_id="exec0"} 1',
+            'blaze_executor_draining{exec_id="exec1"} 0',
+            'blaze_executor_reconnects_total{exec_id="exec1"} 2',
+            "blaze_executor_drains_total 1",
+            "blaze_shuffle_conn_dropped_total 3")
+    rows = []
+    for pool_mod, mon in ((ep, monitor), (jep, jmonitor)):
+        stub = _DrainingPool()
+        pool_mod.activate(stub)
+        try:
+            snap = mon.health_snapshot()
+            text = mon.prometheus_text()
+        finally:
+            pool_mod.deactivate(stub)
+        assert snap["executors_draining"] == 1 and snap["ok"]
+        assert all(line in text for line in want)
+        rows.append(sorted(line for line in text.splitlines()
+                           if line.startswith(("blaze_executor_",
+                                               "blaze_shuffle_conn"))))
+    assert rows[0] == rows[1]

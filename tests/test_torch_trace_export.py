@@ -60,8 +60,8 @@ MODULES = (trace, jtrace, history, jhistory, progress, jprogress,
 # in run_plan's docstring
 PORT_ONLY = ("bridge_batches", "bridge_card_batches", "bridge_rows",
              "bridge_s", "bytes_scanned", "fallback_exports",
-             "hostfn_crossings", "hostfn_s", "io_time_ns",
-             "mesh_pinned_bytes", "pool_engine_start_s",
+             "host_pulls", "hostfn_crossings", "hostfn_s", "io_time_ns",
+             "kernel_launches", "mesh_pinned_bytes", "pool_engine_start_s",
              "pool_kernel_launches", "stage_compiled",
              "stage_fallbacks", "udf_crossings", "udf_s")
 # the JAX package's keys for a module the port does not have yet: its

@@ -30,6 +30,10 @@ not smaller, is written plain. A column that is already a dictionary
 decodes back into one. List offsets are int32 on the device and int64
 on the host; a struct keeps one validity a level.
 
+Frames are zstd: through the `zstandard` wheel where it is installed,
+else through the system's libzstd in the port's native library (where the
+card's host has no wheel), else a zlib shim (`codec()` says which).
+
 `to_host` pulls a batch to the host in ONE device->host copy (all columns
 packed into one byte tensor, counted in metrics.HOST_PULLS); `HostBatch`
 then serializes row ranges of it (`serialize(lo, hi)`), which is how the
@@ -49,6 +53,8 @@ import dataclasses
 import io
 import struct
 import time
+import types
+import zlib
 from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,31 +62,13 @@ import torch
 
 try:
     import zstandard
+
+    _CODEC = "zstandard"
 except ModuleNotFoundError:  # pragma: no cover - environment-dependent
-    # zlib-backed shim with the same API surface so the engine's framing
-    # (shuffle/spill/broadcast) still runs where the zstd wheel is
-    # absent. Frames are NOT zstd-interoperable in this mode: every
-    # process of a cluster must agree on the codec, which holds because
-    # the fallback only engages when the wheel is missing machine-wide.
-    import zlib as _zlib
+    zstandard = None  # chosen by codec() at the first frame
+    _CODEC = None
 
-    class _ZlibCompressor:
-        def __init__(self, level=1, **_kw):
-            self.level = min(max(int(level), 1), 9)
-
-        def compress(self, raw):
-            return _zlib.compress(raw, self.level)
-
-    class _ZlibDecompressor:
-        def decompress(self, comp, max_output_size=0):
-            return _zlib.decompress(comp)
-
-    class _ZstdShim:
-        ZstdCompressor = _ZlibCompressor
-        ZstdDecompressor = _ZlibDecompressor
-
-    zstandard = _ZstdShim()
-
+from blaze_tpu_torch import native
 from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.columnar.types import (
     DataType, Schema, TypeKind, storage_element, struct_fields,
@@ -91,6 +79,65 @@ from blaze_tpu_torch.runtime import faults, metrics, monitor
 
 MAGIC = b"BTB1"
 DICT_SENTINEL = 0xFFFFFFFF  # an impossible plain string `total`
+
+
+class _LibCompressor:
+    """zstd through the native library's bt_zstd_compress (libzstd)."""
+
+    def __init__(self, level=1, **_kw):
+        self.level = int(level)
+
+    def compress(self, raw):
+        return native.zstd_compress(raw, self.level)
+
+
+class _LibDecompressor:
+    def decompress(self, comp, max_output_size=0):
+        return native.zstd_decompress(comp, max_output_size)
+
+
+class _ZlibCompressor:
+    def __init__(self, level=1, **_kw):
+        self.level = min(max(int(level), 1), 9)
+
+    def compress(self, raw):
+        return zlib.compress(raw, self.level)
+
+
+class _ZlibDecompressor:
+    def decompress(self, comp, max_output_size=0):
+        return zlib.decompress(comp)
+
+
+def codec() -> str:
+    """Which codec compresses this process's frames: "zstandard" (the
+    wheel), "libzstd <version>" (the system's libzstd through the native
+    library, where the wheel is missing) or "zlib" (a shim for a host with
+    neither). The first two write the same zstd frames as the C++ encoder;
+    the zlib shim's frames are NOT zstd-interoperable, and it engages only
+    where the native library cannot build, so no C++ frame meets a zlib
+    one. Decided once, at the first frame."""
+    global zstandard, _CODEC
+    if _CODEC is None:
+        if native.available():
+            zstandard = types.SimpleNamespace(
+                ZstdCompressor=_LibCompressor,
+                ZstdDecompressor=_LibDecompressor)
+            _CODEC = "libzstd " + native.zstd_version()
+        else:
+            zstandard = types.SimpleNamespace(
+                ZstdCompressor=_ZlibCompressor,
+                ZstdDecompressor=_ZlibDecompressor)
+            _CODEC = "zlib"
+    return _CODEC
+
+
+def _zstd():
+    """The codec's module-like namespace (ZstdCompressor,
+    ZstdDecompressor), decided at first use."""
+    if _CODEC is None:
+        codec()
+    return zstandard
 
 
 @dataclasses.dataclass
@@ -125,7 +172,7 @@ class HostBatch:
         for c in self.cols:
             _write_col(out, c, lo, hi)
         raw = out.getvalue()
-        comp = zstandard.ZstdCompressor(level=conf.zstd_level).compress(raw)
+        comp = _zstd().ZstdCompressor(level=conf.zstd_level).compress(raw)
         frame = MAGIC + struct.pack("<II", len(raw), len(comp)) + comp
         ns = time.perf_counter_ns() - t0
         metrics.bump(metrics.SERDE_NS, "encode", ns)
@@ -341,8 +388,28 @@ def serialize_batch(batch: ColumnBatch) -> bytes:
 
 
 def serialize_slice(hb: HostBatch, lo: int, hi: int) -> bytes:
-    """Row-range frame. The JAX package routes this through its C++
-    encoder when loaded (native/, not ported); the bytes are the same."""
+    """Row-range frame, through the C++ encoder of the native library
+    where it loads and covers the columns, as the JAX package's does: the
+    same payload bytes, compressed by the same libzstd as the wheel-less
+    codec's. The encoder predates the dict colblock, so string columns
+    take the Python encoder while dict encoding is on."""
+    dict_strings = conf.dict_encode_strings and any(
+        c.kind in ("str", "dict") for c in hb.cols)
+    if native.available() and not dict_strings and \
+            all(c.kind in ("num", "str", "null") for c in hb.cols):
+        t0 = time.perf_counter_ns()
+        if conf.fault_injection_spec:
+            faults.inject("serde.encode")
+        frame = native.serialize_host_batch(hb, lo, hi, conf.zstd_level)
+        (raw_len,) = struct.unpack_from("<I", frame, 4)
+        ns = time.perf_counter_ns() - t0
+        metrics.bump(metrics.SERDE_NS, "encode", ns)
+        metrics.bump(metrics.SERDE_BYTES, "raw", raw_len)
+        metrics.bump(metrics.SERDE_BYTES, "frames", len(frame))
+        if conf.monitor_enabled:
+            monitor.count_copy("serde", raw_len, moved=len(frame))
+            monitor.count_time("serde_encode", ns)
+        return frame
     return hb.serialize(lo, hi)
 
 
@@ -446,7 +513,7 @@ def _decode_frame(comp, raw_len: int, comp_len: int, schema: Schema, dctx,
     """Decompress and decode one frame; its decode window opened at `t0`,
     before the caller's fault point and frame read, as the JAX package's
     does (an injected stall and the read are real decode time)."""
-    raw = (dctx or zstandard.ZstdDecompressor()).decompress(
+    raw = (dctx or _zstd().ZstdDecompressor()).decompress(
         comp, max_output_size=raw_len)
     if conf.monitor_enabled:
         monitor.count_copy("serde", raw_len, moved=12 + comp_len)
@@ -488,7 +555,7 @@ def read_batch_host(fp: BinaryIO, schema: Schema,
 
 
 def read_batches_host(fp: BinaryIO, schema: Schema) -> Iterator[HostBatch]:
-    dctx = zstandard.ZstdDecompressor()
+    dctx = _zstd().ZstdDecompressor()
     while True:
         hb = read_batch_host(fp, schema, dctx=dctx)
         if hb is None:
@@ -516,7 +583,7 @@ def read_batch(fp: BinaryIO, schema: Schema, capacity: Optional[int] = None,
 
 def read_batches(fp: BinaryIO, schema: Schema,
                  device: DeviceLike = None) -> Iterator[ColumnBatch]:
-    dctx = zstandard.ZstdDecompressor()
+    dctx = _zstd().ZstdDecompressor()
     while True:
         b = read_batch(fp, schema, dctx=dctx, device=device)
         if b is None:

@@ -175,13 +175,16 @@ _DECLARATIONS: Tuple[Knob, ...] = (
              "join (Spark autoBroadcastJoinThreshold analog; 0 "
              "disables)."),
     Knob("enable_compile_canonicalization", True,
-         doc="Compile-service shape canonicalization: above "
-             "canonical_pow2_limit, power-of-two capacity buckets "
-             "collapse onto power-of-four rungs, halving the large end "
-             "of the compiled-program shape space."),
+         doc="Compile-service shape canonicalization (the JAX package's: "
+             "above canonical_pow2_limit, power-of-two capacity buckets "
+             "collapse onto power-of-four rungs). Inert in the port: "
+             "compile_service.canonical_capacity and "
+             "canonical_batch_count read it, but no batch is padded, "
+             "because an eager program has no per-shape compile."),
     Knob("canonical_pow2_limit", 1 << 14,
          doc="Capacity above which canonicalization switches to "
-             "power-of-four rungs."),
+             "power-of-four rungs (read by "
+             "compile_service.canonical_capacity; inert in the port)."),
     Knob("profiler_dir", "", env="BLAZE_TPU_PROFILE_DIR",
          doc="JAX profiler trace output dir ('' disables) — consumed by "
              "trace.profiled_span (jax.profiler TensorBoard captures "

@@ -6,7 +6,8 @@ library under `build/` (listed in .gitignore) and loaded with `ctypes`.
 Nothing is downloaded; the CUDA toolkit's `nvcc` is found through
 `$CUDA_HOME`, `/usr/local/cuda` or `$PATH`. The library's file name carries
 a hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.
+library is never loaded. Each build, and each library found already built,
+is reported to the compile service (runtime/compile_service.note_build).
 """
 
 from __future__ import annotations
@@ -65,11 +66,14 @@ def _lib_path(name: str) -> Path:
 def build_all(names: List[str]) -> Dict[str, Path]:
     """Compile every missing library, one nvcc process per source, all
     started together. Returns name -> library path."""
+    from blaze_tpu_torch.runtime import compile_service
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
+            compile_service.note_build(name, None)
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -81,8 +85,10 @@ def build_all(names: List[str]) -> Dict[str, Path]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+        seconds = time.perf_counter() - t0
+        compile_service.note_build(name, int(seconds * 1e9))
         BUILD_INFO[name] = {
-            "seconds": time.perf_counter() - t0,
+            "seconds": seconds,
             "ptxas": [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "entry function" in ln]}

@@ -123,13 +123,21 @@ def count_stream(op: Operator, stream: BatchStream) -> BatchStream:
     store's per-operator row tap (conf.history_dir,
     runtime/history.observe_rows) and live progress
     (conf.progress_enabled, runtime/progress.on_batch); off, each costs
-    one truthiness check. With all three off the row count stays a
-    device tensor until someone reads the metric, so the stream never
+    one truthiness check. With conf.enable_input_batch_statistics (the
+    reference's batch_statisitcs module) every batch also records its
+    device bytes (`stat_bytes`, from capacities and dtypes, no pull) and
+    the largest batch's rows (`stat_max_batch_rows`): each operator's
+    output stream is its parent's input stream, so one output-side hook
+    covers the plan. With the taps and statistics off the row count stays
+    a device tensor until someone reads the metric, so the stream never
     waits on the card; with any on, each batch's count is read once and
-    shared by the taps."""
+    shared."""
     from blaze_tpu_torch.config import conf
     from blaze_tpu_torch.runtime import faults, trace
 
+    stats = conf.enable_input_batch_statistics
+    if stats:
+        from blaze_tpu_torch.runtime.memory import batch_nbytes
     if conf.history_dir:
         from blaze_tpu_torch.runtime import history
     else:
@@ -145,14 +153,17 @@ def count_stream(op: Operator, stream: BatchStream) -> BatchStream:
             if conf.fault_injection_spec:
                 faults.inject(fault_point)
             if conf.trace_enabled or history is not None \
-                    or progress is not None:
-                n = int(to_host(batch.num_rows))  # one pull, three taps
+                    or progress is not None or stats:
+                n = int(to_host(batch.num_rows))  # one pull, every tap
                 if conf.trace_enabled:
                     trace.on_batch(op, n)
                 if history is not None:
                     history.observe_rows(op, n)
                 if progress is not None:
                     progress.on_batch(op, n)
+                if stats:
+                    op.metrics.add("stat_bytes", batch_nbytes(batch))
+                    op.metrics.set_max("stat_max_batch_rows", n)
                 counted += n
             else:
                 rows.append(batch.num_rows)

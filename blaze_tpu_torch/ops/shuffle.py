@@ -21,8 +21,10 @@ The writer hands each pulled batch to a `pipeline.Sink`, whose one I/O
 worker cuts and compresses the frames while the device partitions the
 next batch; the reader decodes frames ahead through `pipeline.prefetch`
 (runtime/pipeline.py). Both run inline with conf.enable_pipeline off, and
-the bytes are the same either way. Left out: the C++ map-output writer of
-the JAX package (native/, which writes the same bytes). FfiReaderExec
+the bytes are the same either way. Where the native library loads
+(blaze_tpu_torch/native), the map output goes through its C++ writer
+(bn_shuffle_*), as in the JAX package, which writes the same bytes; the
+writer's metric `shuffle_writer_native` says which ran. FfiReaderExec
 takes pyarrow RecordBatches through columnar/arrow_io.py.
 """
 
@@ -39,6 +41,7 @@ from typing import Callable, Iterator, List
 import numpy as np
 import torch
 
+from blaze_tpu_torch import native
 from blaze_tpu_torch.columnar import serde
 from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.columnar.types import Schema
@@ -199,7 +202,9 @@ class ShuffleWriterExec(Operator):
 
         P = self.partitioning.num_partitions
         rep = _Repartitioner(self.partitioning, self.schema, ctx)
-        state = _WriterBuffers(P, M.get_manager(ctx))
+        state = _make_writer_state(P, M.get_manager(ctx))
+        self.metrics.add("shuffle_writer_native",
+                         int(isinstance(state, _NativeWriterState)))
 
         def write_out(job):
             # the pool-side half of the map task: cut the partition-sorted
@@ -250,6 +255,59 @@ class ShuffleWriterExec(Operator):
                 sink.abort()
             state.close()
         return iter(())
+
+
+def _make_writer_state(num_partitions: int, manager: M.MemManager):
+    """The map-output writer: the C++ bn_shuffle_* writer when the native
+    library loads, else the Python buffers. Both are MemConsumers and write
+    byte-identical files. Unlike the JAX package, a native writer that
+    fails to start raises instead of quietly falling back."""
+    if native.available():
+        return _NativeWriterState(num_partitions, manager)
+    return _WriterBuffers(num_partitions, manager)
+
+
+class _NativeWriterState(M.MemConsumer):
+    """MemConsumer adapter over native.NativeShuffleWriter. Its mem_used
+    after close is 0 (the binding's lock orders it against the free), so a
+    MemManager summing consumers from another thread is safe."""
+
+    name = "shuffle_writer"
+
+    def __init__(self, num_partitions: int, manager: M.MemManager) -> None:
+        os.makedirs(conf.spill_dir, exist_ok=True)
+        self._w = native.NativeShuffleWriter(
+            num_partitions, spill_dir=conf.spill_dir,
+            mem_budget=1 << 62)  # the MemManager drives spilling, not C++
+        self.manager = manager
+        self.spill_chunks = 0
+        manager.register(self)
+
+    def mem_used(self) -> int:
+        return self._w.mem_used()
+
+    def spill(self) -> int:
+        before = self.mem_used()
+        if before == 0:
+            return 0
+        self._w.spill()
+        self.spill_chunks += 1
+        return before - self.mem_used()
+
+    def push(self, p: int, frame: bytes) -> None:
+        if conf.monitor_enabled:
+            monitor.count_copy("shuffle", len(frame))
+        # op_lock: serialize against a host-driven release()
+        with self.manager.op_lock:
+            self._w.push(p, frame)
+            self.manager.update_mem_used(self)
+
+    def commit(self, data_path: str, index_path: str) -> List[int]:
+        return self._w.commit(data_path, index_path)
+
+    def close(self) -> None:
+        self.manager.unregister(self)
+        self._w.close()
 
 
 class _WriterBuffers(M.MemConsumer):

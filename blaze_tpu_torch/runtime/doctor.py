@@ -3,9 +3,10 @@ diagnosis over the run ledger and exported traces.
 
 Port of blaze_tpu/runtime/doctor.py, whole: pure functions of the
 records, so the same ledger line gives the same breakdown and findings
-in both packages. The port has no compile service yet (ROADMAP Queue 1,
-item 4): no run_info carries `compile_ms`, so the `compile` term reads 0
-and compile_storm never fires on the port's own records. On the card a
+in both packages, but for compile_storm's wording: the port's `compile`
+term is the library builds of runtime/compile_service.py (the nvcc
+kernel build and the g++ native build) that fell inside the query, and
+its hint names the port's pre-warm. On the card a
 fused chain's `device_compute` is its host dispatch time (kernels launch
 asynchronously), so device work that outlasts its launch surfaces in the
 term of the next host sync: serde_encode, a host pull, or residual.
@@ -75,7 +76,7 @@ __all__ = ["Finding", "TERMS", "compute_critical_path", "diagnose",
 TERMS = (
     "admission_wait",     # service: parked in the admission waiting room
     "sched_queue",        # FairScheduler: submitted -> dispatched
-    "compile",            # compile_service: XLA compile time
+    "compile",            # compile_service: library build time
     "device_compute",     # executor: jit-safe fused-chain batch time
     "host_compute",       # executor: host-path fused-chain batch time
     "serde_encode",       # columnar/serde: encode (compress + frame)
@@ -496,11 +497,12 @@ def diagnose(record: dict,
             _share(cp, "compile") >= _MIN_TERM_SHARE and misses > hits:
         findings.append(Finding(
             "compile_storm", _share(cp, "compile"),
-            f"XLA compile took {_term_ms(cp, 'compile'):.0f}ms with "
+            f"compile took {_term_ms(cp, 'compile'):.0f}ms with "
             f"{misses} cache miss(es) vs {hits} hit(s)",
-            "pre-warm the persistent compile cache (`make warm`) and "
-            "keep conf.enable_compile_canonicalization on so capacity "
-            "buckets collapse onto fewer compiled shapes",
+            "build the kernel and native libraries before traffic "
+            "(`python -m blaze_tpu_torch.runtime.compile_service --warm`); "
+            "a library found on disk under its source hash is not "
+            "rebuilt",
             {"compile_ms": _r(_term_ms(cp, "compile")),
              "compile_cache_misses": misses, "compile_cache_hits": hits}))
 

@@ -8,8 +8,9 @@ degrade / fallback ladder every supervised task runs under
 (runtime/supervisor.py), whose retries and rungs also land on the live
 progress waterfall (runtime/progress.py). Maximal
 chains of map-like operators run as one composed per-batch function,
-eagerly on the batch's device (PyTorch has no compiled-program cache to
-keep small, so there is no jit cache here). `collect` first tries the
+eagerly on the batch's device; the composed function is built once per
+plan and batch shape and reused across tasks (runtime/jit_cache.py, the
+JAX module's key). `collect` first tries the
 whole-stage path of runtime/stage_compiler.py (the dense grouped
 aggregation, the agg-less chain stage); anything else streams, and a
 stream of several batches concatenates into one (ops/common.py). Each
@@ -278,23 +279,34 @@ def execute_fused(op: MapLikeOp, ctx: ExecContext) -> BatchStream:
     one per-batch function (one CSE scope per operator)."""
     from blaze_tpu_torch.config import conf
     from blaze_tpu_torch.exprs.compiler import cse_scope
-    from blaze_tpu_torch.runtime import monitor
+    from blaze_tpu_torch.runtime import jit_cache, monitor
 
-    _, source, chain = _fused_chain(op)
-    fns = [c.make_batch_fn() for c in chain]
+    top, source, chain = _fused_chain(op)
     # a chain with a host-evaluated expression (digests, JSON, UDFs:
     # Operator.jit_safe) bills host_compute, any other device_compute
-    category = ("device_compute" if all(c.jit_safe() for c in chain)
-                else "host_compute")
+    jit = all(c.jit_safe() for c in chain)
+    category = "device_compute" if jit else "host_compute"
+    key = ("fused", jit, top.plan_key())
+
+    def make():
+        fns = [c.make_batch_fn() for c in chain]
+
+        def fused(batch: ColumnBatch) -> ColumnBatch:
+            for fn in fns:
+                with cse_scope():
+                    batch = fn(batch)
+            return batch
+
+        return fused
 
     def gen():
         for batch in source.execute(ctx):
             ctx.check_running()
+            fused = jit_cache.get_or_compile(key + batch.shape_key(), make,
+                                             jit=jit)
             t0 = time.perf_counter_ns()
             with op.metrics.timer():
-                for fn in fns:
-                    with cse_scope():
-                        batch = fn(batch)
+                batch = fused(batch)
             if conf.monitor_enabled:
                 # the dispatch's host wall time: kernels launch
                 # asynchronously, so on the card this is enqueue time
@@ -375,11 +387,11 @@ def collect_arrow(root: Operator, ctx: Optional[ExecContext] = None):
 
 def metric_tree(root: Operator) -> MetricNode:
     """The operator tree's metrics as a MetricNode, with the process-wide
-    resilience counters riding along as an extra child (no handler of its
-    own). The JAX module's compile-service child comes with that module
-    (ROADMAP Queue 1, item 4)."""
-    from blaze_tpu_torch.runtime import faults
+    compile-service and resilience counters riding along as extra children
+    (no handler of their own)."""
+    from blaze_tpu_torch.runtime import compile_service, faults
 
     node = MetricNode.from_operator(root)
-    node.children = list(node.children) + [faults.telemetry_node()]
+    node.children = list(node.children) + [compile_service.telemetry_node(),
+                                           faults.telemetry_node()]
     return node

@@ -46,9 +46,10 @@ and MetricsServer on conf.metrics_port (GET /metrics, /healthz, /queries),
 which read the service, the executor pool, the autoscaler, the standby,
 the autopilot and the streams at call time. `begin_query` starts the
 sampling profiler (runtime/profiler.py) under conf.profile_enabled, as the
-JAX module's does. The port has no compile service: the roll-up has no
-compile_* keys, and the sampler's compile_* gauges and the blaze_compile_*
-series read 0, as the JAX module's do before its first compile.
+JAX module's does. The compile_* roll-up keys, the sampler's compile_*
+gauges and the blaze_compile_* series read runtime/compile_service.py's
+counters: the port's library builds and per-plan cache events, and the
+stage compiler's attempts and completed stages.
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ class _QueryAcct:
     """Per-query accumulator (popped at query_end into the roll-up)."""
 
     __slots__ = ("qid", "copied", "moved", "stage_copied", "stage_moved",
-                 "t0", "spilled0", "spill_count0", "time_ns",
+                 "t0", "spilled0", "spill_count0", "compile0", "time_ns",
                  "stage_time_ns", "zc0")
 
     def __init__(self, qid: str) -> None:
@@ -107,6 +108,7 @@ class _QueryAcct:
         self.t0 = time.time()
         self.spilled0 = 0
         self.spill_count0 = 0
+        self.compile0: Dict[str, int] = {}
         # wall ns per time category, query-level and per stage
         self.time_ns: Dict[str, int] = {}
         self.stage_time_ns: Dict[Any, Dict[str, int]] = {}
@@ -271,6 +273,7 @@ def begin_query(qid: str, manager=None) -> None:
         manager.reset_peak()
         acct.spilled0 = manager.spilled_bytes
         acct.spill_count0 = manager.spill_count
+    acct.compile0 = _compile_snapshot()
     with _lock:
         _queries[qid] = acct
         _active_qid = qid
@@ -394,6 +397,12 @@ def query_end(qid: str, manager=None) -> Dict[str, Any]:
                                      manager.peak_used)
         roll["spill_bytes"] = manager.spilled_bytes - acct.spilled0
         roll["spill_count"] = manager.spill_count - acct.spill_count0
+    comp = _compile_snapshot()
+    roll["compile_ms"] = round(
+        (comp.get("compile_ns", 0)
+         - acct.compile0.get("compile_ns", 0)) / 1e6)
+    for k in ("cache_hits", "cache_misses", "compile_count"):
+        roll[f"compile_{k}"] = comp.get(k, 0) - acct.compile0.get(k, 0)
     for cat, ns in acct.time_ns.items():
         roll[f"{cat}_ms"] = round(ns / 1e6, 3)
     return roll
@@ -477,17 +486,10 @@ def query_time_breakdown(qid: str) -> Dict[str, float]:
                 for cat, ns in sorted(q.time_ns.items())}
 
 
-# The compile service (the JAX module's XLA compile cache) is not ported:
-# its counters read 0 here, what the JAX module's read before its first
-# compile (the sampler's compile_* gauges, the blaze_compile_* series).
-_COMPILE_COUNTERS = ("compile_count", "compile_ns", "cache_hits",
-                     "cache_misses", "canonicalization_waste_rows",
-                     "stage_attempts", "stage_compiled",
-                     "whole_stage_coverage_pct")
-
-
 def _compile_snapshot() -> Dict[str, int]:
-    return dict.fromkeys(_COMPILE_COUNTERS, 0)
+    from blaze_tpu_torch.runtime import compile_service
+
+    return compile_service.TELEMETRY.snapshot()
 
 
 class ResourceMonitor:
@@ -673,7 +675,7 @@ GAUGE_NAMES = (
 GAUGE_PREFIXES = (
     "blaze_pipeline_",  # pipeline.TELEMETRY counters
     "blaze_faults_",    # faults.TELEMETRY counters
-    "blaze_compile_",   # compile-service counters (all 0)
+    "blaze_compile_",   # compile_service.TELEMETRY counters
     "blaze_hist_",      # trace histogram summaries
 )
 

@@ -33,6 +33,14 @@ An agg-less `source -> (filter|project|rename)+` stage runs as one chain
 stage (`_run_chain_stage`): the chain over every batch with filters as
 masks, and all surviving rows compacted into ONE output batch.
 
+The probe, the dense pass and the chain stage are built once per plan
+and batch shape and reused across tasks through runtime/jit_cache.py,
+under the JAX module's keys; each attempt and each completed stage is
+counted in the compile service's stage_attempts / stage_compiled
+(runtime/compile_service.py). With conf.enable_input_batch_statistics a
+stage that runs here records no per-batch statistics (it has no batch
+stream) and warns once, as the JAX module does.
+
 With conf.trace_enabled every attempt, dense group count and fallback is
 a trace event (whole_stage_attempt, whole_stage_groups,
 whole_stage_fallback) carrying the root operator's fingerprint, as in
@@ -63,7 +71,7 @@ from blaze_tpu_torch.ops.agg import (
     AggExec, AggMode, result_field, state_fields,
 )
 from blaze_tpu_torch.ops.base import ExecContext, MapLikeOp, Operator
-from blaze_tpu_torch.runtime import trace
+from blaze_tpu_torch.runtime import compile_service, jit_cache, trace
 from blaze_tpu_torch.runtime.metrics import to_host
 
 _GROUP_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
@@ -82,6 +90,22 @@ _MM_VALUE_KINDS = (TypeKind.INT8, TypeKind.INT16, TypeKind.INT32,
 # (plan, batch shape) -> (spans, kmins, scales) of the last probe
 _R_MEMO: dict = {}
 _BIG = 2 ** 62
+_stats_warned = False
+
+
+def _warn_stats_once() -> None:
+    """Per-batch statistics hook into the streaming path's count_stream; a
+    whole-stage run has no batch stream. Called only when a stage did run
+    here, so plans that never match the pattern raise no false alarm."""
+    global _stats_warned
+    if conf.enable_input_batch_statistics and not _stats_warned:
+        _stats_warned = True
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "enable_input_batch_statistics records nothing for "
+            "whole-stage-compiled stages (single dispatch, no batch "
+            "stream); disable the stage compiler to collect stats")
 
 
 def _walk_chain(node: Operator):
@@ -247,6 +271,7 @@ def try_run_stage(root: Operator, ctx: ExecContext,
         from blaze_tpu_torch.runtime import faults
 
         faults.inject("op." + type(root).__name__)
+    compile_service.note_stage_attempt()
     trace.event("whole_stage_attempt", op_kind=type(root).__name__,
                 fingerprint=_stage_fp(root))
     m = _match(root)
@@ -270,12 +295,11 @@ def try_run_stage(root: Operator, ctx: ExecContext,
     if any(b.shape_key() != shape0 for b in batches[1:]):
         return _fallback(root, batches, source, ctx)
 
-    steps = _build_steps(chain)
     input_fns = [fns[0] for fns in partial._input_fns]
     # validity presence and value dtypes of each aggregate input decide the
     # plane layout and the carriers; read them off a data-free twin of the
     # first batch
-    mb, _ = _apply_steps(steps, _meta_like(batches[0]))
+    mb, _ = _apply_steps(_build_steps(chain), _meta_like(batches[0]))
     sum_is_float, has_validity, val_dtypes = [], [], []
     for i, call in enumerate(partial.aggs):
         col = input_fns[i](mb)
@@ -288,19 +312,41 @@ def try_run_stage(root: Operator, ctx: ExecContext,
         val_dtypes.append(vdt)
     float_calls = [i for i, f in enumerate(sum_is_float) if f]
 
+    group_fns = list(partial._group_fns)
+    calls = list(partial.aggs)
+    schema = (final or partial).schema
+    is_final = final is not None
+
+    # the cached callables hold the plan's compiled functions and statics,
+    # never an operator (whose source may hold a task's batches)
+    def make_probe():
+        steps = _build_steps(chain)
+        return lambda bs: _probe(bs, steps, group_fns, input_fns,
+                                 float_calls)
+
+    def make_dense(spans, kmins, scales):
+        steps = _build_steps(chain)
+        return lambda bs: _run_dense(
+            bs, steps, group_fns, calls, schema, is_final, input_fns,
+            gdtypes, sum_is_float, has_validity, val_dtypes, spans, kmins,
+            scales)
+
     memo_key = (root.plan_key(), shape0)
     out = None
     nrows = 0
     for _attempt in (0, 1):
         memo = _R_MEMO.get(memo_key)
         if memo is None:
-            memo = _probe(batches, steps, partial, input_fns, float_calls)
+            memo = jit_cache.get_or_compile(
+                ("stage_probe", root.plan_key(), shape0, len(batches)),
+                make_probe)(batches)
             if memo is None:  # null keys or a range beyond dense_agg_range
                 return _fallback(root, batches, source, ctx)
             _R_MEMO[memo_key] = memo
-        out, flags = _run_dense(batches, steps, final, partial, input_fns,
-                                gdtypes, sum_is_float, has_validity,
-                                val_dtypes, *memo)
+        key = ("stage", root.plan_key(), shape0, len(batches), *memo,
+               mxu_agg.f64_chunks())
+        out, flags = jit_cache.get_or_compile(
+            key, lambda: make_dense(*memo))(batches)
         flags = to_host(flags)  # the stage's one result-side host pull
         nrows = int(flags[1])
         if not bool(flags[0]):
@@ -312,10 +358,12 @@ def try_run_stage(root: Operator, ctx: ExecContext,
         out = None
     if out is None:
         return _fallback(root, batches, source, ctx)
+    _warn_stats_once()
     for op in filter(None, (final, partial, *chain)):
         op.metrics.add("output_batches", 1)
     root.metrics.add("output_rows", nrows)
     root.metrics.add("stage_compiled", 1)
+    compile_service.note_stage_compiled()
     # observed groupby cardinality: the dense path knows the exact group
     # count from the flags it already pulled
     _note_stage_stats(root, nrows, dense=True)
@@ -345,7 +393,30 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
     if any(b.shape_key() != shape0 for b in batches[1:]):
         return _fallback(root, batches, source, ctx)
 
-    steps = _build_steps(chain)
+    schema = root.schema
+
+    def make():
+        steps = _build_steps(chain)
+        return lambda bs: _chain_program(bs, steps, schema)
+
+    out = jit_cache.get_or_compile(
+        ("stage_chain", root.plan_key(), shape0, len(batches)),
+        make)(batches)
+    _warn_stats_once()
+    for op in chain:
+        op.metrics.add("output_batches", 1)
+    n = int(to_host(out.num_rows))
+    root.metrics.add("output_rows", n)
+    root.metrics.add("stage_compiled", 1)
+    compile_service.note_stage_compiled()
+    # chain stages have no group key: record output cardinality only
+    _note_stage_stats(root, None, dense=True, rows=n)
+    return out
+
+
+def _chain_program(batches, steps, schema) -> ColumnBatch:
+    """The chain over every batch, filters as masks, and the surviving rows
+    of all batches compacted into one batch."""
     outs, masks = [], []
     for b in batches:
         ob, mask = _apply_steps(steps, b)
@@ -353,7 +424,7 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
         masks.append(mask)
     cap = len(batches) * batches[0].capacity
     cols = []
-    for i, f in enumerate(root.schema.fields):
+    for i, f in enumerate(schema.fields):
         parts = [ob.columns[i] for ob in outs]
         valid = None
         if any(p.validity is not None for p in parts):
@@ -373,18 +444,10 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
         else:
             data = torch.cat([p.data for p in parts])
         cols.append(Column(f.dtype, data, valid))
-    flat = ColumnBatch(root.schema, cols,
+    flat = ColumnBatch(schema, cols,
                        torch.tensor(cap, dtype=torch.int32,
                                     device=batches[0].device), cap)
-    out = flat.compact(torch.cat(masks))
-    for op in chain:
-        op.metrics.add("output_batches", 1)
-    n = int(to_host(out.num_rows))
-    root.metrics.add("output_rows", n)
-    root.metrics.add("stage_compiled", 1)
-    # chain stages have no group key: record output cardinality only
-    _note_stage_stats(root, None, dense=True, rows=n)
-    return out
+    return flat.compact(torch.cat(masks))
 
 
 def _stage_fp(root: Operator):
@@ -416,7 +479,7 @@ def _note_stage_stats(root: Operator, groups, dense: bool,
             history.observe_rows(root, int(n))
 
 
-def _probe(batches, steps, partial, input_fns, float_calls):
+def _probe(batches, steps, group_fns, input_fns, float_calls):
     """Pass 1: per-key min/max + null check + per-float-agg abs-max. Picks
     the smallest power-of-two dense span per key that covers the observed
     keys (composite keys pack into one index k = sum_i (k_i - min_i) *
@@ -424,7 +487,7 @@ def _probe(batches, steps, partial, input_fns, float_calls):
     accumulation's carry stays integer. None when keys are null or the
     packed range exceeds conf.dense_agg_range."""
     dev = batches[0].device
-    nkeys = len(partial.group_exprs)
+    nkeys = len(group_fns)
     big = torch.tensor(_BIG, dtype=torch.int64, device=dev)
     kmins, kmaxs = [big] * nkeys, [-big] * nkeys
     vmaxs = [torch.zeros((), dtype=torch.float64, device=dev)] * len(
@@ -432,7 +495,7 @@ def _probe(batches, steps, partial, input_fns, float_calls):
     bad = torch.zeros((), dtype=torch.bool, device=dev)
     for b in batches:
         b, mask = _apply_steps(steps, b)
-        for i, gfn in enumerate(partial._group_fns):
+        for i, gfn in enumerate(group_fns):
             g = gfn(b)
             gv = g.valid_mask()
             bad = bad | (mask & ~gv).any()
@@ -607,14 +670,15 @@ def _carrier_columns(carry: dict, i: int, call, has: torch.Tensor,
             Column(T.BOOLEAN, _pad(fok, cap), None)]
 
 
-def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
-               sum_is_float, has_validity, val_dtypes, spans, kmins, scales):
+def _run_dense(batches, steps, group_fns, calls, schema, is_final,
+               input_fns, gdtypes, sum_is_float, has_validity, val_dtypes,
+               spans, kmins, scales):
     """Pass 2: accumulate every batch into the digit-plane carry and the
     min/max/first carriers, then recombine once and assemble the output
-    batch. Returns (batch, flags) with flags = [oob, num_rows] as one
+    batch: finalized values when `is_final`, else the partial's state
+    columns. Returns (batch, flags) with flags = [oob, num_rows] as one
     int32 tensor."""
     dev = batches[0].device
-    calls = partial.aggs
     R = 1
     for sp in spans:
         R *= sp
@@ -662,7 +726,7 @@ def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
         inb = live
         keys_valid = live
         null_key = torch.zeros((), dtype=torch.bool, device=dev)
-        for i, gfn in enumerate(partial._group_fns):
+        for i, gfn in enumerate(group_fns):
             g = gfn(b)
             gv = g.valid_mask()
             keys_valid = keys_valid & gv
@@ -710,7 +774,6 @@ def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
     pres = outs[0]
     cap = bucket_capacity(R)
     present = pres > 0
-    schema = (final or partial).schema
     slot = torch.arange(R, dtype=torch.int64, device=dev)
     cols = []
     for i, gdtype in enumerate(gdtypes):
@@ -727,10 +790,10 @@ def _run_dense(batches, steps, final, partial, input_fns, gdtypes,
             cols.append(Column(T.INT64, _pad(cnt, cap), None))
             continue
         if call.fn in _MM_FNS + _FIRST_FNS:
-            cols.extend(_carrier_columns(carry, i, call, has,
-                                         final is not None, cap))
+            cols.extend(_carrier_columns(carry, i, call, has, is_final,
+                                         cap))
             continue
-        if final is not None:
+        if is_final:
             if call.fn == "avg":
                 if call.dtype.kind == TypeKind.DECIMAL:
                     # decimal avg: unscaled floor-div at the result scale

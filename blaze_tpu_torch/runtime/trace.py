@@ -42,9 +42,9 @@ no-op context manager and event() returns after one truthiness check.
 `profiled_span` captures the device timeline with torch.profiler under
 `conf.profiler_dir`. While the autoscaler (runtime/autoscaler.py) is
 active, every ledger line carries its "fleet" posture, as the JAX
-module's does. Where the JAX module reads the compile service, which the
-port does not have, the port writes what the JAX module writes while it
-is idle: no compile summary line.
+module's does. Both reports end with the compile service's summary line
+(runtime/compile_service.telemetry_summary, '' while it is idle) and the
+resilience one.
 """
 
 from __future__ import annotations
@@ -202,9 +202,9 @@ EVENT_KINDS = (
                             # (regression verdict or inconclusive)
     "batch",                # ops/base.count_stream batch boundary
     "breaker_trip",         # supervisor: per-operator circuit breaker
-    "compile_compiled",     # compile_service: fresh XLA compilation
-    "compile_hit",          # compile_service: persistent-cache hit
-    "compile_miss",         # compile_service: persistent-cache miss
+    "compile_compiled",     # compile_service: a library built
+    "compile_hit",          # compile_service: library or callable reused
+    "compile_miss",         # compile_service: library or callable built
     "capacity_changed",     # service: admission capacity recomputed on
                             # executor-pool membership change
     "control_reconnect",    # executor_pool: worker resumed its control
@@ -688,14 +688,14 @@ def metric_report(root) -> str:
             walk(c, depth + 1)
 
     walk(root, 0)
-    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.runtime import compile_service, faults
 
-    # the faults summary appends its [plan=1 retryable=2 ...] error
-    # counts; the compile service's line, '' while it is idle, comes with
-    # that module (ROADMAP Queue 1, item 4)
-    summary = faults.telemetry_summary()
-    if summary:
-        lines.append(summary)
+    # both summaries include their per-category breakdowns (the faults
+    # one appends [plan=1 retryable=2 ...] error counts, not only totals)
+    for summary in (compile_service.telemetry_summary(),
+                    faults.telemetry_summary()):
+        if summary:
+            lines.append(summary)
     return "\n".join(lines)
 
 
@@ -873,13 +873,12 @@ def explain_analyze(root, run_info: Optional[dict] = None,
                 lines.append(f"  {h['frame']:<48} {h['samples']:>6} "
                              f"samples  {h['pct']:>5.1f}%")
 
-    from blaze_tpu_torch.runtime import faults
+    from blaze_tpu_torch.runtime import compile_service, faults
 
-    # no compile-service summary: it comes with that module (ROADMAP
-    # Queue 1, item 4)
-    summary = faults.telemetry_summary()
-    if summary:
-        lines.append(summary)
+    for summary in (compile_service.telemetry_summary(),
+                    faults.telemetry_summary()):
+        if summary:
+            lines.append(summary)
     if run_info:
         shown = ", ".join(f"{k}={v}" for k, v in sorted(run_info.items())
                           if not isinstance(v, (dict, list)))

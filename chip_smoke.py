@@ -6,6 +6,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
 
   1. card       nvidia-smi name + power limit, torch and CUDA versions
   2. build      compiles every kernel of the path from blaze_tpu_torch/csrc/
+                (nvcc), then the native library (g++, phase 25)
   3. kernel     the digit-plane accumulate kernel chain at the main path's
                 shape (2^21 rows, 2^16 groups, 7 planes, 3 words), adding
                 into an int64 carry, held to its plain torch version with
@@ -162,10 +163,9 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 phase 15's rows, q02 with phase 15's launch count, no
                 task retried, degraded or rerouted; each stage's time
                 beside phase 15's inline route, the pipeline's streams
-                (none left open) and peak device memory. Then both once
-                more with the trace on, labelled "traced" (its on_batch
-                reads every batch's row count to the host). Then the
-                resilience ladder, its faults seeded
+                (none left open) and peak device memory (their traced
+                twins were cut for the time limit: phase 22 runs them
+                traced). Then the resilience ladder, its faults seeded
                 from --seed, on q09 (and q02 over one file a fact table,
                 SMJ): a retryable fault at serde.encode is retried; an
                 oom at every IpcReaderExec batch walks the ladder's three
@@ -199,14 +199,15 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 defaults: trace export, the history store, live
                 progress, the flight recorder and the sampling profiler
                 (with its export) all on, their files under the work
-                dir. q02 and q04 twice each, every run against numpy and
+                dir. q02 and q04 once each (their second runs were cut
+                for the time limit), every run against numpy and
                 runner_tpcds's rows, q02 with its 48 launches; each
                 run's time beside runner_mesh's "auto" run, its host
                 pulls, trace records and the profiler's duty. The files
-                must load back: 4 ledger lines whose critical paths add
-                up to their durations, a trace per query, 4 history
-                records whose second runs repeat the first runs' stage
-                fingerprints, detect_regressions, the doctor's findings
+                must load back: 2 ledger lines whose critical paths add
+                up to their durations, a trace per query, 2 history
+                records with their stage fingerprints,
+                detect_regressions, the doctor's findings
                 over the export dir (printed), and each query's
                 collapsed and speedscope profiles attributed to it. q04
                 is read live from a second thread (snapshot_query): its
@@ -259,18 +260,48 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 launches and time printed. Then q02 twice with the
                 autopilot on, the second under a stored overlay
 
+ 25. runner_native  the C ABI a Spark executor calls, through the port's
+                native library (phase 2 builds it with g++ from native/'s
+                C++ sources and the port's csrc/task_runtime.cpp and
+                csrc/zstd_codec.cpp; where the card's host has no wheel
+                of `zstandard`, every frame of the run is zstd through
+                its libzstd): the card's name and power limit, the
+                library's build seconds and the serde's codec; the main
+                path's q06 TaskDefinition bytes and provider through
+                native.call_native (bn_call into
+                runtime/native_entry.py on the card: 64 launches, as
+                collect_fetch's, the result frames against the numpy
+                oracle) and native.call_arrow (the Arrow C stream read
+                by pyarrow, against the same oracle); shuffle_q06's map
+                stage on the C++ writer (_NativeWriterState) and on the
+                Python writer and encoder, 64 launches each, their
+                .data/.index files byte-identical and every partition
+                read back the same; a kill requested through
+                bn_request_kill during a call_native, arriving as
+                category 5 and then cleared. Then the compile service:
+                compile_count equal to the libraries this process built
+                (2 on a fresh build directory), the stage counters of one
+                run_plan q02 (inline route) in task_scope equal to the CPU
+                rehearsal's (Q02_STAGE_COUNTS), and `python -m
+                blaze_tpu_torch.runtime.compile_service --warm
+                --skip-catalogue` exiting 0. Where the library cannot
+                build (no g++ or libzstd), the phase prints
+                "native": "unavailable" with the compiler's error and
+                runs the compile-service steps only
+
 Phases 4-14 build every TaskDefinition as bytes and decode it with
 decode_task_definition; phases 15-24 have run_plan convert and decode
 them.
 Counts (kernel launches, host pulls) are set to 0 just before each path
 runs and read just after. Every phase prints one JSON line. Then come the
-kernels line, the card's `nvidia-smi` line, and last
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
-before the last line.
+native library's line, the kernels line, the card's `nvidia-smi` line,
+and last `{"ok": true, "device": {...}}`. Any failure raises and exits
+non-zero before the last line.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -281,7 +312,7 @@ import time
 import numpy as np
 import torch
 
-from blaze_tpu_torch import kernels
+from blaze_tpu_torch import kernels, native
 from blaze_tpu_torch.columnar import serde
 from blaze_tpu_torch.columnar import types as T
 from blaze_tpu_torch.columnar.batch import Column, ColumnBatch
@@ -833,12 +864,17 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """The CUDA kernels (nvcc), then the native library (g++): built before
+    the first frame, so every frame of the run goes through one codec."""
     t0 = time.perf_counter()
     kernels.build_all(sorted(kernels.SIGNATURES))
     for name in sorted(kernels.SIGNATURES):
         kernels.load(name)
+    native.available()
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
-           "kernels": kernels.BUILD_INFO})
+           "kernels": kernels.BUILD_INFO,
+           "native": native.BUILD_INFO or {"error": native.build_error()},
+           "serde_codec": serde.codec()})
 
 
 def _time_case(keys, valid, words, recipe, rng) -> dict:
@@ -964,7 +1000,8 @@ def phase_main_path(kernel: dict) -> dict:
     setup_s = time.perf_counter() - t0
 
     rid = resources.register(lambda: iter(batches))
-    plan, _ = decode_task_definition(_build_task(SCHEMA_PB, rid))
+    task = _build_task(SCHEMA_PB, rid)
+    plan, _ = decode_task_definition(task)
 
     # the run whose launches count and whose result is checked in full
     _reset_counts()
@@ -999,7 +1036,7 @@ def phase_main_path(kernel: dict) -> dict:
            "max_abs_err_sum": float(np.max(np.abs(
                sums - ref["sum_amount"][nz])))})
     return {"launches": launches, "chain": chain, "plan": plan,
-            "rep_s": med, "datas": datas, "batches": batches}
+            "task": task, "rep_s": med, "datas": datas, "batches": batches}
 
 
 def phase_profile(plan, rep_s: float) -> None:
@@ -4188,8 +4225,7 @@ def _resilience_runs(paths, orc, work_dir, runner, checks) -> dict:
 def phase_runner_resilience(paths, orc, work_dir, runner, seed) -> dict:
     """The task runtime at its defaults (see the module docstring, phase
     20): q02 and q04 through run_plan under the supervisor and the
-    pipeline, then once more with the trace on, then the resilience
-    ladder's cases."""
+    pipeline, then the resilience ladder's cases."""
     from blaze_tpu_torch.config import KNOBS
     from blaze_tpu_torch.runtime import trace
 
@@ -4210,16 +4246,8 @@ def phase_runner_resilience(paths, orc, work_dir, runner, seed) -> dict:
             res[q]["inline_peak_device_bytes"] = runner[q][
                 "peak_device_bytes"]
             res[q]["inline_host_pulls"] = runner[q]["host_pulls"]
-        # the same runs with the trace on: on_batch counts every batch's
-        # rows at every operator boundary, one host read each
-        with _knobs(trace_enabled=True):
-            traced = _resilience_runs(paths, orc, work_dir, runner, checks)
-        _require(all(run["trace_records"] > 0 for run in traced.values()),
-                 "the traced runs recorded nothing")
-        res["traced"] = {q: {k: run[k] for k in (
-            "stage_s", "wall_s", "launches", "host_pulls",
-            "peak_device_bytes", "trace_records", "trace_dropped")}
-            for q, run in traced.items()}
+        # (the traced pair, the same runs with the trace on, was cut for
+        # the time limit: runner_observability runs them traced)
         trace.reset()
         ladder = {}
         ladder["retry_serde_encode"] = _ladder_case(
@@ -4464,7 +4492,7 @@ def phase_runner_mesh(paths, orc, batches, work_dir) -> dict:
 # ---- runner_observability: exports, history, progress, dossiers, profiles ----
 
 OBS_QUERIES = ("q02", "q04")
-OBS_RUNS = 2
+OBS_RUNS = 1             # runs of each query (a second was cut for time)
 OBS_INFO = MESH_INFO + ("query_id",)
 OBS_HANG_MS = 3000           # hang_detect_ms of the stall cases
 OBS_DEADLINE_MS = 2000       # query_deadline_ms of the deadline case
@@ -5369,6 +5397,212 @@ def phase_runner_service(paths, orc, work_dir, runner) -> dict:
     return res
 
 
+# ---- runner_native: the C ABI and the compile service ----
+
+# stage counters of one run_plan of q02 (BHJ, inline route, mesh off) in
+# compile_service.task_scope, as the CPU rehearsal counts them
+# (tests/test_torch_compile_service.py holds the port's CPU run to these)
+Q02_STAGE_COUNTS = {"stage_attempts": 5, "stage_compiled": 1}
+KILL_BATCHES = 4     # batches the killed call's provider has
+
+
+def _q06_frames(payload, schema) -> tuple:
+    """(keys, sums, counts) of q06 result frames, ordered by key."""
+    hbs = list(serde.read_batches_host(io.BytesIO(payload), schema))
+    _require(bool(hbs), "call_native returned no frame")
+    d = host_to_pylike(host_concat(hbs))
+    keys, sums, cnts = (np.asarray(d[f.name]) for f in schema.fields)
+    order = np.argsort(keys, kind="stable")
+    return keys[order], sums[order].astype(np.float64), cnts[order]
+
+
+def _check_q06(keys, sums, cnts, ref, what) -> float:
+    """q06's rows against the item oracle: keys and counts exact, sums
+    rtol 1e-9; the sums' largest absolute error."""
+    nz = ref["cnt"] > 0
+    _require(len(keys) == int(nz.sum()),
+             f"{what}: {len(keys)} groups, the oracle {int(nz.sum())}")
+    np.testing.assert_array_equal(keys, np.nonzero(nz)[0])
+    np.testing.assert_array_equal(cnts, ref["cnt"][nz])
+    np.testing.assert_allclose(sums, ref["sum_amount"][nz], rtol=1e-9)
+    return float(np.max(np.abs(sums - ref["sum_amount"][nz])))
+
+
+def _native_q06(main_path, ref) -> dict:
+    """q06's main-path task through bn_call and bn_call_arrow, the same
+    TaskDefinition bytes and provider as the main path's collect_fetch."""
+    task, schema = main_path["task"], main_path["plan"].schema
+    res = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    payload = native.call_native(task)
+    res["call_native_s"] = time.perf_counter() - t0
+    res["call_native_launches"] = mxu_agg.KERNEL_LAUNCHES
+    res["call_native_bytes"] = len(payload)
+    res["call_native_max_abs_err"] = _check_q06(
+        *_q06_frames(payload, schema), ref, "call_native")
+    _reset_counts()
+    t0 = time.perf_counter()
+    table = native.call_arrow(task).read_all()
+    res["call_arrow_s"] = time.perf_counter() - t0
+    res["call_arrow_launches"] = mxu_agg.KERNEL_LAUNCHES
+    _require(table.schema.names == schema.names(),
+             f"call_arrow schema {table.schema}")
+    cols = [table.column(n).to_numpy() for n in schema.names()]
+    order = np.argsort(cols[0], kind="stable")
+    res["call_arrow_max_abs_err"] = _check_q06(
+        cols[0][order], cols[1][order].astype(np.float64), cols[2][order],
+        ref, "call_arrow")
+    for k in ("call_native_launches", "call_arrow_launches"):
+        _require(res[k] == main_path["launches"] == N_BATCHES,
+                 f"{k} {res[k]}, collect_fetch {main_path['launches']}")
+    return res
+
+
+def _native_writer_check(batches, work_dir) -> dict:
+    """shuffle_q06's map stage on the native writer, then on the Python
+    writer and encoder: one launch a batch each, the same files byte for
+    byte, every partition read back the same."""
+    runs = {}
+    for route in ("native", "python"):
+        maps, _, outputs = _shuffle_query(batches, SCHEMA_PB, work_dir,
+                                          f"native_{route}")
+        real = native.available
+        if route == "python":  # the Python writer and frame encoder
+            native.available = lambda: False
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            plans, _ = _run_map_stage(maps)
+            wall = time.perf_counter() - t0
+        finally:
+            native.available = real
+        writers = [p.metrics["shuffle_writer_native"] for p in plans]
+        _require(writers == [int(route == "native")] * MAP_TASKS,
+                 f"{route} map stage ran writers {writers}")
+        _require(mxu_agg.KERNEL_LAUNCHES == N_BATCHES,
+                 f"{route} map stage launched {mxu_agg.KERNEL_LAUNCHES}")
+        runs[route] = {"outputs": outputs, "map_s": wall,
+                       "launches": mxu_agg.KERNEL_LAUNCHES,
+                       "serde_encode_s": metrics.SERDE_NS["encode"] / 1e9,
+                       "schema": plans[0].children[0].schema}
+    identical = True
+    for (nd, ni), (pd, pi) in zip(runs["native"]["outputs"],
+                                  runs["python"]["outputs"]):
+        for a, b in ((nd, pd), (ni, pi)):
+            with open(a, "rb") as f, open(b, "rb") as g:
+                identical &= f.read() == g.read()
+    _require(identical, "the native writer's files differ from the "
+                        "Python writer's")
+    schema, rows = runs["native"]["schema"], 0
+    for part in range(SHUFFLE_PARTITIONS):
+        read = {}
+        for r in ("native", "python"):
+            hbs = [hb for d, i in runs[r]["outputs"]
+                   for hb in read_shuffle_partition_host(d, i, part, schema)]
+            read[r] = host_to_pylike(host_concat(hbs)) if hbs else {}
+        same = read["native"].keys() == read["python"].keys() and all(
+            np.array_equal(np.asarray(v), np.asarray(read["python"][k]))
+            for k, v in read["native"].items())
+        _require(same, f"partition {part} reads back differently")
+        rows += len(next(iter(read["native"].values()), ()))
+    out = {r: {k: v for k, v in run.items() if k not in ("outputs",
+                                                        "schema")}
+           for r, run in runs.items()}
+    out.update(files_identical=identical, state_rows_read=rows)
+    return out
+
+
+def _native_kill(batches) -> dict:
+    """A kill raised through bn_request_kill while bn_call runs: the
+    provider requests it after its first batch, the task notices at its
+    next check and the failed call reports category 5; then cleared."""
+    from blaze_tpu_torch.ops.base import TaskKilledError
+
+    def provide():
+        yield batches[0]
+        native.request_kill()
+        yield from batches[1:KILL_BATCHES]
+
+    rid = resources.register(provide)
+    err, category = None, None
+    try:
+        native.call_native(_build_task(SCHEMA_PB, rid))
+    except TaskKilledError as e:
+        err, category = str(e), native.last_error_category()
+    finally:
+        resources.pop(rid)
+    set_after = native.kill_requested()
+    native.clear_kill()
+    _require(err is not None and category == 5 and set_after
+             and not native.kill_requested(),
+             f"kill: error {err!r}, category {category}, flag {set_after}")
+    return {"category": category, "error": err}
+
+
+def _compile_service_checks(paths, orc, work_dir) -> dict:
+    """The compile service's totals, q02's stage counters in task_scope
+    against the CPU rehearsal's, and the --warm CLI as a subprocess."""
+    from blaze_tpu_torch.runtime import compile_service
+    from blaze_tpu_torch.runtime.metrics import MetricsSet
+
+    snap = compile_service.TELEMETRY.snapshot()
+    built = len(kernels.BUILD_INFO) + bool(native.BUILD_INFO)
+    _require(snap["compile_count"] == built,
+             f"compile_count {snap['compile_count']}, libraries built "
+             f"{built}")
+    scoped = MetricsSet()
+    scoped.reset()
+    with _knobs(enable_supervisor=False, enable_pipeline=False), \
+            compile_service.task_scope(scoped):
+        run = _runner_run("q02", paths, work_dir,
+                          lambda out: check_q02(out, orc))
+    counts = {k: scoped.values.get(k, 0) for k in Q02_STAGE_COUNTS}
+    _require(counts == Q02_STAGE_COUNTS,
+             f"q02's stage counters {counts}, the CPU rehearsal's "
+             f"{Q02_STAGE_COUNTS}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    t0 = time.perf_counter()
+    warm = subprocess.run(
+        [sys.executable, "-m", "blaze_tpu_torch.runtime.compile_service",
+         "--warm", "--skip-catalogue"], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=300)
+    _require(warm.returncode == 0,
+             f"compile_service --warm exited {warm.returncode}:\n"
+             f"{warm.stdout}\n{warm.stderr}")
+    return {"telemetry": snap, "libraries_built": built,
+            "summary": compile_service.telemetry_summary(),
+            "q02_stage_counts": counts,
+            "q02_coverage_pct": round(100 * counts["stage_compiled"]
+                                      / counts["stage_attempts"]),
+            "q02_launches": run["launches"], "q02_wall_s": run["wall_s"],
+            "warm_s": time.perf_counter() - t0,
+            "warm_out": warm.stdout.strip().splitlines()[-3:]}
+
+
+def phase_runner_native(main_path, datas, batches, paths, orc, work_dir,
+                        smi) -> dict:
+    """The C ABI a Spark executor would call, on the card (see the module
+    docstring, phase 25)."""
+    t_phase = time.perf_counter()
+    res = {"phase": "runner_native", "nvidia_smi": smi,
+           "serde_codec": serde.codec()}
+    if native.available():
+        native.init(0)  # the card: no device asked for
+        res.update(native=native.BUILD_INFO, **_native_q06(
+            main_path, _item_oracle(datas)))
+        res["writer"] = _native_writer_check(batches, work_dir)
+        res["kill"] = _native_kill(batches)
+    else:
+        res["native"] = "unavailable"
+        res["error"] = native.build_error()
+    res["compile_service"] = _compile_service_checks(paths, orc, work_dir)
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -5443,7 +5677,20 @@ def main(argv=None) -> int:
                                               mesh, args.seed)
         pooled = phase_runner_pool(paths, orc, work_dir, runner, mesh)
         served = phase_runner_service(paths, orc, work_dir, runner)
+        natived = phase_runner_native(main_path, datas, batches, paths, orc,
+                                      work_dir, smi)
     phase_wall(t0)
+    _emit({"native_library": {
+        "sources": [os.path.relpath(src, os.path.dirname(
+            os.path.abspath(__file__))) for src in native.SOURCES],
+        "available": native.available(),
+        "build": native.BUILD_INFO or {"error": native.build_error()},
+        "serde_codec": serde.codec(),
+        "launches": {k: natived[k] for k in ("call_native_launches",
+                                             "call_arrow_launches")
+                     if k in natived},
+        "compile_count": natived["compile_service"]["telemetry"][
+            "compile_count"]}})
     _emit({"kernels": [{
         "name": "mxu_accumulate", "route": "cuda",
         "source": "blaze_tpu_torch/csrc/mxu_accumulate.cu",
@@ -5476,6 +5723,11 @@ def main(argv=None) -> int:
         "runner_autopilot_q02_launches": [
             served["autopilot"][r]["kernel_launches"]
             for r in ("run1", "run2")],
+        "runner_native_launches": {
+            k: natived[k] for k in ("call_native_launches",
+                                    "call_arrow_launches") if k in natived}
+        | ({"native_writer": natived["writer"]["native"]["launches"]}
+           if "writer" in natived else {}),
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

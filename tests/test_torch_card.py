@@ -13,9 +13,11 @@ the host crossings of hostfns and the UDF wrapper, a row-interpreter
 export bridged onto the card, the task runtime: a real device OOM's
 classification and the resilience ladder under a fault spec, and the
 device-mesh exchange on one device and on four logical devices of the
-card, and the executor pool: a worker's kernel launches, its real OOM
-and its device memory after a SIGKILL) on the card against the port's
-own CPU route.
+card, the executor pool: a worker's kernel launches, its real OOM
+and its device memory after a SIGKILL, and the native library: q06
+through bn_call with its launches, the C++ shuffle writer's files against
+the Python writer's, and frames of the library's codec read back onto the
+card) on the card against the port's own CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -1754,3 +1756,86 @@ def test_sigkilled_worker_returns_its_device_memory(cuda, core_tables,
     finally:
         ep.deactivate(pool)
         pool.close()
+
+
+# ---- the native library: the C ABI, the C++ writer and the codec ----
+
+@pytest.fixture
+def card_native(cuda, tmp_path, monkeypatch):
+    """The port's binding over a private build of its library (g++ into a
+    temporary directory); native tasks run on the card."""
+    from blaze_tpu_torch import native
+    from blaze_tpu_torch.config import conf
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native_build")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_error", None)
+    monkeypatch.setattr(conf, "spill_dir", str(tmp_path / "spill"))
+    assert native.available(), native.build_error()
+    native.init(0)
+    return native
+
+
+def _q06_batches(monkeypatch, n_batches=4):
+    monkeypatch.setattr(cs, "ROWS", 1 << 12)
+    monkeypatch.setattr(cs, "GROUPS", 1 << 10)
+    datas = [cs._make_data(s) for s in range(n_batches)]
+    return datas, [ColumnBatch.from_numpy(d, cs.SCHEMA) for d in datas]
+
+
+def test_call_native_q06_on_card(card_native, monkeypatch):
+    """bench.py's q06 task through bn_call on the card: one chain launch a
+    batch, the result frames equal to the numpy oracle."""
+    datas, batches = _q06_batches(monkeypatch)
+    rid = resources.register(lambda: iter(batches))
+    task = cs._build_task(cs.SCHEMA_PB, rid)
+    schema = decode_task_definition(task)[0].schema
+    before = M.KERNEL_LAUNCHES
+    try:
+        payload = card_native.call_native(task)
+    finally:
+        resources.pop(rid)
+    assert M.KERNEL_LAUNCHES == before + len(batches)
+    cs._check_q06(*cs._q06_frames(payload, schema), cs._item_oracle(datas),
+                  "call_native")
+
+
+def test_native_writer_files_equal_python_writer_on_card(card_native,
+                                                        monkeypatch,
+                                                        tmp_path):
+    """A q06 map stage over card batches on the C++ writer and on the
+    Python writer and encoder: the same .data/.index bytes."""
+    monkeypatch.setattr(cs, "SHUFFLE_PARTITIONS", 16)
+    _, batches = _q06_batches(monkeypatch)
+    files = []
+    for route in ("native", "python"):
+        maps, _, outputs = cs._shuffle_query(batches, cs.SCHEMA_PB,
+                                             str(tmp_path), route, tasks=2)
+        if route == "python":
+            monkeypatch.setattr(card_native, "available", lambda: False)
+        before = M.KERNEL_LAUNCHES
+        plans, _ = cs._run_map_stage(maps)
+        assert M.KERNEL_LAUNCHES == before + len(batches)
+        assert [p.metrics["shuffle_writer_native"] for p in plans] == \
+            [int(route == "native")] * len(maps)
+        files.append([open(f, "rb").read() for pair in outputs
+                      for f in pair])
+    assert files[0] == files[1]
+
+
+def test_library_codec_frames_read_back_on_card(card_native, monkeypatch):
+    """With the serde on the library's codec (libzstd), a card batch's
+    frame decodes back onto the card to the same rows."""
+    from blaze_tpu_torch.columnar import serde
+
+    monkeypatch.setattr(serde, "zstandard", None)
+    monkeypatch.setattr(serde, "_CODEC", None)
+    assert serde.codec().startswith("libzstd ")
+    _, (b, *_) = _q06_batches(monkeypatch, 1)
+    frame = serde.serialize_batch(b)
+    assert frame[12:16] == b"\x28\xb5\x2f\xfd"
+    back = serde.deserialize_batch(frame, b.schema, device="cuda")
+    assert back.device.type == "cuda"
+    got, want = back.to_numpy(), b.to_numpy()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])

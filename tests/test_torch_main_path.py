@@ -342,7 +342,9 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'parallel.stage_exchange', 'runtime.history',\n"
         "        'runtime.doctor', 'runtime.progress',\n"
         "        'runtime.flight_recorder', 'runtime.profiler',\n"
-        "        'runtime.executor_pool', 'runtime.shuffle_server')}\n"
+        "        'runtime.executor_pool', 'runtime.shuffle_server',\n"
+        "        'runtime.compile_service', 'runtime.jit_cache',\n"
+        "        'runtime.native_entry', 'native')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
@@ -364,6 +366,16 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
     offenders = [p for p in srcs if pat.search(open(p).read())]
     assert offenders == []
+    # the native binding and the C++ the port adds name no module of the
+    # JAX package (the task entry calls blaze_tpu_torch's native_entry)
+    native_srcs = [os.path.join(REPO, "blaze_tpu_torch", "native",
+                                "__init__.py")] + [
+        os.path.join(REPO, "blaze_tpu_torch", "csrc", f)
+        for f in ("task_runtime.cpp", "zstd_codec.cpp")]
+    mod = re.compile(r"\bblaze_tpu\.")
+    assert [p for p in native_srcs if mod.search(open(p).read())] == []
+    assert "blaze_tpu_torch.runtime.native_entry" in open(
+        native_srcs[1]).read()
 
 
 def test_from_numpy_without_cuda_raises():

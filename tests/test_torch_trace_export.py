@@ -18,9 +18,9 @@ CPU.
   `_shape`), the operator and group taps, the plan fingerprint, the
   resilience events, the event count and the histogram counts. Set
   aside by name, and nothing else: timings (`TIMED`), what the sampling
-  profiler saw (`profile`), the JAX package's compile-service keys
-  (`compile_*` counters and its `compile_*` trace records in `events`),
-  and the run_info counters that
+  profiler saw (`profile`), each package's `compile_*` trace records in
+  `events` (the compile_* counters are compared by key), and the
+  run_info counters that
   only the port writes (`PORT_ONLY`, named in run_plan's docstring). The
   JAX package's `load_ledger`, `diagnose_dir` and
   `tools/history_report.py` read the port's files.
@@ -64,10 +64,6 @@ PORT_ONLY = ("bridge_batches", "bridge_card_batches", "bridge_rows",
              "kernel_launches", "mesh_pinned_bytes", "pool_engine_start_s",
              "pool_kernel_launches", "stage_compiled",
              "stage_fallbacks", "udf_crossings", "udf_s")
-# the JAX package's keys for a module the port does not have yet: its
-# compile service's counters
-JAX_ONLY = ("compile_cache_hits", "compile_cache_misses",
-            "compile_compile_count", "compile_ms")
 # timings: values of these keys hold a duration, a wall-clock stamp, or
 # a quantity derived from them (the doctor's terms and longest chains,
 # the histograms' sums and percentiles); they are compared by key only
@@ -182,9 +178,12 @@ def test_exporters_match_jax(tmp_path, monkeypatch):
     from blaze_tpu.runtime import faults as jfaults
     from blaze_tpu_torch.runtime import faults
 
-    # the JAX compile service's summary line counts this process's XLA
-    # compiles; the port has no compile service (its line is set aside)
-    monkeypatch.setattr(compile_service, "telemetry_summary", lambda: "")
+    # each compile service's summary line counts this process's own
+    # compiles (XLA programs, the port's library builds): both set aside
+    from blaze_tpu_torch.runtime import compile_service as port_cs
+
+    for cs in (compile_service, port_cs):
+        monkeypatch.setattr(cs, "telemetry_summary", lambda: "")
     # the resilience summary reads process-wide counters: the same fresh
     # counts in both packages
     for flt, ms_cls in ((faults, MetricsSet), (jfaults, JMetricsSet)):
@@ -262,7 +261,7 @@ def _keys(d, pre=""):
 
 def _aside(keys, prefix):
     """Keys minus the named set-asides under `prefix` (the counters)."""
-    named = {f"{prefix}{k}" for k in PORT_ONLY + JAX_ONLY}
+    named = {f"{prefix}{k}" for k in PORT_ONLY}
     return {k for k in keys if k not in named and not k.startswith(
         "profile")}
 
@@ -321,9 +320,15 @@ def test_run_plan_with_all_knobs_matches_jax(tables, tmp_path, monkeypatch,
                 assert sorted(map(repr, a[key])) == sorted(map(repr, b[key]))
             else:
                 assert a[key] == b[key], key
-    compile_recs = sum(r["kind"].startswith("compile_")
-                       for r in jtrace.query_records(jqid))
-    assert led["events"] == jled["events"] - compile_recs
+    # each package's compile service records its own builds and cache
+    # events (XLA programs in the JAX package, libraries and per-plan
+    # callables in the port): the other records are the same
+    def compile_recs(tr, query_id):
+        return sum(r["kind"].startswith("compile_")
+                   for r in tr.query_records(query_id))
+
+    assert led["events"] - compile_recs(trace, qid) == \
+        jled["events"] - compile_recs(jtrace, jqid)
     assert {k: v["count"] for k, v in led["histograms"].items()} == \
         {k: v["count"] for k, v in jled["histograms"].items()}
     assert hist["ops"] and hist["plan_fingerprint"]

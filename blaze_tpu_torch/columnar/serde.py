@@ -242,6 +242,10 @@ def _write_col(out, c: _HostCol, lo: int, hi: int) -> None:
                 dmat, dlens, codes = enc
                 dict_sz = 12 + 4 * dlens.shape[0] + int(dlens.sum()) + 4 * n
                 if dict_sz < 4 + 4 * n + total:
+                    if conf.trace_enabled:
+                        from blaze_tpu_torch.runtime import trace
+                        trace.event("dict_encode", rows=n,
+                                    entries=int(dlens.shape[0]))
                     _write_dict_block(out, dmat, dlens, codes)
                     return
         out.write(struct.pack("<I", total) + lens.tobytes())
@@ -447,6 +451,9 @@ def _read_dict_block(fp: BinaryIO, n: int):
     if K:
         dmat[np.arange(w)[None, :] < dlens[:, None]] = payload
     codes = np.frombuffer(_read_exact(fp, 4 * n), np.uint32).astype(np.int32)
+    if conf.trace_enabled:
+        from blaze_tpu_torch.runtime import trace
+        trace.event("dict_decode", rows=n, entries=K)
     return dmat, dlens.astype(np.int32), codes
 
 

@@ -97,15 +97,13 @@ def build_all(names: List[str]) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
     with _lock:
-        if name not in _libs:
+        lib = _libs.get(name)
+        if lib is None:
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes, f.restype = argtypes, restype
             _libs[name] = lib
-    return _libs[name]
+        return lib

@@ -36,7 +36,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -165,23 +165,27 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _load() -> Optional[ctypes.CDLL]:
+def _load_state() -> Tuple[Optional[ctypes.CDLL], Optional[str]]:
+    """(the library or None, why it could not load or None), read under
+    the lock; the first call builds and loads it."""
     global _lib, _error
-    if _lib is not None:
-        return _lib
     with _lock:
         if _lib is None and _error is None:
             try:
                 _lib = _bind(ctypes.CDLL(str(build())))
             except (OSError, RuntimeError) as e:
                 _error = str(e)
-    return _lib
+        return _lib, _error
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    return _load_state()[0]
 
 
 def _require() -> ctypes.CDLL:
-    lib = _load()
+    lib, error = _load_state()
     if lib is None:
-        raise RuntimeError(f"native library unavailable: {_error}")
+        raise RuntimeError(f"native library unavailable: {error}")
     return lib
 
 
@@ -191,8 +195,7 @@ def available() -> bool:
 
 def build_error() -> Optional[str]:
     """Why the library could not build (the compiler's output), or None."""
-    _load()
-    return _error
+    return _load_state()[1]
 
 
 def init(mem_budget: int = 0, device=None) -> None:
@@ -422,15 +425,16 @@ class NativeShuffleWriter:
         self._w = self._lib.bn_shuffle_new(num_partitions,
                                            spill_dir.encode(), mem_budget)
 
-    def _live(self):
+    def _live_locked(self):
+        """The writer's pointer; the caller holds self._lock."""
         if not self._w:
             raise RuntimeError("native shuffle writer is closed")
         return self._w
 
     def push(self, partition: int, frame: bytes) -> None:
         with self._lock:
-            rc = self._lib.bn_shuffle_push(self._live(), partition, frame,
-                                           len(frame))
+            rc = self._lib.bn_shuffle_push(self._live_locked(), partition,
+                                           frame, len(frame))
         if rc != 0:
             raise _native_error("bn_shuffle_push", rc)
 
@@ -441,7 +445,7 @@ class NativeShuffleWriter:
 
     def spill(self) -> None:
         with self._lock:
-            rc = self._lib.bn_shuffle_spill(self._live())
+            rc = self._lib.bn_shuffle_spill(self._live_locked())
         if rc != 0:
             raise _native_error("bn_shuffle_spill", rc)
 
@@ -449,7 +453,7 @@ class NativeShuffleWriter:
         lengths = (ctypes.c_int64 * self.P)()
         with self._lock:
             rc = self._lib.bn_shuffle_commit(
-                self._live(), data_path.encode(), index_path.encode(),
+                self._live_locked(), data_path.encode(), index_path.encode(),
                 lengths)
         if rc != 0:
             raise _native_error("bn_shuffle_commit", rc)

@@ -1960,6 +1960,13 @@ class _Worker:
         # seconds at a time: the driver widens this seat's heartbeat bound
         # until the first plan task is done (ExecutorPool._on_starting)
         self._send_quiet({"type": "starting"})
+        # spill the telemetry tail (profile rows included) first: no ship
+        # runs while the start-up holds the lock, and a worker killed
+        # meanwhile is recovered from its sidecar
+        try:
+            self._flush_telemetry(ship=False)
+        except Exception:  # noqa: BLE001 — telemetry never fails a task
+            pass
         try:
             return self._run_plan_loaded(payload, blob, epoch,
                                          time.perf_counter())

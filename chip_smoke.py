@@ -288,6 +288,23 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 build (no g++ or libzstd), the phase prints
                 "native": "unavailable" with the compiler's error and
                 runs the compile-service steps only
+ 26. chaos_soak  the port's chaos soak (blaze_tpu_torch/tools/
+                chaos_soak.py, the JAX package's tools/chaos_soak.py over
+                the port) on the card with the runtime's knobs, the
+                monitor's included, at config.py's defaults, over the
+                validator's core tables at 2^18 fact rows (32 batches of
+                8192): one clean pass of its three catalogue queries
+                (q2's run_info counting the kernel's launches, as many as
+                the module's count), then the point x kind sweep as
+                `make check-faults` runs the JAX package's (every
+                faults.KNOWN_POINTS entry x io, oom, stall at 300 ms x
+                the three queries: 135 cells, and the soak's overhead
+                section), then the --durability sweep (a bit flipped in
+                a committed shuffle .data or .index, or a spill frame,
+                detected, quarantined and repaired; and the mmap fetch
+                cell). Each cell's outcome is printed on a line of its
+                own; every cell must recover or not fire, with no wrong
+                answer, orphan, leaked reservation or open stream
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
 decode_task_definition; phases 15-24 have run_plan convert and decode
@@ -5603,6 +5620,91 @@ def phase_runner_native(main_path, datas, batches, paths, orc, work_dir,
     return res
 
 
+# the chaos phase: the soak's rows (2^18 fact rows, 32 batches of the
+# default 8192) and its sweep as the JAX package's `make check-faults`
+# runs it
+CHAOS_ROWS = 1 << 18
+CHAOS_SWEEP = ("--kinds", "io,oom,stall", "--stall-ms", "300")
+
+
+def _soak(args, work_dir, name) -> dict:
+    """One run of the port's chaos soak on the card through its entry
+    point (`chaos_soak.main`), its report read back from --json-out; the
+    kernel's launches counted over the run."""
+    from blaze_tpu_torch.tools import chaos_soak
+
+    out = os.path.join(work_dir, f"chaos_{name}.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = chaos_soak.main(["--device", "cuda", "--rows", str(CHAOS_ROWS),
+                          "--json-out", out, *args])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        report = json.load(f)
+    cells = report["cells"]
+    outcomes = {}
+    for c in cells:
+        outcomes[c["outcome"]] = outcomes.get(c["outcome"], 0) + 1
+    leaks = [c for c in cells if c.get("orphans") or c.get("mem_leaked")
+             or c.get("pipeline_leaked")]
+    _require(rc == 0 and report["ok"],
+             f"chaos soak {name} failed its gate (rc {rc}): "
+             f"{report.get('bad') or outcomes}")
+    _require(not outcomes.get("wrong_answer") and not leaks,
+             f"chaos soak {name}: {outcomes.get('wrong_answer', 0)} wrong "
+             f"answers, leaks in {[(c['point'], c['query']) for c in leaks]}")
+    return {"rc": rc, "wall_s": wall, "cells": len(cells),
+            "outcomes": outcomes, "launches": mxu_agg.KERNEL_LAUNCHES,
+            "cell_launches": sum(c.get("kernel_launches", 0)
+                                 for c in cells),
+            "overhead": report.get("overhead")}
+
+
+def phase_chaos_soak(work_dir) -> dict:
+    """The port's chaos soak on the card (see the module docstring, phase
+    26): one clean catalogue pass, the point x kind sweep and the
+    durability sweep, with the runtime's knobs at their defaults."""
+    from blaze_tpu_torch.config import KNOBS
+    from blaze_tpu_torch.spark import validator
+    from blaze_tpu_torch.tools import chaos_soak
+
+    t_phase = time.perf_counter()
+    defaults = {k: KNOBS[k].default
+                for k in RUNTIME_KNOBS + ("monitor_enabled",)}
+    res = {"phase": "chaos_soak", "rows": CHAOS_ROWS, "runtime": defaults}
+    soak_dir = os.path.join(work_dir, "chaos")
+    with _knobs(**defaults):
+        chaos_soak.DEVICE = "cuda"
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(soak_dir, "tables"))
+        tables = validator.generate_tables(os.path.join(soak_dir, "tables"),
+                                           rows=CHAOS_ROWS)
+        res["tables_s"] = time.perf_counter() - t0
+        clean = {}
+        for query, mode in chaos_soak.QUERIES:
+            _reset_counts()
+            cell = chaos_soak._run_cell(tables, query, mode, None)
+            _require(cell["outcome"] == "no_fire" and not cell["orphans"]
+                     and not cell["mem_leaked"]
+                     and not cell["pipeline_leaked"],
+                     f"clean {query}: {cell}")
+            clean[query] = {"seconds": cell["seconds"],
+                            "kernel_launches": cell.get("kernel_launches",
+                                                        0),
+                            "launches": mxu_agg.KERNEL_LAUNCHES}
+        q2 = clean["q2_q06_core_agg"]
+        _require(q2["kernel_launches"] > 0
+                 and q2["kernel_launches"] == q2["launches"],
+                 f"clean q2 launched the kernel {q2}")
+        res["clean"] = clean
+        res["q2_launches"] = q2["kernel_launches"]
+        res["sweep"] = _soak(CHAOS_SWEEP, soak_dir, "sweep")
+        res["durability"] = _soak(("--durability",), soak_dir, "durability")
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -5679,6 +5781,7 @@ def main(argv=None) -> int:
         served = phase_runner_service(paths, orc, work_dir, runner)
         natived = phase_runner_native(main_path, datas, batches, paths, orc,
                                       work_dir, smi)
+        chaos = phase_chaos_soak(work_dir)
     phase_wall(t0)
     _emit({"native_library": {
         "sources": [os.path.relpath(src, os.path.dirname(
@@ -5728,6 +5831,7 @@ def main(argv=None) -> int:
                                     "call_arrow_launches") if k in natived}
         | ({"native_writer": natived["writer"]["native"]["launches"]}
            if "writer" in natived else {}),
+        "chaos_q2_launches": chaos["q2_launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

@@ -14,10 +14,13 @@ export bridged onto the card, the task runtime: a real device OOM's
 classification and the resilience ladder under a fault spec, and the
 device-mesh exchange on one device and on four logical devices of the
 card, the executor pool: a worker's kernel launches, its real OOM
-and its device memory after a SIGKILL, and the native library: q06
+and its device memory after a SIGKILL, the native library: q06
 through bn_call with its launches, the C++ shuffle writer's files against
 the Python writer's, and frames of the library's codec read back onto the
-card) on the card against the port's own CPU route.
+card, and three cells of the chaos soak: q06 under an io fault at the
+operators, an oom at serde.encode and an io fault at device.get, each
+recovered with its launches counted) on the card against the port's own
+CPU route.
 
 The kernels have no CPU mode, so every test here skips without a card. The
 file imports neither jax nor `blaze_tpu`, so that it runs on a machine that
@@ -1839,3 +1842,29 @@ def test_library_codec_frames_read_back_on_card(card_native, monkeypatch):
     got, want = back.to_numpy(), b.to_numpy()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("point,kind", [("op", "io"),
+                                        ("serde.encode", "oom"),
+                                        ("device.get", "io")])
+def test_soak_cell_recovers_on_card(cuda, core_tables, monkeypatch, point,
+                                    kind):
+    """One cell of the port's chaos soak on the card: the core
+    catalogue's q06 with `kind` armed at the first two calls of `point`
+    recovers to the pandas oracle through the ladder, its dense stage
+    launching the kernel chain (counted in run_info and in the module's
+    count alike), with no orphan, no leaked reservation and no open
+    stream."""
+    from blaze_tpu_torch.tools import chaos_soak
+
+    monkeypatch.setattr(chaos_soak, "DEVICE", "cuda")
+    spec = {"seed": 1234, "points": {point: {"fail_times": 2,
+                                             "kind": kind}}}
+    before = M.KERNEL_LAUNCHES
+    cell = chaos_soak._run_cell(core_tables, "q2_q06_core_agg", "bhj", spec)
+    launches = M.KERNEL_LAUNCHES - before
+    assert cell["outcome"] == "recovered", cell
+    assert cell["faults_injected"] >= 1
+    assert launches > 0 and cell["kernel_launches"] == launches
+    assert (cell["orphans"], cell["mem_leaked"],
+            cell["pipeline_leaked"]) == ([], 0, 0)

@@ -344,11 +344,16 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'runtime.flight_recorder', 'runtime.profiler',\n"
         "        'runtime.executor_pool', 'runtime.shuffle_server',\n"
         "        'runtime.compile_service', 'runtime.jit_cache',\n"
-        "        'runtime.native_entry', 'native')}\n"
+        "        'runtime.native_entry', 'native', 'tools.chaos_soak',\n"
+        "        'tools.trace_report', 'tools.history_report',\n"
+        "        'tools.blaze_doctor', 'tools.blaze_inspect', 'tools.blaze_top',\n"
+        "        'tools.blaze_prof', 'tools.blazelint',\n"
+        "        'tools.blazelint.__main__')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'blaze_tpu' or k.startswith('blaze_tpu.')\n"
+        "       or k == 'tools' or k.startswith('tools.')\n"
         "       or k == 'pandas' or k.startswith('pandas.')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -360,7 +365,8 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
     assert int(r.stdout.strip()) >= 20
     import re
 
-    pat = re.compile(r"^\s*(from|import)\s+(jax|blaze_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(from|import)\s+(jax|blaze_tpu|tools)(\.|\s|$)",
+                     re.M)
     srcs = [os.path.join(dp, f) for dp, _, fs in os.walk(
         os.path.join(REPO, "blaze_tpu_torch")) for f in fs
         if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]

@@ -224,6 +224,31 @@ def test_dictionary_block_decodes_to_dict_data():
                 .columns[0].data)
 
 
+def test_dictionary_serde_emits_the_jax_trace_events(monkeypatch):
+    """With the trace on, encoding a low-cardinality string column in the
+    dictionary form records a dict_encode event, and reading the block a
+    dict_decode event, with the JAX package's rows and entries."""
+    from blaze_tpu.runtime import trace as jtrace
+    from blaze_tpu_torch.runtime import trace
+
+    jb, tb = pair(FIELDS, _table(3, 500), cap=512)
+    events = []
+    for c, tr, ser, b in ((conf, trace, serde, tb),
+                          (jconf, jtrace, JSerde, jb)):
+        monkeypatch.setattr(c, "trace_enabled", True)
+        tr.reset()
+        frame = ser.serialize_batch(b)
+        ser.deserialize_batch(frame, b.schema, b.capacity,
+                              **({"device": "cpu"} if ser is serde else {}))
+        events.append([(r["kind"], r["attrs"]["rows"], r["attrs"]["entries"])
+                       for r in tr.TRACE.snapshot()
+                       if r.get("type") == "event"
+                       and r["kind"] in ("dict_encode", "dict_decode")])
+        tr.reset()
+    assert events[0] == events[1]
+    assert [e[0] for e in events[0]] == ["dict_encode", "dict_decode"]
+
+
 def test_high_cardinality_slice_writes_plain(monkeypatch):
     monkeypatch.setattr(conf, "dict_max_cardinality", 256)
     monkeypatch.setattr(jconf, "dict_max_cardinality", 256)

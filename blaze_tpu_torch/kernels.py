@@ -2,7 +2,9 @@
 
 Each kernel is one CUDA C++ source under `csrc/` with a plain C entry. At
 first use it is compiled with `nvcc` for Hopper (`sm_90a`) into a shared
-library under `build/` (listed in .gitignore) and loaded with `ctypes`.
+library under `build/` (listed in .gitignore), or under the directory
+`$BLAZE_TPU_TORCH_BUILD_DIR` names, and loaded with `ctypes`. The native
+library (`native/`) builds into the same directory.
 Nothing is downloaded; the CUDA toolkit's `nvcc` is found through
 `$CUDA_HOME`, `/usr/local/cuda` or `$PATH`. The library's file name carries
 a hash of its source and flags, so an edited source is rebuilt and a stale
@@ -24,7 +26,11 @@ from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+# the libraries' directory: BLAZE_TPU_TORCH_BUILD_DIR, read at import,
+# else the package's build/ (the JAX package's BLAZE_TPU_XLA_CACHE is the
+# counterpart: where its compiled programs persist)
+BUILD_DIR = Path(os.environ.get("BLAZE_TPU_TORCH_BUILD_DIR")
+                 or _PKG / "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

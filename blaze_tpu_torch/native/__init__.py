@@ -53,6 +53,7 @@ CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-I", "native/include",
              "-idirafter", "blaze_tpu_torch/csrc/zstd_abi"]
 LD_FLAGS = ["-shared", "-l:libzstd.so.1", "-ldl"]
 # where the library is built; None: the CUDA kernels' build directory
+# (kernels.BUILD_DIR, which BLAZE_TPU_TORCH_BUILD_DIR overrides)
 BUILD_DIR: Optional[Path] = None
 # {"seconds": wall time of this process's build, "path": the library}
 BUILD_INFO: dict = {}

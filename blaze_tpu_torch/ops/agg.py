@@ -56,6 +56,7 @@ from blaze_tpu_torch.ops.sort_keys import (
     SortSpec, encode_column, pack_keys, sort_batch, sort_permutation,
     string_words,
 )
+from blaze_tpu_torch.runtime import compile_service
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.metrics import to_host
 
@@ -519,8 +520,10 @@ class AggExec(Operator):
         """Sort the rows of `batches` by the group columns and reduce each
         group to one state row. The JAX package pads the concatenation to
         a compile-service capacity rung first, to bound its jit programs;
-        here the bucket capacity of the concatenation is used as it is."""
+        here the bucket capacity of the concatenation is used as it is,
+        and only noted with its rung."""
         big = batches[0] if len(batches) == 1 else concat_batches(batches)
+        compile_service.canonical_batch(big, "agg_collapse")
         ngroups = len(self._group_fields)
         sb = sort_batch(big, [SortSpec(i) for i in range(ngroups)])
         layout = seg.group_layout(sb, list(range(ngroups)))

@@ -68,6 +68,7 @@ from blaze_tpu_torch.ops.common import concat_batches, slice_batch
 from blaze_tpu_torch.ops.sort_keys import (
     Key, encode_column, pack_keys, permute_by_keys, sort_permutation,
 )
+from blaze_tpu_torch.runtime import compile_service
 from blaze_tpu_torch.runtime.metrics import to_host
 
 
@@ -364,8 +365,12 @@ class HashJoinLikeExec(Operator):
         build_batches = list(build_op.execute(ctx))
         if build_batches:
             build = concat_batches(build_batches, build_op.schema)
+            build_rows = _rows(build)
+            compile_service.canonical_batch(build, "join_build",
+                                            raw_rows=build_rows)
         else:
             build = ColumnBatch.empty(build_op.schema, device=ctx.device)
+            build_rows = 0
 
         # Runtime build-size fallback (ref broadcast_join_exec.rs:188-249:
         # an oversized collected build side switches the operator from its
@@ -382,7 +387,6 @@ class HashJoinLikeExec(Operator):
                 and jt in (JoinType.INNER,) + _SEMI_LIKE):
             from blaze_tpu_torch.runtime.memory import batch_nbytes
 
-            build_rows = _rows(build)
             if (build_rows > conf.bhj_fallback_rows_threshold
                     or batch_nbytes(build) > conf.bhj_fallback_mem_threshold):
                 self.metrics.add("bhj_fallback_to_smj", 1)

@@ -9,9 +9,10 @@ host files (runtime/memory.SpillFile) and merges them on the host
 (ops/host_sort.merge_sorted_host); runs holding list columns merge on the
 device (`_merge_runs_device`), as in the JAX package.
 
-The JAX package's `sorted_batch_jit` is `sort_keys.sort_batch` here,
-without its jit cache and compile-service shape rung: PyTorch runs
-eagerly and compiles nothing per shape.
+The JAX package's `sorted_batch_jit` is `sorted_batch` here: a
+`sort_keys.sort_batch` without its jit cache and without padding to a
+compile-service shape rung (PyTorch runs eagerly and compiles nothing per
+shape); the shape and its rung are still noted in the compile service.
 """
 
 from __future__ import annotations
@@ -32,8 +33,21 @@ from blaze_tpu_torch.ops.base import (
 )
 from blaze_tpu_torch.ops.common import concat_batches
 from blaze_tpu_torch.ops.sort_keys import SortSpec, batch_sort_keys, sort_batch
+from blaze_tpu_torch.runtime import compile_service
 from blaze_tpu_torch.runtime import memory as M
 from blaze_tpu_torch.runtime.metrics import to_host
+
+
+def sorted_batch(batch: ColumnBatch, specs: Sequence[SortSpec]
+                 ) -> ColumnBatch:
+    """`sort_batch`, with the batch's shape noted in the compile service
+    where the JAX package's sorted_batch_jit notes it: the canonical rung
+    (nothing is padded) and a replay payload for the warm driver."""
+    compile_service.canonical_batch(batch, "sort_kernel")
+    compile_service.record_sort_shape(
+        ("sort_kernel", tuple(s.key() for s in specs), batch.shape_key()),
+        batch, specs)
+    return sort_batch(batch, specs)
 
 
 def truncate(batch: ColumnBatch, limit: int) -> ColumnBatch:
@@ -106,7 +120,7 @@ class ExternalSorter(M.MemConsumer):
         budget_rows = max(self.manager.total // (8 * row_bytes), 1024)
         frame = int(min(int(conf.spill_frame_rows), budget_rows))
         # one pull of the sorted run, cut into frames on the host
-        hb = serde.to_host(sort_batch(big, self.specs))
+        hb = serde.to_host(sorted_batch(big, self.specs))
         run = M.SpillFile(self.schema, manager=self.manager)
         self.runs.append(run)
         for lo in range(0, hb.num_rows, frame):
@@ -130,7 +144,7 @@ class ExternalSorter(M.MemConsumer):
             if not self.runs:
                 if self.pending:
                     big = concat_batches(self.pending, self.schema)
-                    yield sort_batch(big, self.specs)
+                    yield sorted_batch(big, self.specs)
                 return
             if self.pending:
                 self.spill()
@@ -206,8 +220,9 @@ class ExternalSorter(M.MemConsumer):
             parts = ([carry] if carry is not None and _rows(carry)
                      else [])
             parts.append(current[i_min][0])
-            pool = sort_batch(parts[0] if len(parts) == 1 else
-                              concat_batches(parts, self.schema), self.specs)
+            pool = sorted_batch(parts[0] if len(parts) == 1 else
+                                concat_batches(parts, self.schema),
+                                self.specs)
             current[i_min] = pull(i_min)
             bounds = [current[i][1] for i in active
                       if current[i] is not None]
@@ -286,12 +301,12 @@ class SortExec(Operator):
         for batch in stream:
             ctx.check_running()
             with self.metrics.timer():
-                part = truncate(sort_batch(batch, self.specs), self.fetch)
+                part = truncate(sorted_batch(batch, self.specs), self.fetch)
                 if state is None:
                     state = part
                 else:
                     both = concat_batches([state, part], self.schema)
-                    state = truncate(sort_batch(both, self.specs),
+                    state = truncate(sorted_batch(both, self.specs),
                                      self.fetch)
         return state
 

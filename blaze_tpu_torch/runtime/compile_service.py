@@ -25,7 +25,11 @@ one of the port's real builds, each reported through `note_build`:
   program between shapes, an eager program has no per-shape compile, and
   padding q02's dense stage from 48 batches to canonical_batch_count(48)
   == 64 would cost 16 empty kernel launches for nothing. The knobs stay
-  registered (config.py).
+  registered (config.py). They are called where the JAX module pads (the
+  sort kernel, the join build, the agg collapse, the stage batch lists)
+  and note there the shape and the rung it would pad to, as the JAX
+  module notes them, so `shape_reduction` reads the same population of
+  shapes.
 
 * **Shape registry + manifest** — every observed key (hits, misses, build
   ns, a replay payload for sort shapes) in the JAX module's manifest
@@ -176,12 +180,25 @@ def canonical_batch_count(n: int) -> int:
 
 
 def canonical_batch(batch, kind: str, raw_rows: Optional[int] = None):
-    """`batch` unchanged: the port pads no batch to a canonical rung."""
+    """`batch` unchanged: the port pads no batch to a canonical rung. Its
+    capacity, the rung and `raw_rows` are noted under `kind` where the JAX
+    module notes them (it skips a nested or wide-decimal batch that it
+    would have to pad)."""
+    cap = int(batch.capacity)
+    new_cap = canonical_capacity(cap)
+    if new_cap == cap or not any(f.dtype.is_nested or f.dtype.wide_decimal
+                                 for f in batch.schema):
+        _REGISTRY.note_canonical(kind, cap, new_cap, raw_rows)
     return batch
 
 
-def pad_batch_list(batches: tuple, kind: str = "stage") -> tuple:
-    """`batches` unchanged: the port adds no zero-row batches."""
+def pad_batch_list(batches, kind: str = "stage"):
+    """`batches` unchanged: the port adds no zero-row batches. A count off
+    its rung is noted under `kind`_count, as the JAX module notes it."""
+    n = len(batches)
+    rung = canonical_batch_count(n)
+    if rung != n:
+        _REGISTRY.note_canonical(kind + "_count", n, rung, None)
     return batches
 
 
@@ -295,10 +312,23 @@ class ShapeRegistry:
                 e["replay"] = payload
             self.dirty = True
 
+    # -- canonicalization accounting -----------------------------------
+    def note_canonical(self, kind: str, raw_cap: int, canon_cap: int,
+                       raw_rows: Optional[int]) -> None:
+        with self._lock:
+            c = self.canonical.setdefault(
+                kind, {"raw": set(), "canonical": set(), "raw_rows": set()})
+            if len(c["raw"]) < _RAW_SHAPE_CAP:
+                c["raw"].add(int(raw_cap))
+            c["canonical"].add(int(canon_cap))
+            if raw_rows is not None and len(c["raw_rows"]) < _RAW_SHAPE_CAP:
+                c["raw_rows"].add(int(raw_rows))
+            self.dirty = True
+
     # -- stats ----------------------------------------------------------
     def shape_reduction(self) -> Dict[str, Dict[str, int]]:
-        """Per-kind distinct raw vs canonical shape counts (empty in the
-        port, which canonicalizes nothing)."""
+        """Per-kind distinct raw vs canonical shape counts: how far the
+        JAX module's rungs would fold the shapes noted here."""
         out = {}
         with self._lock:
             for kind, c in self.canonical.items():
@@ -484,12 +514,13 @@ def replay_entry(entry: Dict[str, Any], device=None) -> bool:
     payload = entry.get("replay")
     if not payload or payload.get("type") != "sort":
         return False
-    from blaze_tpu_torch.ops.sort_keys import SortSpec, sort_batch
+    from blaze_tpu_torch.ops.sort import sorted_batch
+    from blaze_tpu_torch.ops.sort_keys import SortSpec
     from blaze_tpu_torch.runtime.metrics import to_host
 
     batch = _rebuild_sort_batch(payload, device)
     specs = [SortSpec(c, a, nf) for c, a, nf in payload["specs"]]
-    to_host(sort_batch(batch, specs).num_rows)  # the sort has run
+    to_host(sorted_batch(batch, specs).num_rows)  # the sort has run
     return True
 
 

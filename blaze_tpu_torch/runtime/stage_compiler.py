@@ -294,6 +294,7 @@ def try_run_stage(root: Operator, ctx: ExecContext,
     shape0 = batches[0].shape_key()
     if any(b.shape_key() != shape0 for b in batches[1:]):
         return _fallback(root, batches, source, ctx)
+    compile_service.pad_batch_list(batches, "stage_agg")  # notes only
 
     input_fns = [fns[0] for fns in partial._input_fns]
     # validity presence and value dtypes of each aggregate input decide the
@@ -392,6 +393,7 @@ def _run_chain_stage(root: Operator, chain: List[MapLikeOp],
     shape0 = batches[0].shape_key()
     if any(b.shape_key() != shape0 for b in batches[1:]):
         return _fallback(root, batches, source, ctx)
+    compile_service.pad_batch_list(batches, "stage_chain")  # notes only
 
     schema = root.schema
 

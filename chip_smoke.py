@@ -135,9 +135,7 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 revenue report: sum of quantity x price as decimal(28,2),
                 wide agg state and sort key, and avg(price) as Spark
                 plans it); each exact against numpy's integers (q03_rev's
-                average within one unit of its sixth place) and timed,
-                and q04_dec's result stage profiled with its 128-step
-                divisions counted
+                average within one unit of its sixth place) and timed
  19. runner_spark_json  Spark's entry: JSON_QUERIES as the TreeNode JSON
                 Spark 3.3's executedPlan.toJSON() gives (an
                 AdaptiveSparkPlanExec root with isFinalPlan, codegen and
@@ -305,6 +303,30 @@ Drives `blaze_tpu_torch` only (no jax, nothing of `blaze_tpu`), on `cuda`:
                 cell). Each cell's outcome is printed on a line of its
                 own; every cell must recover or not fire, with no wrong
                 answer, orphan, leaked reservation or open stream
+ 27. measurement_tools  the five measurement tools of
+                blaze_tpu_torch/tools/ on the card through their entry
+                points, the runtime's knobs at their defaults:
+                pipeline_bench at its defaults (30 frames of 4096 rows,
+                8 ms + 8 ms, catalogue of 8,000 rows), zerocopy_bench at
+                its defaults (the fetch A/B, q3 on fresh 2-seat pools,
+                the dictionary A/B at 2 M rows), perf_baseline --update
+                into the work directory, its gate against that file and
+                --obs, mesh_scaling at 1, 2 and 4 devices (P 16; past
+                the card count the devices are logical copies of the
+                card), and compile_warm_bench cut to q01 and q03 of its
+                four queries at its rows and five extra scales divided
+                by 20 (100,000; 80,000 ... 35,000). Every answer must
+                equal its oracle (each catalogue and pooled arm, the
+                dictionary arms with their encoded kinds), the mmap arm
+                answer as the socket arm with no copied byte, the
+                --update and gate passes count the same copied and moved
+                bytes, the exchange deliver every row, the build go to a
+                directory of the bench's own, and no tool leave a
+                stream, a reservation or a resource. Each tool's ok and
+                problems are printed on its own line: a timing gate that
+                misses is a finding, not a failure. The launches that
+                the tools' runs of q2 counted must equal the kernel
+                count's rise over those runs
 
 Phases 4-14 build every TaskDefinition as bytes and decode it with
 decode_task_definition; phases 15-24 have run_plan convert and decode
@@ -386,6 +408,7 @@ MINMAX_AGGS = [("sum", "amount", "f64", "sum_amount"),
                ("max", "amount", "f64", "max_amount")]
 TOP_SORT = [("cnt", False, True), ("ss_customer_sk", True, True)]
 TOP_N = 100
+TOP_REPS = 1         # timed reps of the top-100 plan (3 until PR 18)
 # the shuffle phases: a map stage of MAP_TASKS tasks over consecutive
 # slices of the batches, each writing a hash shuffle into
 # SHUFFLE_PARTITIONS partitions (spark.sql.shuffle.partitions' default),
@@ -1208,7 +1231,7 @@ def phase_general_agg(datas, batches) -> dict:
         sort=TOP_SORT, fetch=TOP_N))
     top_packed = collect_fetch(top_plan, _full)
     _check_general(top_packed, *_top_oracle(okeys, ocols))
-    top_times = _timed_reps(top_plan, top_packed, ncols)
+    top_times = _timed_reps(top_plan, top_packed, ncols, reps=TOP_REPS)
     res = {"phase": "general_agg", "batches": len(gbatches),
            "rows": len(gbatches) * ROWS, "customers": CUSTOMERS,
            "null_share": NULL_SHARE, "groups": len(okeys),
@@ -1586,7 +1609,9 @@ SALES_SK = (2_450_816, 2_452_642)
 FACT_FILE_ROWS = 1 << 21
 TPCDS_FILES = {"web_sales": 16, "catalog_sales": 32, "store_sales": 8}
 TPCDS_NULL_SHARE = 0.05
-TPCDS_REPS = 1       # timed reps of each TPC-DS phase after its checked run
+# timed reps of each TPC-DS phase after its checked run (1 until PR 18; at
+# 0 the phase line reads the checked run, which is timed the same way)
+TPCDS_REPS = 0
 TPCDS_SEED = 20_260_000
 
 DD_PB = [("d_date_sk", pb.TK_INT64), ("d_year", pb.TK_INT32),
@@ -2483,6 +2508,8 @@ def _tpcds_rep(q, check) -> dict:
 
 
 def _tpcds_summary(name, first, reps) -> dict:
+    reps = reps or [first]
+
     def med(k):
         return float(np.median([r[k] for r in reps]))
 
@@ -3435,39 +3462,6 @@ DECIMAL_CHECKS = {"q02_dec": check_q02_dec, "q04_dec": check_q04_dec,
                   "q03_rev": check_q03_rev}
 
 
-def _division_profile(paths, work_dir) -> dict:
-    """q04_dec's result stage (the joins of the year totals and the growth
-    filter's two decimal(37,20) divisions) under torch.profiler, device
-    activity only, as `_profiled_result_stage` gives it (its wall time
-    includes the profiler's), with the calls of the 128-step long
-    division (int128.divmod_full) and their rows counted; then one
-    division of 1024 rows alone under the profiler, whose device
-    operations are the launches of every call."""
-    from blaze_tpu_torch.columnar import int128 as i128
-
-    real = i128.divmod_full
-    seen = {"divisions": 0, "division_rows": 0}
-
-    def counted(h, *args):
-        seen["divisions"] += 1
-        seen["division_rows"] += int(h.shape[0])
-        return real(h, *args)
-
-    i128.divmod_full = counted
-    try:
-        prof = _profiled_result_stage("q04_dec", paths, work_dir, cpu=False)
-    finally:
-        i128.divmod_full = real
-    a = torch.arange(1, 1025, dtype=torch.int64, device="cuda")
-    real(a, a * 7, a * 0, a)  # warm
-    torch.cuda.synchronize()
-    rows, busy_ms = _device_profile(lambda: real(a, a * 7, a * 0, a), False)
-    per_call = sum(r[2] for r in rows)
-    return dict(prof, **seen, launches_per_division=per_call,
-                one_division_device_ms=busy_ms,
-                division_launches=seen["divisions"] * per_call)
-
-
 def phase_runner_decimal(paths, orc, work_dir, runner) -> dict:
     """The decimal slice, through run_plan in BHJ mode as runner_tpcds
     runs its queries, over the decimal copies of the fact tables
@@ -3476,8 +3470,8 @@ def phase_runner_decimal(paths, orc, work_dir, runner) -> dict:
     year totals and the wide-division growth test) and q03_rev (a
     decimal(28,2) sum of quantity x price: wide agg state through the
     serde, and a wide sort key). Each once checked against numpy's exact
-    integers and timed; q04_dec's result stage profiled with its
-    divisions counted."""
+    integers and timed (q04_dec's result-stage profile was cut for the
+    script's time limit in PR 18)."""
     res = {"phase": "runner_decimal", "mode": "bhj"}
     for q, check in DECIMAL_CHECKS.items():
         first = _runner_run(q, paths, work_dir, lambda out: check(out, orc))
@@ -3488,8 +3482,6 @@ def phase_runner_decimal(paths, orc, work_dir, runner) -> dict:
     _require(q02["stage_fallbacks"] == 0
              and q02["launches"] == runner["q02"]["launches"] > 0,
              f"q02_dec left the dense path: {q02}")
-    res["q04_dec"]["result_stage_profile"] = _division_profile(paths,
-                                                               work_dir)
     _emit(res)
     return res
 
@@ -5705,6 +5697,269 @@ def phase_chaos_soak(work_dir) -> dict:
     return res
 
 
+# the measurement phase: the five measurement tools of
+# blaze_tpu_torch/tools/ through their entry points, each at its defaults
+# but mesh_scaling's device counts and compile_warm_bench, whose rows and
+# extra scales are its defaults divided by 20 and whose queries are two of
+# its four (q01 and q03)
+MEASURE_MESH_DEVICES = (1, 2, 4)
+MEASURE_MESH_PARTITIONS = 16
+MEASURE_CWB = ("--rows", "100000",
+               "--extra-scales", "80000,70000,60000,50000,35000",
+               "--queries", "q01,q03")
+Q2 = "q2_q06_core_agg"
+
+
+class _q2_launches:
+    """Over a block: each run of the validator's q2 that goes through
+    `local_runner.run_plan` (the tools import it at call time), as (the
+    kernel launches its run_info counted, mxu_agg.KERNEL_LAUNCHES' rise
+    over the run)."""
+
+    def __enter__(self):
+        from blaze_tpu_torch.spark import local_runner, validator
+
+        self.runs, plans = [], set()
+        self._mods = (local_runner, validator)
+        self._run, self._build = local_runner.run_plan, validator.QUERIES[Q2]
+        run, build = self._run, self._build
+
+        def building(*a, **kw):
+            plan, oracle = build(*a, **kw)
+            plans.add(id(plan))
+            return plan, oracle
+
+        def running(plan, *a, **kw):
+            if id(plan) not in plans:
+                return run(plan, *a, **kw)
+            info = kw.get("run_info")
+            if info is None:
+                info = kw["run_info"] = {}
+            k0 = mxu_agg.KERNEL_LAUNCHES
+            try:
+                return run(plan, *a, **kw)
+            finally:
+                self.runs.append((int(info.get("kernel_launches", 0)),
+                                  mxu_agg.KERNEL_LAUNCHES - k0))
+
+        local_runner.run_plan = running
+        validator.QUERIES[Q2] = building
+        return self
+
+    def __exit__(self, *exc):
+        local_runner, validator = self._mods
+        local_runner.run_plan = self._run
+        validator.QUERIES[Q2] = self._build
+        return False
+
+
+def _leak_state() -> dict:
+    """What a finished tool must leave behind: nothing."""
+    from blaze_tpu_torch.runtime import pipeline
+
+    mgr = memory.get_manager()
+    return {"live_streams": pipeline.live_streams(),
+            "pipeline_reserved": int(mgr.pipeline_reserved),
+            "mem_used": int(mgr.mem_used())}
+
+
+def _tool(name, argv, json_out=None) -> dict:
+    """One tool's `main(argv)` on the card: its exit code, wall time and
+    the report it wrote to `json_out`, and the leak state after it."""
+    import importlib
+
+    mod = importlib.import_module(f"blaze_tpu_torch.tools.{name}")
+    t0 = time.perf_counter()
+    rc = mod.main(["--device", "cuda", *argv]
+                  + (["--json-out", json_out] if json_out else []))
+    rec = {"rc": rc, "wall_s": time.perf_counter() - t0}
+    if json_out:
+        with open(json_out) as f:
+            rec["report"] = json.load(f)
+    leaks = _leak_state()
+    _require(not any(leaks.values()), f"{name} left {leaks}")
+    return rec
+
+
+def _check_pipeline_bench(rec) -> dict:
+    r = rec["report"]
+    for arm, runs in r["catalogue_checks"].items():
+        for q, c in runs.items():
+            _require(c["oracle_equal"],
+                     f"pipeline_bench {q} ({arm}): {c.get('diff')}")
+    _require(r["live_streams_after"] == 0, "pipeline_bench leaked streams")
+    return {"ok": r["ok"], "problems": r["problems"], "rc": rec["rc"],
+            "wall_s": rec["wall_s"],
+            **{k: r[k] for k in ("serial_s", "pipelined_s", "speedup",
+                                 "sink_serial_s", "sink_pipelined_s",
+                                 "sink_speedup", "overlap_pct",
+                                 "queue_max_depth", "producer_occupancy_pct",
+                                 "catalogue_pipeline_off_s",
+                                 "catalogue_pipeline_on_s")},
+            "q2_launches": {arm: runs[Q2]["kernel_launches"] for arm, runs
+                            in r["catalogue_checks"].items()}}
+
+
+def _check_zerocopy_bench(rec) -> dict:
+    rounds = {x["round"]: x for x in rec["report"]["rounds"]}
+    fetch, pooled, dct = (rounds["fetch_ab"], rounds["pooled_ab"],
+                          rounds["dict_ab"])
+    _require(fetch["answers_identical"]
+             and fetch["on"]["bytes_copied_shuffle"] == 0
+             and fetch["on"]["mmap_hits"] > 0,
+             f"zerocopy fetch_ab: {fetch}")
+    for arm in ("off", "on"):
+        _require(pooled[arm]["oracle_equal"] and pooled[arm]["pool_stages"],
+                 f"zerocopy pooled_ab {arm}: {pooled[arm]}")
+        _require(dct[arm]["oracle_equal"], f"zerocopy dict_ab {arm}")
+    _require((dct["on"]["encoded_kind"], dct["off"]["encoded_kind"])
+             == ("dict", "str") and dct["on"]["dict_cols_encoded"] >= 1,
+             f"zerocopy dict_ab kinds: {dct}")
+    return {"ok": rec["report"]["ok"], "problems": rec["report"]["bad"],
+            "rc": rec["rc"], "wall_s": rec["wall_s"],
+            "fetch": {k: fetch[k] for k in ("p50_off_us", "p50_on_us",
+                                            "speedup_p50", "on", "off",
+                                            "ok")},
+            "pooled": {arm: {k: pooled[arm][k] for k in (
+                "seconds", "pool_stages", "bytes_copied_shuffle",
+                "shuffle_mmap_hits", "pool_engine_start_s")}
+                for arm in ("off", "on")} | {"ok": pooled["ok"]},
+            "dict": {arm: {k: dct[arm][k] for k in (
+                "frame_bytes", "encode_s", "decode_s",
+                "bytes_copied_serde")} for arm in ("off", "on")}
+            | {"ratio": dct["frame_bytes_ratio"], "ok": dct["ok"]}}
+
+
+def _check_perf_baseline(update, gate, obs) -> dict:
+    base, cur = update["report"], gate["report"]
+    for q, rec in base["queries"].items():
+        keys = [k for k in rec if k.startswith("bytes_")]
+        got = {k: cur["queries"][q][k] for k in keys}
+        want = {k: rec[k] for k in keys}
+        _require(got == want, f"perf_baseline {q}: copy counters of the "
+                 f"gate pass {got}, of the --update pass {want}")
+        _require(rec["resource_leaks"] == 0
+                 and cur["queries"][q]["resource_leaks"] == 0,
+                 f"perf_baseline {q} leaked")
+    o = obs["report"]
+    cell = o["chaos_cell"]
+    _require(o["leaks"] == 0
+             and o["scrape_during_query"].get("has_copy_metric")
+             and not cell.get("mem_leaked") and not cell.get("pipeline_leaked")
+             and cell["outcome"] in ("recovered", "no_fire"),
+             f"perf_baseline --obs: {o['problems']}")
+    return {"ok": not cur["problems"] and not o["problems"],
+            "problems": cur["problems"] + o["problems"],
+            "rc": [update["rc"], gate["rc"], obs["rc"]],
+            "wall_s": [update["wall_s"], gate["wall_s"], obs["wall_s"]],
+            "queries": cur["queries"], "catalogue_s": cur["catalogue_s"],
+            "baseline_catalogue_s": base["catalogue_s"],
+            "obs": {k: o[k] for k in ("catalogue_monitor_off_s",
+                                      "catalogue_monitor_on_s",
+                                      "overhead_pct", "sampler_samples",
+                                      "leaks")},
+            "chaos_cell": cell}
+
+
+def _check_compile_warm_bench(rec, package_libs) -> dict:
+    doc = rec["report"]
+    _require(all(not p["failed"] for p in doc["phase1_passes"]),
+             f"compile_warm_bench failed cells: {doc['phase1_passes']}")
+    _require(any(f.startswith("libblaze_tpu_torch_native-")
+                 for f in doc["phase1_build_dir"]),
+             f"compile_warm_bench built {doc['phase1_build_dir']}")
+    _require(_libraries_in(kernels.BUILD_DIR) == package_libs,
+             "compile_warm_bench touched the package's build directory")
+    keys = ("acceptance_cold_le_2x_warm", "acceptance_shape_reduction_ge_4x",
+            "seconds_first_everything_cold", "seconds_warm_driver",
+            "seconds_cold_jit_warm_xla", "seconds_warm",
+            "cold_over_warm_ratio", "sortjoin_raw_rowcounts",
+            "sortjoin_canonical_capacities", "sortjoin_reduction_factor",
+            "phase1_libraries", "phase3_libraries", "phase1_build_dir",
+            "shape_reduction", "telemetry_cold_pass", "telemetry_warm_pass")
+    problems = [k for k in keys[:2] if not doc[k]]
+    return {"ok": not problems, "problems": problems, "rc": rec["rc"],
+            "wall_s": rec["wall_s"], **{k: doc[k] for k in keys},
+            "phase1_seconds": [p["seconds"] for p in doc["phase1_passes"]]}
+
+
+def _libraries_in(d) -> dict:
+    """{library file: mtime} of a build directory."""
+    d = str(d)
+    if not os.path.isdir(d):
+        return {}
+    return {f: os.stat(os.path.join(d, f)).st_mtime_ns
+            for f in os.listdir(d) if f.endswith(".so")}
+
+
+def phase_measurement_tools(work_dir) -> dict:
+    """The five measurement tools on the card (see the module docstring,
+    phase 27), with the runtime's knobs at their defaults. Each tool's
+    record, with its own ok and problems, is printed on a line of its own
+    before the phase line."""
+    from blaze_tpu_torch.config import KNOBS
+
+    t_phase = time.perf_counter()
+    defaults = {k: KNOBS[k].default
+                for k in RUNTIME_KNOBS + ("monitor_enabled",)}
+    res = {"phase": "measurement_tools", "runtime": defaults,
+           "cuts": {"mesh_scaling": {"devices": MEASURE_MESH_DEVICES,
+                                     "partitions": MEASURE_MESH_PARTITIONS},
+                    "compile_warm_bench": MEASURE_CWB}}
+    out = os.path.join(work_dir, "measure")
+    os.makedirs(out)
+
+    def emit(name, rec):
+        _emit({"measurement_tool": name, **rec})
+        res[name] = {k: rec[k] for k in ("ok", "problems", "rc", "wall_s")}
+
+    _reset_counts()
+    with _knobs(**defaults), _q2_launches() as q2:
+        emit("pipeline_bench", _check_pipeline_bench(_tool(
+            "pipeline_bench", [], os.path.join(out, "pipeline.json"))))
+        emit("zerocopy_bench", _check_zerocopy_bench(_tool(
+            "zerocopy_bench", [], os.path.join(out, "zerocopy.json"))))
+        base = os.path.join(out, "perf_baseline.json")
+        update = _tool("perf_baseline", ["--update", "--baseline", base])
+        with open(base) as f:
+            update["report"] = json.load(f)
+        emit("perf_baseline", _check_perf_baseline(
+            update,
+            _tool("perf_baseline", ["--baseline", base],
+                  os.path.join(out, "perf_gate.json")),
+            _tool("perf_baseline", ["--obs"],
+                  os.path.join(out, "obs.json"))))
+    counted = sum(n for n, _ in q2.runs)
+    rise = sum(r for _, r in q2.runs)
+    _require(q2.runs and counted > 0 and counted == rise,
+             f"the tools' q2 runs counted {counted} launches, the kernel's "
+             f"count rose {rise} over them ({len(q2.runs)} runs)")
+    res["q2_runs"] = len(q2.runs)
+    res["q2_launches"] = counted
+
+    mesh, wall = {}, 0.0
+    for d in MEASURE_MESH_DEVICES:
+        rec = _tool("mesh_scaling", [str(MEASURE_MESH_PARTITIONS),
+                                     "--devices", str(d)],
+                    os.path.join(out, f"mesh_{d}.json"))
+        line = rec["report"]
+        _require(rec["rc"] == 0 and line["overflow"] == 0
+                 and line["rows_received"] == d * line["rows_per_device"],
+                 f"mesh_scaling at {d} devices: {line}")
+        mesh[d] = line
+        wall += rec["wall_s"]
+    emit("mesh_scaling", {"ok": True, "problems": [], "rc": 0,
+                          "wall_s": wall, "lines": mesh})
+
+    package_libs = _libraries_in(kernels.BUILD_DIR)
+    emit("compile_warm_bench", _check_compile_warm_bench(
+        _tool("compile_warm_bench", list(MEASURE_CWB),
+              os.path.join(out, "cwb.json")), package_libs))
+    res["seconds"] = time.perf_counter() - t_phase
+    _emit(res)
+    return res
+
+
 def phase_tpcds_data(work_dir, seed) -> tuple:
     """Write the TPC-DS Parquet files from `seed`: (paths, oracle inputs)."""
     t0 = time.perf_counter()
@@ -5782,6 +6037,7 @@ def main(argv=None) -> int:
         natived = phase_runner_native(main_path, datas, batches, paths, orc,
                                       work_dir, smi)
         chaos = phase_chaos_soak(work_dir)
+        measured = phase_measurement_tools(work_dir)
     phase_wall(t0)
     _emit({"native_library": {
         "sources": [os.path.relpath(src, os.path.dirname(
@@ -5832,6 +6088,7 @@ def main(argv=None) -> int:
         | ({"native_writer": natived["writer"]["native"]["launches"]}
            if "writer" in natived else {}),
         "chaos_q2_launches": chaos["q2_launches"],
+        "measurement_q2_launches": measured["q2_launches"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],

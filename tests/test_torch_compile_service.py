@@ -16,12 +16,15 @@ package's, on the CPU.
   behave as the JAX package's.
 - Canonicalization is inert in the port (a pinned departure):
   pad_batch_list and canonical_batch return their input and count no
-  waste rows, where the JAX package pads.
+  waste rows, where the JAX package pads (they only note the shapes).
 - A g++ build of the native library into a private directory counts one
-  compile with its nanoseconds; the second lookup is a hit.
+  compile with its nanoseconds; the second lookup is a hit. With
+  BLAZE_TPU_TORCH_BUILD_DIR set, both libraries and the manifest lie
+  under it, and a build there counts the same way.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -42,6 +45,7 @@ from blaze_tpu_torch.runtime.executor import metric_tree
 from blaze_tpu_torch.runtime.metrics import MetricsSet
 from torch_parity import both_tables, no_jax_native
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGE_KEYS = ("stage_attempts", "stage_compiled")
 
 
@@ -264,6 +268,46 @@ def test_native_build_counts_one_compile_then_a_hit(fresh, tmp_path):
     # left behind
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         path.name, path.name + ".lock"]
+
+
+def test_build_dir_override_holds_both_libraries(tmp_path):
+    """BLAZE_TPU_TORCH_BUILD_DIR, read at import, is where both libraries
+    and the manifest lie; a build there still counts once, then hits."""
+    import shutil
+    import subprocess
+    import sys
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the native library")
+    build = tmp_path / "build"
+    code = (
+        "import json\n"
+        "from blaze_tpu_torch import kernels, native\n"
+        "from blaze_tpu_torch.runtime import compile_service as cs\n"
+        "paths = [str(kernels.BUILD_DIR), str(kernels._lib_path("
+        "'mxu_accumulate').parent), str(native.library_path().parent),\n"
+        "         cs.default_manifest_path()]\n"
+        "lib = native.build()\n"
+        "first = cs.TELEMETRY.snapshot()\n"
+        "assert native.build() == lib\n"
+        "second = cs.TELEMETRY.snapshot()\n"
+        "print(json.dumps({'paths': paths, 'lib': str(lib),\n"
+        "                  'first': first, 'second': second}))\n")
+    env = dict(os.environ, BLAZE_TPU_TORCH_BUILD_DIR=str(build))
+    env.pop("BLAZE_TPU_COMPILE_MANIFEST", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["paths"][:3] == [str(build)] * 3
+    assert out["paths"][3] == str(build / "compile_manifest.json")
+    assert os.path.dirname(out["lib"]) == str(build)
+    first, second = out["first"], out["second"]
+    assert (first["compile_count"], first["cache_misses"],
+            first["cache_hits"]) == (1, 1, 0)
+    assert (second["compile_count"], second["cache_hits"]) == (1, 1)
+    assert sorted(p.name for p in build.iterdir()) == [
+        os.path.basename(out["lib"]), os.path.basename(out["lib"]) + ".lock"]
 
 
 # ---- the manifest and the warm driver ----

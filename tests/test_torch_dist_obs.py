@@ -226,16 +226,24 @@ def test_sigkill_recovers_sidecar_spans_truncated(telemetry_conf,
 
 def test_zombie_telemetry_dropped_not_double_counted(telemetry_conf,
                                                      monkeypatch):
+    """A seat hung mid-task is declared dead and its task re-run on the
+    other seat; the span it spilled to its sidecar when the task ended is
+    recovered once (truncated), and the late copy it ships on waking is
+    dropped. The death bound is wider than the other cases' 600 ms and
+    the task longer, so that on a loaded host the hung seat's task still
+    ends, and spills, well before its death, and the healthy seat's
+    heartbeats are never late enough to declare it dead too."""
     monkeypatch.setattr(conf, "executor_restart_max", 0)
+    monkeypatch.setattr(conf, "executor_death_ms", 2000)
     pool = ep.ExecutorPool(count=2, slots=1).start()
     try:
-        specs = [ep.PoolTaskSpec(f"z:{i}", "sleep", {"ms": 400})
+        specs = [ep.PoolTaskSpec(f"z:{i}", "sleep", {"ms": 1000})
                  for i in range(2)]
         t, box = _run_async(pool, specs)
         _wait(lambda: len(pool.busy_pids()) == 2, 10, "two busy seats")
         seat = next(iter(pool.busy_pids()))
         fenced_before = pool.fence.fenced_total
-        assert pool.hang_executor(seat, 2500)
+        assert pool.hang_executor(seat, 6000)
         t.join(timeout=120)
         assert "err" not in box and all(r["ok"] for r in box["out"])
         assert pool.stats()["deaths_total"] >= 1

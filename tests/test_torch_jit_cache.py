@@ -24,7 +24,7 @@ from blaze_tpu_torch.columnar.batch import ColumnBatch
 from blaze_tpu_torch.ops.base import ExecContext, Operator
 from blaze_tpu_torch.plan.from_proto import decode_task_definition
 from blaze_tpu_torch.runtime import (  # noqa: F401 (registers observer)
-    compile_service, faults, jit_cache, resources,
+    compile_service, faults, jit_cache, resources, stage_compiler,
 )
 from blaze_tpu_torch.runtime.executor import collect, execute_plan
 
@@ -141,10 +141,16 @@ def _kinds(events, kind):
     return [e for e, k, _ in events if k[0] == kind]
 
 
-def test_plan_run_twice_hits_and_gives_the_same_rows(small, observed):
+def test_plan_run_twice_hits_and_gives_the_same_rows(small, observed,
+                                                    monkeypatch):
     """bench.py's q06 plan (the dense stage) and its agg-less chain
     streamed, each run twice from the same task bytes: the second run's
-    lookups all hit, and the rows are the first run's."""
+    lookups all hit, and the rows are the first run's. The caches are
+    process-wide and keyed by plan and shape, so the test starts from
+    empty ones: another test in the process may have run the same plan."""
+    monkeypatch.setattr(jit_cache, "_cache", {})
+    monkeypatch.setattr(jit_cache, "_stats", {"hits": 0, "misses": 0})
+    monkeypatch.setattr(stage_compiler, "_R_MEMO", {})
     task = cs._build_task(cs.SCHEMA_PB, small)
     first = _rows(collect(decode_task_definition(task)[0]))
     ev1 = list(observed["port"])

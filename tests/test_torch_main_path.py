@@ -348,7 +348,9 @@ def test_port_imports_neither_jax_nor_blaze_tpu():
         "        'tools.trace_report', 'tools.history_report',\n"
         "        'tools.blaze_doctor', 'tools.blaze_inspect', 'tools.blaze_top',\n"
         "        'tools.blaze_prof', 'tools.blazelint',\n"
-        "        'tools.blazelint.__main__')}\n"
+        "        'tools.blazelint.__main__', 'tools.pipeline_bench',\n"
+        "        'tools.zerocopy_bench', 'tools.perf_baseline',\n"
+        "        'tools.mesh_scaling', 'tools.compile_warm_bench')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

@@ -14,7 +14,10 @@ waterfall (and the waterfall of a /queries payload), and blaze_prof's
 --list, top table, collapsed and speedscope forms of a directory, a
 .collapsed file and a dossier. blaze_top's render reads the same
 Prometheus text in both. Then every entry point of the port's tools
-refuses to run on a host without a card unless asked for --device cpu.
+refuses to run on a host without a card unless asked for --device cpu:
+chaos_soak, the six readers and the five measurement tools
+(pipeline_bench, zerocopy_bench, perf_baseline, mesh_scaling,
+compile_warm_bench).
 """
 
 import argparse
@@ -212,6 +215,11 @@ ENTRY_ARGV = {
     "blaze_inspect": ["--gate", "--rows", "100"],
     "blaze_top": ["--once"],
     "blaze_prof": ["{profile}", "--list"],
+    "pipeline_bench": ["--frames", "2", "--catalogue-rows", "100"],
+    "zerocopy_bench": ["--rows", "100", "--dict-rows", "100"],
+    "perf_baseline": ["--rows", "100", "--update"],
+    "mesh_scaling": ["4", "--devices", "2"],
+    "compile_warm_bench": ["--rows", "100", "--queries", "q01"],
 }
 
 
